@@ -1,0 +1,73 @@
+"""The 4-parameter global motion model as 0-d f32 tensors.
+
+Counterpart of ``better_flow_tpu/core/model.py``: centroid (cx, cy), the
+last iteration's gradient (dx, dy, rot, div), the nonzero-pixel count and
+the accumulated totals that define the warp, with Kahan compensation of the
+totals.  The f64-totals option of the JAX package is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+FIELDS: Tuple[str, ...] = (
+    "cx", "cy", "dx", "dy", "rot", "div", "cnt",
+    "total_dx", "total_dy", "total_rot", "total_div",
+    "comp_dx", "comp_dy", "comp_rot", "comp_div",
+)
+
+
+def _kadd(total, comp, delta):
+    y = delta - comp
+    t = total + y
+    return t, (t - total) - y
+
+
+@dataclasses.dataclass(frozen=True)
+class MotionModel:
+    cx: torch.Tensor
+    cy: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    rot: torch.Tensor
+    div: torch.Tensor
+    cnt: torch.Tensor
+    total_dx: torch.Tensor
+    total_dy: torch.Tensor
+    total_rot: torch.Tensor
+    total_div: torch.Tensor
+    comp_dx: torch.Tensor
+    comp_dy: torch.Tensor
+    comp_rot: torch.Tensor
+    comp_div: torch.Tensor
+
+    @staticmethod
+    def zero(device="cpu", f64_totals: bool = False) -> "MotionModel":
+        if f64_totals:
+            raise NotImplementedError("f64_totals")
+        z = torch.zeros(len(FIELDS), dtype=torch.float32, device=device)
+        return MotionModel(*z.unbind())
+
+    def replace(self, **kw) -> "MotionModel":
+        return dataclasses.replace(self, **kw)
+
+    def totals4(self) -> torch.Tensor:
+        """(rot, div, dx, dy) totals as one (4,) tensor."""
+        return torch.stack([self.total_rot, self.total_div,
+                            self.total_dx, self.total_dy])
+
+    def add_totals(self, d_rot, d_div, d_x, d_y) -> "MotionModel":
+        """Kahan-compensated ``total_p += d_p``."""
+        total_rot, comp_rot = _kadd(self.total_rot, self.comp_rot, d_rot)
+        total_div, comp_div = _kadd(self.total_div, self.comp_div, d_div)
+        total_dx, comp_dx = _kadd(self.total_dx, self.comp_dx, d_x)
+        total_dy, comp_dy = _kadd(self.total_dy, self.comp_dy, d_y)
+        return self.replace(
+            total_rot=total_rot, comp_rot=comp_rot,
+            total_div=total_div, comp_div=comp_div,
+            total_dx=total_dx, comp_dx=comp_dx,
+            total_dy=total_dy, comp_dy=comp_dy,
+        )

@@ -1,0 +1,86 @@
+// Shared layout and per-event math of the main path's kernels.
+//
+// The constants repeat better_flow_tpu_torch/ops/layout.py (a CPU test
+// parses this file and checks them).
+//
+// Arithmetic: that of the JAX package as XLA compiles it, measured bit for
+// bit on the CPU (see ops/warp.py): a multiply feeding an add in the warp
+// is one fmaf, and a division by a constant is a multiplication by the
+// constant's f32 reciprocal.  Every source is compiled with --fmad=false,
+// so nvcc fuses nothing else: the Kahan-compensated model update and every
+// other expression round after each operation, in the written order.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace bf {
+
+constexpr int CHUNK = 2048;
+
+constexpr int ST_TDX = 0, ST_TDY = 1, ST_TROT = 2, ST_TDIV = 3;
+constexpr int ST_CDX = 4, ST_CDY = 5, ST_CROT = 6, ST_CDIV = 7;
+constexpr int ST_CX = 8, ST_CY = 9;
+constexpr int ST_XDIV = 10, ST_YDIV = 11, ST_RDIV = 12, ST_DDIV = 13;
+constexpr int ST_SL = 14;
+constexpr int ST_PD = 18;
+constexpr int ST_ITERS = 22;
+constexpr int ST_CONT = 23;
+constexpr int ST_DX = 24, ST_DY = 25, ST_ROT = 26, ST_DIV = 27;
+constexpr int ST_CNT = 28;
+constexpr int ST_FB = 29;
+constexpr int ST_HAS = 30;
+constexpr int ST_SIZE = 32;
+
+// Fixed-point units per second of the time image (see warp_images_st.cu).
+constexpr double FIXED_PER_SEC = 4294967296.0;  // 2^32
+
+constexpr float INV_NZ = 1.0f / 127.0f;
+constexpr float INV_WARP_TIME_DIV = 1.0f / 10000.0f;
+constexpr float INV_NS_PER_SEC = 1.0f / 1e9f;
+constexpr float NONZERO_EPS = 1e-6f;
+// f32(UV_FACTOR / NZ), rounded once from the f64 quotient.
+constexpr float UV_K = static_cast<float>(100000.0 / 127.0);
+
+struct Warp {
+  float dnx, dny, cx, cy, divp, cosv, sinv;
+};
+
+// Warp scalars from the state vector, with the sign pattern of
+// optimizer_rolling.h:340 (-total_dx, -total_dy, -total_rot).  cos and sin
+// are taken in f64 and rounded to f32 once, as the plain version does.
+__device__ inline Warp warp_from_state(const float* st) {
+  Warp w;
+  w.dnx = -st[ST_TDX];
+  w.dny = -st[ST_TDY];
+  const float crl = -st[ST_TROT];
+  w.divp = st[ST_TDIV];
+  w.cx = st[ST_CX];
+  w.cy = st[ST_CY];
+  w.cosv = static_cast<float>(cos(static_cast<double>(crl)));
+  w.sinv = static_cast<float>(sin(static_cast<double>(crl)));
+  return w;
+}
+
+// Event::project_4param_reinit for one event (ops/warp.py).
+__device__ inline void warp_event(const Warp& w, float frx, float fry,
+                                  float t_ns, float prx, float pry,
+                                  float* ox, float* oy, float* onx,
+                                  float* ony) {
+  const float rx = prx - w.cx;
+  const float ry = pry - w.cy;
+  const float rpx = fmaf(w.cosv, rx, -(w.sinv * ry));
+  const float rpy = fmaf(w.sinv, rx, w.cosv * ry);
+  const float nx = fmaf(-rpx, w.divp, rpx - rx) + w.dnx;
+  const float ny = fmaf(-rpy, w.divp, rpy - ry) + w.dny;
+  const float kx = nx * INV_NZ;
+  const float ky = ny * INV_NZ;
+  const float ts = t_ns * INV_WARP_TIME_DIV;
+  *ox = fmaf(-kx, ts, frx);
+  *oy = fmaf(-ky, ts, fry);
+  *onx = nx;
+  *ony = ny;
+}
+
+}  // namespace bf

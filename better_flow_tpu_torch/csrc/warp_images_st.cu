@@ -1,0 +1,105 @@
+// Warp every event of a slice and splat it into the time and count images.
+//
+// Replaces _kernel_warp_images_st / warp_images_st_call (better_flow_tpu/
+// ops/pallas/fused_model.py).  Per event: re-warp from the state vector's
+// totals, scale, truncate to a pixel, accept inside the dynamic window, and
+// add the event's time weight and a count of one to its pixel.
+//
+// The time weight is that of the TPU kernel: t0 + bf16(t - t0) (+ the bf16
+// low part when time_lo), with t = t_ns * f32(1e-9) and t0 the time of slot 0 of
+// the event's chunk, whether or not slot 0 holds an event.
+//
+// Determinism: both images accumulate in integers.  The count image is an
+// int32 atomicAdd; the time image is an int64 fixed-point sum at 2^-32 s per
+// unit (each of t0, the bf16 high and low parts rounded to the grid once),
+// which the finish kernel converts to f32.  Integer addition is
+// associative, so the images, and everything after them, are the same on
+// every run; an f32 atomicAdd would make the sums depend on the order in
+// which threads arrive.  The grid is 2^-32 s (0.23 ns), far below the bf16
+// quantisation of the weight; an int64 holds 2^31 s of summed time per
+// pixel, beyond 61,440 events of any slice span a sensor records.
+//
+// Bound: on a spread slice, bytes (36 B read and 8 B written per event plus
+// the two 1.8 MB images zeroed per call); on a converged slice, where
+// events pile onto a few pixels, atomic contention on those pixels.  The
+// grid runs over events, not chunks (30 chunks would fill 30 of 132 SMs);
+// the window, the row-band fallbacks and the one-hot matmul of the TPU
+// kernel are devices of the TPU and have no counterpart here.
+#include "common.cuh"
+
+namespace {
+
+__device__ inline long long to_fixed(float v) {
+  return __double2ll_rn(static_cast<double>(v) * bf::FIXED_PER_SEC);
+}
+
+__device__ inline float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__global__ void warp_images_st_kernel(
+    const float* __restrict__ geo, const float* __restrict__ st,
+    const float* __restrict__ stat, const float* __restrict__ act,
+    const float* __restrict__ pr, float* __restrict__ npr,
+    unsigned long long* __restrict__ acc_t, int* __restrict__ acc_c, int n,
+    int WP, int scale, int time_lo) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c = i / bf::CHUNK;
+  const int k = i - c * bf::CHUNK;
+  const float* s = stat + static_cast<size_t>(c) * 3 * bf::CHUNK;
+  const float* p = pr + static_cast<size_t>(c) * 2 * bf::CHUNK;
+  float* q = npr + static_cast<size_t>(c) * 2 * bf::CHUNK;
+
+  const bf::Warp w = bf::warp_from_state(st);
+  const float t_ns = s[2 * bf::CHUNK + k];
+  float ox, oy, nx, ny;
+  bf::warp_event(w, s[k], s[bf::CHUNK + k], t_ns, p[k], p[bf::CHUNK + k], &ox,
+                 &oy, &nx, &ny);
+  q[k] = ox;
+  q[bf::CHUNK + k] = oy;
+
+  const float x_sh = geo[0], y_sh = geo[1], wd = geo[2], hd = geo[3];
+  const int half = scale / 2;
+  const float fscale = static_cast<float>(scale);
+  const float fhalf = static_cast<float>(half);
+  const int ix = static_cast<int>(fmaf(ox, fscale, x_sh));  // toward zero
+  const int iy = static_cast<int>(fmaf(oy, fscale, y_sh));
+  const bool ok = act[static_cast<size_t>(c) * bf::CHUNK + k] > 0.0f &&
+                  ix >= half && static_cast<float>(ix) < wd + fhalf &&
+                  iy >= half && static_cast<float>(iy) < hd + fhalf;
+  if (!ok) return;
+
+  const float t_sec = t_ns * bf::INV_NS_PER_SEC;
+  const float t0 = s[2 * bf::CHUNK] * bf::INV_NS_PER_SEC;
+  const float tr = t_sec - t0;
+  const float w_hi = bf16_round(tr);
+  long long f = to_fixed(t0) + to_fixed(w_hi);
+  if (time_lo) f += to_fixed(bf16_round(tr - w_hi));
+  const size_t lin = static_cast<size_t>(ix) * WP + iy;
+  atomicAdd(&acc_t[lin], static_cast<unsigned long long>(f));
+  atomicAdd(&acc_c[lin], 1);
+}
+
+}  // namespace
+
+extern "C" int bf_warp_images_st(const float* geo, const float* st,
+                                 const float* stat, const float* act,
+                                 const float* pr, float* npr,
+                                 long long* acc_t, int* acc_c, int nch,
+                                 int HP, int WP, int scale, int time_lo,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t pixels = static_cast<size_t>(HP) * WP;
+  cudaError_t e = cudaMemsetAsync(acc_t, 0, pixels * sizeof(long long), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaMemsetAsync(acc_c, 0, pixels * sizeof(int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n = nch * bf::CHUNK;
+  const int threads = 256;
+  warp_images_st_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(
+      geo, st, stat, act, pr, npr,
+      reinterpret_cast<unsigned long long*>(acc_t), acc_c, n, WP, scale,
+      time_lo);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,121 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+At first use ``library()`` compiles every ``csrc/*.cu`` with nvcc into one
+shared library with a plain C interface, under
+``better_flow_tpu_torch/_build/``, named by a hash of the sources and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is.  The library is loaded with ctypes; each entry point takes device
+pointers, sizes and a CUDA stream and returns ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Optional
+
+PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+
+# --fmad=false: the warp and the Kahan model update must round after every
+# multiply and add, as the f32 reference does.  No fast-math: IEEE division
+# and the accurate cos/sin.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_INFO: dict = {}
+
+
+class UpdateParams(ctypes.Structure):
+    """Mirror of ``bf::UpdateParams`` in csrc/megastep_finish.cu."""
+
+    _fields_ = [
+        ("fast", ctypes.c_int),
+        ("use_grad", ctypes.c_int),
+        ("use_pred", ctypes.c_int),
+        ("max_iter", ctypes.c_int),
+        ("hard_cap", ctypes.c_int),
+        ("tol", ctypes.c_float * 4),
+        ("tol4", ctypes.c_float * 4),
+        ("grad_tol", ctypes.c_float * 4),
+        ("pred_tol", ctypes.c_float * 4),
+        ("xy_cap", ctypes.c_float),
+        ("rotdiv_cap", ctypes.c_float),
+    ]
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (PATH or /usr/local/cuda/bin)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest(extra_flags) -> str:
+    h = hashlib.sha256()
+    cu, cuh = _sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + list(extra_flags)).encode())
+    return h.hexdigest()[:16]
+
+
+def build(extra_flags=()) -> pathlib.Path:
+    """Compile the sources unless a library of the same hash exists.
+    Returns its path; ``BUILD_INFO`` records the time and nvcc's output."""
+    out = BUILD_DIR / f"libbf_kernels_{_digest(extra_flags)}.so"
+    if out.exists():
+        BUILD_INFO.update(path=str(out), seconds=0.0, cached=True, log="")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-o", tmp,
+           *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0,
+                      cached=False, log=proc.stdout + proc.stderr)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.bf_act_rows.argtypes = [P, P, I, I, P, P]
+        lib.bf_warp_images_st.argtypes = [P, P, P, P, P, P, P, P,
+                                          I, I, I, I, I, P]
+        lib.bf_megastep_finish.argtypes = [
+            P, P, P, P, P, P, P, I, I, I, I, I,
+            ctypes.POINTER(UpdateParams), P]
+        lib.bf_warp_uv.argtypes = [P, P, P, P, F, P, P, I, P]
+        for fn in (lib.bf_act_rows, lib.bf_warp_images_st,
+                   lib.bf_megastep_finish, lib.bf_warp_uv):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB

@@ -1,0 +1,471 @@
+"""The main path's four kernels: wrappers, plain twins and launch counts.
+
+Each ``*_call`` checks its tensors and then, for tensors on the card,
+launches the hand-written CUDA kernel of ``csrc/`` (and raises if the
+launch fails); for tensors on the CPU it returns its ``*_plain`` twin,
+which is the same function in plain PyTorch.  ``LAUNCHES`` counts the
+kernel launches of each wrapper.
+
+==========================  =============================================
+wrapper                     replaces (better_flow_tpu/ops/pallas/...)
+==========================  =============================================
+``act_rows_call``           ``fused_model.act_rows_call``
+``warp_images_st_call``     ``fused_model.warp_images_st_call``
+``megastep_finish_call``    ``fused_model.megastep_finish_call``
+``warp_uv_call``            ``fused_model.warp_uv_call``
+==========================  =============================================
+
+Images.  ``warp_images_st_call`` returns the time image as int64 fixed
+point (``FIXED_PER_SEC`` units per second) and the count image as int32,
+so that the card's atomic accumulation is exact and the same on every run
+(see csrc/warp_images_st.cu); ``time_image_f32`` gives the f32 time image
+that the JAX kernel returns.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from better_flow_tpu.config import NONZERO_EPS
+from better_flow_tpu_torch.ops.layout import (
+    CHUNK, ST_CNT, ST_CONT, ST_CX, ST_CY, ST_FB, ST_HAS, ST_ITERS, ST_PD,
+    ST_SIZE, ST_SL, ST_TDIV, ST_TDX, ST_TDY, ST_TROT, padded_image_shape,
+)
+from better_flow_tpu_torch.ops.warp import (
+    UV_K, fma, mul_recip, project_4param_reinit, recip,
+)
+
+FIXED_PER_SEC = 2.0 ** 32
+
+LAUNCHES = {"act_rows": 0, "warp_images_st": 0, "megastep_finish": 0,
+            "warp_uv": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------- checks
+
+
+def _check(name, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _on_cpu(device: torch.device) -> bool:
+    if device.type == "cpu":
+        return True
+    if device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {device}")
+
+
+def _launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ------------------------------------------------------------ B3 act rows
+
+
+def act_rows_plain(sidx: torch.Tensor, hist: torch.Tensor) -> torch.Tensor:
+    """(nch, 1, CHUNK) f32: 1 where ``sidx >= 0`` and the original index is
+    outside every gated [start, end] of the (3, K) history
+    [gate fired, start, end]."""
+    s = sidx[:, None]
+    noise = ((hist[0] > 0)[None, :] & (s >= hist[1][None, :])
+             & (s <= hist[2][None, :])).any(dim=1)
+    return ((sidx >= 0) & ~noise).to(torch.float32).reshape(-1, 1, CHUNK)
+
+
+def act_rows_call(sidx: torch.Tensor, hist: torch.Tensor) -> torch.Tensor:
+    """Activity rows of one slice.  ``sidx`` is the (capp,) int32 original
+    index slab (-1 on padding, capp a CHUNK multiple), ``hist`` the (3, K)
+    int32 window-gate history [fired, start, end] of the last K slices."""
+    dev = sidx.device
+    n = sidx.shape[0] if sidx.dim() == 1 else -1
+    if n % CHUNK != 0 or n <= 0:
+        raise ValueError(f"sidx: shape {tuple(sidx.shape)}, expected (k*"
+                         f"{CHUNK},)")
+    K = hist.shape[1] if hist.dim() == 2 else -1
+    _check("sidx", sidx, torch.int32, (n,), dev)
+    _check("hist", hist, torch.int32, (3, K), dev)
+    if _on_cpu(dev):
+        return act_rows_plain(sidx, hist)
+    from better_flow_tpu_torch.ops._build import library
+
+    out = torch.empty((n // CHUNK, 1, CHUNK), dtype=torch.float32, device=dev)
+    rc = library().bf_act_rows(_ptr(sidx), _ptr(hist), K, n, _ptr(out),
+                               _stream(dev))
+    _launch("act_rows", rc)
+    return out
+
+
+# --------------------------------------------------- B1 warp + splat
+
+
+def _warp_args(st):
+    """Warp scalars from the state, sign pattern of optimizer_rolling.h:340."""
+    return (-st[0, ST_TDX], -st[0, ST_TDY], st[0, ST_CX], st[0, ST_CY],
+            st[0, ST_TDIV], -st[0, ST_TROT])
+
+
+def _to_fixed(v: torch.Tensor) -> torch.Tensor:
+    return torch.round(v.to(torch.float64) * FIXED_PER_SEC).to(torch.int64)
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).to(torch.float32)
+
+
+def time_image_f32(acc_t: torch.Tensor) -> torch.Tensor:
+    """The f32 time image (seconds) of an int64 fixed-point one."""
+    return (acc_t.to(torch.float64) / FIXED_PER_SEC).to(torch.float32)
+
+
+def warp_images_st_plain(stat, act, pr, st, geo, *, scale: int, H: int,
+                         W: int, time_lo: bool = True):
+    HP, WP = padded_image_shape(H, W)
+    nch = stat.shape[0]
+    prx, pry, _, _ = project_4param_reinit(
+        stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
+        *_warp_args(st))
+    npr = torch.stack([prx, pry], dim=1)
+    half = scale // 2
+    x_sh, y_sh, wd, hd = geo[0, 0], geo[0, 1], geo[0, 2], geo[0, 3]
+    fscale = torch.full((), float(scale), device=stat.device)
+    ix = fma(prx, fscale, x_sh).to(torch.int32)   # toward zero
+    iy = fma(pry, fscale, y_sh).to(torch.int32)
+    ok = ((act[:, 0] > 0)
+          & (ix >= half) & (ix.to(torch.float32) < wd + half)
+          & (iy >= half) & (iy.to(torch.float32) < hd + half))
+    t_sec = mul_recip(stat[:, 2], 1e9)
+    t0 = t_sec[:, :1]
+    tr = t_sec - t0
+    w_hi = _bf16(tr)
+    fixed = _to_fixed(t0).expand(nch, CHUNK) + _to_fixed(w_hi)
+    if time_lo:
+        fixed = fixed + _to_fixed(_bf16(tr - w_hi))
+    # Rejected events add into a dump slot past the image.
+    lin = torch.where(ok, ix.to(torch.int64) * WP + iy, HP * WP).reshape(-1)
+    acc_t = torch.zeros(HP * WP + 1, dtype=torch.int64, device=stat.device)
+    acc_c = torch.zeros(HP * WP + 1, dtype=torch.int32, device=stat.device)
+    acc_t.index_add_(0, lin, fixed.reshape(-1))
+    acc_c.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
+    return (npr, acc_t[:-1].reshape(HP, WP).contiguous(),
+            acc_c[:-1].reshape(HP, WP).contiguous())
+
+
+def warp_images_st_call(stat, act, pr, st, geo, *, scale: int, H: int,
+                        W: int, time_lo: bool = True):
+    """Warp every event from the state ``st`` and splat it.  Returns
+    (new_pr (nch, 2, CHUNK) f32, acc_t (HP, WP) int64 fixed point,
+    acc_c (HP, WP) int32)."""
+    dev = stat.device
+    nch = stat.shape[0]
+    _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
+    _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
+    _check("pr", pr, torch.float32, (nch, 2, CHUNK), dev)
+    _check("st", st, torch.float32, (1, ST_SIZE), dev)
+    _check("geo", geo, torch.float32, (1, 8), dev)
+    if _on_cpu(dev):
+        return warp_images_st_plain(stat, act, pr, st, geo, scale=scale,
+                                    H=H, W=W, time_lo=time_lo)
+    from better_flow_tpu_torch.ops._build import library
+
+    HP, WP = padded_image_shape(H, W)
+    npr = torch.empty_like(pr)
+    acc_t = torch.empty((HP, WP), dtype=torch.int64, device=dev)
+    acc_c = torch.empty((HP, WP), dtype=torch.int32, device=dev)
+    rc = library().bf_warp_images_st(
+        _ptr(geo), _ptr(st), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr),
+        _ptr(acc_t), _ptr(acc_c), nch, HP, WP, scale, int(time_lo),
+        _stream(dev))
+    _launch("warp_images_st", rc)
+    return npr, acc_t, acc_c
+
+
+# ------------------------------------------- B2 finish + model update
+
+
+def _shift(a: torch.Tensor, d: int, axis: int) -> torch.Tensor:
+    """``out[i] = a[i - d]`` along ``axis``, zero where i - d is outside."""
+    out = torch.zeros_like(a)
+    n = a.shape[axis]
+    src = a.narrow(axis, max(0, -d), n - abs(d))
+    out.narrow(axis, max(0, d), n - abs(d)).copy_(src)
+    return out
+
+
+def finish_values_plain(acc_t, acc_c, *, scale: int, H: int, W: int,
+                        shift=_shift):
+    """Box filter, normalise, mask to H x W, all-nine mask, Scharr and the
+    seven sums (cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg) as a (7,) f32
+    tensor.  The sums are taken in f64 and rounded to f32 once, as the
+    kernel takes them; ``shift(a, d, axis)`` moves ``a`` by ``d`` (the
+    kernel's zero padding by default; a circular roll gives the TPU
+    kernel's arithmetic)."""
+    HP, WP = acc_t.shape
+    half = scale // 2
+    a_t = time_image_f32(acc_t)
+    a_c = acc_c.to(torch.float32)
+
+    def box(a):
+        r = a
+        for d in range(1, half + 1):
+            r = r + shift(a, -d, 0) + shift(a, d, 0)
+        out = r
+        for d in range(1, half + 1):
+            out = out + shift(r, -d, 1) + shift(r, d, 1)
+        return out
+
+    t_box, c_box = (box(a_t), box(a_c)) if scale > 1 else (a_t, a_c)
+    img = torch.where(c_box >= 1, t_box / torch.clamp(c_box, min=1.0),
+                      torch.zeros_like(t_box))
+    rr = torch.arange(HP, device=img.device)[:, None]
+    cc = torch.arange(WP, device=img.device)[None, :]
+    img = torch.where((rr < H) & (cc < W), img, torch.zeros_like(img))
+
+    nz = img > NONZERO_EPS
+    col_and = nz & shift(nz, -1, 1) & shift(nz, 1, 1)
+    allnine = col_and & shift(col_and, -1, 0) & shift(col_and, 1, 0)
+    # 3*img[-1] + 10*img + 3*img[+1], fused as XLA compiles it:
+    # fma(3, img[+1], fma(3, img[-1], 10*img)).
+    three = torch.full((), 3.0, device=img.device)
+    ten_img = 10.0 * img
+    col_smooth = fma(three, shift(img, -1, 1),
+                     fma(three, shift(img, 1, 1), ten_img))
+    gx = shift(col_smooth, 1, 0) - shift(col_smooth, -1, 0)
+    row_smooth = fma(three, shift(img, -1, 0),
+                     fma(three, shift(img, 1, 0), ten_img))
+    gy = shift(row_smooth, 1, 1) - shift(row_smooth, -1, 1)
+    zero = torch.zeros_like(img)
+    gxm = torch.where(allnine, gx, zero).to(torch.float64)
+    gym = torch.where(allnine, gy, zero).to(torch.float64)
+    m = nz.to(torch.float64)
+    ri = rr.to(torch.float64)
+    ci = cc.to(torch.float64)
+    f32 = lambda v: v.to(torch.float32)
+    return torch.stack([
+        f32(m.sum()), f32((m * ri).sum()), f32((m * ci).sum()),
+        f32(gxm.sum()), f32(gym.sum()),
+        f32((gym * ri).sum()) - f32((gxm * ci).sum()),
+        f32((gxm * ri).sum()) + f32((gym * ci).sum()),
+    ])
+
+
+def _rdxy(st, base):
+    """Slots (base+2, base+3, base, base+1): the (rot, div, dx, dy) order of
+    the totals, compensations, dividers and gradients."""
+    return torch.cat([st[0, base + 2:base + 4], st[0, base:base + 2]])
+
+
+def _put_rdxy(out, base, v):
+    out[0, base:base + 2] = v[2:4]
+    out[0, base + 2:base + 4] = v[0:2]
+
+
+def _update_params(schedule, rot_tol, div_tol, dx_tol, dy_tol, xy_cap,
+                   rotdiv_cap, max_iter, hard_cap, exit_grad, exit_pred):
+    """The scalar update's parameters, each product taken in f64 and
+    rounded to f32 once (as the JAX kernel's constants are)."""
+    if schedule not in ("fast", "reference"):
+        raise NotImplementedError(f"schedule={schedule!r}")
+    tol = (rot_tol, div_tol, dx_tol, dy_tol)
+    return dict(
+        fast=schedule == "fast", use_grad=exit_grad > 0,
+        use_pred=exit_pred > 0, max_iter=int(max_iter),
+        hard_cap=int(hard_cap), tol=tol, tol4=tuple(4.0 * t for t in tol),
+        grad_tol=tuple(exit_grad * t for t in tol),
+        pred_tol=tuple(exit_pred * t for t in tol),
+        xy_cap=xy_cap, rotdiv_cap=rotdiv_cap,
+    )
+
+
+def model_update_plain(vals, st, geo, *, scale: int, params: dict):
+    """_model_update_phase on the seven sums ``vals``: the next (1, 32)
+    state.  Components run as (rot, div, dx, dy) 4-vectors."""
+    p = params
+    dev = st.device
+    vec = lambda xs: torch.tensor(xs, dtype=torch.float32, device=dev)
+    cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg = vals.unbind()
+    denom = torch.clamp(cnt, min=1.0)
+    cx_img = s_row / denom
+    cy_img = s_col / denom
+    # The centroid corrections are fused multiply-adds, as XLA compiles them.
+    g_rot = fma(cy_img, s_gx, fma(-cx_img, s_gy, s_rg)) / denom
+    g_div = fma(-cy_img, s_gy, fma(-cx_img, s_gx, s_dg)) / denom
+    g = torch.stack([g_rot, g_div, s_gx / denom, s_gy / denom])
+
+    divs = _rdxy(st, 10)
+    pg = _rdxy(st, 24)
+    pd = st[0, ST_PD:ST_PD + 4]
+    psl = st[0, ST_SL:ST_SL + 4]
+    ref = g / divs
+    if p["fast"]:
+        slope2 = (g - pg) / pd
+        valid2 = (pd.abs() > 0) & torch.isfinite(slope2) & (slope2 < 0)
+        sl = torch.where(valid2, slope2, psl)
+        newton = (-0.9 * g) / sl
+        lim = torch.where(valid2, vec([4.0] * 4), vec([1.0] * 4)) * ref.abs()
+        okp = (sl < 0) & torch.isfinite(newton)
+        d = torch.where(okp, torch.minimum(torch.maximum(newton, -lim), lim),
+                        ref)
+    else:
+        d = ref
+        sl = torch.zeros_like(ref)
+
+    total = _rdxy(st, 0)
+    y = d - _rdxy(st, 4)
+    t = total + y
+    comp = (t - total) - y
+    divs = torch.where((pd.abs() > 0) & (g * pg < 0), divs * 2.0, divs)
+
+    new_iters = st[0, ST_ITERS] + 1.0
+    over_max = (p["max_iter"] > 0) & (new_iters > float(p["max_iter"]))
+    under_cap = new_iters < float(p["hard_cap"])
+    tol = vec(p["tol"])
+    gref = (g / divs).abs()
+    if p["fast"]:
+        ref_small = (gref < vec(p["tol4"])).all()
+        sm = d.abs() < tol
+        if p["use_grad"]:
+            sm = sm & (gref < vec(p["grad_tol"]))
+        if p["use_pred"]:
+            g_pred = fma(psl, pd, pg)
+            relerr = (g - g_pred).abs() / torch.clamp(pg.abs(), min=1e-30)
+            png = fma(sl, d, g)
+            pnd = (0.9 * png / torch.where(sl < 0, sl, vec([-1e-30] * 4))).abs()
+            pngr = png.abs() / divs
+            sm = sm | ((pd.abs() > 0) & (relerr < 0.75) & (sl < 0)
+                       & (pnd < tol) & (pngr < tol)
+                       & (d.abs() < vec(p["pred_tol"])))
+        small = sm.all() & ((new_iters >= 2.0) | ref_small)
+        cont = ~small & ~over_max & under_cap
+    else:
+        caps = vec([p["rotdiv_cap"]] * 2 + [p["xy_cap"]] * 2)
+        small = (gref < tol).all()
+        cont = (divs < caps).any() & ~small & ~over_max & under_cap
+
+    out = st.clone()
+    _put_rdxy(out, 0, t)
+    _put_rdxy(out, 4, comp)
+    _put_rdxy(out, 10, divs)
+    _put_rdxy(out, 24, g)
+    out[0, ST_CX] = (cx_img - geo[0, 0]) * recip(scale)
+    out[0, ST_CY] = (cy_img - geo[0, 1]) * recip(scale)
+    out[0, ST_SL:ST_SL + 4] = sl
+    out[0, ST_PD:ST_PD + 4] = d
+    out[0, ST_ITERS] = new_iters
+    out[0, ST_CONT] = cont.to(torch.float32)
+    out[0, ST_CNT] = cnt
+    out[0, ST_FB] = st[0, ST_FB]
+    out[0, ST_HAS] = st[0, ST_HAS]
+    out[0, 31] = 0.0
+    return out
+
+
+def megastep_finish_plain(acc_t, acc_c, st, geo, *, scale: int, H: int,
+                          W: int, **statics):
+    vals = finish_values_plain(acc_t, acc_c, scale=scale, H=H, W=W)
+    return model_update_plain(vals, st, geo, scale=scale,
+                              params=_update_params(**statics))
+
+
+def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
+                         W: int, schedule: str, rot_tol: float,
+                         div_tol: float, dx_tol: float, dy_tol: float,
+                         xy_cap: float, rotdiv_cap: float, max_iter: int,
+                         hard_cap: int, exit_grad: float = 0.0,
+                         exit_pred: float = 0.0):
+    """Finish + model update on the images of ``warp_images_st_call``.
+    Returns the next (1, 32) state."""
+    statics = dict(schedule=schedule, rot_tol=rot_tol, div_tol=div_tol,
+                   dx_tol=dx_tol, dy_tol=dy_tol, xy_cap=xy_cap,
+                   rotdiv_cap=rotdiv_cap, max_iter=max_iter,
+                   hard_cap=hard_cap, exit_grad=exit_grad,
+                   exit_pred=exit_pred)
+    dev = acc_t.device
+    HP, WP = padded_image_shape(H, W)
+    _check("acc_t", acc_t, torch.int64, (HP, WP), dev)
+    _check("acc_c", acc_c, torch.int32, (HP, WP), dev)
+    _check("st", st, torch.float32, (1, ST_SIZE), dev)
+    _check("geo", geo, torch.float32, (1, 8), dev)
+    if _on_cpu(dev):
+        return megastep_finish_plain(acc_t, acc_c, st, geo, scale=scale,
+                                     H=H, W=W, **statics)
+    from better_flow_tpu_torch.ops._build import UpdateParams, library
+
+    p = _update_params(**statics)
+    f4 = ctypes.c_float * 4
+    cp = UpdateParams(
+        int(p["fast"]), int(p["use_grad"]), int(p["use_pred"]),
+        p["max_iter"], p["hard_cap"], f4(*p["tol"]), f4(*p["tol4"]),
+        f4(*p["grad_tol"]), f4(*p["pred_tol"]), p["xy_cap"],
+        p["rotdiv_cap"])
+    st_out = torch.empty_like(st)
+    img = torch.empty((H, W), dtype=torch.float32, device=dev)
+    partials = torch.empty((H, 9), dtype=torch.float64, device=dev)
+    rc = library().bf_megastep_finish(
+        _ptr(acc_t), _ptr(acc_c), _ptr(st), _ptr(geo), _ptr(st_out),
+        _ptr(img), _ptr(partials), HP, WP, H, W, scale, ctypes.byref(cp),
+        _stream(dev))
+    _launch("megastep_finish", rc)
+    return st_out
+
+
+# ------------------------------------------------------ B4 final warp
+
+
+def warp_uv_plain(stat, pr, act, st, window_small: float = 0.0):
+    prx, pry, nx, ny = project_4param_reinit(
+        stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
+        *_warp_args(st))
+    out = torch.stack([prx, pry, nx, ny], dim=1)
+    noise = torch.clamp(1.0 - act[:, 0], min=float(window_small))
+    uvn = torch.stack([nx * UV_K, ny * UV_K, noise], dim=1)
+    return out, uvn
+
+
+def warp_uv_call(stat, pr, act, st, window_small: float = 0.0):
+    """Final warp with the state's model.  Returns (out (nch, 4, CHUNK):
+    [pr_x, pr_y, nx, ny], uvn (nch, 3, CHUNK): [u, v, noise])."""
+    dev = stat.device
+    nch = stat.shape[0]
+    _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
+    _check("pr", pr, torch.float32, (nch, 2, CHUNK), dev)
+    _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
+    _check("st", st, torch.float32, (1, ST_SIZE), dev)
+    if _on_cpu(dev):
+        return warp_uv_plain(stat, pr, act, st, window_small)
+    from better_flow_tpu_torch.ops._build import library
+
+    out = torch.empty((nch, 4, CHUNK), dtype=torch.float32, device=dev)
+    uvn = torch.empty((nch, 3, CHUNK), dtype=torch.float32, device=dev)
+    rc = library().bf_warp_uv(_ptr(stat), _ptr(pr), _ptr(act), _ptr(st),
+                              float(window_small), _ptr(out), _ptr(uvn), nch,
+                              _stream(dev))
+    _launch("warp_uv", rc)
+    return out, uvn

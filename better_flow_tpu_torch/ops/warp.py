@@ -1,0 +1,75 @@
+"""The per-event warp in f32 (Event::project_4param_reinit, event.h:99-110).
+
+The arithmetic is that of the JAX package as XLA compiles it, measured bit
+for bit on the CPU: a multiply feeding an add is one fused multiply-add
+(``fma``), and a division by a constant is a multiplication by the
+constant's f32 reciprocal (``mul_recip``).  Nothing else is fused or
+reordered.  The CUDA kernels use ``fmaf`` at the same places and are
+compiled with ``--fmad=false``; the plain versions here emulate the fused
+operation in f64, which is exact for the product and rounds the sum twice
+(f64, then f32) -- the same result except when the f64 sum lands on an
+f32 rounding tie, about once in 2^29 operations.
+
+Cosine and sine are taken in f64 and rounded to f32 once, here and in the
+kernels alike, so that the card and the CPU warp with the same two f32
+numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from better_flow_tpu.config import NZ, UV_FACTOR, WARP_TIME_DIV
+
+# Exact f32 values held as Python floats: multiplying an f32 tensor by one
+# rounds once, as the f32 product does.
+UV_F = float(np.float32(UV_FACTOR) / np.float32(NZ))   # compute_uv's factor
+UV_K = float(np.float32(UV_FACTOR / NZ))   # the kernels' packed-output factor
+
+
+def recip(c: float) -> float:
+    """The f32 reciprocal of a constant, as a Python float."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def mul_recip(a: torch.Tensor, c: float) -> torch.Tensor:
+    """``a / c`` for a constant ``c``, computed as ``a * f32(1 / c)``."""
+    return a * recip(c)
+
+
+def fma(a, b, c):
+    """f32 ``a * b + c`` with one rounding (emulated in f64)."""
+    f64 = torch.float64
+    return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
+
+
+def cos_sin_f32(crl: torch.Tensor):
+    """f32 cos and sin of an f32 angle, each rounded once from f64."""
+    a = crl.to(torch.float64)
+    return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
+
+
+def project_4param_reinit(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
+                          div, crl):
+    """Rotate/diverge the current ``pr`` about (cx, cy), overwrite n with
+    that delta plus (dnx_, dny_) and re-project from the original pixel
+    ``fr``.  Returns (pr_x, pr_y, nx, ny).  Call sites pass the model's
+    totals with the sign pattern (-total_dx, -total_dy, cx, cy, total_div,
+    -total_rot)."""
+    c, s = cos_sin_f32(crl)
+    rx = pr_x - cx
+    ry = pr_y - cy
+    rpx = fma(c, rx, -(s * ry))
+    rpy = fma(s, rx, c * ry)
+    nx = fma(-rpx, div, rpx - rx) + dnx_
+    ny = fma(-rpy, div, rpy - ry) + dny_
+    kx = mul_recip(nx, float(NZ))
+    ky = mul_recip(ny, float(NZ))
+    ts = mul_recip(t, WARP_TIME_DIV)
+    return fma(-kx, ts, fr_x), fma(-ky, ts, fr_y), nx, ny
+
+
+def compute_uv(nx, ny):
+    """Direction vector -> optical flow in px/s (u = nx * UV_FACTOR/NZ)."""
+    return nx * UV_F, ny * UV_F

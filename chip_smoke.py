@@ -1,0 +1,373 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  It builds the four CUDA kernels of
+``better_flow_tpu_torch/csrc`` and then, in phases that each raise on
+failure:
+
+1. environment: the card, its power limit, the torch, CUDA and nvcc
+   versions and the build time;
+2. each kernel against its plain PyTorch twin on the card, at the main
+   path's shapes (180x240 sensor, scale 3: 30 chunks of 2048 events,
+   576x768 images, a gate history of 3), with the errors and the median
+   time of kernel and twin over 25 runs (CUDA events);
+3. the main path, ``compensate_recording_scan`` with
+   ``OptimizerConfig.fast()``, on the 2,000,000-event bench stream of
+   ``bench.py`` (one warm-up run, then a measured run), with every kernel's
+   launch count in that run;
+4. determinism: a second measured run gives bitwise the same output;
+5. the card against the CPU twins on the stream's first 200,000 events.
+
+It prints a JSON line of per-kernel results, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
+no result line, when there is no CUDA device or a phase fails.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PALLAS = "better_flow_tpu/ops/pallas/fused_model.py"
+KERNELS = [   # name, source, the TPU kernel's pallas_call it replaces
+    ("act_rows", "better_flow_tpu_torch/csrc/act_rows.cu", f"{PALLAS}:624"),
+    ("warp_images_st", "better_flow_tpu_torch/csrc/warp_images_st.cu",
+     f"{PALLAS}:1692"),
+    ("megastep_finish", "better_flow_tpu_torch/csrc/megastep_finish.cu",
+     f"{PALLAS}:1778"),
+    ("warp_uv", "better_flow_tpu_torch/csrc/warp_uv.cu", f"{PALLAS}:1559"),
+]
+N_EVENTS = 2_000_000
+N_COMPARE = 200_000
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def bench_stream(n_events):
+    """The stream of bench.py: 0.5 s segments of a 1 Mev/s scene, tiled."""
+    import numpy as np
+
+    from better_flow_tpu.io.synthetic import synthetic_events
+
+    seg = min(n_events, 500_000)
+    base = synthetic_events(seg, duration_s=seg / 1e6, res_x=180, res_y=240,
+                            vx=60.0, vy=-40.0, rot=0.12, div=0.05,
+                            n_points=800, seed=42)
+    k = max(1, round(n_events / seg))
+    step = int(seg / 1e6 * 1e9)
+    cat = lambda key: np.concatenate([base[key]] * k)
+    return {"x": cat("x"), "y": cat("y"), "u": cat("u"), "v": cat("v"),
+            "t_ns": np.concatenate([base["t_ns"] + j * step
+                                    for j in range(k)])}
+
+
+def timed(fn, runs=25, warmup=3):
+    """Median milliseconds of one ``fn()`` on the card, between two CUDA
+    events queued behind a ~1 ms spin kernel: the host enqueues the call
+    while the card spins, so the time is the card's and not the launch
+    overhead's (unless the call itself waits for the card)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_err(a, b):
+    return float((a.double() - b.double()).abs().max().item())
+
+
+def assert_close(name, got, want, rtol, atol=0.0):
+    import torch
+
+    if not torch.allclose(got.double(), want.double(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: max abs error {max_err(got, want)} "
+                             f"beyond rtol {rtol}, atol {atol}")
+
+
+def phase_kernels(cfg, d):
+    """Each kernel against its twin on the card at the main path's shapes."""
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.models.global_flow import (
+        finish_statics, static_image_shape,
+    )
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.layout import ST_CONT, ST_ITERS
+    from better_flow_tpu_torch.runtime.scan_pipeline import prepare_recording
+
+    dev = torch.device("cuda")
+    opt = cfg.optimizer
+    H, W = static_image_shape(opt.scale, cfg.sensor)
+    prep = prepare_recording(d["x"][:120_000], d["y"][:120_000],
+                             d["t_ns"][:120_000], cfg, device=dev)
+    s = 2                                    # a full, interior slice
+    stat, sidx, geo = prep["stat"][s], prep["sidx"][s], prep["geo"][s]
+    rng = np.random.default_rng(7)
+    K = 3
+    starts, ends = prep["plan"].starts, prep["plan"].ends
+    hist = torch.from_numpy(np.array(
+        [[1, 0, 1], [starts[0], starts[1], starts[1] + 5000],
+         [ends[0] - 10000, ends[1], starts[1] + 9000]], np.int32)).to(dev)
+    st = np.zeros((1, 32), np.float32)
+    st[0, 0:4] = rng.uniform(-0.03, 0.03, 4) * [1, 1, 0.1, 0.1]
+    st[0, 8:10] = [90.0 + rng.normal(), 120.0 + rng.normal()]
+    st[0, 10:14] = [1.0, 2.0, 1e4, 2e4]
+    st[0, 14:18] = [-2e3, -1e3, -40.0, -35.0]
+    st[0, 18:22] = rng.uniform(-1e-3, 1e-3, 4) * [0.01, 0.01, 1, 1]
+    st[0, 24:28] = rng.uniform(-0.3, 0.3, 4)
+    st[0, ST_ITERS] = 2.0
+    st[0, ST_CONT] = 1.0
+    st = torch.from_numpy(st).to(dev)
+    pr = (stat[:, 0:2] + torch.from_numpy(rng.normal(
+        0, 0.2, (stat.shape[0], 2, stat.shape[2])).astype(np.float32)
+    ).to(dev)).contiguous()
+    statics = finish_statics(opt)
+    time_lo = opt.splat_time_lo
+    out = {}
+
+    act = fm.act_rows_call(sidx, hist)
+    act_p = fm.act_rows_plain(sidx, hist)
+    if not torch.equal(act, act_p):
+        raise AssertionError("act_rows differs from its twin")
+    out["act_rows"] = dict(
+        max_abs_err=max_err(act, act_p),
+        ms=timed(lambda: fm.act_rows_call(sidx, hist)),
+        plain_ms=timed(lambda: fm.act_rows_plain(sidx, hist)))
+
+    kw = dict(scale=opt.scale, H=H, W=W, time_lo=time_lo)
+    npr, at, ac = fm.warp_images_st_call(stat, act, pr, st, geo, **kw)
+    npr_p, at_p, ac_p = fm.warp_images_st_plain(stat, act, pr, st, geo, **kw)
+    assert_close("warp_images_st npr", npr, npr_p, rtol=1e-6)
+    if not torch.equal(ac, ac_p):
+        raise AssertionError("warp_images_st count image differs")
+    assert_close("warp_images_st time image", fm.time_image_f32(at),
+                 fm.time_image_f32(at_p), rtol=1e-5, atol=1e-6)
+    if int(ac.sum()) < 10_000:
+        raise AssertionError(f"only {int(ac.sum())} events splatted")
+    out["warp_images_st"] = dict(
+        max_abs_err=max(max_err(npr, npr_p), max_err(at, at_p),
+                        max_err(ac, ac_p)),
+        ms=timed(lambda: fm.warp_images_st_call(stat, act, pr, st, geo,
+                                                **kw)),
+        plain_ms=timed(lambda: fm.warp_images_st_plain(stat, act, pr, st,
+                                                       geo, **kw)))
+
+    kw2 = dict(scale=opt.scale, H=H, W=W, **statics)
+    st2 = fm.megastep_finish_call(at, ac, st, geo, **kw2)
+    st2_p = fm.megastep_finish_plain(at_p, ac_p, st, geo, **kw2)
+    exact = [ST_ITERS, ST_CONT]
+    if not torch.equal(st2[0, exact], st2_p[0, exact]):
+        raise AssertionError("megastep_finish ITERS/CONT differ")
+    comp = list(range(4, 8))
+    other = [k for k in range(32) if k not in exact + comp]
+    assert_close("megastep_finish state", st2[0, other], st2_p[0, other],
+                 rtol=1e-5)
+    # Kahan compensations hold the totals' rounding residue: within two
+    # ulps of the total.
+    tot_ulp = st2_p[0, 0:4].abs() * 2.0 ** -22
+    if not bool(((st2[0, comp] - st2_p[0, comp]).abs() <= tot_ulp).all()):
+        raise AssertionError("megastep_finish compensations differ")
+    out["megastep_finish"] = dict(
+        max_abs_err=max_err(st2[0, other], st2_p[0, other]),
+        ms=timed(lambda: fm.megastep_finish_call(at, ac, st, geo, **kw2)),
+        plain_ms=timed(lambda: fm.megastep_finish_plain(at, ac, st, geo,
+                                                        **kw2)))
+
+    # The options the main path does not take: the hi+lo time pair, the
+    # reference schedule and the predicted exit (correctness only).
+    kw_lo = dict(kw, time_lo=True)
+    npr_l, at_l, ac_l = fm.warp_images_st_call(stat, act, pr, st, geo, **kw_lo)
+    npr_lp, at_lp, _ = fm.warp_images_st_plain(stat, act, pr, st, geo, **kw_lo)
+    assert_close("warp_images_st time_lo npr", npr_l, npr_lp, rtol=1e-6)
+    if not torch.equal(at_l, at_lp):
+        raise AssertionError("warp_images_st time_lo image differs")
+    for variant in (dict(schedule="reference", exit_grad=0.0),
+                    dict(exit_pred=4.0)):
+        kv = dict(kw2, **variant)
+        a = fm.megastep_finish_call(at_l, ac_l, st, geo, **kv)
+        b = fm.megastep_finish_plain(at_l, ac_l, st, geo, **kv)
+        if not torch.equal(a[0, exact], b[0, exact]):
+            raise AssertionError(f"megastep_finish {variant}: ITERS/CONT")
+        assert_close(f"megastep_finish {variant}", a[0, other], b[0, other],
+                     rtol=1e-5)
+    log("[kernels] time_lo, reference schedule and predicted exit agree")
+
+    o, u = fm.warp_uv_call(stat, npr, act, st, 0.0)
+    o_p, u_p = fm.warp_uv_plain(stat, npr, act, st, 0.0)
+    assert_close("warp_uv out", o, o_p, rtol=1e-6)
+    assert_close("warp_uv u/v", u[:, 0:2], u_p[:, 0:2], rtol=1e-6)
+    if not torch.equal(u[:, 2], u_p[:, 2]):
+        raise AssertionError("warp_uv noise row differs")
+    out["warp_uv"] = dict(
+        max_abs_err=max(max_err(o, o_p), max_err(u, u_p)),
+        ms=timed(lambda: fm.warp_uv_call(stat, npr, act, st, 0.0)),
+        plain_ms=timed(lambda: fm.warp_uv_plain(stat, npr, act, st, 0.0)))
+    for name, r in out.items():
+        log(f"[kernels] {name}: max_abs_err {r['max_abs_err']:.3g}  kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+    return out
+
+
+def check_outputs(r, n):
+    import numpy as np
+
+    for k in ("u", "v", "noise"):
+        if r[k].shape != (n,):
+            raise AssertionError(f"{k}: shape {r[k].shape}, expected ({n},)")
+    if not (np.isfinite(r["u"]).all() and np.isfinite(r["v"]).all()):
+        raise AssertionError("non-finite flow")
+    if r["noise"].all() or not r["ran"].any():
+        raise AssertionError("no slice ran")
+
+
+def compare_runs(a, b, d, n):
+    """The scan gates of tests/test_torch_scan.py: ``a`` against the
+    reference run ``b`` on the first ``n`` events with ground truth."""
+    import numpy as np
+
+    if not np.array_equal(a["noise"], b["noise"]):
+        raise AssertionError("noise flags differ")
+    if not np.array_equal(a["ran"], b["ran"]):
+        raise AssertionError("ran flags differ")
+    eq = float(np.mean(a["iters"] == b["iters"]))
+    sa, sb = int(a["iters"].sum()), int(b["iters"].sum())
+    if eq < 0.9 or abs(sa - sb) > 0.1 * sb:
+        raise AssertionError(f"iterations: {eq:.2f} of slices equal, sums "
+                             f"{sa} vs {sb}")
+    ok = ~b["noise"]
+    speed = float(np.hypot(b["u"][ok], b["v"][ok]).mean())
+    du = float(np.median(np.abs(a["u"][ok] - b["u"][ok])))
+    dv = float(np.median(np.abs(a["v"][ok] - b["v"][ok])))
+    if du >= 0.01 * speed or dv >= 0.01 * speed:
+        raise AssertionError(f"median |du|, |dv| = {du}, {dv} vs speed "
+                             f"{speed}")
+    aee = lambda r: float(np.median(np.hypot(r["u"][ok] - d["u"][:n][ok],
+                                             r["v"][ok] - d["v"][:n][ok])))
+    if aee(a) > 1.05 * aee(b):
+        raise AssertionError(f"AEE {aee(a)} > 1.05 x {aee(b)}")
+    return dict(iters_equal=eq, iters_sum=(sa, sb), median_du=du,
+                median_dv=dv, speed=speed, aee=(aee(a), aee(b)))
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "better_flow_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(better_flow_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
+    from better_flow_tpu_torch.ops import _build, fused_model as fm
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        compensate_recording_scan, prepare_recording,
+    )
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[-1]
+    log(f"[env] {smi}")
+    log(f"[env] python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  nvcc: {nvcc}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"[env] kernel build {time.perf_counter() - t0:.1f} s "
+        f"({'cached' if _build.BUILD_INFO.get('cached') else 'compiled'})")
+    if _build.BUILD_INFO.get("log"):
+        log(_build.BUILD_INFO["log"].strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    dev = torch.device("cuda")
+    cfg = PipelineConfig(optimizer=OptimizerConfig.fast())
+    d = bench_stream(N_EVENTS)
+    n = len(d["x"])
+
+    results = phase_kernels(cfg, d)
+
+    t0 = time.perf_counter()
+    prep = prepare_recording(d["x"], d["y"], d["t_ns"], cfg, device=dev)
+    log(f"[main] {n} events, {len(prep['plan'].ends)} slices staged in "
+        f"{time.perf_counter() - t0:.2f} s")
+    compensate_recording_scan(None, None, None, cfg, prepared=prep)  # warm-up
+    fm.reset_launches()
+    r1 = compensate_recording_scan(None, None, None, cfg, prepared=prep)
+    launches = dict(fm.LAUNCHES)
+    check_outputs(r1, n)
+    st = r1["stats"]
+    log(f"[main] events/s {st['events_per_s']:.1f}  run_s {st['run_s']:.4f}  "
+        f"plan_s {st['plan_s']:.4f}  n_slices {st['n_slices']}  mean_iters "
+        f"{st['mean_iters']:.4f}  host_syncs {st['host_syncs']}")
+    log(f"[main] plan_breakdown {json.dumps(prep['plan_breakdown'])}")
+    log(f"[main] launches {json.dumps(launches)}")
+    for name, *_ in KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the main path")
+
+    r2 = compensate_recording_scan(None, None, None, cfg, prepared=prep)
+    for k in ("u", "v", "noise", "iters"):
+        if not np.array_equal(r1[k], r2[k]):
+            raise AssertionError(f"repeated run differs in {k}")
+    log(f"[determinism] second run bitwise identical; events/s "
+        f"{r2['stats']['events_per_s']:.1f}")
+
+    m = N_COMPARE
+    part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
+    rg = compensate_recording_scan(part["x"], part["y"], part["t_ns"], cfg,
+                                   device=dev)
+    t0 = time.perf_counter()
+    rc = compensate_recording_scan(part["x"], part["y"], part["t_ns"], cfg,
+                                   device="cpu")
+    gates = compare_runs(rg, rc, d, m)
+    log(f"[card-vs-cpu] {m} events, CPU twins {time.perf_counter() - t0:.1f}"
+        f" s: {json.dumps(gates)}")
+
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches[name], **results[name])
+               for name, src, rep in KERNELS]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        rc = main()
+    except Exception:
+        import traceback
+
+        traceback.print_exc()
+        rc = 1
+    sys.exit(rc)
