@@ -83,4 +83,57 @@ __device__ inline void warp_event(const Warp& w, float frx, float fry,
   *ony = ny;
 }
 
+__device__ inline long long to_fixed(float v) {
+  return __double2ll_rn(static_cast<double>(v) * FIXED_PER_SEC);
+}
+
+__device__ inline float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Warp + splat of event i (chunk i / CHUNK, slot i % CHUNK), shared by
+// warp_images_st.cu (B1) and megastep.cu (B5): re-warp from the state
+// vector's totals, write the new position, scale, truncate to a pixel,
+// accept inside the dynamic window, and add the event's fixed-point time
+// weight and a count of one to its pixel (see warp_images_st.cu).
+__device__ inline void warp_splat_event(
+    int i, const float* geo, const float* st, const float* stat,
+    const float* act, const float* pr, float* npr,
+    unsigned long long* acc_t, int* acc_c, int WP, int scale, int time_lo) {
+  const int c = i / CHUNK;
+  const int k = i - c * CHUNK;
+  const float* s = stat + static_cast<size_t>(c) * 3 * CHUNK;
+  const float* p = pr + static_cast<size_t>(c) * 2 * CHUNK;
+  float* q = npr + static_cast<size_t>(c) * 2 * CHUNK;
+
+  const Warp w = warp_from_state(st);
+  const float t_ns = s[2 * CHUNK + k];
+  float ox, oy, nx, ny;
+  warp_event(w, s[k], s[CHUNK + k], t_ns, p[k], p[CHUNK + k], &ox, &oy, &nx,
+             &ny);
+  q[k] = ox;
+  q[CHUNK + k] = oy;
+
+  const float x_sh = geo[0], y_sh = geo[1], wd = geo[2], hd = geo[3];
+  const int half = scale / 2;
+  const float fscale = static_cast<float>(scale);
+  const float fhalf = static_cast<float>(half);
+  const int ix = static_cast<int>(fmaf(ox, fscale, x_sh));  // toward zero
+  const int iy = static_cast<int>(fmaf(oy, fscale, y_sh));
+  const bool ok = act[static_cast<size_t>(c) * CHUNK + k] > 0.0f &&
+                  ix >= half && static_cast<float>(ix) < wd + fhalf &&
+                  iy >= half && static_cast<float>(iy) < hd + fhalf;
+  if (!ok) return;
+
+  const float t_sec = t_ns * INV_NS_PER_SEC;
+  const float t0 = s[2 * CHUNK] * INV_NS_PER_SEC;
+  const float tr = t_sec - t0;
+  const float w_hi = bf16_round(tr);
+  long long f = to_fixed(t0) + to_fixed(w_hi);
+  if (time_lo) f += to_fixed(bf16_round(tr - w_hi));
+  const size_t lin = static_cast<size_t>(ix) * WP + iy;
+  atomicAdd(&acc_t[lin], static_cast<unsigned long long>(f));
+  atomicAdd(&acc_c[lin], 1);
+}
+
 }  // namespace bf

@@ -1,7 +1,8 @@
 // Warp every event of a slice and splat it into the time and count images.
 //
 // Replaces _kernel_warp_images_st / warp_images_st_call (better_flow_tpu/
-// ops/pallas/fused_model.py).  Per event: re-warp from the state vector's
+// ops/pallas/fused_model.py).  Per event (bf::warp_splat_event in
+// common.cuh, which megastep.cu shares): re-warp from the state vector's
 // totals, scale, truncate to a pixel, accept inside the dynamic window, and
 // add the event's time weight and a count of one to its pixel.
 //
@@ -29,14 +30,6 @@
 
 namespace {
 
-__device__ inline long long to_fixed(float v) {
-  return __double2ll_rn(static_cast<double>(v) * bf::FIXED_PER_SEC);
-}
-
-__device__ inline float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 __global__ void warp_images_st_kernel(
     const float* __restrict__ geo, const float* __restrict__ st,
     const float* __restrict__ stat, const float* __restrict__ act,
@@ -45,40 +38,8 @@ __global__ void warp_images_st_kernel(
     int WP, int scale, int time_lo) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int c = i / bf::CHUNK;
-  const int k = i - c * bf::CHUNK;
-  const float* s = stat + static_cast<size_t>(c) * 3 * bf::CHUNK;
-  const float* p = pr + static_cast<size_t>(c) * 2 * bf::CHUNK;
-  float* q = npr + static_cast<size_t>(c) * 2 * bf::CHUNK;
-
-  const bf::Warp w = bf::warp_from_state(st);
-  const float t_ns = s[2 * bf::CHUNK + k];
-  float ox, oy, nx, ny;
-  bf::warp_event(w, s[k], s[bf::CHUNK + k], t_ns, p[k], p[bf::CHUNK + k], &ox,
-                 &oy, &nx, &ny);
-  q[k] = ox;
-  q[bf::CHUNK + k] = oy;
-
-  const float x_sh = geo[0], y_sh = geo[1], wd = geo[2], hd = geo[3];
-  const int half = scale / 2;
-  const float fscale = static_cast<float>(scale);
-  const float fhalf = static_cast<float>(half);
-  const int ix = static_cast<int>(fmaf(ox, fscale, x_sh));  // toward zero
-  const int iy = static_cast<int>(fmaf(oy, fscale, y_sh));
-  const bool ok = act[static_cast<size_t>(c) * bf::CHUNK + k] > 0.0f &&
-                  ix >= half && static_cast<float>(ix) < wd + fhalf &&
-                  iy >= half && static_cast<float>(iy) < hd + fhalf;
-  if (!ok) return;
-
-  const float t_sec = t_ns * bf::INV_NS_PER_SEC;
-  const float t0 = s[2 * bf::CHUNK] * bf::INV_NS_PER_SEC;
-  const float tr = t_sec - t0;
-  const float w_hi = bf16_round(tr);
-  long long f = to_fixed(t0) + to_fixed(w_hi);
-  if (time_lo) f += to_fixed(bf16_round(tr - w_hi));
-  const size_t lin = static_cast<size_t>(ix) * WP + iy;
-  atomicAdd(&acc_t[lin], static_cast<unsigned long long>(f));
-  atomicAdd(&acc_c[lin], 1);
+  bf::warp_splat_event(i, geo, st, stat, act, pr, npr, acc_t, acc_c, WP,
+                       scale, time_lo);
 }
 
 }  // namespace

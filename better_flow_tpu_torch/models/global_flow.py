@@ -1,12 +1,13 @@
-"""Global 4-parameter flow on one slice, driven through the main path's
-kernels.
+"""Global 4-parameter flow on one slice, driven through the kernels.
 
-Counterpart of ``better_flow_tpu/models/global_flow.py`` for the scanned
-path: ``process_slice`` (its kernel branch) and ``_run_fused_mega`` (the
-split drive: warp + splat, then finish + model update, per iteration).
-The slice gates depend only on the host-side bbox and event count, so the
-host decides them without reading the device; the optimizer loop reads the
-state's continue flag once per iteration.
+Counterpart of ``better_flow_tpu/models/global_flow.py`` for its kernel
+branch: ``process_slice`` and ``_run_fused_mega``, whose iteration is one
+megastep (B5: warp + splat, finish, model update in one launch) unless
+``OptimizerConfig.megastep_split`` or the ``fast`` presets ask for the split
+pair (B1 warp + splat, then B2 finish + model update).  The slice gates
+depend only on the host-side bbox and event count, so the host decides them
+without reading the device; the optimizer loop reads the state's continue
+flag once per iteration.
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import numpy as np
 import torch
 
 from better_flow_tpu.config import OptimizerConfig, SensorConfig
+from better_flow_tpu_torch.core.events import EventSlice
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.ops.fused_model import (
-    megastep_finish_call, warp_images_st_call, warp_uv_call,
+    megastep_call, megastep_finish_call, warp_images_st_call, warp_uv_call,
 )
 from better_flow_tpu_torch.ops.layout import (
     CHUNK, ST_CDIV, ST_CDX, ST_CDY, ST_CNT, ST_CONT, ST_CROT, ST_CX, ST_CY,
@@ -83,6 +85,7 @@ class SliceResult(NamedTuple):
     ran: bool
     window_small: bool
     seed: torch.Tensor      # (8,) [slope memory (4), last deltas (4)]
+    noise: Optional[torch.Tensor] = None   # (cap,) bool, given ``ev``
 
 
 def check_supported(cfg: OptimizerConfig) -> None:
@@ -154,20 +157,27 @@ def model_from_state(st: torch.Tensor) -> MotionModel:
 def run_fused_mega(stat, act, geo, model0: MotionModel,
                    cfg: OptimizerConfig, scale: int, H: int, W: int,
                    seed=None):
-    """The split megastep drive: one unconditional iteration, then
-    iterations while the state's CONT flag is set, then the final-warp
-    epilogue.  The host reads the CONT flag once per iteration.  Returns
-    (model, out (nch, 4, CHUNK), uvn, iters, seed_out)."""
+    """The megastep drive: one unconditional iteration, then iterations
+    while the state's CONT flag is set, then the final-warp epilogue.  An
+    iteration is one B5 launch, or the B1 + B2 pair under
+    ``cfg.megastep_split``.  The host reads the CONT flag once per
+    iteration.  Returns (model, out (nch, 4, CHUNK), uvn, iters,
+    seed_out)."""
     statics = finish_statics(cfg)
     time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
     st = initial_state(model0, cfg, seed)
     pr = stat[:, 0:2].contiguous()
     iters = 0
     while True:
-        pr, acc_t, acc_c = warp_images_st_call(
-            stat, act, pr, st, geo, scale=scale, H=H, W=W, time_lo=time_lo)
-        st = megastep_finish_call(acc_t, acc_c, st, geo, scale=scale, H=H,
-                                  W=W, **statics)
+        if cfg.megastep_split:
+            pr, acc_t, acc_c = warp_images_st_call(
+                stat, act, pr, st, geo, scale=scale, H=H, W=W,
+                time_lo=time_lo)
+            st = megastep_finish_call(acc_t, acc_c, st, geo, scale=scale,
+                                      H=H, W=W, **statics)
+        else:
+            pr, st = megastep_call(stat, act, pr, st, geo, scale=scale, H=H,
+                                   W=W, time_lo=time_lo, **statics)
         iters += 1
         if not st[0, ST_CONT].item() > 0:
             break
@@ -180,14 +190,18 @@ def process_slice(stat: torch.Tensor, act: torch.Tensor,
                   last_model: MotionModel, cfg: OptimizerConfig,
                   sensor: SensorConfig, bbox, n_valid: int,
                   warm_start: bool = True, seed=None,
-                  geo: Optional[torch.Tensor] = None):
-    """Process one spatially pre-sorted slice (the scan's kernel branch).
+                  geo: Optional[torch.Tensor] = None,
+                  ev: Optional[EventSlice] = None):
+    """Process one spatially pre-sorted slice (the kernel branch).
 
     ``stat`` (nch, 3, CHUNK) and ``act`` (nch, 1, CHUNK) are the slice's
     event pack and activity rows; ``bbox`` (x_min, x_max, y_min, y_max)
     and ``n_valid`` come from host staging; ``geo`` optionally gives the
-    (1, 8) geometry row already on the device.  Returns (SliceResult, uvn)
-    where uvn is the (nch, 3, CHUNK) [u, v, noise] pack."""
+    (1, 8) geometry row already on the device.  Given the slice's flat
+    events ``ev``, the result's ``noise`` is ``ev.noise | (window_small &
+    ev.valid)`` (the streaming path reads it; the scan reads the noise row
+    of uvn).  Returns (SliceResult, uvn) where uvn is the (nch, 3, CHUNK)
+    [u, v, noise] pack."""
     check_supported(cfg)
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
@@ -215,7 +229,12 @@ def process_slice(stat: torch.Tensor, act: torch.Tensor,
         model_out, iters = model, 0
         seed_out = torch.zeros(8, dtype=torch.float32, device=dev)
     u, v = compute_uv(nx, ny)
+    # The degenerate-window gate marks every event noise
+    # (optimizer_rolling.h:52-54); the too-few gate does not.
+    noise = None if ev is None else \
+        ev.noise | (ev.valid & geom.window_small)
     res = SliceResult(model=model_out, pr_x=pr_x, pr_y=pr_y, nx=nx, ny=ny,
                       u=u, v=v, iters=iters, ran=ran,
-                      window_small=geom.window_small, seed=seed_out)
+                      window_small=geom.window_small, seed=seed_out,
+                      noise=noise)
     return res, uvn

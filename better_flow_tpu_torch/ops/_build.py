@@ -26,7 +26,9 @@ BUILD_DIR = PKG / "_build"
 
 # --fmad=false: the warp and the Kahan model update must round after every
 # multiply and add, as the f32 reference does.  No fast-math: IEEE division
-# and the accurate cos/sin.
+# and the accurate cos/sin.  megastep.cu's grid-wide barrier
+# (cooperative_groups grid.sync()) needs no -rdc=true since CUDA 11; it needs
+# only the cooperative launch that bf_megastep makes.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -37,7 +39,7 @@ BUILD_INFO: dict = {}
 
 
 class UpdateParams(ctypes.Structure):
-    """Mirror of ``bf::UpdateParams`` in csrc/megastep_finish.cu."""
+    """Mirror of ``bf::UpdateParams`` in csrc/finish.cuh."""
 
     _fields_ = [
         ("fast", ctypes.c_int),
@@ -114,8 +116,11 @@ def library() -> ctypes.CDLL:
             P, P, P, P, P, P, P, I, I, I, I, I,
             ctypes.POINTER(UpdateParams), P]
         lib.bf_warp_uv.argtypes = [P, P, P, P, F, P, P, I, P]
+        lib.bf_megastep.argtypes = [
+            P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+            ctypes.POINTER(UpdateParams), I, P]
         for fn in (lib.bf_act_rows, lib.bf_warp_images_st,
-                   lib.bf_megastep_finish, lib.bf_warp_uv):
+                   lib.bf_megastep_finish, lib.bf_warp_uv, lib.bf_megastep):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

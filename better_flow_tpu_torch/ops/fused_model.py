@@ -1,4 +1,4 @@
-"""The main path's four kernels: wrappers, plain twins and launch counts.
+"""The kernels of the port: wrappers, plain twins and launch counts.
 
 Each ``*_call`` checks its tensors and then, for tensors on the card,
 launches the hand-written CUDA kernel of ``csrc/`` (and raises if the
@@ -13,6 +13,7 @@ wrapper                     replaces (better_flow_tpu/ops/pallas/...)
 ``warp_images_st_call``     ``fused_model.warp_images_st_call``
 ``megastep_finish_call``    ``fused_model.megastep_finish_call``
 ``warp_uv_call``            ``fused_model.warp_uv_call``
+``megastep_call``           ``fused_model.megastep_call``
 ==========================  =============================================
 
 Images.  ``warp_images_st_call`` returns the time image as int64 fixed
@@ -40,7 +41,7 @@ from better_flow_tpu_torch.ops.warp import (
 FIXED_PER_SEC = 2.0 ** 32
 
 LAUNCHES = {"act_rows": 0, "warp_images_st": 0, "megastep_finish": 0,
-            "warp_uv": 0}
+            "warp_uv": 0, "megastep": 0}
 
 
 def reset_launches() -> None:
@@ -304,6 +305,38 @@ def _update_params(schedule, rot_tol, div_tol, dx_tol, dy_tol, xy_cap,
     )
 
 
+def _c_params(statics: dict):
+    """The ``bf::UpdateParams`` struct of ``statics``."""
+    from better_flow_tpu_torch.ops._build import UpdateParams
+
+    p = _update_params(**statics)
+    f4 = ctypes.c_float * 4
+    return UpdateParams(
+        int(p["fast"]), int(p["use_grad"]), int(p["use_pred"]),
+        p["max_iter"], p["hard_cap"], f4(*p["tol"]), f4(*p["tol4"]),
+        f4(*p["grad_tol"]), f4(*p["pred_tol"]), p["xy_cap"],
+        p["rotdiv_cap"])
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev: torch.device, H: int, W: int) -> dict:
+    """Scratch of the finish passes, one set per device and image shape,
+    allocated at first use: the H x W f32 image, the (H, 9) f64 row sums and
+    the megastep's two pre-filter images.  The kernels run in stream order
+    and no scratch is returned to a caller, so one set serves every call."""
+    key = (dev, H, W)
+    if key not in _WORKSPACE:
+        HP, WP = padded_image_shape(H, W)
+        _WORKSPACE[key] = dict(
+            img=torch.empty((H, W), dtype=torch.float32, device=dev),
+            partials=torch.empty((H, 9), dtype=torch.float64, device=dev),
+            acc_t=torch.empty((HP, WP), dtype=torch.int64, device=dev),
+            acc_c=torch.empty((HP, WP), dtype=torch.int32, device=dev))
+    return _WORKSPACE[key]
+
+
 def model_update_plain(vals, st, geo, *, scale: int, params: dict):
     """_model_update_phase on the seven sums ``vals``: the next (1, 32)
     state.  Components run as (rot, div, dx, dy) 4-vectors."""
@@ -416,22 +449,15 @@ def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
     if _on_cpu(dev):
         return megastep_finish_plain(acc_t, acc_c, st, geo, scale=scale,
                                      H=H, W=W, **statics)
-    from better_flow_tpu_torch.ops._build import UpdateParams, library
+    from better_flow_tpu_torch.ops._build import library
 
-    p = _update_params(**statics)
-    f4 = ctypes.c_float * 4
-    cp = UpdateParams(
-        int(p["fast"]), int(p["use_grad"]), int(p["use_pred"]),
-        p["max_iter"], p["hard_cap"], f4(*p["tol"]), f4(*p["tol4"]),
-        f4(*p["grad_tol"]), f4(*p["pred_tol"]), p["xy_cap"],
-        p["rotdiv_cap"])
+    cp = _c_params(statics)
     st_out = torch.empty_like(st)
-    img = torch.empty((H, W), dtype=torch.float32, device=dev)
-    partials = torch.empty((H, 9), dtype=torch.float64, device=dev)
+    ws = _workspace(dev, H, W)
     rc = library().bf_megastep_finish(
         _ptr(acc_t), _ptr(acc_c), _ptr(st), _ptr(geo), _ptr(st_out),
-        _ptr(img), _ptr(partials), HP, WP, H, W, scale, ctypes.byref(cp),
-        _stream(dev))
+        _ptr(ws["img"]), _ptr(ws["partials"]), HP, WP, H, W, scale,
+        ctypes.byref(cp), _stream(dev))
     _launch("megastep_finish", rc)
     return st_out
 
@@ -469,3 +495,60 @@ def warp_uv_call(stat, pr, act, st, window_small: float = 0.0):
                               _stream(dev))
     _launch("warp_uv", rc)
     return out, uvn
+
+
+# ------------------------------------------- B5 one whole iteration
+
+
+def megastep_plain(stat, act, pr, st, geo, *, scale: int, H: int, W: int,
+                   time_lo: bool = True, **statics):
+    """The twin of B5: ``warp_images_st_plain`` then
+    ``megastep_finish_plain``.  Returns (new_pr, next state)."""
+    npr, acc_t, acc_c = warp_images_st_plain(stat, act, pr, st, geo,
+                                             scale=scale, H=H, W=W,
+                                             time_lo=time_lo)
+    return npr, megastep_finish_plain(acc_t, acc_c, st, geo, scale=scale,
+                                      H=H, W=W, **statics)
+
+
+def megastep_call(stat, act, pr, st, geo, *, scale: int, H: int, W: int,
+                  schedule: str, rot_tol: float, div_tol: float,
+                  dx_tol: float, dy_tol: float, xy_cap: float,
+                  rotdiv_cap: float, max_iter: int, hard_cap: int,
+                  time_lo: bool = True, exit_grad: float = 0.0,
+                  exit_pred: float = 0.0, grid_blocks: int = 0):
+    """One whole optimizer iteration (warp + splat, finish, model update,
+    exit test) in one cooperative launch.  Returns (new_pr (nch, 2, CHUNK)
+    f32, next state (1, 32) f32), bitwise those of
+    ``warp_images_st_call`` then ``megastep_finish_call``.  ``grid_blocks``
+    > 0 asks for that many blocks instead of as many as can be resident;
+    a launch the card refuses raises."""
+    statics = dict(schedule=schedule, rot_tol=rot_tol, div_tol=div_tol,
+                   dx_tol=dx_tol, dy_tol=dy_tol, xy_cap=xy_cap,
+                   rotdiv_cap=rotdiv_cap, max_iter=max_iter,
+                   hard_cap=hard_cap, exit_grad=exit_grad,
+                   exit_pred=exit_pred)
+    dev = stat.device
+    nch = stat.shape[0]
+    _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
+    _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
+    _check("pr", pr, torch.float32, (nch, 2, CHUNK), dev)
+    _check("st", st, torch.float32, (1, ST_SIZE), dev)
+    _check("geo", geo, torch.float32, (1, 8), dev)
+    if _on_cpu(dev):
+        return megastep_plain(stat, act, pr, st, geo, scale=scale, H=H, W=W,
+                              time_lo=time_lo, **statics)
+    from better_flow_tpu_torch.ops._build import library
+
+    HP, WP = padded_image_shape(H, W)
+    cp = _c_params(statics)
+    npr = torch.empty_like(pr)
+    st_out = torch.empty_like(st)
+    ws = _workspace(dev, H, W)
+    rc = library().bf_megastep(
+        _ptr(geo), _ptr(st), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr),
+        _ptr(st_out), _ptr(ws["acc_t"]), _ptr(ws["acc_c"]), _ptr(ws["img"]),
+        _ptr(ws["partials"]), nch, HP, WP, H, W, scale, int(time_lo),
+        ctypes.byref(cp), int(grid_blocks), _stream(dev))
+    _launch("megastep", rc)
+    return npr, st_out

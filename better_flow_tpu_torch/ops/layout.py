@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import torch
+
 CHUNK = 2048        # events per chunk; a chunk's time base is its slot 0
 BAND_ROWS = 36      # row-band height of the host spatial sort
 PERM_SENTINEL = 0xFFFF  # u16 in-slice offset of a padding slot
@@ -46,3 +48,28 @@ def _round_up(x: int, m: int) -> int:
 def padded_image_shape(H: int, W: int) -> Tuple[int, int]:
     """Padded accumulator shape (HP, WP) for logical image dims (H, W)."""
     return _round_up(max(H + 8, RH), 32), _round_up(max(W + 8, WC), 128)
+
+
+
+def _chunk_rows(a: torch.Tensor) -> torch.Tensor:
+    """(n,) -> (nch, 1, CHUNK) f32, zero-padded to a CHUNK multiple (at
+    least one chunk)."""
+    n = a.shape[0]
+    n_pad = _round_up(max(n, CHUNK), CHUNK)
+    out = torch.zeros(n_pad, dtype=torch.float32, device=a.device)
+    out[:n] = a
+    return out.reshape(n_pad // CHUNK, 1, CHUNK)
+
+
+def prepare_chunk_layouts(x, y, t_ns) -> torch.Tensor:
+    """The (nch, 3, CHUNK) f32 event pack [fr_x, fr_y, t_ns] of flat (n,)
+    tensors, zero-padded to a CHUNK multiple (``prepare_chunk_layouts`` of
+    the JAX package)."""
+    return torch.cat([_chunk_rows(x), _chunk_rows(y), _chunk_rows(t_ns)],
+                     dim=1)
+
+
+def pack_act(active) -> torch.Tensor:
+    """The (nch, 1, CHUNK) f32 activity row of a flat (n,) bool tensor,
+    zero-padded to a CHUNK multiple (``pack_act`` of the JAX package)."""
+    return _chunk_rows(active)

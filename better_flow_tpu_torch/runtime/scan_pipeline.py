@@ -103,11 +103,11 @@ def padded_capacity(cfg: PipelineConfig) -> int:
     return -(-(cap + row_bands(cfg) * (CHUNK - 1)) // CHUNK) * CHUNK
 
 
-def _default_device() -> torch.device:
+def default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host -> device copy; on a card from a pinned copy, without blocking
     the host (PyTorch keeps the pinned buffer until the copy is done)."""
     t = torch.from_numpy(a)
@@ -121,7 +121,7 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None) -> dict:
     and the device copies ``stat`` (S, nch, 3, CHUNK) f32 and ``sidx``
     (S, capp) int32 (original index, -1 on padding).  Reusable across runs
     of the same recording."""
-    dev = torch.device(device) if device is not None else _default_device()
+    dev = torch.device(device) if device is not None else default_device()
     t_ns = np.ascontiguousarray(t_ns, np.int64)
     t0 = last = time.perf_counter()
     phases = {}
@@ -170,8 +170,8 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None) -> dict:
             # the device (PyTorch has few uint16 operations).
             host = (xs16.view(np.int16), ys16.view(np.int16), ts,
                     perm.view(np.int16))
-            stat_parts.append(tuple(_to_device(a, dev) for a in host[:3]))
-            perm_parts.append(_to_device(host[3], dev))
+            stat_parts.append(tuple(to_device(a, dev) for a in host[:3]))
+            perm_parts.append(to_device(host[3], dev))
             bbox_parts.append(bbox)
             _mark("device_put")
         u16 = lambda a: a.to(torch.int32) & 0xFFFF

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the four CUDA kernels of
+Run from the root of a checkout.  It builds the five CUDA kernels of
 ``better_flow_tpu_torch/csrc`` and then, in phases that each raise on
 failure:
 
@@ -12,13 +12,21 @@ failure:
 2. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes (180x240 sensor, scale 3: 30 chunks of 2048 events,
    576x768 images, a gate history of 3), with the errors and the median
-   time of kernel and twin over 25 runs (CUDA events);
-3. the main path, ``compensate_recording_scan`` with
-   ``OptimizerConfig.fast()``, on the 2,000,000-event bench stream of
-   ``bench.py`` (one warm-up run, then a measured run), with every kernel's
-   launch count in that run;
+   time of kernel and twin over 25 runs (CUDA events); the megastep (B5)
+   also at the live preset's scale-1 shapes (15 chunks, 192x256 images),
+   bitwise equal to its twin and to the B1 -> B2 kernel chain, with the
+   chain's time beside its own;
+3. the scan, ``compensate_recording_scan`` with ``OptimizerConfig.fast()``,
+   on the 2,000,000-event bench stream of ``bench.py`` (one warm-up run,
+   then a measured run), with every kernel's launch count in that run;
 4. determinism: a second measured run gives bitwise the same output;
-5. the card against the CPU twins on the stream's first 200,000 events.
+5. the card against the CPU twins on the stream's first 200,000 events;
+6. the streaming path, ``runtime.offline.compensate_recording``, on the
+   same 2M events under the reference schedule (B5 + B4) and under
+   ``fast()`` (B1 + B2 + B4), each run twice (bitwise equal), with the
+   launch counts and host syncs, and against the CPU twins on the first
+   200,000 events;
+7. the CLI, ``--bufferize-file -o`` on the card, against the library call.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -41,6 +49,7 @@ KERNELS = [   # name, source, the TPU kernel's pallas_call it replaces
     ("megastep_finish", "better_flow_tpu_torch/csrc/megastep_finish.cu",
      f"{PALLAS}:1778"),
     ("warp_uv", "better_flow_tpu_torch/csrc/warp_uv.cu", f"{PALLAS}:1559"),
+    ("megastep", "better_flow_tpu_torch/csrc/megastep.cu", f"{PALLAS}:1458"),
 ]
 N_EVENTS = 2_000_000
 N_COMPARE = 200_000
@@ -103,7 +112,7 @@ def assert_close(name, got, want, rtol, atol=0.0):
                              f"beyond rtol {rtol}, atol {atol}")
 
 
-def phase_kernels(cfg, d):
+def phase_kernels(cfg, d, dev):
     """Each kernel against its twin on the card at the main path's shapes."""
     import numpy as np
     import torch
@@ -115,7 +124,6 @@ def phase_kernels(cfg, d):
     from better_flow_tpu_torch.ops.layout import ST_CONT, ST_ITERS
     from better_flow_tpu_torch.runtime.scan_pipeline import prepare_recording
 
-    dev = torch.device("cuda")
     opt = cfg.optimizer
     H, W = static_image_shape(opt.scale, cfg.sensor)
     prep = prepare_recording(d["x"][:120_000], d["y"][:120_000],
@@ -225,6 +233,96 @@ def phase_kernels(cfg, d):
     for name, r in out.items():
         log(f"[kernels] {name}: max_abs_err {r['max_abs_err']:.3g}  kernel "
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+    return out, dict(stat=stat, act=act, pr=pr, st=st, geo=geo)
+
+
+def live_slice_inputs(d, dev):
+    """One slice of the live preset (``low_latency_config()``: 30,000
+    events, scale 1) as the streaming path lays it out: 15 chunks, sorted
+    by 32-row band and column."""
+    import numpy as np
+    import torch
+
+    from better_flow_tpu.config import low_latency_config
+    from better_flow_tpu_torch.models.global_flow import (
+        geo_row, geometry_from_bbox,
+    )
+    from better_flow_tpu_torch.ops.layout import pack_act, prepare_chunk_layouts
+
+    cfg = low_latency_config()
+    n = cfg.slice.max_events
+    x, y = d["x"][:n].astype(np.float32), d["y"][:n].astype(np.float32)
+    t = (d["t_ns"][:n] - d["t_ns"][0]).astype(np.float32)
+    order = np.argsort((x.astype(np.int64) // 32) * 4096 + y.astype(np.int64),
+                       kind="stable")
+    xt, yt, tt = (torch.from_numpy(a[order]).to(dev) for a in (x, y, t))
+    stat = prepare_chunk_layouts(xt, yt, tt)
+    act = pack_act(torch.ones(n, dtype=torch.bool, device=dev))
+    g = geometry_from_bbox(int(x.min()), int(x.max()), int(y.min()),
+                           int(y.max()), 1, cfg.sensor)
+    geo = torch.from_numpy(geo_row(g)).to(dev)
+    return cfg, dict(stat=stat, act=act, geo=geo)
+
+
+def phase_megastep(scan_inputs, d, dev):
+    """B5 at the main path's scale-3 shapes and at the live preset's
+    scale-1 shapes: bitwise its twin and the B1 -> B2 kernel chain, with
+    the median device time of all three."""
+    import numpy as np
+    import torch
+
+    from better_flow_tpu.config import OptimizerConfig, SensorConfig
+    from better_flow_tpu_torch.models.global_flow import (
+        finish_statics, static_image_shape,
+    )
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.layout import padded_image_shape
+
+    live_cfg, live = live_slice_inputs(d, dev)
+    rng = np.random.default_rng(11)
+    live["pr"] = (live["stat"][:, 0:2] + torch.from_numpy(rng.normal(
+        0, 0.2, (live["stat"].shape[0], 2, live["stat"].shape[2])).astype(
+            np.float32)).to(dev)).contiguous()
+    live["st"] = scan_inputs["st"]
+    cases = [("scale3", scan_inputs, OptimizerConfig(), SensorConfig()),
+             ("scale1", live, live_cfg.optimizer, live_cfg.sensor)]
+    out = {}
+    for name, inp, opt, sensor in cases:
+        H, W = static_image_shape(opt.scale, sensor)
+        statics = finish_statics(opt)
+        args = [inp[k] for k in ("stat", "act", "pr", "st", "geo")]
+        kw = dict(scale=opt.scale, H=H, W=W, time_lo=True, **statics)
+
+        def chain():
+            npr, at, ac = fm.warp_images_st_call(*args, scale=opt.scale, H=H,
+                                                 W=W, time_lo=True)
+            return npr, fm.megastep_finish_call(at, ac, args[3], args[4],
+                                                scale=opt.scale, H=H, W=W,
+                                                **statics), ac
+
+        npr, st = fm.megastep_call(*args, **kw)
+        npr_p, st_p = fm.megastep_plain(*args, **kw)
+        npr_c, st_c, ac = chain()
+        err = max(max_err(npr, npr_p), max_err(st, st_p))
+        if err != 0.0:
+            raise AssertionError(f"megastep {name}: max abs error {err} "
+                                 "against its twin")
+        if not (torch.equal(npr, npr_c) and torch.equal(st, st_c)):
+            raise AssertionError(f"megastep {name}: differs from the "
+                                 "B1 -> B2 chain")
+        if int(ac.sum()) < 10_000:
+            raise AssertionError(f"megastep {name}: only {int(ac.sum())} "
+                                 "events splatted")
+        r = dict(max_abs_err=err,
+                 ms=timed(lambda: fm.megastep_call(*args, **kw)),
+                 chain_ms=timed(chain),
+                 plain_ms=timed(lambda: fm.megastep_plain(*args, **kw)))
+        HP, WP = padded_image_shape(H, W)
+        log(f"[kernels] megastep {name} ({args[0].shape[0]} chunks, "
+            f"{HP}x{WP} images): max_abs_err {err:.3g}, bitwise the B1 -> B2 chain; "
+            f"kernel {r['ms']:.4f} ms  chain {r['chain_ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms")
+        out[name] = r
     return out
 
 
@@ -267,6 +365,142 @@ def compare_runs(a, b, d, n):
         raise AssertionError(f"AEE {aee(a)} > 1.05 x {aee(b)}")
     return dict(iters_equal=eq, iters_sum=(sa, sb), median_du=du,
                 median_dv=dv, speed=speed, aee=(aee(a), aee(b)))
+
+
+def stream_view(r):
+    """The per-event and per-slice outputs of a streaming run."""
+    import numpy as np
+
+    acc, sl = r["accumulated"], r["engine"].slices
+    iters = np.array([s.iters for s in sl])
+    return dict(u=acc["u"], v=acc["v"], noise=acc["noise"],
+                timestamp=acc["timestamp"], iters=iters, ran=iters > 0)
+
+
+def phase_stream(d, dev):
+    """The streaming path on the bench stream under both schedules, each
+    run twice, and against the CPU twins on the first N_COMPARE events.
+    Returns each schedule's launch counts of its first run."""
+    import numpy as np
+
+    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.runtime.offline import compensate_recording
+
+    n = len(d["x"])
+    launches = {}
+    for name, opt in (("reference", OptimizerConfig()),
+                      ("fast", OptimizerConfig.fast())):
+        cfg = PipelineConfig(optimizer=opt)
+        t0 = time.perf_counter()
+        fm.reset_launches()
+        r1 = compensate_recording(d["x"], d["y"], d["t_ns"], cfg, device=dev)
+        lc = dict(fm.LAUNCHES)
+        v1 = stream_view(r1)
+        if not (0.99 * n <= len(v1["u"]) <= n):
+            raise AssertionError(f"stream {name}: {len(v1['u'])} merged "
+                                 f"events of {n}")
+        if not (np.isfinite(v1["u"]).all() and np.isfinite(v1["v"]).all()):
+            raise AssertionError(f"stream {name}: non-finite flow")
+        if v1["noise"].all() or not v1["ran"].any():
+            raise AssertionError(f"stream {name}: no slice ran")
+        total = int(v1["iters"].sum())
+        path = (["megastep"] if name == "reference"
+                else ["warp_images_st", "megastep_finish"])
+        for k in ("megastep", "warp_images_st", "megastep_finish"):
+            want = total if k in path else 0
+            if lc[k] != want:
+                raise AssertionError(f"stream {name}: {k} launched {lc[k]} "
+                                     f"times, expected {want}")
+        if lc["warp_uv"] != int(v1["ran"].sum()):
+            raise AssertionError(f"stream {name}: warp_uv launches "
+                                 f"{lc['warp_uv']}")
+        st = r1["stats"]
+        log(f"[stream] {name}: {n} events, {st['n_slices']} slices, "
+            f"events/s {st['events_per_s']:.1f}  elapsed_s "
+            f"{st['elapsed_s']:.4f}  mean_iters {st['mean_iters']:.4f}  "
+            f"host_syncs {r1['engine'].host_syncs}  mean_slice_wall_s "
+            f"{st['mean_slice_wall_s']:.6f}")
+        log(f"[stream] {name}: launches {json.dumps(lc)}")
+        r2 = compensate_recording(d["x"], d["y"], d["t_ns"], cfg, device=dev)
+        v2 = stream_view(r2)
+        for k in v1:
+            if not np.array_equal(v1[k], v2[k]):
+                raise AssertionError(f"stream {name}: repeated run differs "
+                                     f"in {k}")
+        log(f"[stream] {name}: second run bitwise identical; events/s "
+            f"{r2['stats']['events_per_s']:.1f}")
+        launches[name] = lc
+
+        m = N_COMPARE
+        part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
+        vg = stream_view(compensate_recording(part["x"], part["y"],
+                                              part["t_ns"], cfg, device=dev))
+        vc = stream_view(compensate_recording(part["x"], part["y"],
+                                              part["t_ns"], cfg,
+                                              device="cpu"))
+        for k in ("noise", "iters", "timestamp"):
+            if not np.array_equal(vg[k], vc[k]):
+                raise AssertionError(f"stream {name}: card and CPU twins "
+                                     f"differ in {k}")
+        du = float(np.median(np.abs(vg["u"] - vc["u"])))
+        dv = float(np.median(np.abs(vg["v"] - vc["v"])))
+        if du != 0.0 or dv != 0.0:
+            raise AssertionError(f"stream {name}: median |du|, |dv| = {du}, "
+                                 f"{dv} against the CPU twins")
+        log(f"[stream] {name}: card = CPU twins on {m} events ("
+            f"{int(vg['iters'].sum())} iterations, median du = dv = 0); "
+            f"phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_cli(d, dev):
+    """The port's CLI with --bufferize-file -o on the card against
+    write_events_uv of the library call."""
+    import tempfile
+
+    from better_flow_tpu.cli.motion_compensator import config_from_args
+    from better_flow_tpu.io.event_file import (
+        read_events, write_events, write_events_uv,
+    )
+    from better_flow_tpu_torch.cli.motion_compensator import build_parser
+    from better_flow_tpu_torch.ops import _build
+    from better_flow_tpu_torch.runtime.offline import compensate_recording
+
+    t0 = time.perf_counter()
+    # Scratch files live in the checkout's git-ignored build directory.
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        rec = os.path.join(tmp, "rec.txt")
+        m = N_COMPARE
+        write_events(rec, d["x"][:m], d["y"][:m], d["t_ns"][:m])
+        out_cli = os.path.join(tmp, "cli.txt")
+        argv = [rec, "--bufferize-file", "-o", out_cli, "--device",
+                dev.type]
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "better_flow_tpu_torch.cli.motion_compensator", *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        r = read_events(rec)
+        cfg = config_from_args(build_parser().parse_args(argv))
+        acc = compensate_recording(r["x"], r["y"], r["t_ns"], cfg,
+                                   device=dev)["accumulated"]
+        out_lib = os.path.join(tmp, "lib.txt")
+        write_events_uv(out_lib, acc["x"], acc["y"], acc["timestamp"],
+                        acc["u"], acc["v"])
+        with open(out_cli, "rb") as a, open(out_lib, "rb") as b:
+            got, want = a.read(), b.read()
+        if got != want:
+            raise AssertionError("CLI output differs from write_events_uv of "
+                                 "the library call")
+        lines = got.count(b"\n")
+    tail = [ln for ln in proc.stdout.splitlines() if ln.strip()][-2:]
+    log(f"[cli] --bufferize-file -o on the card: {lines} lines, equal to the "
+        f"library call's; {' | '.join(tail)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -312,7 +546,12 @@ def main():
     d = bench_stream(N_EVENTS)
     n = len(d["x"])
 
-    results = phase_kernels(cfg, d)
+    t_phase = time.perf_counter()
+    results, scan_inputs = phase_kernels(cfg, d, dev)
+    mega = phase_megastep(scan_inputs, d, dev)
+    results["megastep"] = {k: mega["scale3"][k]
+                           for k in ("max_abs_err", "ms", "plain_ms")}
+    log(f"[kernels] phase {time.perf_counter() - t_phase:.1f} s")
 
     t0 = time.perf_counter()
     prep = prepare_recording(d["x"], d["y"], d["t_ns"], cfg, device=dev)
@@ -329,7 +568,7 @@ def main():
         f"{st['mean_iters']:.4f}  host_syncs {st['host_syncs']}")
     log(f"[main] plan_breakdown {json.dumps(prep['plan_breakdown'])}")
     log(f"[main] launches {json.dumps(launches)}")
-    for name, *_ in KERNELS:
+    for name in ("act_rows", "warp_images_st", "megastep_finish", "warp_uv"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
 
@@ -350,6 +589,16 @@ def main():
     gates = compare_runs(rg, rc, d, m)
     log(f"[card-vs-cpu] {m} events, CPU twins {time.perf_counter() - t0:.1f}"
         f" s: {json.dumps(gates)}")
+
+    t_phase = time.perf_counter()
+    stream_launches = phase_stream(d, dev)
+    phase_cli(d, dev)
+    log(f"[stream+cli] phases {time.perf_counter() - t_phase:.1f} s")
+    # Each kernel's launches in the path that first needs it: the scan for
+    # B1-B4, the reference-schedule stream for the megastep.
+    launches["megastep"] = stream_launches["reference"]["megastep"]
+    if launches["megastep"] <= 0:
+        raise AssertionError("megastep was not launched by the stream")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

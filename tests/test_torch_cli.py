@@ -1,0 +1,128 @@
+"""The port's CLI, ``python -m better_flow_tpu_torch.cli.motion_compensator``,
+on the CPU (``--device cpu``): its output file is ``write_events_uv`` of
+the library call it stands for, its flags reach the configuration, the
+flags it does not run yet raise, and ``--device cuda`` fails where there is
+no card."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from better_flow_tpu.cli.motion_compensator import (  # noqa: E402
+    build_parser as jax_parser, config_from_args,
+)
+from better_flow_tpu.io.event_file import (  # noqa: E402
+    read_events, write_events, write_events_uv,
+)
+from better_flow_tpu.io.synthetic import synthetic_events  # noqa: E402
+from better_flow_tpu_torch.cli import motion_compensator as cli  # noqa: E402
+from better_flow_tpu_torch.runtime.offline import (  # noqa: E402
+    compensate_recording,
+)
+from better_flow_tpu_torch.runtime.scan_pipeline import (  # noqa: E402
+    compensate_recording_scan,
+)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = ["--resolution", "24x32", "--max-events", "4000", "--time-width",
+         "0.1", "--refresh-event-count", "1500", "--refresh-time", "0.04",
+         "--device", "cpu", "--quiet"]
+
+
+@pytest.fixture(scope="module")
+def rec_file(tmp_path_factory):
+    d = synthetic_events(9000, duration_s=0.25, res_x=24, res_y=32, vx=20.0,
+                         vy=-14.0, seed=2)
+    path = str(tmp_path_factory.mktemp("cli") / "rec.txt")
+    write_events(path, d["x"], d["y"], d["t_ns"], d["polarity"])
+    return path
+
+
+def _cfg(flags, rec_file, out):
+    return config_from_args(jax_parser().parse_known_args(
+        [rec_file, "-o", out] + flags)[0])
+
+
+def _library_file(rec_file, flags, out, scan=False):
+    """write_events_uv of the library call the CLI stands for."""
+    cfg = _cfg(flags, rec_file, out)
+    r = read_events(rec_file)
+    if scan:
+        o = compensate_recording_scan(r["x"], r["y"], r["t_ns"], cfg,
+                                      device="cpu")
+        write_events_uv(out, r["x"], r["y"], r["t_ns"], o["u"], o["v"])
+    else:
+        acc = compensate_recording(r["x"], r["y"], r["t_ns"], cfg,
+                                   device="cpu")["accumulated"]
+        write_events_uv(out, acc["x"], acc["y"], acc["timestamp"], acc["u"],
+                        acc["v"])
+    with open(out) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--bufferize-file"], ["--schedule", "fast"], ["--stm-disable"],
+    ["--scan"], ["--scan", "--schedule", "fast"]])
+def test_output_equals_library_call(rec_file, tmp_path, extra):
+    out = str(tmp_path / "cli.txt")
+    assert cli.main([rec_file, "-o", out] + SMALL + extra) == 0
+    with open(out) as f:
+        got = f.read()
+    want = _library_file(rec_file, SMALL + extra, str(tmp_path / "lib.txt"),
+                         scan="--scan" in extra)
+    assert got == want
+    assert len(got.splitlines()) > 1000
+
+
+def test_flags_reach_the_configuration(rec_file):
+    args = cli.build_parser().parse_args(
+        [rec_file, "--schedule", "fast", "--stm-disable", "--scale", "1"])
+    cfg = config_from_args(args)
+    assert args.device == "cuda"
+    assert cfg.optimizer.schedule == "fast" and cfg.optimizer.megastep_split
+    assert cfg.stm_disable and cfg.optimizer.scale == 1
+    assert config_from_args(cli.build_parser().parse_args(
+        [rec_file])).optimizer.schedule == "reference"
+
+
+def test_bufferize_prints_per_slice_lines(rec_file, tmp_path, capsys):
+    flags = [f for f in SMALL if f != "--quiet"]
+    assert cli.main([rec_file, "--bufferize-file", "-o",
+                     str(tmp_path / "o.txt")] + flags) == 0
+    text = capsys.readouterr().out
+    n = len(read_events(rec_file)["x"])
+    assert f"Read {n} events" in text and "Total flow elapsed" in text
+    assert "slice_td" in text and "Written" in text
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--cold"], "A6"), (["--checkpoint", "c.npz"], "A6"),
+    (["--resume"], "A6"), (["-i"], "A8"), (["--img"], "A8"),
+    (["--video"], "A8")])
+def test_unported_flags_raise(rec_file, flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        cli.main([rec_file, "--device", "cpu"] + flags)
+
+
+def test_cuda_without_a_card_fails(rec_file):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([rec_file, "--device", "cuda"])
+    out = subprocess.run(
+        [sys.executable, "-m", "better_flow_tpu_torch.cli.motion_compensator",
+         rec_file, "--quiet"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_version_and_usage(capsys):
+    assert cli.main(["--version"]) == 0
+    assert "PyTorch/CUDA port" in capsys.readouterr().out
+    assert cli.main([]) == 1
+    assert "--device" in capsys.readouterr().out

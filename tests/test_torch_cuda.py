@@ -17,12 +17,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from better_flow_tpu.config import OptimizerConfig  # noqa: E402
 from better_flow_tpu.io.synthetic import synthetic_events  # noqa: E402
+from better_flow_tpu_torch.models.global_flow import (  # noqa: E402
+    finish_statics,
+)
 from better_flow_tpu_torch.ops import fused_model as tfm  # noqa: E402
 from better_flow_tpu_torch.ops import layout  # noqa: E402
+from better_flow_tpu_torch.runtime import offline as toff  # noqa: E402
 from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    CH, H, NCH, SCALE, W, slice_inputs, small_cfg, statics,
+    CH, H, NCH, SCALE, W, flow_gates, image_shape, slice_inputs, small_cfg,
+    statics,
 )
 
 pytestmark = pytest.mark.cuda
@@ -129,15 +135,17 @@ def test_warp_uv_kernel_matches_twin(cuda, window_small):
 
 def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
     """The whole scan on the card against the CPU twins (the gates of
-    test_torch_scan.py), every kernel launched, and a second card run
-    bitwise the same."""
+    test_torch_scan.py), every kernel of the fast path launched, and a
+    second card run bitwise the same."""
     d = synthetic_events(30000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
                          vy=-14.0, seed=2)
     cfg = small_cfg()
     run = lambda dev: tscan.compensate_recording_scan(
         d["x"], d["y"], d["t_ns"], cfg, device=dev)
     rg, rc, rg2 = run(cuda), run("cpu"), run(cuda)
-    assert all(v > 0 for v in rg["stats"]["launches"].values())
+    launches = rg["stats"]["launches"]
+    assert launches.pop("megastep") == 0        # fast(): the split pair
+    assert all(v > 0 for v in launches.values())
     np.testing.assert_array_equal(rg["noise"], rc["noise"])
     np.testing.assert_array_equal(rg["ran"], rc["ran"])
     assert np.mean(rg["iters"] == rc["iters"]) >= 0.9
@@ -147,5 +155,79 @@ def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
     speed = float(np.hypot(rc["u"][ok], rc["v"][ok]).mean())
     assert np.median(np.abs(rg["u"][ok] - rc["u"][ok])) < 0.01 * speed
     assert np.median(np.abs(rg["v"][ok] - rc["v"][ok])) < 0.01 * speed
+    for k in ("u", "v", "noise", "iters"):
+        np.testing.assert_array_equal(rg[k], rg2[k])
+
+
+@pytest.mark.parametrize("schedule", ["reference", "fast"])
+@pytest.mark.parametrize("scale", [1, 3])
+def test_megastep_kernel_is_twin_and_chain_bitwise(cuda, scale, schedule):
+    """B5 on the production sensor at both scales: new positions and state
+    bitwise those of its twin and of the B1 -> B2 kernel chain."""
+    res = (180, 240)
+    Hs, Ws = image_shape(res, scale)
+    opt = OptimizerConfig() if schedule == "reference" \
+        else OptimizerConfig.fast()
+    kw = dict(scale=scale, H=Hs, W=Ws, time_lo=True, **finish_statics(opt))
+    keys = ("stat", "act", "pr", "st", "geo")
+    _, gpu = _both(slice_inputs(2, res=res, scale=scale, nch=8), keys, cuda)
+    npr, st = _launched("megastep", lambda: tfm.megastep_call(*gpu, **kw))
+    npr_p, st_p = tfm.megastep_plain(*gpu, **kw)
+    chain = {k: v for k, v in kw.items() if k != "time_lo"}
+    npr_c, at, ac = tfm.warp_images_st_call(*gpu, scale=scale, H=Hs, W=Ws,
+                                            time_lo=True)
+    st_c = tfm.megastep_finish_call(at, ac, gpu[3], gpu[4], **chain)
+    for got in ((npr_p, st_p), (npr_c, st_c)):
+        assert torch.equal(npr, got[0]) and torch.equal(st, got[1])
+    assert int(ac.sum()) > 10_000
+
+
+def test_megastep_refused_launch_raises(cuda):
+    """A cooperative launch the card cannot hold resident raises; nothing
+    runs in its place."""
+    keys = ("stat", "act", "pr", "st", "geo")
+    _, gpu = _both(slice_inputs(0), keys, cuda)
+    kw = dict(scale=SCALE, H=H, W=W, **statics("reference", 0.0))
+    before = dict(tfm.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        tfm.megastep_call(*gpu, grid_blocks=10_000_000, **kw)
+    assert tfm.LAUNCHES == before
+    npr, st = _launched("megastep", lambda: tfm.megastep_call(*gpu, **kw))
+    torch.cuda.synchronize()
+    assert torch.isfinite(st).all()
+
+
+@pytest.mark.parametrize("schedule", ["reference", "fast"])
+def test_stream_on_card_matches_cpu_twins_and_repeats(cuda, schedule):
+    """The streaming path on the card against the CPU twins, through B5
+    (reference) or B1 + B2 (fast), and a second card run bitwise the
+    same."""
+    d = synthetic_events(20000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
+                         vy=-14.0, seed=4)
+    cfg = small_cfg()
+    if schedule == "reference":
+        cfg = cfg.replace(optimizer=OptimizerConfig(scale=3, min_events=500))
+
+    def run(dev):
+        before = dict(tfm.LAUNCHES)
+        r = toff.compensate_recording(d["x"], d["y"], d["t_ns"], cfg,
+                                      device=dev)
+        r["launches"] = {k: tfm.LAUNCHES[k] - before[k] for k in before}
+        acc, sl = r["accumulated"], r["engine"].slices
+        r["iters"] = np.array([s.iters for s in sl])
+        r.update(noise=acc["noise"], u=acc["u"], v=acc["v"],
+                 ran=r["iters"] > 0)
+        return r
+
+    rg, rc, rg2 = run(cuda), run("cpu"), run(cuda)
+    n_iters = int(rg["iters"].sum())
+    if schedule == "reference":
+        assert rg["launches"]["megastep"] == n_iters
+        assert rg["launches"]["warp_images_st"] == 0
+    else:
+        assert rg["launches"]["warp_images_st"] == n_iters
+        assert rg["launches"]["megastep"] == 0
+    assert rg["launches"]["warp_uv"] == int(rg["ran"].sum())
+    flow_gates(rg, rc)
     for k in ("u", "v", "noise", "iters"):
         np.testing.assert_array_equal(rg[k], rg2[k])

@@ -28,6 +28,7 @@ from better_flow_tpu_torch.ops import fused_model as tfm
 from better_flow_tpu_torch.ops import layout
 from better_flow_tpu_torch.ops import warp as twarp
 from torch_inputs import CH, H, NCH, SCALE, SENSOR, W
+from torch_inputs import assert_state_close as _assert_state_close
 from torch_inputs import slice_inputs as _slice_inputs
 from torch_inputs import statics as _statics
 
@@ -164,20 +165,6 @@ def _finish_pair(d, statics):
     got = tfm.megastep_finish_call(at, ac, _t(d["st"]), _t(d["geo"]),
                                    scale=SCALE, H=H, W=W, **statics)
     return got.numpy()[0], np.asarray(want)[0]
-
-
-def _assert_state_close(got, want):
-    exact = [layout.ST_ITERS, layout.ST_CONT]
-    np.testing.assert_array_equal(got[exact], want[exact])
-    # Kahan compensations are the totals' rounding residues: any ulp in a
-    # delta moves them anywhere within an ulp of the total.
-    comp = slice(layout.ST_CDX, layout.ST_CDIV + 1)
-    tot = slice(layout.ST_TDX, layout.ST_TDIV + 1)
-    assert np.all(np.abs(got[comp] - want[comp])
-                  <= np.abs(want[tot]) * 2.0 ** -22)
-    rest = [k for k in range(32) if k not in exact
-            and not layout.ST_CDX <= k <= layout.ST_CDIV]
-    np.testing.assert_allclose(got[rest], want[rest], rtol=1e-5)
 
 
 @pytest.mark.parametrize("schedule,exit_grad,exit_pred", [

@@ -33,6 +33,9 @@ from better_flow_tpu_torch.convert import (  # noqa: E402
     carry_from_numpy, carry_to_numpy,
 )
 from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
+from torch_inputs import bench_stream as _bench_stream  # noqa: E402
+from torch_inputs import flow_gates as _flow_gates  # noqa: E402
+from torch_inputs import gate_stream as _gate_stream  # noqa: E402
 from torch_inputs import small_cfg  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,45 +48,6 @@ def _small_cfg():
 def _prod_cfg():
     return PipelineConfig(
         optimizer=OptimizerConfig.fast(scatter_mode="pallas"))
-
-
-def _bench_stream(n):
-    """The first ``n`` events of bench.py's stream (its 0.5 s segment)."""
-    d = synthetic_events(500_000, duration_s=0.5, res_x=180, res_y=240,
-                         vx=60.0, vy=-40.0, rot=0.12, div=0.05, n_points=800,
-                         seed=42)
-    return {k: v[:n] for k, v in d.items()}
-
-
-def _gate_stream():
-    """tests/test_scan_pipeline.py's stream whose window gate fires
-    mid-recording: structureless noise, one pixel, noise."""
-    rng = np.random.default_rng(3)
-
-    def phase(n, t0, gen):
-        t = np.sort(rng.integers(0, int(0.15e9), n)) + t0
-        x, y = gen(n)
-        return x.astype(np.float64), y.astype(np.float64), t
-
-    healthy = lambda n: (rng.integers(0, 24, n), rng.integers(0, 32, n))
-    point = lambda n: (np.full(n, 7), np.full(n, 9))
-    xs, ys, ts = zip(phase(3000, 0, healthy),
-                     phase(3000, int(0.15e9), point),
-                     phase(3000, int(0.30e9), healthy))
-    return {"x": np.concatenate(xs), "y": np.concatenate(ys),
-            "t_ns": np.concatenate(ts).astype(np.int64)}
-
-
-def _flow_gates(rt, rj):
-    np.testing.assert_array_equal(rt["noise"], rj["noise"])
-    np.testing.assert_array_equal(rt["ran"], rj["ran"])
-    st, sj = int(rt["iters"].sum()), int(rj["iters"].sum())
-    assert abs(st - sj) <= 0.1 * sj, (rt["iters"], rj["iters"])
-    ok = ~rj["noise"]
-    speed = float(np.hypot(rj["u"][ok], rj["v"][ok]).mean())
-    assert np.median(np.abs(rt["u"][ok] - rj["u"][ok])) < 0.01 * speed
-    assert np.median(np.abs(rt["v"][ok] - rj["v"][ok])) < 0.01 * speed
-    return ok
 
 
 def _all_gates(rt, rj, d):
@@ -185,9 +149,23 @@ def test_carry_round_trip():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port imports without JAX, and the scan and the
+    streaming path run without it."""
+    import pkgutil
+
+    import better_flow_tpu_torch
+
+    modules = sorted(m.name for m in pkgutil.walk_packages(
+        better_flow_tpu_torch.__path__, "better_flow_tpu_torch."))
+    assert {"better_flow_tpu_torch.runtime.dvs_flow",
+            "better_flow_tpu_torch.runtime.live",
+            "better_flow_tpu_torch.cli.motion_compensator"} <= set(modules)
     code = (
-        "import sys, numpy as np\n"
+        "import sys, importlib, numpy as np\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
         "import better_flow_tpu_torch as p\n"
+        "from better_flow_tpu_torch.runtime.offline import "
+        "compensate_recording\n"
         "from better_flow_tpu.config import PipelineConfig, SensorConfig, "
         "SliceConfig, OptimizerConfig\n"
         "from better_flow_tpu.io.synthetic import synthetic_events\n"
@@ -200,6 +178,9 @@ def test_port_imports_no_jax():
         "r = p.compensate_recording_scan(d['x'], d['y'], d['t_ns'], cfg, "
         "device='cpu')\n"
         "assert r['ran'].any()\n"
+        "o = compensate_recording(d['x'], d['y'], d['t_ns'], cfg.replace("
+        "optimizer=OptimizerConfig(scale=3, min_events=500)), device='cpu')\n"
+        "assert o['stats']['n_slices'] > 0\n"
         "print('jax' in sys.modules, any(m.startswith('jax') for m in "
         "sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

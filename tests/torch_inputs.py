@@ -2,7 +2,7 @@
 
 Shared by the CPU tests against the JAX package (``test_torch_kernels.py``)
 and the card tests (``test_torch_cuda.py``); imports no JAX.  Shapes are
-small: 3 chunks, a 24x32 sensor at scale 3 (images 128x256).
+small: by default 3 chunks, a 24x32 sensor at scale 3 (images 128x256).
 """
 
 import numpy as np
@@ -10,6 +10,7 @@ import numpy as np
 from better_flow_tpu.config import (
     OptimizerConfig, PipelineConfig, SensorConfig, SliceConfig,
 )
+from better_flow_tpu.io.synthetic import synthetic_events
 from better_flow_tpu_torch.models import global_flow as tgf
 from better_flow_tpu_torch.ops import layout
 
@@ -20,29 +21,34 @@ H, W = RES_X * SCALE + SCALE, RES_Y * SCALE + SCALE
 NCH = 3
 
 
-def slice_inputs(seed=0):
-    """A 3-chunk slice: integer pixels, f32 ns times, padding slots (slot 0
-    of chunk 1 among them, so that chunk's time base is a padding slot's
-    t = 0), a few inactive events, positions one warp away from the pixels,
-    the full-sensor geometry and a mid-optimization state."""
+def slice_inputs(seed=0, res=(RES_X, RES_Y), scale=SCALE, nch=NCH):
+    """A slice of ``nch`` chunks on a ``res`` sensor at ``scale`` (by
+    default 3 chunks, 24x32, scale 3): integer pixels, f32 ns times,
+    padding slots (slot 0 of chunk 1 among them, so that chunk's time base
+    is a padding slot's t = 0), a few inactive events, positions one warp
+    away from the pixels, the full-sensor geometry and a mid-optimization
+    state."""
     rng = np.random.default_rng(seed)
-    n = NCH * CH
-    x = rng.integers(0, RES_X, n).astype(np.float32)
-    y = rng.integers(0, RES_Y, n).astype(np.float32)
+    res_x, res_y = res
+    n = nch * CH
+    x = rng.integers(0, res_x, n).astype(np.float32)
+    y = rng.integers(0, res_y, n).astype(np.float32)
     t = rng.uniform(0, 0.1e9, n).astype(np.float32)
     valid = np.ones(n, bool)
     valid[CH:CH + 100] = False
     valid[-500:] = False
     x[~valid] = y[~valid] = t[~valid] = 0
-    stat = np.stack([x, y, t]).reshape(3, NCH, CH).transpose(1, 0, 2).copy()
+    stat = np.stack([x, y, t]).reshape(3, nch, CH).transpose(1, 0, 2).copy()
     act = (valid & (rng.uniform(size=n) > 0.05)).astype(np.float32)
-    act = act.reshape(NCH, 1, CH)
-    pr = (stat[:, 0:2] + rng.normal(0, 0.3, (NCH, 2, CH))).astype(np.float32)
-    g = tgf.geometry_from_bbox(0, RES_X - 1, 0, RES_Y - 1, SCALE, SENSOR)
+    act = act.reshape(nch, 1, CH)
+    pr = (stat[:, 0:2] + rng.normal(0, 0.3, (nch, 2, CH))).astype(np.float32)
+    g = tgf.geometry_from_bbox(0, res_x - 1, 0, res_y - 1, scale,
+                               SensorConfig(res_x, res_y))
     geo = tgf.geo_row(g)
     st = np.zeros((1, 32), np.float32)
     st[0, 0:4] = [0.02, -0.015, 3e-3, 2e-3]           # totals dx dy rot div
-    st[0, 8:10] = [12.3, 15.7]                        # centroid
+    st[0, 8:10] = ([12.3, 15.7] if res == (RES_X, RES_Y)   # centroid
+                   else [res_x / 2 + 0.3, res_y / 2 - 0.3])
     st[0, 10:14] = [1.0, 2.0, 1e4, 2e4]               # dividers
     st[0, 14:18] = [-2e3, -1e3, -40.0, -35.0]         # slope memory
     st[0, 18:22] = [1e-4, 2e-4, 1e-3, -1e-3]          # last deltas
@@ -50,6 +56,27 @@ def slice_inputs(seed=0):
     st[0, layout.ST_CONT] = 1.0
     st[0, 24:28] = [0.3, -0.2, 0.5, 0.4]              # last gradient
     return dict(stat=stat, act=act, pr=pr, geo=geo, st=st, valid=valid)
+
+
+def image_shape(res=(RES_X, RES_Y), scale=SCALE):
+    """The static (H, W) of a ``res`` sensor at ``scale``."""
+    return tgf.static_image_shape(scale, SensorConfig(*res))
+
+
+def assert_state_close(got, want, skip=()):
+    """(32,) states: ITERS and CONT exact, the Kahan compensations within
+    2^-22 of their totals, the other slots (but ``skip``) to rtol 1e-5."""
+    exact = [layout.ST_ITERS, layout.ST_CONT]
+    np.testing.assert_array_equal(got[exact], want[exact])
+    # Kahan compensations are the totals' rounding residues: any ulp in a
+    # delta moves them anywhere within an ulp of the total.
+    comp = slice(layout.ST_CDX, layout.ST_CDIV + 1)
+    tot = slice(layout.ST_TDX, layout.ST_TDIV + 1)
+    assert np.all(np.abs(got[comp] - want[comp])
+                  <= np.abs(want[tot]) * 2.0 ** -22)
+    rest = [k for k in range(32) if k not in exact and k not in skip
+            and not layout.ST_CDX <= k <= layout.ST_CDIV]
+    np.testing.assert_allclose(got[rest], want[rest], rtol=1e-5)
 
 
 def statics(schedule="fast", exit_grad=4.0, exit_pred=0.0):
@@ -67,3 +94,46 @@ def small_cfg(**opt):
         slice=SliceConfig(max_events=4000, span_ns=int(0.1e9),
                           refresh_events=1500, refresh_time_ns=int(0.04e9)),
         optimizer=OptimizerConfig.fast(scale=3, min_events=500, **opt))
+
+
+def flow_gates(rt, rj):
+    """Two runs' per-event outputs (``noise``, ``u``, ``v`` in the original
+    event order) and per-slice ``ran`` and ``iters``: noise and ran
+    identical, the iteration sums within 10%, median |du| and |dv| under
+    1% of the mean speed.  Returns the mask of non-noise events."""
+    np.testing.assert_array_equal(rt["noise"], rj["noise"])
+    np.testing.assert_array_equal(rt["ran"], rj["ran"])
+    st, sj = int(rt["iters"].sum()), int(rj["iters"].sum())
+    assert abs(st - sj) <= 0.1 * sj, (rt["iters"], rj["iters"])
+    ok = ~rj["noise"]
+    speed = float(np.hypot(rj["u"][ok], rj["v"][ok]).mean())
+    assert np.median(np.abs(rt["u"][ok] - rj["u"][ok])) < 0.01 * speed
+    assert np.median(np.abs(rt["v"][ok] - rj["v"][ok])) < 0.01 * speed
+    return ok
+
+
+def bench_stream(n):
+    """The first ``n`` events of bench.py's stream (its 0.5 s segment)."""
+    d = synthetic_events(500_000, duration_s=0.5, res_x=180, res_y=240,
+                         vx=60.0, vy=-40.0, rot=0.12, div=0.05, n_points=800,
+                         seed=42)
+    return {k: v[:n] for k, v in d.items()}
+
+
+def gate_stream():
+    """tests/test_scan_pipeline.py's stream whose window gate fires
+    mid-recording: structureless noise, one pixel, noise."""
+    rng = np.random.default_rng(3)
+
+    def phase(n, t0, gen):
+        t = np.sort(rng.integers(0, int(0.15e9), n)) + t0
+        x, y = gen(n)
+        return x.astype(np.float64), y.astype(np.float64), t
+
+    healthy = lambda n: (rng.integers(0, 24, n), rng.integers(0, 32, n))
+    point = lambda n: (np.full(n, 7), np.full(n, 9))
+    xs, ys, ts = zip(phase(3000, 0, healthy),
+                     phase(3000, int(0.15e9), point),
+                     phase(3000, int(0.30e9), healthy))
+    return {"x": np.concatenate(xs), "y": np.concatenate(ys),
+            "t_ns": np.concatenate(ts).astype(np.int64)}
