@@ -5,7 +5,8 @@ This system has no weights: the state a run carries from slice to slice
 run can start from.  ``carry_from_numpy`` turns the JAX package's
 ``make_carry`` tuple, given as numpy, into this package's carry, and
 ``carry_to_numpy`` does the reverse, so both packages can start mid-chain
-from the same state.
+from the same state.  An f64-totals carry (``PipelineConfig.f64_totals``)
+keeps its totals and compensations f64 both ways.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Mapping, Sequence, Union
 import numpy as np
 import torch
 
-from better_flow_tpu_torch.core.model import FIELDS, MotionModel
+from better_flow_tpu_torch.core.model import FIELDS, TOTAL_FIELDS, MotionModel
 
 
 def carry_from_numpy(model_fields: Union[Mapping, Sequence], seed12, ws_h,
@@ -24,7 +25,9 @@ def carry_from_numpy(model_fields: Union[Mapping, Sequence], seed12, ws_h,
     ``core.model.FIELDS`` order (the JAX ``MotionModel._fields`` order);
     ``seed12``: the (12,) seed; ``ws_h``/``st_h``/``en_h``: the (K,) gate
     history.  Returns (model, seed12, ws_h, st_h, en_h) with the model and
-    the seed as f32 tensors on ``device`` and the history on the host."""
+    the seed as tensors on ``device`` and the history on the host.  The
+    model is f32, except that totals given as float64 numpy values (an
+    f64-totals carry) stay f64 with their compensations."""
     if isinstance(model_fields, Mapping):
         vals = [model_fields[f] for f in FIELDS]
     else:
@@ -32,21 +35,30 @@ def carry_from_numpy(model_fields: Union[Mapping, Sequence], seed12, ws_h,
         if len(vals) != len(FIELDS):
             raise ValueError(f"expected {len(FIELDS)} model fields, got "
                              f"{len(vals)}")
-    v = torch.tensor(np.asarray(vals, np.float32), device=device)
+    tdx = vals[FIELDS.index("total_dx")]
+    f64 = isinstance(tdx, (np.ndarray, np.generic)) and \
+        tdx.dtype == np.float64
+    model = MotionModel(*(
+        torch.tensor(np.float64(v) if f64 and f in TOTAL_FIELDS
+                     else np.float32(v), device=device)
+        for f, v in zip(FIELDS, vals)))
     seed = torch.tensor(np.asarray(seed12, np.float32).reshape(-1))
     if seed.shape[0] != 12:
         raise ValueError(f"seed12: {seed.shape[0]} values, expected 12")
-    return (MotionModel(*v.unbind()), seed.to(device),
+    return (model, seed.to(device),
             np.asarray(ws_h, bool).copy(), np.asarray(st_h, np.int32).copy(),
             np.asarray(en_h, np.int32).copy())
 
 
 def carry_to_numpy(carry):
     """The reverse of ``carry_from_numpy``: (model values in field order as
-    an f32 array, seed12, ws_h, st_h, en_h), all numpy."""
+    an array in the totals' dtype -- f32, or f64 for an f64-totals carry,
+    whose other fields are f32 values held exactly -- seed12, ws_h, st_h,
+    en_h), all numpy."""
     model, seed, ws_h, st_h, en_h = carry
-    vals = torch.stack([getattr(model, f) for f in FIELDS])
-    return (vals.cpu().numpy().astype(np.float32),
+    dt = model.totals_dtype
+    vals = torch.stack([getattr(model, f).to(dt) for f in FIELDS])
+    return (vals.cpu().numpy(),
             seed.cpu().numpy().astype(np.float32),
             np.asarray(ws_h, bool).copy(), np.asarray(st_h, np.int32).copy(),
             np.asarray(en_h, np.int32).copy())

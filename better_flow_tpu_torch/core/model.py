@@ -1,9 +1,13 @@
-"""The 4-parameter global motion model as 0-d f32 tensors.
+"""The 4-parameter global motion model as 0-d tensors.
 
 Counterpart of ``better_flow_tpu/core/model.py``: centroid (cx, cy), the
 last iteration's gradient (dx, dy, rot, div), the nonzero-pixel count and
 the accumulated totals that define the warp, with Kahan compensation of the
-totals.  The f64-totals option of the JAX package is not ported.
+totals.  Every field is f32, except that under f64 totals
+(``PipelineConfig.f64_totals``, the reference's double accumulators,
+object_model.h:10-13) the totals and their compensations are f64.  The
+update promotes as the JAX package's does: an f32 step plus an f64 total is
+taken in f64.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ FIELDS: Tuple[str, ...] = (
     "total_dx", "total_dy", "total_rot", "total_div",
     "comp_dx", "comp_dy", "comp_rot", "comp_div",
 )
+# The fields held in the totals' dtype.
+TOTAL_FIELDS: Tuple[str, ...] = FIELDS[7:]
 
 
 def _kadd(total, comp, delta):
@@ -46,18 +52,31 @@ class MotionModel:
 
     @staticmethod
     def zero(device="cpu", f64_totals: bool = False) -> "MotionModel":
-        if f64_totals:
-            raise NotImplementedError("f64_totals")
-        z = torch.zeros(len(FIELDS), dtype=torch.float32, device=device)
-        return MotionModel(*z.unbind())
+        """A fresh model; with ``f64_totals`` the totals and compensations
+        are f64 zeros."""
+        z = torch.zeros(7, dtype=torch.float32, device=device)
+        zt = torch.zeros(8, dtype=torch.float64 if f64_totals
+                         else torch.float32, device=device)
+        return MotionModel(*z.unbind(), *zt.unbind())
 
     def replace(self, **kw) -> "MotionModel":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def totals_dtype(self) -> torch.dtype:
+        return self.total_dx.dtype
+
     def totals4(self) -> torch.Tensor:
-        """(rot, div, dx, dy) totals as one (4,) tensor."""
+        """(rot, div, dx, dy) totals as one (4,) tensor in their dtype."""
         return torch.stack([self.total_rot, self.total_div,
                             self.total_dx, self.total_dy])
+
+    def update_accumulators(self, d_rot, d_div, d_x, d_y) -> "MotionModel":
+        """``total_p += p / divider``, the reference schedule's step
+        (object_model.h:48-53): the f32 gradient over the f32 divider,
+        added to the totals in their dtype."""
+        return self.add_totals(self.rot / d_rot, self.div / d_div,
+                               self.dx / d_x, self.dy / d_y)
 
     def add_totals(self, d_rot, d_div, d_x, d_y) -> "MotionModel":
         """Kahan-compensated ``total_p += d_p``."""

@@ -63,6 +63,20 @@ __device__ inline Warp warp_from_state(const float* st) {
   return w;
 }
 
+// Warp scalars from a (1, 16) row [x_sh, y_sh, w_dyn, h_dyn, dnx, dny, cx,
+// cy, divp, cos, sin, 0...] that the caller built (fused_warp_splat.cu).
+__device__ inline Warp warp_from_row(const float* scal) {
+  Warp w;
+  w.dnx = scal[4];
+  w.dny = scal[5];
+  w.cx = scal[6];
+  w.cy = scal[7];
+  w.divp = scal[8];
+  w.cosv = scal[9];
+  w.sinv = scal[10];
+  return w;
+}
+
 // Event::project_4param_reinit for one event (ops/warp.py).
 __device__ inline void warp_event(const Warp& w, float frx, float fry,
                                   float t_ns, float prx, float pry,
@@ -92,12 +106,14 @@ __device__ inline float bf16_round(float v) {
 }
 
 // Warp + splat of event i (chunk i / CHUNK, slot i % CHUNK), shared by
-// warp_images_st.cu (B1) and megastep.cu (B5): re-warp from the state
-// vector's totals, write the new position, scale, truncate to a pixel,
-// accept inside the dynamic window, and add the event's fixed-point time
-// weight and a count of one to its pixel (see warp_images_st.cu).
+// warp_images_st.cu (B1), megastep.cu (B5) and fused_warp_splat.cu (B6):
+// re-warp with ``w`` (B1 and B5 take it from the state vector's totals, B6
+// from its caller's row), write the new position, scale, truncate to a
+// pixel, accept inside the dynamic window given by geo[0..3], and add the
+// event's fixed-point time weight and a count of one to its pixel (see
+// warp_images_st.cu).
 __device__ inline void warp_splat_event(
-    int i, const float* geo, const float* st, const float* stat,
+    int i, const float* geo, const Warp& w, const float* stat,
     const float* act, const float* pr, float* npr,
     unsigned long long* acc_t, int* acc_c, int WP, int scale, int time_lo) {
   const int c = i / CHUNK;
@@ -106,7 +122,6 @@ __device__ inline void warp_splat_event(
   const float* p = pr + static_cast<size_t>(c) * 2 * CHUNK;
   float* q = npr + static_cast<size_t>(c) * 2 * CHUNK;
 
-  const Warp w = warp_from_state(st);
   const float t_ns = s[2 * CHUNK + k];
   float ox, oy, nx, ny;
   warp_event(w, s[k], s[CHUNK + k], t_ns, p[k], p[CHUNK + k], &ox, &oy, &nx,

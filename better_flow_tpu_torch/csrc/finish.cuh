@@ -1,5 +1,6 @@
-// The finish of one optimizer iteration, shared by megastep_finish.cu (B2)
-// and megastep.cu (B5): image -> gradient sums -> next state.
+// The finish of one optimizer iteration, shared by megastep_finish.cu (B2),
+// megastep.cu (B5) and fused_warp_splat.cu (B6): image -> gradient sums ->
+// next state (B6 stops at the seven sums).
 //
 // _finish_values of the TPU kernel (box filter, count normalisation, mask to
 // the logical H x W image, all-nine nonzero mask, Scharr, seven sums) as
@@ -283,12 +284,11 @@ __device__ inline void model_update(const float vals[7], const float* st,
   out[31] = 0.0f;
 }
 
-// Sum the rows' partials in a fixed order and, on thread 0, run the scalar
-// update into st_out.  Every thread of one block calls it.
-__device__ inline void update_block(const double* partials, int rows,
-                                    const float* st, const float* geo,
-                                    float* st_out, float fscale,
-                                    const UpdateParams& p, FinishShared& sh) {
+// Sum the rows' partials in a fixed order into the seven sums (cnt, s_row,
+// s_col, s_gx, s_gy, s_rg, s_dg), each rounded to f32 once; thread 0
+// receives them in vals.  Every thread of one block calls it.
+__device__ inline void finish_sums(const double* partials, int rows,
+                                   float vals[7], FinishShared& sh) {
   double acc[NSUM];
   for (int q = 0; q < NSUM; ++q) acc[q] = 0.0;
   for (int r = threadIdx.x; r < rows; r += blockDim.x)
@@ -297,10 +297,20 @@ __device__ inline void update_block(const double* partials, int rows,
   for (int q = 0; q < NSUM; ++q) sh[q][threadIdx.x] = acc[q];
   block_sum(sh);
   if (threadIdx.x != 0) return;
-  float vals[7];
   for (int q = 0; q < 5; ++q) vals[q] = static_cast<float>(sh[q][0]);
   vals[5] = static_cast<float>(sh[5][0]) - static_cast<float>(sh[6][0]);
   vals[6] = static_cast<float>(sh[7][0]) + static_cast<float>(sh[8][0]);
+}
+
+// The seven sums and, on thread 0, the scalar update into st_out.  Every
+// thread of one block calls it.
+__device__ inline void update_block(const double* partials, int rows,
+                                    const float* st, const float* geo,
+                                    float* st_out, float fscale,
+                                    const UpdateParams& p, FinishShared& sh) {
+  float vals[7];
+  finish_sums(partials, rows, vals, sh);
+  if (threadIdx.x != 0) return;
   model_update(vals, st, geo, st_out, fscale, p);
 }
 

@@ -66,10 +66,10 @@ megastep_kernel(MegastepArgs a) {
   }
   grid.sync();
 
+  const bf::Warp w = bf::warp_from_state(a.st);
   for (size_t i = tid; i < static_cast<size_t>(a.n); i += nthreads)
-    bf::warp_splat_event(static_cast<int>(i), a.geo, a.st, a.stat, a.act,
-                         a.pr, a.npr, a.acc_t, a.acc_c, a.WP, a.scale,
-                         a.time_lo);
+    bf::warp_splat_event(static_cast<int>(i), a.geo, w, a.stat, a.act, a.pr,
+                         a.npr, a.acc_t, a.acc_c, a.WP, a.scale, a.time_lo);
   grid.sync();
 
   const long long* acc_t = reinterpret_cast<const long long*>(a.acc_t);

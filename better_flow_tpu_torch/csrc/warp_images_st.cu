@@ -38,8 +38,8 @@ __global__ void warp_images_st_kernel(
     int WP, int scale, int time_lo) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  bf::warp_splat_event(i, geo, st, stat, act, pr, npr, acc_t, acc_c, WP,
-                       scale, time_lo);
+  bf::warp_splat_event(i, geo, bf::warp_from_state(st), stat, act, pr, npr,
+                       acc_t, acc_c, WP, scale, time_lo);
 }
 
 }  // namespace

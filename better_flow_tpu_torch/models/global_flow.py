@@ -1,17 +1,27 @@
 """Global 4-parameter flow on one slice, driven through the kernels.
 
 Counterpart of ``better_flow_tpu/models/global_flow.py`` for its kernel
-branch: ``process_slice`` and ``_run_fused_mega``, whose iteration is one
-megastep (B5: warp + splat, finish, model update in one launch) unless
-``OptimizerConfig.megastep_split`` or the ``fast`` presets ask for the split
-pair (B1 warp + splat, then B2 finish + model update).  The slice gates
-depend only on the host-side bbox and event count, so the host decides them
-without reading the device; the optimizer loop reads the state's continue
-flag once per iteration.
+branch, ``process_slice`` and ``_run_fused``, which takes one of two drives:
+
+- the megastep drive (``_run_fused_mega``), for f32 totals with
+  ``OptimizerConfig.use_megastep``: an iteration is one megastep (B5: warp +
+  splat, finish, model update in one launch) unless
+  ``OptimizerConfig.megastep_split`` or the ``fast`` presets ask for the
+  split pair (B1 warp + splat, then B2 finish + model update);
+- the composed drive (``_run_fused``'s loop), for f64 totals or
+  ``use_megastep=False``: an iteration is one B6 launch (warp + splat +
+  finish to seven sums), then the scalar model update as 0-d tensor
+  operations on the device, under ``adaptive_loop`` (the reference
+  schedule) or ``fast_loop`` (the secant schedule).
+
+The slice gates depend only on the host-side bbox and event count, so the
+host decides them without reading the device; either loop reads one
+continue flag from the device per iteration.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -21,14 +31,25 @@ from better_flow_tpu.config import OptimizerConfig, SensorConfig
 from better_flow_tpu_torch.core.events import EventSlice
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.ops.fused_model import (
-    megastep_call, megastep_finish_call, warp_images_st_call, warp_uv_call,
+    fused_warp_splat_call, megastep_call, megastep_finish_call,
+    warp_images_st_call, warp_scal_row, warp_uv_call,
 )
 from better_flow_tpu_torch.ops.layout import (
     CHUNK, ST_CDIV, ST_CDX, ST_CDY, ST_CNT, ST_CONT, ST_CROT, ST_CX, ST_CY,
     ST_DDIV, ST_DIV, ST_DX, ST_DY, ST_PD, ST_RDIV, ST_ROT, ST_SIZE, ST_SL,
     ST_TDIV, ST_TDX, ST_TDY, ST_TROT, ST_XDIV, ST_YDIV,
 )
-from better_flow_tpu_torch.ops.warp import UV_K, compute_uv, project_4param_reinit
+from better_flow_tpu_torch.ops.reductions import model_from_partials
+from better_flow_tpu_torch.ops.warp import (
+    UV_K, compute_uv, project_4param_reinit, recip,
+)
+
+F64_FAST_DEFECT = (
+    "PipelineConfig.f64_totals with OptimizerConfig.schedule='fast': the JAX "
+    "package's _fast_loop starts its while-loop carry (slope memory, "
+    "deltas) as f32 and its body returns them as f64 once the totals are "
+    "f64, so lax.while_loop raises TypeError (a known reference defect, "
+    "ROADMAP C); the port does not invent a result for it")
 
 
 class SliceGeometry(NamedTuple):
@@ -88,8 +109,10 @@ class SliceResult(NamedTuple):
     noise: Optional[torch.Tensor] = None   # (cap,) bool, given ``ev``
 
 
-def check_supported(cfg: OptimizerConfig) -> None:
+def check_supported(cfg: OptimizerConfig, f64_totals: bool = False) -> None:
     """Raise for the configurations this port does not run."""
+    if f64_totals and cfg.schedule == "fast":
+        raise NotImplementedError(F64_FAST_DEFECT)
     if cfg.warm_extrapolate > 0:
         raise NotImplementedError("OptimizerConfig.warm_extrapolate")
     if cfg.megastep_merged:
@@ -98,13 +121,19 @@ def check_supported(cfg: OptimizerConfig) -> None:
         raise NotImplementedError("OptimizerConfig.splat_pair")
     if cfg.megastep_unroll > 1:
         raise NotImplementedError("OptimizerConfig.megastep_unroll")
-    if not cfg.use_megastep:
-        raise NotImplementedError("OptimizerConfig.use_megastep")
     if cfg.scatter_mode not in ("auto", "pallas"):
         raise NotImplementedError(
             f"OptimizerConfig.scatter_mode={cfg.scatter_mode!r}")
     if cfg.schedule not in ("fast", "reference"):
         raise NotImplementedError(f"OptimizerConfig.schedule={cfg.schedule!r}")
+
+
+def uses_megastep(cfg: OptimizerConfig, totals_dtype: torch.dtype) -> bool:
+    """The megastep drive for a built-in schedule on an f32 carry with
+    ``use_megastep``, else the composed loop (global_flow.py:608-611 of the
+    JAX package)."""
+    return (cfg.use_megastep and cfg.schedule in ("reference", "fast")
+            and totals_dtype == torch.float32)
 
 
 def finish_statics(cfg: OptimizerConfig) -> dict:
@@ -186,6 +215,227 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     return model_from_state(st), out, uvn, iters, seed_out
 
 
+class FusedFlowState(NamedTuple):
+    """The composed loop's state: the warped positions in the kernels'
+    (nch, 2, CHUNK) layout, the model, the four f32 step dividers as 0-d
+    device tensors and the iteration count, which the host keeps."""
+
+    pr: torch.Tensor
+    model: MotionModel
+    x_div: torch.Tensor
+    y_div: torch.Tensor
+    rot_div: torch.Tensor
+    div_div: torch.Tensor
+    iters: int
+
+    def divs4(self) -> torch.Tensor:
+        """The dividers in (rot, div, dx, dy) order."""
+        return torch.stack([self.rot_div, self.div_div, self.x_div,
+                            self.y_div])
+
+
+def _with_dividers(s: FusedFlowState, cfg: OptimizerConfig
+                   ) -> FusedFlowState:
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32,
+                                 device=s.pr.device)
+    return s._replace(x_div=f32(cfg.init_xy_divider),
+                      y_div=f32(cfg.init_xy_divider),
+                      rot_div=f32(cfg.init_rotdiv_divider),
+                      div_div=f32(cfg.init_rotdiv_divider), iters=0)
+
+
+def _grad4(m: MotionModel) -> torch.Tensor:
+    return torch.stack([m.rot, m.div, m.dx, m.dy])
+
+
+def adaptive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig
+                  ) -> FusedFlowState:
+    """OptimizerRolling::run's adaptive loop (optimizer_rolling.h:60-111,
+    ``_adaptive_loop`` of the JAX package): one unconditional step, then
+    steps while a divider is open, the divided gradient is above tolerance
+    and the iteration caps allow; a divider doubles when its gradient
+    component flips sign.  ``step_fn(state)`` is one iteration."""
+    s = step_fn(_with_dividers(init, cfg))
+    caps = (cfg.xy_divider_cap, cfg.rotdiv_divider_cap)
+
+    def go_on(s):
+        m = s.model
+        over_max = cfg.max_iter > 0 and s.iters > cfg.max_iter
+        if over_max or s.iters >= cfg.iter_hard_cap:
+            return False     # the caps are host values: no read
+        dividers_open = ((s.x_div < caps[0]) | (s.y_div < caps[0])
+                         | (s.rot_div < caps[1]) | (s.div_div < caps[1]))
+        small = ((torch.abs(m.dx / s.x_div) < cfg.dx_tol)
+                 & (torch.abs(m.dy / s.y_div) < cfg.dy_tol)
+                 & (torch.abs(m.rot / s.rot_div) < cfg.rot_tol)
+                 & (torch.abs(m.div / s.div_div) < cfg.div_tol))
+        return bool((dividers_open & ~small).item())   # the one read
+
+    while go_on(s):
+        old = s.model
+        s = step_fn(s)
+        m = s.model
+        dbl = lambda new, prev, div: torch.where(new * prev < 0, div * 2,
+                                                 div)
+        s = s._replace(x_div=dbl(m.dx, old.dx, s.x_div),
+                       y_div=dbl(m.dy, old.dy, s.y_div),
+                       rot_div=dbl(m.rot, old.rot, s.rot_div),
+                       div_div=dbl(m.div, old.div, s.div_div))
+    return s
+
+
+def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
+              seed: Optional[torch.Tensor] = None):
+    """The secant schedule (``_fast_loop`` of the JAX package): each
+    component's step is a damped Newton step on the slope between the last
+    two iterates (or the carried slope memory, seeded from ``seed[:4]``),
+    clamped to 4x (fresh slope) or 1x (carried) the reference step, and the
+    reference step when no slope is usable; the exit takes every delta
+    below tolerance, qualified by ``exit_grad_factor`` and widened by the
+    predicted exit of ``exit_predict_cap``.  ``step_fn(state, update_fn)``
+    applies ``update_fn(model, state) -> model`` in place of the reference
+    step.  The secant carry is f32, as in the JAX package's f32 path.
+    Returns (final state, (8,) [slope memory, last deltas])."""
+    state = _with_dividers(init, cfg)
+    dev = init.pr.device
+    f32 = torch.float32
+    zeros4 = torch.zeros(4, dtype=f32, device=dev)
+    slope0 = zeros4 if seed is None else seed[:4]
+    tol = torch.tensor([cfg.rot_tol, cfg.div_tol, cfg.dx_tol, cfg.dy_tol],
+                       dtype=f32, device=dev)
+    tol4 = 4.0 * tol
+    grad_tol = cfg.exit_grad_factor * tol
+    pred_tol = cfg.exit_predict_cap * tol
+
+    def body(carry):
+        s, prev_g, prev_d, slope_mem, _ = carry
+        slope_used_prev = slope_mem
+
+        def two_point(g):
+            slope2 = (g - prev_g) / prev_d
+            valid2 = ((torch.abs(prev_d) > 0) & torch.isfinite(slope2)
+                      & (slope2 < 0))
+            return torch.where(valid2, slope2, slope_mem), valid2
+
+        def update(model, st):
+            g = _grad4(model)
+            ref = g / st.divs4()
+            slope, valid2 = two_point(g)
+            newton = (-0.9 * g) / slope
+            lim = torch.where(valid2, 4.0, 1.0) * torch.abs(ref)
+            ok = (slope < 0) & torch.isfinite(newton)
+            delta = torch.where(
+                ok, torch.minimum(torch.maximum(newton, -lim), lim), ref)
+            return model.add_totals(*delta.unbind())
+
+        tot_before = s.model.totals4()
+        s = step_fn(s, update)
+        m = s.model
+        g = _grad4(m)
+        d = m.totals4() - tot_before
+        slope_mem, _ = two_point(g)
+        # The reference's divider doubling, gated on a real previous step.
+        dbl = (torch.abs(prev_d) > 0) & (g * prev_g < 0)
+        divs = torch.where(dbl, s.divs4() * 2, s.divs4())
+        s = s._replace(rot_div=divs[0], div_div=divs[1], x_div=divs[2],
+                       y_div=divs[3])
+        exit_c = torch.abs(d) < tol
+        if cfg.exit_grad_factor > 0:
+            exit_c = exit_c & (torch.abs(g) / divs < grad_tol)
+        if cfg.exit_predict_cap > 0:
+            # The model-validated one-step-ahead exit.
+            g_pred = prev_g + slope_used_prev * prev_d
+            relerr = torch.abs(g - g_pred) / torch.clamp(torch.abs(prev_g),
+                                                         min=1e-30)
+            pred_next_g = g + slope_mem * d
+            pred_next_d = torch.abs(0.9 * pred_next_g / torch.where(
+                slope_mem < 0, slope_mem, -1e-30))
+            pred_ok = ((torch.abs(prev_d) > 0) & (relerr < 0.75)
+                       & (slope_mem < 0) & (pred_next_d < tol)
+                       & (torch.abs(pred_next_g) / divs < tol)
+                       & (torch.abs(d) < pred_tol))
+            exit_c = exit_c | pred_ok
+        return (s, g, d, slope_mem, exit_c.all())
+
+    def go_on(carry):
+        s, g, _d, _sl, exit_small = carry
+        over_max = cfg.max_iter > 0 and s.iters > cfg.max_iter
+        if over_max or s.iters >= cfg.iter_hard_cap:
+            return False
+        small = exit_small
+        if s.iters < 2:
+            small = small & (torch.abs(g) / s.divs4() < tol4).all()
+        return bool((~small).item())                   # the one read
+
+    carry = body((state, zeros4, zeros4, slope0, None))
+    while go_on(carry):
+        carry = body(carry)
+    final, _g, d, slope_mem, _ = carry
+    return final, torch.cat([slope_mem, d])
+
+
+def drive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
+               seed=None):
+    """The configured schedule.  ``step_fn(state, update_fn)``.  Returns
+    (final state, (8,) seed_out): the secant slope memory and last deltas
+    (zeros for the reference schedule)."""
+    if cfg.schedule == "fast":
+        return fast_loop(init, step_fn, cfg, seed=seed)
+    return (adaptive_loop(init, lambda s: step_fn(s, None), cfg),
+            torch.zeros(8, dtype=torch.float32, device=init.pr.device))
+
+
+def _to_event(c_img: torch.Tensor, shift: float, scale: int) -> torch.Tensor:
+    """An image-coordinate centroid back in event coordinates
+    (optimizer_rolling.h:330-331): the division by the constant scale is a
+    multiplication by its f32 reciprocal, as XLA compiles it."""
+    return (c_img - shift) * recip(scale)
+
+
+def run_fused_composed(stat, act, geo, geom: SliceGeometry,
+                       model0: MotionModel, cfg: OptimizerConfig, scale: int,
+                       H: int, W: int, seed=None):
+    """The composed drive (``_run_fused``'s loop without the megastep): per
+    iteration one B6 launch on the warp of the current model, then the
+    model update from its seven sums in 0-d tensor operations on the
+    device (the model's dtype: f64 totals stay f64), the centroid back to
+    event coordinates, and the schedule's exit test, read once by the host.
+    The epilogue warps the events once more with the f32-cast totals and
+    packs [u, v, noise] in plain tensor operations, as the JAX package's
+    XLA epilogue does (its arithmetic differs from B4's, see
+    ``project_4param_reinit_cs``).
+    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out)."""
+    def step(s: FusedFlowState, update_fn=None) -> FusedFlowState:
+        m = s.model
+        pr, p = fused_warp_splat_call(stat, act, s.pr, warp_scal_row(geo, m),
+                                      scale=scale, H=H, W=W)
+        cx_img, cy_img, terms = model_from_partials(p)
+        model = m.replace(cx=cx_img, cy=cy_img, dx=terms.dx, dy=terms.dy,
+                          rot=terms.rot, div=terms.div, cnt=terms.cnt)
+        if update_fn is None:
+            model = model.update_accumulators(s.rot_div, s.div_div, s.x_div,
+                                              s.y_div)
+        else:
+            model = update_fn(model, s)
+        model = model.replace(cx=_to_event(model.cx, geom.x_shift, scale),
+                              cy=_to_event(model.cy, geom.y_shift, scale))
+        return s._replace(pr=pr, model=model, iters=s.iters + 1)
+
+    one = torch.ones((), dtype=torch.float32, device=stat.device)
+    init = FusedFlowState(pr=stat[:, 0:2].contiguous(), model=model0,
+                          x_div=one, y_div=one, rot_div=one, div_div=one,
+                          iters=0)
+    final, seed_out = drive_loop(init, step, cfg, seed=seed)
+    m = final.model
+    pr_x, pr_y, nx, ny = project_4param_reinit(
+        stat[:, 0], stat[:, 1], stat[:, 2], final.pr[:, 0], final.pr[:, 1],
+        -m.total_dx, -m.total_dy, m.cx, m.cy, m.total_div, -m.total_rot,
+        sin_fma=True)
+    out = torch.stack([pr_x, pr_y, nx, ny], dim=1)
+    uvn = torch.stack([nx * UV_K, ny * UV_K, 1.0 - act[:, 0]], dim=1)
+    return m, out, uvn, final.iters, seed_out
+
+
 def process_slice(stat: torch.Tensor, act: torch.Tensor,
                   last_model: MotionModel, cfg: OptimizerConfig,
                   sensor: SensorConfig, bbox, n_valid: int,
@@ -202,19 +452,23 @@ def process_slice(stat: torch.Tensor, act: torch.Tensor,
     ev.valid)`` (the streaming path reads it; the scan reads the noise row
     of uvn).  Returns (SliceResult, uvn) where uvn is the (nch, 3, CHUNK)
     [u, v, noise] pack."""
-    check_supported(cfg)
+    check_supported(cfg, last_model.totals_dtype == torch.float64)
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
     geom = geometry_from_bbox(*bbox, scale, sensor, cfg.min_window_fraction)
     dev = stat.device
+    # As in the JAX package, a cold start is an f32 zero model.
     model = last_model if warm_start else MotionModel.zero(dev)
     ran = (not geom.window_small) and int(n_valid) >= cfg.min_events
 
     if ran:
         if geo is None:
             geo = torch.from_numpy(geo_row(geom)).to(dev)
-        model_out, out, uvn, iters, seed_out = run_fused_mega(
-            stat, act, geo, model, cfg, scale, H, W, seed=seed)
+        drive = run_fused_mega if uses_megastep(cfg, model.totals_dtype) \
+            else functools.partial(run_fused_composed, geom=geom)
+        model_out, out, uvn, iters, seed_out = drive(
+            stat, act, geo, model0=model, cfg=cfg, scale=scale, H=H, W=W,
+            seed=seed)
         pr_x, pr_y, nx, ny = (out[:, k].reshape(-1) for k in range(4))
     else:
         # The skipped slice keeps the warm-start warp (set_model) and the

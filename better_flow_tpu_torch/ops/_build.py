@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-At first use ``library()`` compiles every ``csrc/*.cu`` with nvcc into one
-shared library with a plain C interface, under
-``better_flow_tpu_torch/_build/``, named by a hash of the sources and the
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is.  The library is loaded with ctypes; each entry point takes device
-pointers, sizes and a CUDA stream and returns ``cudaGetLastError()``.
+At first use ``library()`` compiles every ``csrc/*.cu`` with its own nvcc
+process, all started together, and links the objects into one shared
+library with a plain C interface, under ``better_flow_tpu_torch/_build/``,
+named by a hash of the sources and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  The library is loaded
+with ctypes; each entry point takes device pointers, sizes and a CUDA
+stream and returns ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ BUILD_DIR = PKG / "_build"
 # only the cooperative launch that bf_megastep makes.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -79,27 +80,45 @@ def _digest(extra_flags) -> str:
 
 
 def build(extra_flags=()) -> pathlib.Path:
-    """Compile the sources unless a library of the same hash exists.
-    Returns its path; ``BUILD_INFO`` records the time and nvcc's output."""
+    """Compile the sources unless a library of the same hash exists: one
+    nvcc per source in parallel, then one link.  Returns its path;
+    ``BUILD_INFO`` records the time and nvcc's output."""
     out = BUILD_DIR / f"libbf_kernels_{_digest(extra_flags)}.so"
     if out.exists():
         BUILD_INFO.update(path=str(out), seconds=0.0, cached=True, log="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-o", tmp,
-           *map(str, cu)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-c",
+                 "-o", o, str(p)] for p, o in zip(cu, objs)]
+        cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                     os.path.join(tmp, "lib.so"), *objs])
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds[:-1]]
+        log = []
+        for cmd, proc in zip(cmds, procs):
+            o, e = proc.communicate()
+            log.append(o + e)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{o}\n{e}")
+        proc = subprocess.run(cmds[-1], capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmds[-1])}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(os.path.join(tmp, "lib.so"), out)
     BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0,
-                      cached=False, log=proc.stdout + proc.stderr)
+                      cached=False, log="".join(log))
     return out
 
 
@@ -119,8 +138,11 @@ def library() -> ctypes.CDLL:
         lib.bf_megastep.argtypes = [
             P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
             ctypes.POINTER(UpdateParams), I, P]
+        lib.bf_fused_warp_splat.argtypes = [P, P, P, P, P, P, P, P, P, P,
+                                            I, I, I, I, I, I, P]
         for fn in (lib.bf_act_rows, lib.bf_warp_images_st,
-                   lib.bf_megastep_finish, lib.bf_warp_uv, lib.bf_megastep):
+                   lib.bf_megastep_finish, lib.bf_warp_uv, lib.bf_megastep,
+                   lib.bf_fused_warp_splat):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -14,6 +14,7 @@ wrapper                     replaces (better_flow_tpu/ops/pallas/...)
 ``megastep_finish_call``    ``fused_model.megastep_finish_call``
 ``warp_uv_call``            ``fused_model.warp_uv_call``
 ``megastep_call``           ``fused_model.megastep_call``
+``fused_warp_splat_call``   ``fused_model.fused_warp_splat``
 ==========================  =============================================
 
 Images.  ``warp_images_st_call`` returns the time image as int64 fixed
@@ -34,14 +35,16 @@ from better_flow_tpu_torch.ops.layout import (
     CHUNK, ST_CNT, ST_CONT, ST_CX, ST_CY, ST_FB, ST_HAS, ST_ITERS, ST_PD,
     ST_SIZE, ST_SL, ST_TDIV, ST_TDX, ST_TDY, ST_TROT, padded_image_shape,
 )
+from better_flow_tpu_torch.ops.reductions import model_compute_partial
 from better_flow_tpu_torch.ops.warp import (
-    UV_K, fma, mul_recip, project_4param_reinit, recip,
+    UV_K, cos_sin_f32, fma, mul_recip, project_4param_reinit,
+    project_4param_reinit_cs, recip,
 )
 
 FIXED_PER_SEC = 2.0 ** 32
 
 LAUNCHES = {"act_rows": 0, "warp_images_st": 0, "megastep_finish": 0,
-            "warp_uv": 0, "megastep": 0}
+            "warp_uv": 0, "megastep": 0, "fused_warp_splat": 0}
 
 
 def reset_launches() -> None:
@@ -146,14 +149,13 @@ def time_image_f32(acc_t: torch.Tensor) -> torch.Tensor:
     return (acc_t.to(torch.float64) / FIXED_PER_SEC).to(torch.float32)
 
 
-def warp_images_st_plain(stat, act, pr, st, geo, *, scale: int, H: int,
-                         W: int, time_lo: bool = True):
+def _splat_plain(stat, act, prx, pry, geo, *, scale: int, H: int, W: int,
+                 time_lo: bool):
+    """Splat the warped positions (prx, pry) (nch, CHUNK) inside the
+    dynamic window of ``geo[0, 0:4]``: the int64 fixed-point time image and
+    the int32 count image."""
     HP, WP = padded_image_shape(H, W)
     nch = stat.shape[0]
-    prx, pry, _, _ = project_4param_reinit(
-        stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
-        *_warp_args(st))
-    npr = torch.stack([prx, pry], dim=1)
     half = scale // 2
     x_sh, y_sh, wd, hd = geo[0, 0], geo[0, 1], geo[0, 2], geo[0, 3]
     fscale = torch.full((), float(scale), device=stat.device)
@@ -175,8 +177,18 @@ def warp_images_st_plain(stat, act, pr, st, geo, *, scale: int, H: int,
     acc_c = torch.zeros(HP * WP + 1, dtype=torch.int32, device=stat.device)
     acc_t.index_add_(0, lin, fixed.reshape(-1))
     acc_c.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
-    return (npr, acc_t[:-1].reshape(HP, WP).contiguous(),
+    return (acc_t[:-1].reshape(HP, WP).contiguous(),
             acc_c[:-1].reshape(HP, WP).contiguous())
+
+
+def warp_images_st_plain(stat, act, pr, st, geo, *, scale: int, H: int,
+                         W: int, time_lo: bool = True):
+    prx, pry, _, _ = project_4param_reinit(
+        stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
+        *_warp_args(st))
+    acc_t, acc_c = _splat_plain(stat, act, prx, pry, geo, scale=scale, H=H,
+                                W=W, time_lo=time_lo)
+    return torch.stack([prx, pry], dim=1), acc_t, acc_c
 
 
 def warp_images_st_call(stat, act, pr, st, geo, *, scale: int, H: int,
@@ -263,18 +275,10 @@ def finish_values_plain(acc_t, acc_c, *, scale: int, H: int, W: int,
                      fma(three, shift(img, 1, 0), ten_img))
     gy = shift(row_smooth, 1, 1) - shift(row_smooth, -1, 1)
     zero = torch.zeros_like(img)
-    gxm = torch.where(allnine, gx, zero).to(torch.float64)
-    gym = torch.where(allnine, gy, zero).to(torch.float64)
-    m = nz.to(torch.float64)
-    ri = rr.to(torch.float64)
-    ci = cc.to(torch.float64)
-    f32 = lambda v: v.to(torch.float32)
-    return torch.stack([
-        f32(m.sum()), f32((m * ri).sum()), f32((m * ci).sum()),
-        f32(gxm.sum()), f32(gym.sum()),
-        f32((gym * ri).sum()) - f32((gxm * ci).sum()),
-        f32((gxm * ri).sum()) + f32((gym * ci).sum()),
-    ])
+    # The all-nine mask implies the centre mask, so the masked gradients
+    # are the sums' integrands.
+    return model_compute_partial(img, torch.where(allnine, gx, zero),
+                                 torch.where(allnine, gy, zero))
 
 
 def _rdxy(st, base):
@@ -324,8 +328,9 @@ _WORKSPACE: dict = {}
 def _workspace(dev: torch.device, H: int, W: int) -> dict:
     """Scratch of the finish passes, one set per device and image shape,
     allocated at first use: the H x W f32 image, the (H, 9) f64 row sums and
-    the megastep's two pre-filter images.  The kernels run in stream order
-    and no scratch is returned to a caller, so one set serves every call."""
+    the two pre-filter images of the megastep and B6.  The kernels run in
+    stream order and no scratch is returned to a caller, so one set serves
+    every call."""
     key = (dev, H, W)
     if key not in _WORKSPACE:
         HP, WP = padded_image_shape(H, W)
@@ -552,3 +557,72 @@ def megastep_call(stat, act, pr, st, geo, *, scale: int, H: int, W: int,
         ctypes.byref(cp), int(grid_blocks), _stream(dev))
     _launch("megastep", rc)
     return npr, st_out
+
+
+# ------------------------------------- B6 composed warp + splat + finish
+
+
+def warp_scal_row(geo: torch.Tensor, model) -> torch.Tensor:
+    """B6's (1, 16) f32 row [x_sh, y_sh, w_dyn, h_dyn, -total_dx,
+    -total_dy, cx, cy, total_div, cos, sin, 0 x 5] for the (1, 8) geometry
+    row ``geo`` and a ``core.model.MotionModel``, built on the device as the
+    JAX wrapper builds it: each value rounded to f32 once, and cos and sin
+    taken on ``crl = -total_rot`` in the carry's dtype (the f64 angle under
+    f64 totals), each rounded to f32 once."""
+    c, s = cos_sin_f32(-model.total_rot)
+    vals = [-model.total_dx, -model.total_dy, model.cx, model.cy,
+            model.total_div]
+    return torch.cat([geo[0, 0:4],
+                      torch.stack([v.to(torch.float32) for v in vals]
+                                  + [c, s]),
+                      torch.zeros(5, dtype=torch.float32, device=geo.device)]
+                     ).reshape(1, 16)
+
+
+def fused_warp_splat_plain(stat, act, pr, scal, *, scale: int, H: int,
+                           W: int):
+    """The twin of B6: the warp of ``warp_images_st_plain`` with the row's
+    explicit scalars, the hi+lo splat, then ``finish_values_plain``.
+    Returns (new_pr, (8,) f32 [seven sums, 0])."""
+    s = scal[0]
+    prx, pry, _, _ = project_4param_reinit_cs(
+        stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1], *s[4:11])
+    acc_t, acc_c = _splat_plain(stat, act, prx, pry, scal, scale=scale, H=H,
+                                W=W, time_lo=True)
+    vals = finish_values_plain(acc_t, acc_c, scale=scale, H=H, W=W)
+    return (torch.stack([prx, pry], dim=1),
+            torch.cat([vals, vals.new_zeros(1)]))
+
+
+def fused_warp_splat_call(stat, act, pr, scal, *, scale: int, H: int,
+                          W: int):
+    """One iteration's event phase of the composed loop: warp every event
+    with the (1, 16) row ``scal`` (``warp_scal_row``), splat the hi+lo time
+    pair (always, as the TPU kernel does, whatever
+    ``OptimizerConfig.splat_time_lo`` says), box filter, normalise, mask,
+    Scharr and the seven partial sums.  Returns (new_pr (nch, 2, CHUNK)
+    f32, (8,) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg,
+    fallback_chunks]).  ``fallback_chunks`` is always 0: it counts the TPU
+    kernel's splat-window fallbacks, and the port's splat has no window
+    (as ``ST_FB`` of the megastep state)."""
+    dev = stat.device
+    nch = stat.shape[0]
+    _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
+    _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
+    _check("pr", pr, torch.float32, (nch, 2, CHUNK), dev)
+    _check("scal", scal, torch.float32, (1, 16), dev)
+    if _on_cpu(dev):
+        return fused_warp_splat_plain(stat, act, pr, scal, scale=scale, H=H,
+                                      W=W)
+    from better_flow_tpu_torch.ops._build import library
+
+    HP, WP = padded_image_shape(H, W)
+    npr = torch.empty_like(pr)
+    out = torch.empty(8, dtype=torch.float32, device=dev)
+    ws = _workspace(dev, H, W)
+    rc = library().bf_fused_warp_splat(
+        _ptr(scal), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr), _ptr(out),
+        _ptr(ws["acc_t"]), _ptr(ws["acc_c"]), _ptr(ws["img"]),
+        _ptr(ws["partials"]), nch, HP, WP, H, W, scale, _stream(dev))
+    _launch("fused_warp_splat", rc)
+    return npr, out

@@ -1,0 +1,70 @@
+"""The model's partial sums and the model terms made from them.
+
+Counterpart of ``better_flow_tpu/ops/reductions.py``'s ``ModelTerms``,
+``model_compute_partial`` and ``model_from_partials``
+(ObjectModel::compute, object_model.cpp:4-39).  The seven partial sums
+(cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg) are sums over the pixels with
+img > 1e-6 that do not depend on the centroid, so the centroid is applied
+after the sum:
+
+    rot = (S_rg - cx*S_gy + cy*S_gx) / cnt
+    div = (S_dg - cx*S_gx - cy*S_gy) / cnt
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from better_flow_tpu.config import NONZERO_EPS
+from better_flow_tpu_torch.ops.warp import fma
+
+
+class ModelTerms(NamedTuple):
+    dx: torch.Tensor
+    dy: torch.Tensor
+    rot: torch.Tensor
+    div: torch.Tensor
+    cnt: torch.Tensor
+
+
+def model_compute_partial(img: torch.Tensor, gx: torch.Tensor,
+                          gy: torch.Tensor) -> torch.Tensor:
+    """The seven sums of an (H, W) image and its gradients as a (7,) f32
+    tensor.  Each sum is taken in f64 and rounded to f32 once, as the
+    kernels take them; the rot and div sums are each the difference or sum
+    of two such separable sums (rows times gy minus columns times gx, rows
+    times gx plus columns times gy), as the kernels and the TPU kernel form
+    them."""
+    f64 = torch.float64
+    m = (img > NONZERO_EPS).to(f64)
+    gxm = gx.to(f64) * m
+    gym = gy.to(f64) * m
+    ri = torch.arange(img.shape[0], device=img.device)[:, None].to(f64)
+    ci = torch.arange(img.shape[1], device=img.device)[None, :].to(f64)
+    f32 = lambda v: v.to(torch.float32)
+    return torch.stack([
+        f32(m.sum()), f32((m * ri).sum()), f32((m * ci).sum()),
+        f32(gxm.sum()), f32(gym.sum()),
+        f32((gym * ri).sum()) - f32((gxm * ci).sum()),
+        f32((gxm * ri).sum()) + f32((gym * ci).sum()),
+    ])
+
+
+def model_from_partials(p: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, ModelTerms]:
+    """(cx, cy, ModelTerms) of the partial sums ``p`` (a (7,) or (8,) f32
+    tensor in the order above; an eighth value is ignored), as 0-d f32
+    tensors on ``p``'s device, in the arithmetic XLA compiles for the JAX
+    package's composed loop (measured on the CPU, see ROADMAP C): the
+    centroid corrections of rot and div are fused multiply-adds, as in the
+    megastep kernels."""
+    cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg = p[:7].unbind()
+    denom = torch.clamp(cnt, min=1.0)
+    cx = s_row / denom
+    cy = s_col / denom
+    rot = fma(cy, s_gx, fma(-cx, s_gy, s_rg)) / denom
+    div = fma(-cy, s_gy, fma(-cx, s_gx, s_dg)) / denom
+    return cx, cy, ModelTerms(dx=s_gx / denom, dy=s_gy / denom, rot=rot,
+                              div=div, cnt=cnt)

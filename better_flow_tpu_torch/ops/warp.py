@@ -45,23 +45,45 @@ def fma(a, b, c):
 
 
 def cos_sin_f32(crl: torch.Tensor):
-    """f32 cos and sin of an f32 angle, each rounded once from f64."""
+    """f32 cos and sin of an f32 or f64 angle, each taken in f64 and
+    rounded to f32 once."""
     a = crl.to(torch.float64)
     return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
 
 
 def project_4param_reinit(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
-                          div, crl):
+                          div, crl, sin_fma: bool = False):
     """Rotate/diverge the current ``pr`` about (cx, cy), overwrite n with
     that delta plus (dnx_, dny_) and re-project from the original pixel
     ``fr``.  Returns (pr_x, pr_y, nx, ny).  Call sites pass the model's
     totals with the sign pattern (-total_dx, -total_dy, cx, cy, total_div,
-    -total_rot)."""
+    -total_rot).  The model scalars are cast to f32 on entry, as the JAX
+    package does for an f64 carry (the angle too, before its cos/sin).
+    ``sin_fma``: see ``project_4param_reinit_cs``."""
+    dnx_, dny_, cx, cy, div, crl = (torch.as_tensor(a).to(torch.float32)
+                                    for a in (dnx_, dny_, cx, cy, div, crl))
     c, s = cos_sin_f32(crl)
+    return project_4param_reinit_cs(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_,
+                                    cx, cy, div, c, s, sin_fma=sin_fma)
+
+
+def project_4param_reinit_cs(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
+                             div, c, s, sin_fma: bool = False):
+    """``project_4param_reinit`` with the f32 cosine ``c`` and sine ``s``
+    of the angle given (as the kernels' warp-scalar rows carry them).
+    The rotation ``rpx = c*rx - s*ry``, ``rpy = s*rx + c*ry`` fuses its
+    first product into the add, as XLA compiles the warp alone and inside
+    the kernels; ``sin_fma`` fuses the other product (``rpx = fma(-s, ry,
+    c*rx)``, ``rpy = fma(c, ry, s*rx)``), as XLA compiles the composed
+    loop's epilogue (measured on the CPU, see ROADMAP C)."""
     rx = pr_x - cx
     ry = pr_y - cy
-    rpx = fma(c, rx, -(s * ry))
-    rpy = fma(s, rx, c * ry)
+    if sin_fma:
+        rpx = fma(-s, ry, c * rx)
+        rpy = fma(c, ry, s * rx)
+    else:
+        rpx = fma(c, rx, -(s * ry))
+        rpy = fma(s, rx, c * ry)
     nx = fma(-rpx, div, rpx - rx) + dnx_
     ny = fma(-rpy, div, rpy - ry) + dny_
     kx = mul_recip(nx, float(NZ))

@@ -2,9 +2,10 @@
 
 Counterpart of ``better_flow_tpu/runtime/checkpoint.py``, in its version-2
 ``.npz`` format: a stream checkpointed by the JAX package resumes here, and
-the reverse.  The state carried across is the motion model, the trigger
-counters, the ring buffer's events and noise flags, and the accumulated
-slices.
+the reverse.  The state carried across is the motion model (each field
+saved and loaded with its dtype, so an f64 run's totals stay f64), the
+trigger counters, the ring buffer's events and noise flags, and the
+accumulated slices.
 
 One deliberate difference: the port also writes ``DVSFlow.last_seed``, the
 secant seed the ``fast`` schedules carry from slice to slice, under the key
@@ -68,8 +69,10 @@ def load_checkpoint(path: str, engine: DVSFlow) -> DVSFlow:
     engine.last_slice_time = int(z["last_slice_time"])
     engine.current_slice_time = int(z["current_slice_time"])
     engine.frame_count = int(z["frame_count"])
+    # Each field keeps its stored dtype (f64 totals and compensations from
+    # an f64 run), as the JAX loader keeps it.
     engine.last_model = MotionModel(*(
-        torch.tensor(z[f"model_{f}"], dtype=torch.float32, device=dev)
+        torch.from_numpy(np.asarray(z[f"model_{f}"])).to(dev)
         for f in FIELDS))
     seed = (z["last_seed"] if "last_seed" in z.files
             else np.zeros(8, np.float32))

@@ -7,8 +7,11 @@ each fired slice is sorted by (32-row band, column) on the host, copied to
 the device as one packed (5, cap) f32 input from pinned memory, and run
 through ``models.global_flow.process_slice``: under the reference schedule
 one megastep launch (B5) per optimizer iteration, under the ``fast``
-presets the split pair (B1 + B2), then the final warp (B4).  The motion
-model and the secant seed carried from slice to slice stay on the device.
+presets the split pair (B1 + B2), then the final warp (B4); with f64
+totals (``PipelineConfig.f64_totals``) or ``use_megastep=False`` the
+composed loop, one B6 launch per iteration.  The motion model (f64 totals
+under ``f64_totals``) and the secant seed carried from slice to slice stay
+on the device.
 One packed output per slice comes back; every per-event output is mapped
 back through the sort's inverse permutation to the ring's order.
 
@@ -69,12 +72,7 @@ class DVSFlow:
         (9 B an event instead of 20); u/v quantise to ~1e-3 relative.
         ``device``: where the slices run (default: the card when there is
         one, else the CPU)."""
-        if cfg.f64_totals:
-            raise NotImplementedError(
-                "PipelineConfig.f64_totals: the f64 carry runs the composed "
-                "path, whose kernel B6 (fused_warp_splat) is not ported yet "
-                "(ROADMAP item 3)")
-        check_supported(cfg.optimizer)
+        check_supported(cfg.optimizer, cfg.f64_totals)
         if cfg.slice.max_events < 8:
             raise ValueError("SliceConfig.max_events < 8: the upload's "
                              "last row holds the 8-value geometry row")
@@ -83,7 +81,8 @@ class DVSFlow:
             else default_device()
         sl = cfg.slice
         self.buffer = EventRingBuffer(sl.max_events, sl.span_ns)
-        self.last_model = MotionModel.zero(self.device)
+        self.last_model = MotionModel.zero(self.device,
+                                           f64_totals=cfg.f64_totals)
         self.last_seed = torch.zeros(8, dtype=torch.float32,
                                      device=self.device)
         # Trigger state (dvs_flow.h:30-36).

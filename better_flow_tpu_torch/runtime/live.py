@@ -4,7 +4,9 @@ Counterpart of ``better_flow_tpu/runtime/live.py``: a large display buffer,
 an embedded low-latency DVSFlow (``low_latency_config()``: 30k / 0.07 s
 slices, scale 1, at most 10 iterations; bf_visualizer.cpp:33-34, 102-104),
 a point cloud of the display buffer and the three images of the last slice,
-handed to callbacks in place of the ROS topics, and a lag monitor.  The
+handed to callbacks in place of the ROS topics, and a lag monitor.  With
+``low_latency_config().replace(f64_totals=True)`` the embedded engine
+carries f64 totals and runs the composed loop (B6) at scale 1.  The
 numpy parts (``LagMonitor``, ``point_cloud``) are carried over as they are:
 that module cannot be imported from here, because ``better_flow_tpu.runtime``
 imports JAX.  The images are ``better_flow_tpu.viz.images``'s.

@@ -8,17 +8,20 @@ Counterpart of ``better_flow_tpu/runtime/scan_pipeline.py`` (the path
    to the device from pinned memory without blocking, batch by batch, so a
    batch's copy overlaps the next batch's sort.
 2. Device: a Python loop over the slices.  Per slice the activity rows are
-   built from the window-gate history and the optimizer runs through the
-   four kernels.  The gates, the history and the geometry are host values
-   known after staging, so the loop reads the device only for the
+   built from the window-gate history (B3) and the optimizer runs through
+   the kernels: the megastep drive (B5, or B1 + B2) with B4, or, for f64
+   totals (``PipelineConfig.f64_totals``) or ``use_megastep=False``, the
+   composed loop on B6.  The gates, the history and the geometry are host
+   values known after staging, so the loop reads the device only for the
    optimizer's continue flag.
 3. First-slice-wins accumulation into per-event arrays on the device, one
    slice at a time in reverse order, then one fetch to the host.
 
-The carry between slices is (model, seed, gate history): the model and the
-(12,) seed live on the device, the (K,) gate history [fired, start, end] on
-the host.  Recordings the JAX package routes to its cold path, range
-staging (``slice_range``) and the numpy staging fallback are not ported.
+The carry between slices is (model, seed, gate history): the model (f64
+totals under ``f64_totals``) and the (12,) f32 seed live on the device,
+the (K,) gate history [fired, start, end] on the host.  Recordings the
+JAX package routes to its cold path, range staging (``slice_range``) and
+the numpy staging fallback are not ported.
 """
 
 from __future__ import annotations
@@ -214,7 +217,7 @@ def make_carry(init_model: MotionModel, hist_k: int):
     the previous slice (4)], here zeros and the model's own totals; the
     (K,) gate history is host numpy (bool fired, int32 start, int32 end,
     -1 when empty).  ``convert.carry_from_numpy`` builds a hand-off carry."""
-    tot0 = init_model.totals4()
+    tot0 = init_model.totals4().to(torch.float32)
     seed12 = torch.cat([torch.zeros(8, dtype=torch.float32,
                                     device=tot0.device), tot0])
     return (init_model, seed12, np.zeros(hist_k, bool),
@@ -259,7 +262,7 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0):
     syncs = 0
     for s in range(S):
         act = act_rows_call(sidx[s], hist[s])
-        cur_tot = model.totals4()
+        cur_tot = model.totals4().to(torch.float32)   # the seed row is f32
         res, uvn_s = process_slice(
             stat[s], act, model, opt, cfg.sensor,
             prepared["bbox"][s], int(prepared["nval"][s]),
@@ -270,6 +273,7 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0):
         iters[s] = res.iters
         ran[s] = res.ran
         syncs += res.iters   # one continue-flag read per iteration
+        # (either drive: the megastep's state flag or the composed loop's)
     return (model, sd) + hist_end, uvn, iters, ran, syncs
 
 
@@ -307,9 +311,7 @@ def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
     ``make_carry`` and ``convert.carry_from_numpy``) to continue a
     warm-start chain."""
     cfg = cfg or PipelineConfig()
-    if cfg.f64_totals:
-        raise NotImplementedError("PipelineConfig.f64_totals")
-    check_supported(cfg.optimizer)
+    check_supported(cfg.optimizer, cfg.f64_totals)
     if prepared is None:
         prepared = prepare_recording(x, y, t_ns, cfg, device=device)
     dev = prepared["device"]
@@ -320,7 +322,7 @@ def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
         carry0 = carry_in
     else:
         model0 = init_model if init_model is not None \
-            else MotionModel.zero(dev)
+            else MotionModel.zero(dev, f64_totals=cfg.f64_totals)
         carry0 = make_carry(model0, prepared["hist_k"])
 
     launches0 = dict(LAUNCHES)

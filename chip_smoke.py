@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the five CUDA kernels of
+Run from the root of a checkout.  It builds the six CUDA kernels of
 ``better_flow_tpu_torch/csrc`` and then, in phases that each raise on
 failure:
 
@@ -15,7 +15,8 @@ failure:
    time of kernel and twin over 25 runs (CUDA events); the megastep (B5)
    also at the live preset's scale-1 shapes (15 chunks, 192x256 images),
    bitwise equal to its twin and to the B1 -> B2 kernel chain, with the
-   chain's time beside its own;
+   chain's time beside its own; the composed path's kernel (B6) on the
+   warp rows of an f32 and of an f64 carry, bitwise equal to its twin;
 3. the scan, ``compensate_recording_scan`` with ``OptimizerConfig.fast()``,
    on the 2,000,000-event bench stream of ``bench.py`` (one warm-up run,
    then a measured run), with every kernel's launch count in that run;
@@ -26,7 +27,14 @@ failure:
    ``fast()`` (B1 + B2 + B4), each run twice (bitwise equal), with the
    launch counts and host syncs, and against the CPU twins on the first
    200,000 events;
-7. the CLI, ``--bufferize-file -o`` on the card, against the library call.
+7. the CLI, ``--bufferize-file -o`` on the card, against the library call;
+8. the composed path (one B6 launch per iteration, the scalar update
+   between launches): the scan with f64 totals (``PipelineConfig(
+   f64_totals=True)``, reference schedule) on the 2M events, run twice
+   (bitwise equal), with its launch counts, and against the CPU twins on
+   the first 200,000 events; then the stream on those 200,000 events with
+   f64 totals and with ``fast(use_megastep=False)``, each against the CPU
+   twins.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -50,6 +58,8 @@ KERNELS = [   # name, source, the TPU kernel's pallas_call it replaces
      f"{PALLAS}:1778"),
     ("warp_uv", "better_flow_tpu_torch/csrc/warp_uv.cu", f"{PALLAS}:1559"),
     ("megastep", "better_flow_tpu_torch/csrc/megastep.cu", f"{PALLAS}:1458"),
+    ("fused_warp_splat", "better_flow_tpu_torch/csrc/fused_warp_splat.cu",
+     f"{PALLAS}:664"),
 ]
 N_EVENTS = 2_000_000
 N_COMPARE = 200_000
@@ -230,10 +240,152 @@ def phase_kernels(cfg, d, dev):
         max_abs_err=max(max_err(o, o_p), max_err(u, u_p)),
         ms=timed(lambda: fm.warp_uv_call(stat, npr, act, st, 0.0)),
         plain_ms=timed(lambda: fm.warp_uv_plain(stat, npr, act, st, 0.0)))
+    out["fused_warp_splat"] = check_b6(stat, act, pr, st, geo, opt.scale, H,
+                                       W, dev)
     for name, r in out.items():
         log(f"[kernels] {name}: max_abs_err {r['max_abs_err']:.3g}  kernel "
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
     return out, dict(stat=stat, act=act, pr=pr, st=st, geo=geo)
+
+
+def check_b6(stat, act, pr, st, geo, scale, H, W, dev):
+    """B6 against its twin on the warp row of an f32 carry (the state's
+    model) and of an f64 carry (f64 totals whose angle's f32 rounding
+    changes the row's sine): new positions and the seven sums bitwise.
+    Returns the f32 row's errors and median times."""
+    import torch
+
+    from better_flow_tpu_torch.models.global_flow import model_from_state
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.warp import cos_sin_f32
+
+    m32 = model_from_state(st)
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    angle = 0.02603218874814671
+    m64 = m32.replace(total_dx=f64(float(m32.total_dx) + 1e-10),
+                      total_dy=f64(float(m32.total_dy) - 1e-10),
+                      total_rot=f64(angle), total_div=f64(float(
+                          m32.total_div)), comp_dx=f64(0.0), comp_dy=f64(0.0),
+                      comp_rot=f64(0.0), comp_div=f64(0.0))
+    _, s32 = cos_sin_f32(torch.tensor(-angle, dtype=torch.float32))
+    res = {}
+    for name, model in (("f32", m32), ("f64", m64)):
+        scal = fm.warp_scal_row(geo, model)
+        if name == "f64" and float(scal[0, 10]) == float(s32):
+            raise AssertionError("B6 f64 row: the sine of the f32-cast angle")
+        kw = dict(scale=scale, H=H, W=W)
+        npr, vals = fm.fused_warp_splat_call(stat, act, pr, scal, **kw)
+        npr_p, vals_p = fm.fused_warp_splat_plain(stat, act, pr, scal, **kw)
+        err = max(max_err(npr, npr_p), max_err(vals, vals_p))
+        if err != 0.0:
+            raise AssertionError(f"fused_warp_splat {name} row: max abs error "
+                                 f"{err} against its twin")
+        if float(vals[0]) < 10_000 or float(vals[7]) != 0.0:
+            raise AssertionError(f"fused_warp_splat {name} row: sums "
+                                 f"{vals.tolist()}")
+        res[name] = dict(
+            max_abs_err=err,
+            ms=timed(lambda: fm.fused_warp_splat_call(stat, act, pr, scal,
+                                                      **kw)),
+            plain_ms=timed(lambda: fm.fused_warp_splat_plain(stat, act, pr,
+                                                             scal, **kw)))
+        log(f"[kernels] fused_warp_splat {name} row: max_abs_err {err:.3g}  "
+            f"kernel {res[name]['ms']:.4f} ms  plain "
+            f"{res[name]['plain_ms']:.4f} ms")
+    return res["f32"]
+
+
+def phase_composed(d, dev):
+    """The composed path on the bench stream: the f64-totals scan twice
+    (bitwise equal) with its launch counts, against the CPU twins on the
+    first N_COMPARE events; the stream with f64 totals and with
+    ``fast(use_megastep=False)`` against the CPU twins on those events.
+    Returns the scan's launch counts."""
+    import numpy as np
+    import torch
+
+    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.runtime.offline import compensate_recording
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        compensate_recording_scan, prepare_recording,
+    )
+
+    t_phase = time.perf_counter()
+    n = len(d["x"])
+    cfg = PipelineConfig(f64_totals=True)
+    prep = prepare_recording(d["x"], d["y"], d["t_ns"], cfg, device=dev)
+    compensate_recording_scan(None, None, None, cfg, prepared=prep)  # warm-up
+    fm.reset_launches()
+    r1 = compensate_recording_scan(None, None, None, cfg, prepared=prep)
+    launches = dict(fm.LAUNCHES)
+    check_outputs(r1, n)
+    if r1["model"].total_dx.dtype != torch.float64:
+        raise AssertionError("composed scan: the carry left f64")
+    for k in ("fused_warp_splat", "act_rows"):
+        if launches[k] <= 0:
+            raise AssertionError(f"composed scan: {k} was not launched")
+    for k in ("megastep", "warp_images_st", "megastep_finish"):
+        if launches[k] != 0:
+            raise AssertionError(f"composed scan: {k} launched {launches[k]} "
+                                 "times")
+    if launches["fused_warp_splat"] != int(r1["iters"].sum()):
+        raise AssertionError("composed scan: B6 launches != iterations")
+    st = r1["stats"]
+    log(f"[composed] f64 scan: events/s {st['events_per_s']:.1f}  run_s "
+        f"{st['run_s']:.4f}  n_slices {st['n_slices']}  mean_iters "
+        f"{st['mean_iters']:.4f}  host_syncs {st['host_syncs']}  "
+        f"host_ms_per_iter {1e3 * st['run_s'] / max(1, st['host_syncs']):.4f}")
+    log(f"[composed] launches {json.dumps(launches)}")
+    r2 = compensate_recording_scan(None, None, None, cfg, prepared=prep)
+    for k in ("u", "v", "noise", "iters"):
+        if not np.array_equal(r1[k], r2[k]):
+            raise AssertionError(f"composed scan: repeated run differs in {k}")
+    log(f"[composed] second run bitwise identical; events/s "
+        f"{r2['stats']['events_per_s']:.1f}")
+
+    m = N_COMPARE
+    part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
+    rg = compensate_recording_scan(part["x"], part["y"], part["t_ns"], cfg,
+                                   device=dev)
+    rc = compensate_recording_scan(part["x"], part["y"], part["t_ns"], cfg,
+                                   device="cpu")
+    same_twins("composed f64 scan", rg, rc)
+    log(f"[composed] f64 scan: card = CPU twins on {m} events "
+        f"({int(rg['iters'].sum())} iterations, median du = dv = 0)")
+
+    for name, c in (("f64 stream", cfg),
+                    ("fast(use_megastep=False) stream", PipelineConfig(
+                        optimizer=OptimizerConfig.fast(use_megastep=False)))):
+        fm.reset_launches()
+        vg = stream_view(compensate_recording(part["x"], part["y"],
+                                              part["t_ns"], c, device=dev))
+        lc = dict(fm.LAUNCHES)
+        if lc["fused_warp_splat"] != int(vg["iters"].sum()) or \
+                lc["megastep"] or lc["warp_images_st"]:
+            raise AssertionError(f"composed {name}: launches {lc}")
+        vc = stream_view(compensate_recording(part["x"], part["y"],
+                                              part["t_ns"], c, device="cpu"))
+        same_twins(f"composed {name}", vg, vc)
+        log(f"[composed] {name}: card = CPU twins on {m} events ("
+            f"{int(vg['iters'].sum())} iterations, median du = dv = 0)")
+    log(f"[composed] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def same_twins(name, g, c):
+    """Card run ``g`` against CPU-twin run ``c``: the same noise and
+    iterations, median |du| = |dv| = 0."""
+    import numpy as np
+
+    for k in ("noise", "iters"):
+        if not np.array_equal(g[k], c[k]):
+            raise AssertionError(f"{name}: card and CPU twins differ in {k}")
+    du = float(np.median(np.abs(g["u"] - c["u"])))
+    dv = float(np.median(np.abs(g["v"] - c["v"])))
+    if du != 0.0 or dv != 0.0:
+        raise AssertionError(f"{name}: median |du|, |dv| = {du}, {dv} "
+                             "against the CPU twins")
 
 
 def live_slice_inputs(d, dev):
@@ -595,10 +747,12 @@ def main():
     phase_cli(d, dev)
     log(f"[stream+cli] phases {time.perf_counter() - t_phase:.1f} s")
     # Each kernel's launches in the path that first needs it: the scan for
-    # B1-B4, the reference-schedule stream for the megastep.
+    # B1-B4, the reference-schedule stream for the megastep ...
     launches["megastep"] = stream_launches["reference"]["megastep"]
     if launches["megastep"] <= 0:
         raise AssertionError("megastep was not launched by the stream")
+    # ... and the f64-totals scan for B6.
+    launches["fused_warp_splat"] = phase_composed(d, dev)["fused_warp_splat"]
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

@@ -145,6 +145,7 @@ def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
     rg, rc, rg2 = run(cuda), run("cpu"), run(cuda)
     launches = rg["stats"]["launches"]
     assert launches.pop("megastep") == 0        # fast(): the split pair
+    assert launches.pop("fused_warp_splat") == 0   # not the composed loop
     assert all(v > 0 for v in launches.values())
     np.testing.assert_array_equal(rg["noise"], rc["noise"])
     np.testing.assert_array_equal(rg["ran"], rc["ran"])
@@ -228,6 +229,91 @@ def test_stream_on_card_matches_cpu_twins_and_repeats(cuda, schedule):
         assert rg["launches"]["warp_images_st"] == n_iters
         assert rg["launches"]["megastep"] == 0
     assert rg["launches"]["warp_uv"] == int(rg["ran"].sum())
+    flow_gates(rg, rc)
+    for k in ("u", "v", "noise", "iters"):
+        np.testing.assert_array_equal(rg[k], rg2[k])
+
+
+def _carry_models(st, dev):
+    """The model of state ``st`` (an f32 carry) and an f64 carry of the
+    same warp whose angle's f32 rounding changes the row's sine."""
+    from better_flow_tpu_torch.models.global_flow import model_from_state
+
+    m32 = model_from_state(st)
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    m64 = m32.replace(
+        total_dx=f64(float(m32.total_dx)), total_dy=f64(float(m32.total_dy)),
+        total_rot=f64(0.02603218874814671),
+        total_div=f64(float(m32.total_div)), comp_dx=f64(0.0),
+        comp_dy=f64(0.0), comp_rot=f64(0.0), comp_div=f64(0.0))
+    return {"f32": m32, "f64": m64}
+
+
+@pytest.mark.parametrize("carry", ["f32", "f64"])
+@pytest.mark.parametrize("res,nch", [((24, 32), NCH), ((180, 240), 8)])
+def test_fused_warp_splat_kernel_matches_twin(cuda, res, nch, carry):
+    """B6 against its twin on the card, on the warp row of an f32 and of
+    an f64 carry: new positions and the seven sums bitwise, the eighth
+    value (the TPU kernel's window fallbacks) 0."""
+    Hs, Ws = image_shape(res, SCALE)
+    keys = ("stat", "act", "pr", "st", "geo")
+    _, gpu = _both(slice_inputs(2, res=res, nch=nch), keys, cuda)
+    stat, act, pr, st, geo = gpu
+    scal = tfm.warp_scal_row(geo, _carry_models(st, cuda)[carry])
+    kw = dict(scale=SCALE, H=Hs, W=Ws)
+    npr, vals = _launched("fused_warp_splat",
+                          lambda: tfm.fused_warp_splat_call(stat, act, pr,
+                                                            scal, **kw))
+    npr_p, vals_p = tfm.fused_warp_splat_plain(stat, act, pr, scal, **kw)
+    assert torch.equal(npr, npr_p) and torch.equal(vals, vals_p)
+    assert float(vals[0]) > 3000 and float(vals[7]) == 0.0
+    # ... and equal to B1's splat of the time pair followed by B2's sums.
+    cpu = [t.cpu() for t in (stat, act, pr, scal)]
+    npr_c, vals_c = tfm.fused_warp_splat_call(*cpu, **kw)
+    assert torch.equal(npr.cpu(), npr_c)
+    np.testing.assert_array_equal(vals.cpu().numpy(), vals_c.numpy())
+
+
+@pytest.mark.parametrize("case", ["f64_scan", "f64_stream",
+                                  "fast_nomega_stream"])
+def test_composed_path_on_card_matches_cpu_twins(cuda, case):
+    """The composed loop on the card against the CPU twins: the f64 scan,
+    the f64 stream (reference schedule) and ``fast(use_megastep=False)``
+    on 24x32 recordings; one B6 launch per iteration and no megastep
+    kernel; the f64 carry stays f64; a second card run bitwise the same."""
+    d = synthetic_events(20000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
+                         vy=-14.0, seed=4)
+    if case == "fast_nomega_stream":
+        cfg = small_cfg(use_megastep=False)
+    else:
+        cfg = small_cfg().replace(
+            f64_totals=True, optimizer=OptimizerConfig(scale=3,
+                                                       min_events=500))
+
+    def run(dev):
+        before = dict(tfm.LAUNCHES)
+        if case == "f64_scan":
+            r = tscan.compensate_recording_scan(d["x"], d["y"], d["t_ns"],
+                                                cfg, device=dev)
+            model = r["model"]
+        else:
+            r = toff.compensate_recording(d["x"], d["y"], d["t_ns"], cfg,
+                                          device=dev)
+            acc, sl = r["accumulated"], r["engine"].slices
+            r = dict(noise=acc["noise"], u=acc["u"], v=acc["v"],
+                     iters=np.array([s.iters for s in sl]))
+            r["ran"] = r["iters"] > 0
+            model = sl[-1].model
+        r["launches"] = {k: tfm.LAUNCHES[k] - before[k] for k in before}
+        r["dtype"] = model.total_rot.dtype
+        return r
+
+    rg, rc, rg2 = run(cuda), run("cpu"), run(cuda)
+    want = torch.float32 if case == "fast_nomega_stream" else torch.float64
+    assert rg["dtype"] == rc["dtype"] == want
+    assert rg["launches"]["fused_warp_splat"] == int(rg["iters"].sum())
+    for k in ("megastep", "warp_images_st", "megastep_finish"):
+        assert rg["launches"][k] == 0, k
     flow_gates(rg, rc)
     for k in ("u", "v", "noise", "iters"):
         np.testing.assert_array_equal(rg[k], rg2[k])

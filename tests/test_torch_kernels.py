@@ -107,8 +107,12 @@ def test_kahan_add_totals_matches_jax():
         tm = tm.add_totals(*(torch.tensor(v) for v in d))
     for f in JaxModel._fields:
         assert float(getattr(tm, f)) == float(getattr(jm, f)), f
-    with pytest.raises(NotImplementedError, match="f64_totals"):
-        MotionModel.zero(f64_totals=True)
+    # Under f64 totals the totals and compensations are f64, the rest f32.
+    m64 = MotionModel.zero(f64_totals=True)
+    for f in JaxModel._fields:
+        want = torch.float64 if f.startswith(("total_", "comp_")) \
+            else torch.float32
+        assert getattr(m64, f).dtype == want, f
 
 
 # ------------------------------------------------------------ kernels

@@ -176,8 +176,19 @@ def test_skip_branch_too_few_events_matches_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("warm_extrapolate", 0.5), ("megastep_merged", True), ("splat_pair", 2),
-    ("megastep_unroll", 2), ("use_megastep", False), ("scatter_mode", "xla"),
-    ("scatter_mode", "rep")])
+    ("megastep_unroll", 2), ("scatter_mode", "xla"), ("scatter_mode", "rep")])
 def test_unported_configurations_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         check_supported(OptimizerConfig.fast(**{field: value}))
+
+
+@pytest.mark.parametrize("schedule", ["fast", "reference"])
+def test_use_megastep_off_takes_composed_loop(scene, schedule):
+    """``use_megastep=False`` is supported under both schedules and runs
+    the composed loop (B6 + the scalar update), whose result is the JAX
+    package's composed loop's."""
+    cfg = _cfg(use_megastep=False, schedule=schedule)
+    check_supported(cfg.optimizer)
+    rj, uvn_j, rt, uvn_t = _run_both(scene, 5, cfg)
+    assert rt.ran and rt.iters >= 2
+    _assert_slice_close(rj, uvn_j, rt, uvn_t)

@@ -262,13 +262,19 @@ def test_event_slice_and_chunk_layouts_match_jax():
 
 
 def test_f64_totals_raises():
+    """f64 totals with the ``fast`` schedule raise at construction, naming
+    the JAX package's defect; under the reference schedule the engine
+    builds with an f64 carry (test_torch_composed.py runs it)."""
     cfg = _small_cfg("fast").replace(f64_totals=True)
     for make in (lambda: tdvs.DVSFlow(cfg, device="cpu"),
                  lambda: toff.compensate_recording(
                      np.zeros(10), np.zeros(10), np.arange(10), cfg,
                      device="cpu")):
-        with pytest.raises(NotImplementedError, match="B6.*ROADMAP item 3"):
+        with pytest.raises(NotImplementedError, match="fast.*TypeError"):
             make()
+    flow = tdvs.DVSFlow(_small_cfg("reference").replace(f64_totals=True),
+                        device="cpu")
+    assert flow.last_model.total_rot.dtype == torch.float64
 
 
 # --------------------------------------------------------- checkpoint
