@@ -1,30 +1,43 @@
 """better_flow_tpu_torch — motion compensation in PyTorch, with hand-written
 CUDA kernels for NVIDIA Hopper.
 
-A port of ``better_flow_tpu``'s scanned path (``compensate_recording_scan``)
-and streaming entry point (``DVSFlow``, ``offline.compensate_recording``,
-the streaming checkpoint, the live frontend and the CLI).  It imports
-PyTorch and never JAX; it reuses the JAX package's numpy-only modules
-(``better_flow_tpu.config``, ``better_flow_tpu.io``, ``better_flow_tpu.viz``,
-the CLI's argument parser).  Module names mirror the JAX package:
+A port of ``better_flow_tpu``'s scanned path (``compensate_recording_scan``),
+its streaming entry point (``DVSFlow``, ``offline.compensate_recording``,
+the streaming checkpoint, the live frontend and the CLI) and its scale-out
+by events and by slice ranges (``parallel``).  It imports PyTorch, never
+JAX, and nothing of the JAX package: ``config``, ``io``, ``viz`` and the
+CLI's argument parser are its own numpy-only copies.  Module names mirror
+the JAX package:
 
+* ``config``   — constants, the frozen config dataclasses, the presets;
 * ``ops``      — ``layout`` (chunk layout, state slots), ``warp`` (the
-                 per-event warp), ``fused_model`` (the five kernel wrappers
-                 with their plain twins), ``_build`` (nvcc build of
-                 ``csrc/``);
+                 per-event warp), ``fused_model`` (the eight kernel
+                 wrappers with their plain twins), ``_build`` (nvcc build
+                 of ``csrc/``);
 * ``core``     — ``model`` (the 4-parameter motion model), ``events``
-                 (``EventSlice``);
-* ``models``   — ``global_flow`` (one slice through the optimizer);
-* ``runtime``  — ``scan_pipeline`` (staging, the slice loop,
-                 accumulation, ``compensate_recording_scan``), ``dvs_flow``
-                 (the streaming slice manager), ``slice_buffer``,
+                 (``EventSlice``, ``bounding_box``);
+* ``models``   — ``global_flow`` (one slice through the optimizer, with
+                 the event-parallel image-sum seam);
+* ``runtime``  — ``scan_pipeline`` (staging of recordings, ranges and
+                 shards, the slice loop, accumulation,
+                 ``compensate_recording_scan``), ``dvs_flow`` (the
+                 streaming slice manager), ``slice_buffer``,
                  ``accumulate``, ``offline``, ``checkpoint``, ``live``;
+* ``parallel`` — ``comm`` (collectives over ``torch.distributed``),
+                 ``mesh`` (shard groups), ``event_parallel``,
+                 ``distributed``, ``multihost``, ``temporal``;
+* ``io``       — event files, the synthetic stream, the native staging
+                 library's loader, the socket transport;
+* ``viz``      — the image products of the live frontend;
 * ``cli``      — ``motion_compensator``;
 * ``convert``  — the scan carry to and from the JAX package's numpy form.
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run
-the plain PyTorch twins, which is how the CPU tests run the port.
+the plain PyTorch twins, which is how the CPU tests run the port.  An entry
+point runs on the card unless its caller passes ``device="cpu"``.
 """
+
+__version__ = "0.1.0"
 
 from better_flow_tpu_torch.runtime.dvs_flow import DVSFlow
 from better_flow_tpu_torch.runtime.offline import compensate_recording

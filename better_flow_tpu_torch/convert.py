@@ -6,7 +6,11 @@ run can start from.  ``carry_from_numpy`` turns the JAX package's
 ``make_carry`` tuple, given as numpy, into this package's carry, and
 ``carry_to_numpy`` does the reverse, so both packages can start mid-chain
 from the same state.  An f64-totals carry (``PipelineConfig.f64_totals``)
-keeps its totals and compensations f64 both ways.
+keeps its totals and compensations f64 both ways.  The gate history travels
+with the carry, so a range run of one package (``prepare_recording(
+slice_range=...)``, ``parallel.multihost``) can start from the carry the
+other package's previous range ended with: ``carry_from_jax`` and
+``carry_to_jax`` take and give the JAX package's own tuple layout.
 """
 
 from __future__ import annotations
@@ -43,8 +47,14 @@ def carry_from_numpy(model_fields: Union[Mapping, Sequence], seed12, ws_h,
                      else np.float32(v), device=device)
         for f, v in zip(FIELDS, vals)))
     seed = torch.tensor(np.asarray(seed12, np.float32).reshape(-1))
+    if seed.shape[0] == 8:
+        # An (8,) seed is padded as the JAX package's make_carry pads it:
+        # with the model's own totals (rot, div, dx, dy).
+        seed = torch.cat([seed, model.totals4().to(torch.float32).cpu()])
     if seed.shape[0] != 12:
-        raise ValueError(f"seed12: {seed.shape[0]} values, expected 12")
+        raise ValueError(f"seed12: {seed.shape[0]} values, expected 8 or 12")
+    if not len(ws_h) == len(st_h) == len(en_h):
+        raise ValueError("gate history: ws_h, st_h and en_h differ in length")
     return (model, seed.to(device),
             np.asarray(ws_h, bool).copy(), np.asarray(st_h, np.int32).copy(),
             np.asarray(en_h, np.int32).copy())
@@ -60,5 +70,26 @@ def carry_to_numpy(carry):
     vals = torch.stack([getattr(model, f).to(dt) for f in FIELDS])
     return (vals.cpu().numpy(),
             seed.cpu().numpy().astype(np.float32),
+            np.asarray(ws_h, bool).copy(), np.asarray(st_h, np.int32).copy(),
+            np.asarray(en_h, np.int32).copy())
+
+
+def carry_from_jax(carry_np, device="cpu"):
+    """The JAX package's carry tuple ``(model, seed, ws_h, st_h, en_h)``,
+    fetched to numpy (``jax.tree_util.tree_map(np.asarray, carry)``; the
+    model a 15-tuple in field order), as this package's hand-off carry."""
+    model, seed, ws_h, st_h, en_h = carry_np
+    return carry_from_numpy(tuple(model), seed, ws_h, st_h, en_h,
+                            device=device)
+
+
+def carry_to_jax(carry):
+    """This package's carry in the JAX package's tuple layout, all numpy:
+    ``(15 model values each in its own dtype, seed12, ws_h, st_h, en_h)``,
+    ready for ``MotionModel(*map(jnp.asarray, model))`` and ``make_carry``
+    over there."""
+    model, seed, ws_h, st_h, en_h = carry
+    vals = tuple(getattr(model, f).cpu().numpy() for f in FIELDS)
+    return (vals, seed.cpu().numpy().astype(np.float32),
             np.asarray(ws_h, bool).copy(), np.asarray(st_h, np.int32).copy(),
             np.asarray(en_h, np.int32).copy())

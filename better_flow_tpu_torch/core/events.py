@@ -61,3 +61,35 @@ def make_slice(x, y, t, capacity: Optional[int] = None, noise=None,
     return EventSlice(x=dev(x), y=dev(y), t=dev(t),
                       valid=torch.from_numpy(valid).to(device),
                       noise=dev(noise, False))
+
+
+def bounding_box(ev, comm=None):
+    """Integer bbox (x_min, x_max, y_min, y_max) over all valid events,
+    noise-flagged ones included (OptimizerRolling::set_cloud,
+    optimizer_rolling.h:252-261), as host ints; (0, 0, 0, 0) for an empty
+    slice, which the window gate then rejects.  ``ev`` is an ``EventSlice``
+    or a sequence of this process's shards of one; with ``comm`` (a
+    ``parallel.comm`` communicator) the bbox is reduced over its ranks in
+    one all-reduce.  One device read."""
+    shards = [ev] if isinstance(ev, EventSlice) else list(ev)
+    big = 1 << 30
+    rows = []
+    for e in shards:
+        xi, yi = e.x.to(torch.int32), e.y.to(torch.int32)
+        hi = torch.full_like(xi, big)
+        # One minimum serves all five: maxima and "any" enter negated.
+        rows.append(torch.stack([
+            torch.where(e.valid, xi, hi).min(),
+            torch.where(e.valid, -xi, hi).min(),
+            torch.where(e.valid, yi, hi).min(),
+            torch.where(e.valid, -yi, hi).min(),
+            -e.valid.any().to(torch.int32)]) if xi.numel() else
+            torch.tensor([big, big, big, big, 0], dtype=torch.int32,
+                         device=xi.device))
+    v = torch.stack(rows).min(dim=0).values
+    if comm is not None and comm.size > 1:
+        v, = comm.all_reduce_min([v])
+    x_min, nx_max, y_min, ny_max, nany = v.tolist()
+    if nany == 0:
+        return 0, 0, 0, 0
+    return x_min, -nx_max, y_min, -ny_max

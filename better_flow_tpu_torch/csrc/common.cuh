@@ -64,7 +64,7 @@ __device__ inline Warp warp_from_state(const float* st) {
 }
 
 // Warp scalars from a (1, 16) row [x_sh, y_sh, w_dyn, h_dyn, dnx, dny, cx,
-// cy, divp, cos, sin, 0...] that the caller built (fused_warp_splat.cu).
+// cy, divp, cos, sin, 0...] that the caller built (warp_splat_images.cu).
 __device__ inline Warp warp_from_row(const float* scal) {
   Warp w;
   w.dnx = scal[4];
@@ -106,9 +106,9 @@ __device__ inline float bf16_round(float v) {
 }
 
 // Warp + splat of event i (chunk i / CHUNK, slot i % CHUNK), shared by
-// warp_images_st.cu (B1), megastep.cu (B5) and fused_warp_splat.cu (B6):
-// re-warp with ``w`` (B1 and B5 take it from the state vector's totals, B6
-// from its caller's row), write the new position, scale, truncate to a
+// warp_images_st.cu (B1), megastep.cu (B5) and warp_splat_images.cu (B7a,
+// which fused_warp_splat.cu, B6, calls): re-warp with ``w`` (B1 and B5 take
+// it from the state vector's totals, B6 and B7a from their caller's row), write the new position, scale, truncate to a
 // pixel, accept inside the dynamic window given by geo[0..3], and add the
 // event's fixed-point time weight and a count of one to its pixel (see
 // warp_images_st.cu).

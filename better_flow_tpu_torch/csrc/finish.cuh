@@ -1,6 +1,7 @@
 // The finish of one optimizer iteration, shared by megastep_finish.cu (B2),
-// megastep.cu (B5) and fused_warp_splat.cu (B6): image -> gradient sums ->
-// next state (B6 stops at the seven sums).
+// megastep.cu (B5) and finish_partials.cu (B7b, which fused_warp_splat.cu,
+// B6, calls): image -> gradient sums -> next state (B6 and B7b stop at the
+// seven sums).
 //
 // _finish_values of the TPU kernel (box filter, count normalisation, mask to
 // the logical H x W image, all-nine nonzero mask, Scharr, seven sums) as

@@ -17,6 +17,17 @@ branch, ``process_slice`` and ``_run_fused``, which takes one of two drives:
 The slice gates depend only on the host-side bbox and event count, so the
 host decides them without reading the device; either loop reads one
 continue flag from the device per iteration.
+
+Event parallelism (the JAX package's ``axis_name`` seam).  Given an
+``EventGroup`` (``parallel.mesh``), ``process_slice`` takes one ``stat`` and
+``act`` per local shard and every iteration splits where the shards'
+pre-filter images are summed: the megastep drive runs B1 per shard, the sum
+(``ops.fused_model.sum_images``: local shards, then one all-reduce across
+ranks), then B2 once (never B5, as in the JAX package); the composed drive
+runs B7a per shard, the sum, then B7b.  The images are integers, so the sum
+is exact and every rank computes the same state from it: the continue flag
+needs no collective, and a sharded slice is bitwise the unsharded one when
+the shards are cut on chunk boundaries.
 """
 
 from __future__ import annotations
@@ -27,12 +38,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from better_flow_tpu.config import OptimizerConfig, SensorConfig
-from better_flow_tpu_torch.core.events import EventSlice
+from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
+from better_flow_tpu_torch.core.events import EventSlice, bounding_box
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.ops.fused_model import (
-    fused_warp_splat_call, megastep_call, megastep_finish_call,
-    warp_images_st_call, warp_scal_row, warp_uv_call,
+    finish_partials_call, fused_warp_splat_call,
+    fused_warp_splat_images_call, megastep_call, megastep_finish_call,
+    sum_images, warp_images_st_call, warp_scal_row, warp_uv_call,
 )
 from better_flow_tpu_torch.ops.layout import (
     CHUNK, ST_CDIV, ST_CDX, ST_CDY, ST_CNT, ST_CONT, ST_CROT, ST_CX, ST_CY,
@@ -86,6 +98,14 @@ def geometry_from_bbox(x_min, x_max, y_min, y_max, scale: int,
         (wy + scale) < (scale * sensor.res_y) // frac)
     return SliceGeometry(float(x_shift), float(y_shift), wx, wy,
                          bool(window_small))
+
+
+def slice_geometry(ev, scale: int, sensor: SensorConfig,
+                   min_window_fraction: int = 15, comm=None) -> SliceGeometry:
+    """Window geometry from the events themselves: the bbox of ``ev`` (an
+    ``EventSlice`` or this process's shards of one), reduced over ``comm``."""
+    return geometry_from_bbox(*bounding_box(ev, comm), scale, sensor,
+                              min_window_fraction)
 
 
 def geo_row(geom: SliceGeometry) -> np.ndarray:
@@ -183,44 +203,66 @@ def model_from_state(st: torch.Tensor) -> MotionModel:
         comp_div=s[ST_CDIV])
 
 
+def _as_shards(x, group) -> list:
+    """The per-shard list of a drive's ``stat`` or ``act`` argument: the
+    argument itself under an event group, else the one tensor."""
+    return list(x) if group is not None else [x]
+
+
+def _cat(parts) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def run_fused_mega(stat, act, geo, model0: MotionModel,
                    cfg: OptimizerConfig, scale: int, H: int, W: int,
-                   seed=None):
+                   seed=None, group=None):
     """The megastep drive: one unconditional iteration, then iterations
     while the state's CONT flag is set, then the final-warp epilogue.  An
     iteration is one B5 launch, or the B1 + B2 pair under
-    ``cfg.megastep_split``.  The host reads the CONT flag once per
-    iteration.  Returns (model, out (nch, 4, CHUNK), uvn, iters,
-    seed_out)."""
+    ``cfg.megastep_split``; under an event ``group`` (``stat`` and ``act``
+    one per local shard) B1 per shard, the sum of the images over shards
+    and ranks, then B2.  The host reads the CONT flag once per iteration.
+    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out); under a
+    group ``out`` and ``uvn`` hold the local shards' chunks in order."""
     statics = finish_statics(cfg)
     time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
     st = initial_state(model0, cfg, seed)
-    pr = stat[:, 0:2].contiguous()
+    stats, acts = _as_shards(stat, group), _as_shards(act, group)
+    prs = [s[:, 0:2].contiguous() for s in stats]
     iters = 0
     while True:
-        if cfg.megastep_split:
-            pr, acc_t, acc_c = warp_images_st_call(
-                stat, act, pr, st, geo, scale=scale, H=H, W=W,
-                time_lo=time_lo)
+        if group is None and not cfg.megastep_split:
+            prs[0], st = megastep_call(stats[0], acts[0], prs[0], st, geo,
+                                       scale=scale, H=H, W=W,
+                                       time_lo=time_lo, **statics)
+        else:
+            images = []
+            for k in range(len(stats)):
+                prs[k], acc_t, acc_c = warp_images_st_call(
+                    stats[k], acts[k], prs[k], st, geo, scale=scale, H=H,
+                    W=W, time_lo=time_lo)
+                images.append((acc_t, acc_c))
+            acc_t, acc_c = images[0] if group is None \
+                else sum_images(images, group.comm)
             st = megastep_finish_call(acc_t, acc_c, st, geo, scale=scale,
                                       H=H, W=W, **statics)
-        else:
-            pr, st = megastep_call(stat, act, pr, st, geo, scale=scale, H=H,
-                                   W=W, time_lo=time_lo, **statics)
         iters += 1
         if not st[0, ST_CONT].item() > 0:
             break
     seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
-    out, uvn = warp_uv_call(stat, pr, act, st, 0.0)
-    return model_from_state(st), out, uvn, iters, seed_out
+    ends = [warp_uv_call(stats[k], prs[k], acts[k], st, 0.0)
+            for k in range(len(stats))]
+    return (model_from_state(st), _cat([o for o, _ in ends]),
+            _cat([u for _, u in ends]), iters, seed_out)
 
 
 class FusedFlowState(NamedTuple):
     """The composed loop's state: the warped positions in the kernels'
-    (nch, 2, CHUNK) layout, the model, the four f32 step dividers as 0-d
-    device tensors and the iteration count, which the host keeps."""
+    (nch, 2, CHUNK) layout, one tensor per local shard, the model, the four
+    f32 step dividers as 0-d device tensors and the iteration count, which
+    the host keeps."""
 
-    pr: torch.Tensor
+    pr: Tuple[torch.Tensor, ...]
     model: MotionModel
     x_div: torch.Tensor
     y_div: torch.Tensor
@@ -237,7 +279,7 @@ class FusedFlowState(NamedTuple):
 def _with_dividers(s: FusedFlowState, cfg: OptimizerConfig
                    ) -> FusedFlowState:
     f32 = lambda v: torch.tensor(v, dtype=torch.float32,
-                                 device=s.pr.device)
+                                 device=s.model.cx.device)
     return s._replace(x_div=f32(cfg.init_xy_divider),
                       y_div=f32(cfg.init_xy_divider),
                       rot_div=f32(cfg.init_rotdiv_divider),
@@ -297,7 +339,7 @@ def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
     step.  The secant carry is f32, as in the JAX package's f32 path.
     Returns (final state, (8,) [slope memory, last deltas])."""
     state = _with_dividers(init, cfg)
-    dev = init.pr.device
+    dev = init.model.cx.device
     f32 = torch.float32
     zeros4 = torch.zeros(4, dtype=f32, device=dev)
     slope0 = zeros4 if seed is None else seed[:4]
@@ -382,7 +424,8 @@ def drive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
     if cfg.schedule == "fast":
         return fast_loop(init, step_fn, cfg, seed=seed)
     return (adaptive_loop(init, lambda s: step_fn(s, None), cfg),
-            torch.zeros(8, dtype=torch.float32, device=init.pr.device))
+            torch.zeros(8, dtype=torch.float32,
+                        device=init.model.cx.device))
 
 
 def _to_event(c_img: torch.Tensor, shift: float, scale: int) -> torch.Tensor:
@@ -394,21 +437,40 @@ def _to_event(c_img: torch.Tensor, shift: float, scale: int) -> torch.Tensor:
 
 def run_fused_composed(stat, act, geo, geom: SliceGeometry,
                        model0: MotionModel, cfg: OptimizerConfig, scale: int,
-                       H: int, W: int, seed=None):
+                       H: int, W: int, seed=None, group=None):
     """The composed drive (``_run_fused``'s loop without the megastep): per
     iteration one B6 launch on the warp of the current model, then the
     model update from its seven sums in 0-d tensor operations on the
     device (the model's dtype: f64 totals stay f64), the centroid back to
     event coordinates, and the schedule's exit test, read once by the host.
+    Under an event ``group`` (``stat`` and ``act`` one per local shard) the
+    B6 launch becomes B7a per shard, the sum of the images over shards and
+    ranks, then B7b: bitwise the same seven sums.
     The epilogue warps the events once more with the f32-cast totals and
     packs [u, v, noise] in plain tensor operations, as the JAX package's
     XLA epilogue does (its arithmetic differs from B4's, see
     ``project_4param_reinit_cs``).
-    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out)."""
+    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out); under a
+    group ``out`` and ``uvn`` hold the local shards' chunks in order."""
+    stats, acts = _as_shards(stat, group), _as_shards(act, group)
+
     def step(s: FusedFlowState, update_fn=None) -> FusedFlowState:
         m = s.model
-        pr, p = fused_warp_splat_call(stat, act, s.pr, warp_scal_row(geo, m),
-                                      scale=scale, H=H, W=W)
+        scal = warp_scal_row(geo, m)
+        if group is None:
+            pr0, p = fused_warp_splat_call(stats[0], acts[0], s.pr[0], scal,
+                                           scale=scale, H=H, W=W)
+            pr = (pr0,)
+        else:
+            pr, images = [], []
+            for k in range(len(stats)):
+                npr, acc_t, acc_c, _fb = fused_warp_splat_images_call(
+                    stats[k], acts[k], s.pr[k], scal, scale=scale, H=H, W=W)
+                pr.append(npr)
+                images.append((acc_t, acc_c))
+            acc_t, acc_c = sum_images(images, group.comm)
+            p = finish_partials_call(acc_t, acc_c, scale=scale, H=H, W=W)
+            pr = tuple(pr)
         cx_img, cy_img, terms = model_from_partials(p)
         model = m.replace(cx=cx_img, cy=cy_img, dx=terms.dx, dy=terms.dy,
                           rot=terms.rot, div=terms.div, cnt=terms.cnt)
@@ -421,42 +483,53 @@ def run_fused_composed(stat, act, geo, geom: SliceGeometry,
                               cy=_to_event(model.cy, geom.y_shift, scale))
         return s._replace(pr=pr, model=model, iters=s.iters + 1)
 
-    one = torch.ones((), dtype=torch.float32, device=stat.device)
-    init = FusedFlowState(pr=stat[:, 0:2].contiguous(), model=model0,
-                          x_div=one, y_div=one, rot_div=one, div_div=one,
-                          iters=0)
+    one = torch.ones((), dtype=torch.float32, device=stats[0].device)
+    init = FusedFlowState(
+        pr=tuple(st[:, 0:2].contiguous() for st in stats), model=model0,
+        x_div=one, y_div=one, rot_div=one, div_div=one, iters=0)
     final, seed_out = drive_loop(init, step, cfg, seed=seed)
     m = final.model
-    pr_x, pr_y, nx, ny = project_4param_reinit(
-        stat[:, 0], stat[:, 1], stat[:, 2], final.pr[:, 0], final.pr[:, 1],
-        -m.total_dx, -m.total_dy, m.cx, m.cy, m.total_div, -m.total_rot,
-        sin_fma=True)
-    out = torch.stack([pr_x, pr_y, nx, ny], dim=1)
-    uvn = torch.stack([nx * UV_K, ny * UV_K, 1.0 - act[:, 0]], dim=1)
-    return m, out, uvn, final.iters, seed_out
+    outs, uvns = [], []
+    for k in range(len(stats)):
+        pr_x, pr_y, nx, ny = project_4param_reinit(
+            stats[k][:, 0], stats[k][:, 1], stats[k][:, 2], final.pr[k][:, 0],
+            final.pr[k][:, 1], -m.total_dx, -m.total_dy, m.cx, m.cy,
+            m.total_div, -m.total_rot, sin_fma=True)
+        outs.append(torch.stack([pr_x, pr_y, nx, ny], dim=1))
+        uvns.append(torch.stack([nx * UV_K, ny * UV_K, 1.0 - acts[k][:, 0]],
+                                dim=1))
+    return m, _cat(outs), _cat(uvns), final.iters, seed_out
 
 
-def process_slice(stat: torch.Tensor, act: torch.Tensor,
-                  last_model: MotionModel, cfg: OptimizerConfig,
+def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
                   sensor: SensorConfig, bbox, n_valid: int,
                   warm_start: bool = True, seed=None,
                   geo: Optional[torch.Tensor] = None,
-                  ev: Optional[EventSlice] = None):
+                  ev: Optional[EventSlice] = None, group=None):
     """Process one spatially pre-sorted slice (the kernel branch).
 
     ``stat`` (nch, 3, CHUNK) and ``act`` (nch, 1, CHUNK) are the slice's
     event pack and activity rows; ``bbox`` (x_min, x_max, y_min, y_max)
-    and ``n_valid`` come from host staging; ``geo`` optionally gives the
-    (1, 8) geometry row already on the device.  Given the slice's flat
-    events ``ev``, the result's ``noise`` is ``ev.noise | (window_small &
-    ev.valid)`` (the streaming path reads it; the scan reads the noise row
-    of uvn).  Returns (SliceResult, uvn) where uvn is the (nch, 3, CHUNK)
+    and ``n_valid`` come from host staging (or, for shards, from
+    ``core.events.bounding_box`` and a summed count: the whole slice's, the
+    same on every rank); ``geo`` optionally gives the (1, 8) geometry row
+    already on the device.  Given the slice's flat events ``ev``, the
+    result's ``noise`` is ``ev.noise | (window_small & ev.valid)`` (the
+    streaming path reads it; the scan reads the noise row of uvn).
+
+    Under an event ``group`` (``parallel.mesh.EventGroup``) ``stat`` and
+    ``act`` are sequences with one tensor per local shard, the optimizer
+    splits at the image sum (see the module docstring), and the per-event
+    results hold the local shards' slots in order.
+
+    Returns (SliceResult, uvn) where uvn is the (nch, 3, CHUNK)
     [u, v, noise] pack."""
     check_supported(cfg, last_model.totals_dtype == torch.float64)
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
     geom = geometry_from_bbox(*bbox, scale, sensor, cfg.min_window_fraction)
-    dev = stat.device
+    stats, acts = _as_shards(stat, group), _as_shards(act, group)
+    dev = stats[0].device
     # As in the JAX package, a cold start is an f32 zero model.
     model = last_model if warm_start else MotionModel.zero(dev)
     ran = (not geom.window_small) and int(n_valid) >= cfg.min_events
@@ -468,16 +541,18 @@ def process_slice(stat: torch.Tensor, act: torch.Tensor,
             else functools.partial(run_fused_composed, geom=geom)
         model_out, out, uvn, iters, seed_out = drive(
             stat, act, geo, model0=model, cfg=cfg, scale=scale, H=H, W=W,
-            seed=seed)
+            seed=seed, group=group)
         pr_x, pr_y, nx, ny = (out[:, k].reshape(-1) for k in range(4))
     else:
         # The skipped slice keeps the warm-start warp (set_model) and the
         # incoming model; its events are noise when the window gate fired.
-        fx, fy, t = (stat[:, k].reshape(-1) for k in range(3))
+        fx, fy, t = (_cat([s[:, k].reshape(-1) for s in stats])
+                     for k in range(3))
         pr_x, pr_y, nx, ny = project_4param_reinit(
             fx, fy, t, fx, fy, -model.total_dx, -model.total_dy, model.cx,
             model.cy, model.total_div, -model.total_rot)
-        noise = torch.clamp(1.0 - act[:, 0], min=float(geom.window_small))
+        noise = torch.clamp(1.0 - _cat([a[:, 0] for a in acts]),
+                            min=float(geom.window_small))
         uvn = torch.stack([nx.reshape(-1, CHUNK) * UV_K,
                            ny.reshape(-1, CHUNK) * UV_K, noise], dim=1)
         model_out, iters = model, 0

@@ -15,13 +15,17 @@ wrapper                     replaces (better_flow_tpu/ops/pallas/...)
 ``warp_uv_call``            ``fused_model.warp_uv_call``
 ``megastep_call``           ``fused_model.megastep_call``
 ``fused_warp_splat_call``   ``fused_model.fused_warp_splat``
+``fused_warp_splat_images_call``  ``fused_model.fused_warp_splat_images``
+``finish_partials_call``    ``fused_model.finish_partials``
 ==========================  =============================================
 
 Images.  ``warp_images_st_call`` returns the time image as int64 fixed
 point (``FIXED_PER_SEC`` units per second) and the count image as int32,
 so that the card's atomic accumulation is exact and the same on every run
 (see csrc/warp_images_st.cu); ``time_image_f32`` gives the f32 time image
-that the JAX kernel returns.
+that the JAX kernel returns.  ``fused_warp_splat_images_call`` returns the
+same integer images: event-parallel shards sum them (``sum_images``), and
+an integer sum is exact whatever the order and the number of shards.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import ctypes
 
 import torch
 
-from better_flow_tpu.config import NONZERO_EPS
+from better_flow_tpu_torch.config import NONZERO_EPS
 from better_flow_tpu_torch.ops.layout import (
     CHUNK, ST_CNT, ST_CONT, ST_CX, ST_CY, ST_FB, ST_HAS, ST_ITERS, ST_PD,
     ST_SIZE, ST_SL, ST_TDIV, ST_TDX, ST_TDY, ST_TROT, padded_image_shape,
@@ -44,7 +48,8 @@ from better_flow_tpu_torch.ops.warp import (
 FIXED_PER_SEC = 2.0 ** 32
 
 LAUNCHES = {"act_rows": 0, "warp_images_st": 0, "megastep_finish": 0,
-            "warp_uv": 0, "megastep": 0, "fused_warp_splat": 0}
+            "warp_uv": 0, "megastep": 0, "fused_warp_splat": 0,
+            "fused_warp_splat_images": 0, "finish_partials": 0}
 
 
 def reset_launches() -> None:
@@ -330,7 +335,8 @@ def _workspace(dev: torch.device, H: int, W: int) -> dict:
     allocated at first use: the H x W f32 image, the (H, 9) f64 row sums and
     the two pre-filter images of the megastep and B6.  The kernels run in
     stream order and no scratch is returned to a caller, so one set serves
-    every call."""
+    every call (the images that B1 and B7a return are allocated per call:
+    several shards on one device each keep their own)."""
     key = (dev, H, W)
     if key not in _WORKSPACE:
         HP, WP = padded_image_shape(H, W)
@@ -579,19 +585,32 @@ def warp_scal_row(geo: torch.Tensor, model) -> torch.Tensor:
                      ).reshape(1, 16)
 
 
-def fused_warp_splat_plain(stat, act, pr, scal, *, scale: int, H: int,
-                           W: int):
-    """The twin of B6: the warp of ``warp_images_st_plain`` with the row's
-    explicit scalars, the hi+lo splat, then ``finish_values_plain``.
-    Returns (new_pr, (8,) f32 [seven sums, 0])."""
+def fused_warp_splat_images_plain(stat, act, pr, scal, *, scale: int,
+                                  H: int, W: int):
+    """The twin of B7a: the warp of ``warp_images_st_plain`` with the row's
+    explicit scalars, then the hi+lo splat.  Returns (new_pr, acc_t int64,
+    acc_c int32, 0)."""
     s = scal[0]
     prx, pry, _, _ = project_4param_reinit_cs(
         stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1], *s[4:11])
     acc_t, acc_c = _splat_plain(stat, act, prx, pry, scal, scale=scale, H=H,
                                 W=W, time_lo=True)
+    return torch.stack([prx, pry], dim=1), acc_t, acc_c, 0
+
+
+def finish_partials_plain(acc_t, acc_c, *, scale: int, H: int, W: int):
+    """The twin of B7b: ``finish_values_plain`` with a zero eighth slot."""
     vals = finish_values_plain(acc_t, acc_c, scale=scale, H=H, W=W)
-    return (torch.stack([prx, pry], dim=1),
-            torch.cat([vals, vals.new_zeros(1)]))
+    return torch.cat([vals, vals.new_zeros(1)])
+
+
+def fused_warp_splat_plain(stat, act, pr, scal, *, scale: int, H: int,
+                           W: int):
+    """The twin of B6: B7a's twin then B7b's.  Returns (new_pr, (8,) f32
+    [seven sums, 0])."""
+    npr, acc_t, acc_c, _ = fused_warp_splat_images_plain(
+        stat, act, pr, scal, scale=scale, H=H, W=W)
+    return npr, finish_partials_plain(acc_t, acc_c, scale=scale, H=H, W=W)
 
 
 def fused_warp_splat_call(stat, act, pr, scal, *, scale: int, H: int,
@@ -626,3 +645,73 @@ def fused_warp_splat_call(stat, act, pr, scal, *, scale: int, H: int,
         _ptr(ws["partials"]), nch, HP, WP, H, W, scale, _stream(dev))
     _launch("fused_warp_splat", rc)
     return npr, out
+
+
+# --------------------- B7a / B7b the composed iteration, cut at the images
+
+
+def fused_warp_splat_images_call(stat, act, pr, scal, *, scale: int, H: int,
+                                 W: int):
+    """The shard-local half of an event-parallel composed iteration: warp
+    every event slot with the (1, 16) row ``scal`` (``warp_scal_row``) and
+    splat the hi+lo time pair.  Returns (new_pr (nch, 2, CHUNK) f32, acc_t
+    (HP, WP) int64 fixed point, acc_c (HP, WP) int32, fallback_chunks).
+    The images are allocated per call, so each of several shards on one
+    device keeps its own until they are summed (``sum_images``);
+    ``fallback_chunks`` is always 0 (see ``fused_warp_splat_call``)."""
+    dev = stat.device
+    nch = stat.shape[0]
+    _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
+    _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
+    _check("pr", pr, torch.float32, (nch, 2, CHUNK), dev)
+    _check("scal", scal, torch.float32, (1, 16), dev)
+    if _on_cpu(dev):
+        return fused_warp_splat_images_plain(stat, act, pr, scal,
+                                             scale=scale, H=H, W=W)
+    from better_flow_tpu_torch.ops._build import library
+
+    HP, WP = padded_image_shape(H, W)
+    npr = torch.empty_like(pr)
+    acc_t = torch.empty((HP, WP), dtype=torch.int64, device=dev)
+    acc_c = torch.empty((HP, WP), dtype=torch.int32, device=dev)
+    rc = library().bf_warp_splat_images(
+        _ptr(scal), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr), _ptr(acc_t),
+        _ptr(acc_c), nch, HP, WP, scale, _stream(dev))
+    _launch("fused_warp_splat_images", rc)
+    return npr, acc_t, acc_c, 0
+
+
+def finish_partials_call(acc_t, acc_c, *, scale: int, H: int, W: int):
+    """The replicated half of an event-parallel composed iteration, on the
+    summed images: box filter, normalise, mask, Scharr and the seven partial
+    sums.  Returns (8,) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0],
+    bitwise ``fused_warp_splat_call``'s on the same events."""
+    dev = acc_t.device
+    HP, WP = padded_image_shape(H, W)
+    _check("acc_t", acc_t, torch.int64, (HP, WP), dev)
+    _check("acc_c", acc_c, torch.int32, (HP, WP), dev)
+    if _on_cpu(dev):
+        return finish_partials_plain(acc_t, acc_c, scale=scale, H=H, W=W)
+    from better_flow_tpu_torch.ops._build import library
+
+    out = torch.empty(8, dtype=torch.float32, device=dev)
+    ws = _workspace(dev, H, W)
+    rc = library().bf_finish_partials(
+        _ptr(acc_t), _ptr(acc_c), _ptr(out), _ptr(ws["img"]),
+        _ptr(ws["partials"]), HP, WP, H, W, scale, _stream(dev))
+    _launch("finish_partials", rc)
+    return out
+
+
+def sum_images(images, comm=None):
+    """The seam of the event-parallel paths: the sum of the local shards'
+    (acc_t, acc_c) image pairs, then summed across the ranks of ``comm``
+    (a ``parallel.comm`` communicator; None or size 1: no collective).
+    Integer sums: exact and independent of the order."""
+    acc_t, acc_c = images[0]
+    for t, c in images[1:]:
+        acc_t = acc_t + t
+        acc_c = acc_c + c
+    if comm is not None and comm.size > 1:
+        acc_t, acc_c = comm.all_reduce_sum([acc_t, acc_c])
+    return acc_t, acc_c

@@ -17,7 +17,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from better_flow_tpu.config import NONZERO_EPS
+from better_flow_tpu_torch.config import NONZERO_EPS
 from better_flow_tpu_torch.ops.warp import fma
 
 

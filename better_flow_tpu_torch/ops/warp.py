@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from better_flow_tpu.config import NZ, UV_FACTOR, WARP_TIME_DIV
+from better_flow_tpu_torch.config import NZ, UV_FACTOR, WARP_TIME_DIV
 
 # Exact f32 values held as Python floats: multiplying an f32 tensor by one
 # rounds once, as the f32 product does.

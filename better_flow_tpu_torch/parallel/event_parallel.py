@@ -1,0 +1,141 @@
+"""Event-parallel slice processing: shard the events, sum the images.
+
+Counterpart of ``better_flow_tpu/parallel/event_parallel.py``.  The events
+of one slice are cut into shards over an ``EventGroup`` (``mesh``); every
+optimizer iteration runs the event phase per shard (B1, or B7a on the
+composed path), sums the shards' pre-filter images (local shards, then one
+all-reduce across ranks) and runs the image-space finish and the model
+update once per process on the summed images (B2, or B7b and the scalar
+chain).  The summed images are integers, so every rank computes the same
+model and the same continue flag with no further communication, and the
+result does not depend on the number of shards when they are cut on chunk
+boundaries (the scan pads the capacity to ``n_shards * CHUNK`` for that).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
+from better_flow_tpu_torch.core.events import EventSlice, bounding_box
+from better_flow_tpu_torch.core.model import MotionModel
+from better_flow_tpu_torch.models.global_flow import (
+    SliceResult, check_supported, process_slice,
+)
+from better_flow_tpu_torch.ops.layout import (
+    CHUNK, pack_act, prepare_chunk_layouts,
+)
+from better_flow_tpu_torch.parallel.mesh import EventGroup
+from better_flow_tpu_torch.runtime.scan_pipeline import (
+    initial_carry, padded_capacity, prepare_recording, scan_prepared,
+)
+
+
+def local_event_shards(ev: EventSlice, group: EventGroup) -> list:
+    """This process's shards of the whole slice ``ev``: equal contiguous
+    runs of slots, on the group's device."""
+    n = group.n_shards
+    if ev.capacity % n != 0:
+        raise ValueError(f"capacity {ev.capacity} not divisible by the "
+                         f"{n} event shards")
+    per = ev.capacity // n
+    first = group.first_shard
+    return [EventSlice(*(f[k * per:(k + 1) * per].to(group.device)
+                         for f in ev))
+            for k in range(first, first + group.n_local)]
+
+
+def process_slice_event_parallel(ev: EventSlice, last_model: MotionModel,
+                                 cfg: OptimizerConfig, sensor: SensorConfig,
+                                 mesh: EventGroup, warm_start: bool = True
+                                 ) -> SliceResult:
+    """Sharded equivalent of ``models.global_flow.process_slice`` on the
+    whole slice ``ev`` (every rank passes the same one; its capacity must
+    divide by the number of shards, else ``ValueError``).  The bbox and the
+    event count are reduced over the group.  Returns a ``SliceResult``
+    whose model and scalars are the same on every rank and whose per-event
+    tensors hold this process's shards' slots in order (all of them for a
+    group of one rank)."""
+    shards = local_event_shards(ev, mesh)
+    per = shards[0].capacity
+    bbox = bounding_box(shards, mesh.comm)
+    n_valid = torch.stack([e.valid.sum() for e in shards]).sum()
+    if mesh.comm.size > 1:
+        n_valid, = mesh.comm.all_reduce_sum([n_valid])
+    stats = [prepare_chunk_layouts(e.x, e.y, e.t) for e in shards]
+    acts = [pack_act(e.active) for e in shards]
+    res, _uvn = process_slice(stats, acts, last_model, cfg, sensor, bbox,
+                              int(n_valid), warm_start=warm_start, group=mesh)
+    # Each shard was padded to whole chunks: keep its own slots.
+    slots = stats[0].shape[0] * CHUNK
+
+    def own(a):
+        return a.reshape(len(shards), slots)[:, :per].reshape(-1)
+
+    noise = torch.cat([e.noise | (e.valid & res.window_small)
+                       for e in shards])
+    return res._replace(pr_x=own(res.pr_x), pr_y=own(res.pr_y),
+                        nx=own(res.nx), ny=own(res.ny), u=own(res.u),
+                        v=own(res.v), noise=noise)
+
+
+def prepare_recording_sharded(x, y, t_ns, cfg, mesh: EventGroup,
+                              slice_range=None) -> dict:
+    """Host staging for the sharded scan: ``prepare_recording`` with the
+    padded capacity rounded to a multiple of ``n_shards * CHUNK``, so that
+    every shard is a whole number of the unsharded run's chunks, and with
+    only this process's chunks copied to the group's device."""
+    n = mesh.n_shards
+    capp = -(-padded_capacity(cfg) // (n * CHUNK)) * (n * CHUNK)
+    per = capp // CHUNK // n
+    chunk_range = None if mesh.comm.size == 1 else \
+        (mesh.first_shard * per, (mesh.first_shard + mesh.n_local) * per)
+    return prepare_recording(x, y, t_ns, cfg, device=mesh.device,
+                             slice_range=slice_range, pad_quantum=n * CHUNK,
+                             chunk_range=chunk_range)
+
+
+def check_staged_for(prepared: dict, mesh: EventGroup) -> None:
+    """Raise unless ``prepared`` holds this process's chunks of ``mesh``."""
+    total, n = prepared["chunks_total"], mesh.n_shards
+    if total % n != 0:
+        raise ValueError(f"staged with {total} chunks a slice, which do not "
+                         f"divide into {n} event shards: stage with "
+                         "prepare_recording_sharded")
+    per = total // n
+    want = (mesh.first_shard * per, (mesh.first_shard + mesh.n_local) * per)
+    if mesh.comm.size == 1:
+        want = (0, total)
+    if tuple(prepared["chunks"]) != want:
+        raise ValueError(f"staged chunks {prepared['chunks']}, this "
+                         f"process's shards are chunks {want}")
+    if prepared["device"] != mesh.device:
+        raise ValueError(f"staged on {prepared['device']}, the group is on "
+                         f"{mesh.device}")
+
+
+def compensate_recording_scan_sharded(
+        x, y, t_ns, cfg, mesh: EventGroup,
+        init_model: Optional[MotionModel] = None,
+        prepared: Optional[dict] = None, carry_in=None) -> dict:
+    """The offline slice loop with each slice's events sharded over
+    ``mesh``: per iteration the event kernel per shard, the image sum, then
+    the finish and the model update once per process.  Cross-slice noise
+    needs no communication: its only source is the per-slice window gate,
+    decided on the host from the whole slice's bbox, and each shard rebuilds
+    its events' flags from the gate history (B3).  Every rank returns the
+    whole recording's result (the shards' outputs are gathered before the
+    first-slice-wins accumulation); ``stats['n_devices']`` is the number of
+    shards.  Pass ``prepared`` from ``prepare_recording_sharded`` to reuse
+    the staging, ``carry_in`` to continue a chain."""
+    check_supported(cfg.optimizer, cfg.f64_totals)
+    if prepared is None:
+        prepared = prepare_recording_sharded(x, y, t_ns, cfg, mesh)
+    check_staged_for(prepared, mesh)
+    carry0 = carry_in if carry_in is not None \
+        else initial_carry(prepared, cfg, init_model)
+    out = scan_prepared(prepared, cfg, carry0, group=mesh)
+    out["stats"]["n_devices"] = mesh.n_shards
+    return out

@@ -33,7 +33,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from better_flow_tpu.config import PipelineConfig
+from better_flow_tpu_torch.config import PipelineConfig
 from better_flow_tpu_torch.core.events import EventSlice
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.models.global_flow import (

@@ -9,7 +9,7 @@ handed to callbacks in place of the ROS topics, and a lag monitor.  With
 carries f64 totals and runs the composed loop (B6) at scale 1.  The
 numpy parts (``LagMonitor``, ``point_cloud``) are carried over as they are:
 that module cannot be imported from here, because ``better_flow_tpu.runtime``
-imports JAX.  The images are ``better_flow_tpu.viz.images``'s.
+imports JAX.  The images are ``viz.images``'s (the port's copy).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from better_flow_tpu.config import PipelineConfig, low_latency_config
+from better_flow_tpu_torch.config import PipelineConfig, low_latency_config
 from better_flow_tpu_torch.runtime.dvs_flow import DVSFlow
 from better_flow_tpu_torch.runtime.slice_buffer import EventRingBuffer
 
@@ -135,7 +135,7 @@ class EventVisualizer:
         if self.on_cloud is not None:
             self.on_cloud(point_cloud(snap["x"], snap["y"], snap["timestamp"]))
         if self.on_images is not None and self._last_rec is not None:
-            from better_flow_tpu.viz.images import (
+            from better_flow_tpu_torch.viz.images import (
                 color_flow_img, projection_img, projection_img_unopt,
             )
 
@@ -157,7 +157,7 @@ def replay_file(path: str, visualizer: EventVisualizer, chunk: int = 4096,
                 realtime: bool = False) -> int:
     """File replay (bf_visualizer.cpp:302-337): feed a recording through
     the live frontend, optionally paced to the wall clock."""
-    from better_flow_tpu.io.event_file import read_events
+    from better_flow_tpu_torch.io.event_file import read_events
 
     rec = read_events(path)
     n = len(rec["x"])

@@ -15,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-from better_flow_tpu.config import PipelineConfig
+from better_flow_tpu_torch.config import PipelineConfig
 from better_flow_tpu_torch.runtime.dvs_flow import DVSFlow
 
 

@@ -4,7 +4,7 @@ Counterpart of ``better_flow_tpu/runtime/scan_pipeline.py`` (the path
 ``bench.py`` measures):
 
 1. Host: the trigger plan (``plan_slices``) and the native counting sort
-   into band-padded compact slabs (``better_flow_tpu.io.native``), copied
+   into band-padded compact slabs (``io.native``), copied
    to the device from pinned memory without blocking, batch by batch, so a
    batch's copy overlaps the next batch's sort.
 2. Device: a Python loop over the slices.  Per slice the activity rows are
@@ -19,9 +19,22 @@ Counterpart of ``better_flow_tpu/runtime/scan_pipeline.py`` (the path
 
 The carry between slices is (model, seed, gate history): the model (f64
 totals under ``f64_totals``) and the (12,) f32 seed live on the device,
-the (K,) gate history [fired, start, end] on the host.  Recordings the
-JAX package routes to its cold path, range staging (``slice_range``) and
-the numpy staging fallback are not ported.
+the (K,) gate history [fired, start, end] on the host.
+
+Ranges and shards.  ``prepare_recording(slice_range=(lo, hi))`` stages one
+contiguous range of the global trigger plan (``parallel.multihost``): the
+plan, the history depth and the gate history of the slices before the
+range (``hist0``) still come from the whole recording, so a range run
+started from ``hist0`` and the previous range's carry reproduces the full
+run, and its accumulation claims only the events whose first slice is in
+the range.  ``pad_quantum`` rounds the padded capacity up so that it
+splits into event shards on chunk boundaries; ``chunk_range`` keeps only
+this process's chunks of every slice on the device.  ``scan_prepared``
+under an ``EventGroup`` runs each slice's shards through the optimizer's
+image-sum seam (``models.global_flow``).
+
+Recordings the JAX package routes to its cold path and the numpy staging
+fallback are not ported.
 """
 
 from __future__ import annotations
@@ -32,8 +45,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from better_flow_tpu.config import PipelineConfig
-from better_flow_tpu.io import native
+from better_flow_tpu_torch.config import PipelineConfig
+from better_flow_tpu_torch.io import native
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.models.global_flow import (
     check_supported, geo_row, geometry_from_bbox, process_slice,
@@ -107,7 +120,13 @@ def padded_capacity(cfg: PipelineConfig) -> int:
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card.  An entry point runs on the CPU (the plain twins) only when
+    its caller asks for it; with no card and no ``device="cpu"`` it raises."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device is available: pass device="cpu" to run the '
+            "plain PyTorch twins on the CPU")
+    return torch.device("cuda")
 
 
 def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -119,11 +138,44 @@ def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None) -> dict:
+def _gate_history_before(lo: int, hist_k: int, plan: SlicePlan, x16, y16,
+                         cfg: PipelineConfig):
+    """The window-gate history (fired, start, end; (K,) each) that slice
+    ``lo`` of the plan reads: the gate is purely geometric (bbox and
+    ``min_window_fraction``), so the outcomes of the ``hist_k`` slices
+    before a range are computed here from the recording itself."""
+    ws_h = np.zeros(hist_k, bool)
+    st_h = np.zeros(hist_k, np.int32)
+    en_h = np.full(hist_k, -1, np.int32)
+    opt = cfg.optimizer
+    for j, s in enumerate(reversed(range(max(0, lo - hist_k), lo))):
+        a, b = int(plan.starts[s]), int(plan.ends[s]) + 1
+        xw, yw = x16[a:b], y16[a:b]
+        g = geometry_from_bbox(xw.min(), xw.max(), yw.min(), yw.max(),
+                               opt.scale, cfg.sensor, opt.min_window_fraction)
+        k = hist_k - 1 - j
+        ws_h[k] = g.window_small
+        st_h[k] = plan.starts[s]
+        en_h[k] = plan.ends[s]
+    return ws_h, st_h, en_h
+
+
+def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
+                      slice_range=None, pad_quantum: int = 0,
+                      chunk_range=None) -> dict:
     """Host staging: trigger plan, native sort into band-padded slabs,
     and the device copies ``stat`` (S, nch, 3, CHUNK) f32 and ``sidx``
     (S, capp) int32 (original index, -1 on padding).  Reusable across runs
-    of the same recording."""
+    of the same recording.
+
+    ``slice_range=(lo, hi)`` stages only that range of the global plan;
+    ``hist_k``, ``hist0`` (the gate history before the range) and
+    ``prev_end`` (the last trigger before it: events up to it belong to
+    earlier ranges) still come from the whole plan.  ``pad_quantum`` rounds
+    the padded capacity up to a multiple (event sharding asks for
+    ``n_shards * CHUNK``).  ``chunk_range=(c0, c1)`` copies only those
+    chunks of every slice to the device (this process's event shards);
+    bbox and counts stay those of the whole slices."""
     dev = torch.device(device) if device is not None else default_device()
     t_ns = np.ascontiguousarray(t_ns, np.int64)
     t0 = last = time.perf_counter()
@@ -135,21 +187,40 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None) -> dict:
         phases[name] = round(phases.get(name, 0.0) + now - last, 4)
         last = now
 
-    plan = plan_slices(t_ns, cfg)
+    plan_full = plan_slices(t_ns, cfg)
     _mark("plan")
+    # The history depth is part of the carry's shape, so it comes from the
+    # whole plan whatever the range.
+    hist_k = history_depth(plan_full)
+    lo, hi = (0, len(plan_full.ends)) if slice_range is None else \
+        (int(slice_range[0]), int(slice_range[1]))
+    plan = plan_full if slice_range is None else SlicePlan(
+        *(a[lo:hi] for a in plan_full))
     S = len(plan.ends)
-    hist_k = history_depth(plan)
     capp = padded_capacity(cfg)
-    nch = capp // CHUNK
+    if pad_quantum:
+        capp = -(-capp // pad_quantum) * pad_quantum
+    c0, c1 = (0, capp // CHUNK) if chunk_range is None else chunk_range
+    if not 0 <= c0 < c1 <= capp // CHUNK:
+        raise ValueError(f"chunk_range {chunk_range} outside the "
+                         f"{capp // CHUNK} chunks of a slice")
+    nch = c1 - c0
+    cols = slice(c0 * CHUNK, c1 * CHUNK)
     n_bands = row_bands(cfg)
     lens = (plan.ends - plan.starts + 1).astype(np.int32)
 
     stat_parts, perm_parts, bbox_parts = [], [], []
+    hist0 = (np.zeros(hist_k, bool), np.zeros(hist_k, np.int32),
+             np.full(hist_k, -1, np.int32))
     if S > 0:
-        if capp >= 0xFFFF:
+        # The u16 slab holds each slot's offset into its slice's window
+        # (below max_events; 0xFFFF marks padding), not the slot's position,
+        # so the padded capacity itself may pass 0xFFFF, as it does when
+        # the production capacity is rounded up for four or more shards.
+        if cfg.slice.max_events > PERM_SENTINEL:
             raise NotImplementedError(
-                f"padded slice capacity {capp} exceeds the u16 staging "
-                "layout")
+                f"slice capacity {cfg.slice.max_events} exceeds the u16 "
+                "staging layout")
         x16y16 = native.coords_u16(x, y)
         if x16y16 is None:
             raise RuntimeError(
@@ -173,6 +244,8 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None) -> dict:
             # the device (PyTorch has few uint16 operations).
             host = (xs16.view(np.int16), ys16.view(np.int16), ts,
                     perm.view(np.int16))
+            if chunk_range is not None:
+                host = tuple(np.ascontiguousarray(a[:, cols]) for a in host)
             stat_parts.append(tuple(to_device(a, dev) for a in host[:3]))
             perm_parts.append(to_device(host[3], dev))
             bbox_parts.append(bbox)
@@ -189,10 +262,13 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None) -> dict:
         stat = torch.stack([xs, ys, ts], dim=1).reshape(
             S, 3, nch, CHUNK).transpose(1, 2).contiguous()
         bbox = np.concatenate(bbox_parts)
+        if lo > 0:
+            hist0 = _gate_history_before(lo, hist_k, plan_full, x16y16[0],
+                                         x16y16[1], cfg)
     else:
         stat = torch.zeros((0, nch, 3, CHUNK), dtype=torch.float32,
                            device=dev)
-        sidx = torch.zeros((0, capp), dtype=torch.int32, device=dev)
+        sidx = torch.zeros((0, nch * CHUNK), dtype=torch.int32, device=dev)
         bbox = np.zeros((0, 4), np.int32)
     opt = cfg.optimizer
     geoms = [geometry_from_bbox(*bbox[s], opt.scale, cfg.sensor,
@@ -206,22 +282,48 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None) -> dict:
     return {
         "plan": plan, "n": len(t_ns), "hist_k": hist_k, "device": dev,
         "stat": stat, "sidx": sidx, "geo": geo, "geoms": geoms,
-        "bbox": bbox, "nval": lens,
+        "bbox": bbox, "nval": lens, "hist0": hist0, "slice_range": (lo, hi),
+        "prev_end": int(plan_full.ends[lo - 1]) if lo > 0 else -1,
+        "chunks": (c0, c1),
+        "chunks_total": capp // CHUNK,
         "plan_s": time.perf_counter() - t0, "plan_breakdown": phases,
     }
 
 
-def make_carry(init_model: MotionModel, hist_k: int):
+def make_carry(init_model: MotionModel, hist_k: int, ws_h=None, st_h=None,
+               en_h=None):
     """Initial carry: (model, (12,) seed, ws_h, st_h, en_h).  The seed is
     [slope memory (4), last deltas (4), totals of the model that entered
     the previous slice (4)], here zeros and the model's own totals; the
     (K,) gate history is host numpy (bool fired, int32 start, int32 end,
-    -1 when empty).  ``convert.carry_from_numpy`` builds a hand-off carry."""
+    -1 when empty), empty unless given (a range run passes
+    ``prepared["hist0"]``).  ``convert.carry_from_numpy`` builds a hand-off
+    carry."""
     tot0 = init_model.totals4().to(torch.float32)
     seed12 = torch.cat([torch.zeros(8, dtype=torch.float32,
                                     device=tot0.device), tot0])
-    return (init_model, seed12, np.zeros(hist_k, bool),
-            np.zeros(hist_k, np.int32), np.full(hist_k, -1, np.int32))
+    return (init_model, seed12,
+            np.zeros(hist_k, bool) if ws_h is None
+            else np.asarray(ws_h, bool).copy(),
+            np.zeros(hist_k, np.int32) if st_h is None
+            else np.asarray(st_h, np.int32).copy(),
+            np.full(hist_k, -1, np.int32) if en_h is None
+            else np.asarray(en_h, np.int32).copy())
+
+
+def initial_model(cfg: PipelineConfig, device) -> MotionModel:
+    """The model a chain starts from, honouring ``cfg.f64_totals``: shared by
+    the scan, sharded and multihost entry points so that the accumulator
+    precision cannot differ between them for one config."""
+    return MotionModel.zero(device, f64_totals=cfg.f64_totals)
+
+
+def initial_carry(prepared: dict, cfg: PipelineConfig, init_model=None):
+    """The carry a run of ``prepared`` starts from without a hand-off: the
+    initial model and the gate history before the staged range."""
+    model0 = init_model if init_model is not None \
+        else initial_model(cfg, prepared["device"])
+    return make_carry(model0, prepared["hist_k"], *prepared["hist0"])
 
 
 def _histories(ws_h, st_h, en_h, plan: SlicePlan, small):
@@ -240,9 +342,13 @@ def _histories(ws_h, st_h, en_h, plan: SlicePlan, small):
     return hist, (h[0].astype(bool), h[1].copy(), h[2].copy())
 
 
-def run_slices(prepared: dict, cfg: PipelineConfig, carry0):
+def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     """The slice loop.  Returns (final carry, uvn (S, nch, 3, CHUNK),
-    iters [S], ran [S], host_syncs)."""
+    iters [S], ran [S], host_syncs).  Under an event ``group``
+    (``parallel.mesh.EventGroup``) the staged chunks are this process's:
+    they are cut into its ``n_local`` shards on chunk boundaries (every
+    chunk, and so its time base, is the unsharded one), and the activity
+    rows, the event phase and the final warp run per shard."""
     dev = prepared["device"]
     plan = prepared["plan"]
     opt = cfg.optimizer
@@ -260,13 +366,27 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0):
     iters = np.zeros(S, np.int32)
     ran = np.zeros(S, bool)
     syncs = 0
+    nch = stat.shape[1]
+    if group is not None:
+        if nch % group.n_local != 0:
+            raise ValueError(f"{nch} staged chunks do not divide into "
+                             f"{group.n_local} local shards")
+        per = nch // group.n_local
+        cuts = [(k * per, (k + 1) * per) for k in range(group.n_local)]
     for s in range(S):
-        act = act_rows_call(sidx[s], hist[s])
+        if group is None:
+            stat_s = stat[s]
+            act = act_rows_call(sidx[s], hist[s])
+        else:
+            stat_s = [stat[s, a:b] for a, b in cuts]
+            act = [act_rows_call(sidx[s, a * CHUNK:b * CHUNK], hist[s])
+                   for a, b in cuts]
         cur_tot = model.totals4().to(torch.float32)   # the seed row is f32
         res, uvn_s = process_slice(
-            stat[s], act, model, opt, cfg.sensor,
+            stat_s, act, model, opt, cfg.sensor,
             prepared["bbox"][s], int(prepared["nval"][s]),
-            warm_start=not cfg.stm_disable, seed=sd[:8], geo=geo[s])
+            warm_start=not cfg.stm_disable, seed=sd[:8], geo=geo[s],
+            group=group)
         uvn[s] = uvn_s
         model = res.model
         sd = torch.cat([res.seed, cur_tot])
@@ -277,13 +397,17 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0):
     return (model, sd) + hist_end, uvn, iters, ran, syncs
 
 
-def accumulate_device(uvn: torch.Tensor, sidx: torch.Tensor, n: int):
+def accumulate_device(uvn: torch.Tensor, sidx: torch.Tensor, n: int,
+                      claim_from: int = 0):
     """First-slice-wins accumulation: scatter each slice's [u, v, noise]
     to its events' original indices, in REVERSE slice order so that the
     first slice holding an event writes last.  Indices are unique within a
-    slice; padding slots go to a dump slot at ``n``.  One slice per
-    scatter: several slices in one call would hold duplicate indices,
-    whose winner is undefined on the card."""
+    slice; padding slots, and events before ``claim_from`` (a range run
+    claims only the events whose first slice is in the range, those after
+    the previous range's last trigger, so consecutive ranges' claims are
+    disjoint), go to a dump slot at ``n``.  One slice per scatter: several
+    slices in one call would hold duplicate indices, whose winner is
+    undefined on the card."""
     dev = uvn.device
     au = torch.zeros(n + 1, dtype=torch.float32, device=dev)
     av = torch.zeros(n + 1, dtype=torch.float32, device=dev)
@@ -291,49 +415,50 @@ def accumulate_device(uvn: torch.Tensor, sidx: torch.Tensor, n: int):
     dump = torch.full_like(sidx[0], n) if len(sidx) else None
     for s in reversed(range(uvn.shape[0])):
         idx = sidx[s]
-        tgt = torch.where(idx >= 0, idx, dump).to(torch.int64)
+        tgt = torch.where(idx >= claim_from, idx, dump).to(torch.int64)
         au.index_copy_(0, tgt, uvn[s, :, 0, :].reshape(-1))
         av.index_copy_(0, tgt, uvn[s, :, 1, :].reshape(-1))
         an.index_copy_(0, tgt, uvn[s, :, 2, :].reshape(-1))
     return au[:n], av[:n], an[:n] != 0
 
 
-def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
-                              init_model: Optional[MotionModel] = None,
-                              prepared: Optional[dict] = None,
-                              carry_in=None, device=None) -> dict:
-    """Process a whole recording.  Returns first-slice-wins per-event
-    flow ``u``, ``v`` and ``noise`` (numpy, original event order), the
-    final ``model`` and ``carry``, per-slice ``iters`` and ``ran``, the
-    ``plan``, and ``stats`` (events_per_s, run_s, plan_s, mean_iters,
-    host_syncs, launches).  Pass ``prepared`` from prepare_recording to
-    reuse the staging across runs, ``carry_in`` (a carry tuple, see
-    ``make_carry`` and ``convert.carry_from_numpy``) to continue a
-    warm-start chain."""
-    cfg = cfg or PipelineConfig()
-    check_supported(cfg.optimizer, cfg.f64_totals)
-    if prepared is None:
-        prepared = prepare_recording(x, y, t_ns, cfg, device=device)
+def gather_shards(uvn: torch.Tensor, sidx: torch.Tensor, group):
+    """Every rank's (S, nch_local, 3, CHUNK) outputs and (S, capp_local)
+    index slabs, put together in rank order into the whole slices'
+    layout, on every rank (first-slice-wins needs every copy of an event).
+    The identity for a group of one rank."""
+    if group is None or group.comm.size == 1:
+        return uvn, sidx
+    S = uvn.shape[0]
+    u = group.comm.all_gather(uvn)          # (ranks, S, nch_l, 3, CHUNK)
+    i = group.comm.all_gather(sidx)         # (ranks, S, capp_l)
+    return (u.transpose(0, 1).reshape(S, -1, 3, CHUNK),
+            i.transpose(0, 1).reshape(S, -1))
+
+
+def scan_prepared(prepared: dict, cfg: PipelineConfig, carry0,
+                  group=None) -> dict:
+    """Run the staged slices from ``carry0`` and accumulate: the result of
+    ``compensate_recording_scan`` (see there).  Under an event ``group``
+    the slices run sharded (``run_slices``) and the shards' outputs are
+    gathered before the accumulation; a staged range claims its own
+    events only."""
     dev = prepared["device"]
     plan = prepared["plan"]
     n = prepared["n"]
     S = len(plan.ends)
-    if carry_in is not None:
-        carry0 = carry_in
-    else:
-        model0 = init_model if init_model is not None \
-            else MotionModel.zero(dev, f64_totals=cfg.f64_totals)
-        carry0 = make_carry(model0, prepared["hist_k"])
-
     launches0 = dict(LAUNCHES)
     t_run0 = time.perf_counter()
-    carry, uvn, iters, ran, syncs = run_slices(prepared, cfg, carry0)
+    carry, uvn, iters, ran, syncs = run_slices(prepared, cfg, carry0,
+                                               group=group)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_run = time.perf_counter() - t_run0
     launches = {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES}
 
-    au, av, an = accumulate_device(uvn, prepared["sidx"], n)
+    uvn, sidx = gather_shards(uvn, prepared["sidx"], group)
+    au, av, an = accumulate_device(uvn, sidx, n,
+                                   claim_from=prepared["prev_end"] + 1)
     return {
         "u": au.cpu().numpy(),
         "v": av.cpu().numpy(),
@@ -354,3 +479,27 @@ def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
             "launches": launches,
         },
     }
+
+
+def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
+                              init_model: Optional[MotionModel] = None,
+                              prepared: Optional[dict] = None,
+                              carry_in=None, device=None) -> dict:
+    """Process a whole recording.  Returns first-slice-wins per-event
+    flow ``u``, ``v`` and ``noise`` (numpy, original event order), the
+    final ``model`` and ``carry``, per-slice ``iters`` and ``ran``, the
+    ``plan``, and ``stats`` (events_per_s, run_s, plan_s, mean_iters,
+    host_syncs, launches).  Pass ``prepared`` from prepare_recording to
+    reuse the staging across runs, ``carry_in`` (a carry tuple, see
+    ``make_carry`` and ``convert.carry_from_numpy``) to continue a
+    warm-start chain.  When ``prepared`` was staged with a ``slice_range``
+    the run starts from the range's gate history and claims only the
+    range's own events (zeros elsewhere), so the outputs of consecutive
+    ranges are disjoint and their union is the full run's."""
+    cfg = cfg or PipelineConfig()
+    check_supported(cfg.optimizer, cfg.f64_totals)
+    if prepared is None:
+        prepared = prepare_recording(x, y, t_ns, cfg, device=device)
+    carry0 = carry_in if carry_in is not None \
+        else initial_carry(prepared, cfg, init_model)
+    return scan_prepared(prepared, cfg, carry0)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the six CUDA kernels of
+Run from the root of a checkout.  It builds the eight CUDA kernels of
 ``better_flow_tpu_torch/csrc`` and then, in phases that each raise on
 failure:
 
@@ -16,7 +16,11 @@ failure:
    also at the live preset's scale-1 shapes (15 chunks, 192x256 images),
    bitwise equal to its twin and to the B1 -> B2 kernel chain, with the
    chain's time beside its own; the composed path's kernel (B6) on the
-   warp rows of an f32 and of an f64 carry, bitwise equal to its twin;
+   warp rows of an f32 and of an f64 carry, bitwise equal to its twin; the
+   event-parallel pair (B7a warp + splat to images, B7b finish to the seven
+   sums) against their twins on both rows, their chain bitwise B6, and the
+   sum of four shards' images bitwise the unsharded images; beside each
+   kernel's time the least time the card could take (``bound_ms``);
 3. the scan, ``compensate_recording_scan`` with ``OptimizerConfig.fast()``,
    on the 2,000,000-event bench stream of ``bench.py`` (one warm-up run,
    then a measured run), with every kernel's launch count in that run;
@@ -34,7 +38,14 @@ failure:
    (bitwise equal), with its launch counts, and against the CPU twins on
    the first 200,000 events; then the stream on those 200,000 events with
    f64 totals and with ``fast(use_megastep=False)``, each against the CPU
-   twins.
+   twins;
+9. the event-parallel path: ``compensate_recording_scan_sharded`` on the 2M
+   events with 1 and 4 shards on the one card, under ``fast()`` (B1 per
+   shard, the image sum, B2) and with f64 totals (B7a per shard, the image
+   sum, B7b), each bitwise the unsharded scan staged with the same padding,
+   with the launch counts; then ``compensate_recording_multihost`` in one
+   process over three slice ranges (chained carries, disjoint claims),
+   bitwise the full scan.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -60,9 +71,33 @@ KERNELS = [   # name, source, the TPU kernel's pallas_call it replaces
     ("megastep", "better_flow_tpu_torch/csrc/megastep.cu", f"{PALLAS}:1458"),
     ("fused_warp_splat", "better_flow_tpu_torch/csrc/fused_warp_splat.cu",
      f"{PALLAS}:664"),
+    ("fused_warp_splat_images",
+     "better_flow_tpu_torch/csrc/warp_splat_images.cu", f"{PALLAS}:496"),
+    ("finish_partials", "better_flow_tpu_torch/csrc/finish_partials.cu",
+     f"{PALLAS}:544"),
 ]
 N_EVENTS = 2_000_000
 N_COMPARE = 200_000
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and the f32 rate outside the tensor cores (no kernel here has a
+# matrix product).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations counted per unit of work, from the per-event and per-pixel
+# functions of csrc/common.cuh and csrc/finish.cuh (an fma counts two):
+OPS_WARP = 40      # a slot's re-warp (28), scaled truncation and window test
+OPS_SPLAT = 16     # an accepted event's time weight (t0 + bf16 hi + lo as
+#                    fixed point) and its two integer adds
+OPS_UV = 4         # B4's u, v and noise per slot, on top of the warp
+
+
+def ops_finish(pixels, scale):
+    """The finish on ``pixels`` logical pixels: a separable box filter of
+    two images (8 * (scale // 2) adds), fixed point to f32, normalise (5),
+    the centre and all-nine masks (17), the Scharr pair (24) and the nine
+    sums' terms (14)."""
+    return pixels * (8 * (scale // 2) + 60)
 
 
 def log(*a):
@@ -73,7 +108,7 @@ def bench_stream(n_events):
     """The stream of bench.py: 0.5 s segments of a 1 Mev/s scene, tiled."""
     import numpy as np
 
-    from better_flow_tpu.io.synthetic import synthetic_events
+    from better_flow_tpu_torch.io.synthetic import synthetic_events
 
     seg = min(n_events, 500_000)
     base = synthetic_events(seg, duration_s=seg / 1e6, res_x=180, res_y=240,
@@ -108,6 +143,21 @@ def timed(fn, runs=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    the f32 peak, whichever is larger.  No single PyTorch call computes any
+    of these kernels' functions, so ``library_ms`` is null."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=None)
 
 
 def max_err(a, b):
@@ -170,7 +220,10 @@ def phase_kernels(cfg, d, dev):
     out["act_rows"] = dict(
         max_abs_err=max_err(act, act_p),
         ms=timed(lambda: fm.act_rows_call(sidx, hist)),
-        plain_ms=timed(lambda: fm.act_rows_plain(sidx, hist)))
+        plain_ms=timed(lambda: fm.act_rows_plain(sidx, hist)),
+        **bound(nbytes(sidx, hist, act), sidx.numel() * (4 * K + 2)))
+    slots = stat.shape[0] * stat.shape[2]
+    pixels = H * W
 
     kw = dict(scale=opt.scale, H=H, W=W, time_lo=time_lo)
     npr, at, ac = fm.warp_images_st_call(stat, act, pr, st, geo, **kw)
@@ -188,7 +241,9 @@ def phase_kernels(cfg, d, dev):
         ms=timed(lambda: fm.warp_images_st_call(stat, act, pr, st, geo,
                                                 **kw)),
         plain_ms=timed(lambda: fm.warp_images_st_plain(stat, act, pr, st,
-                                                       geo, **kw)))
+                                                       geo, **kw)),
+        **bound(nbytes(stat, act, pr, st, geo, npr, at, ac),
+                slots * OPS_WARP + int(ac.sum()) * OPS_SPLAT))
 
     kw2 = dict(scale=opt.scale, H=H, W=W, **statics)
     st2 = fm.megastep_finish_call(at, ac, st, geo, **kw2)
@@ -209,7 +264,9 @@ def phase_kernels(cfg, d, dev):
         max_abs_err=max_err(st2[0, other], st2_p[0, other]),
         ms=timed(lambda: fm.megastep_finish_call(at, ac, st, geo, **kw2)),
         plain_ms=timed(lambda: fm.megastep_finish_plain(at, ac, st, geo,
-                                                        **kw2)))
+                                                        **kw2)),
+        **bound(nbytes(at, ac, st, geo, st2),
+                ops_finish(pixels, opt.scale) + 300))
 
     # The options the main path does not take: the hi+lo time pair, the
     # reference schedule and the predicted exit (correctness only).
@@ -239,20 +296,24 @@ def phase_kernels(cfg, d, dev):
     out["warp_uv"] = dict(
         max_abs_err=max(max_err(o, o_p), max_err(u, u_p)),
         ms=timed(lambda: fm.warp_uv_call(stat, npr, act, st, 0.0)),
-        plain_ms=timed(lambda: fm.warp_uv_plain(stat, npr, act, st, 0.0)))
-    out["fused_warp_splat"] = check_b6(stat, act, pr, st, geo, opt.scale, H,
-                                       W, dev)
+        plain_ms=timed(lambda: fm.warp_uv_plain(stat, npr, act, st, 0.0)),
+        **bound(nbytes(stat, npr, act, st, o, u),
+                slots * (OPS_WARP + OPS_UV)))
+    out.update(check_b6_b7(stat, act, pr, st, geo, opt.scale, H, W, dev))
     for name, r in out.items():
         log(f"[kernels] {name}: max_abs_err {r['max_abs_err']:.3g}  kernel "
-            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     return out, dict(stat=stat, act=act, pr=pr, st=st, geo=geo)
 
 
-def check_b6(stat, act, pr, st, geo, scale, H, W, dev):
-    """B6 against its twin on the warp row of an f32 carry (the state's
-    model) and of an f64 carry (f64 totals whose angle's f32 rounding
-    changes the row's sine): new positions and the seven sums bitwise.
-    Returns the f32 row's errors and median times."""
+def check_b6_b7(stat, act, pr, st, geo, scale, H, W, dev):
+    """B6, B7a and B7b against their twins on the warp row of an f32 carry
+    (the state's model) and of an f64 carry (f64 totals whose angle's f32
+    rounding changes the row's sine): new positions, images and the seven
+    sums bitwise; the B7a -> B7b chain bitwise B6; the sum of four shards'
+    images bitwise the unsharded images.  Returns the three kernels' errors,
+    median times and bounds on the f32 row."""
     import torch
 
     from better_flow_tpu_torch.models.global_flow import model_from_state
@@ -268,12 +329,13 @@ def check_b6(stat, act, pr, st, geo, scale, H, W, dev):
                           m32.total_div)), comp_dx=f64(0.0), comp_dy=f64(0.0),
                       comp_rot=f64(0.0), comp_div=f64(0.0))
     _, s32 = cos_sin_f32(torch.tensor(-angle, dtype=torch.float32))
+    slots, pixels = stat.shape[0] * stat.shape[2], H * W
+    kw = dict(scale=scale, H=H, W=W)
     res = {}
     for name, model in (("f32", m32), ("f64", m64)):
         scal = fm.warp_scal_row(geo, model)
         if name == "f64" and float(scal[0, 10]) == float(s32):
             raise AssertionError("B6 f64 row: the sine of the f32-cast angle")
-        kw = dict(scale=scale, H=H, W=W)
         npr, vals = fm.fused_warp_splat_call(stat, act, pr, scal, **kw)
         npr_p, vals_p = fm.fused_warp_splat_plain(stat, act, pr, scal, **kw)
         err = max(max_err(npr, npr_p), max_err(vals, vals_p))
@@ -283,15 +345,62 @@ def check_b6(stat, act, pr, st, geo, scale, H, W, dev):
         if float(vals[0]) < 10_000 or float(vals[7]) != 0.0:
             raise AssertionError(f"fused_warp_splat {name} row: sums "
                                  f"{vals.tolist()}")
-        res[name] = dict(
-            max_abs_err=err,
-            ms=timed(lambda: fm.fused_warp_splat_call(stat, act, pr, scal,
-                                                      **kw)),
-            plain_ms=timed(lambda: fm.fused_warp_splat_plain(stat, act, pr,
-                                                             scal, **kw)))
-        log(f"[kernels] fused_warp_splat {name} row: max_abs_err {err:.3g}  "
-            f"kernel {res[name]['ms']:.4f} ms  plain "
-            f"{res[name]['plain_ms']:.4f} ms")
+
+        npr7, at, ac, fb = fm.fused_warp_splat_images_call(stat, act, pr,
+                                                           scal, **kw)
+        npr7_p, at_p, ac_p, _ = fm.fused_warp_splat_images_plain(
+            stat, act, pr, scal, **kw)
+        err_a = max(max_err(npr7, npr7_p), max_err(at, at_p),
+                    max_err(ac, ac_p))
+        vals7 = fm.finish_partials_call(at, ac, **kw)
+        err_b = max_err(vals7, fm.finish_partials_plain(at, ac, **kw))
+        if err_a != 0.0 or err_b != 0.0 or fb != 0:
+            raise AssertionError(f"B7 {name} row: max abs errors {err_a} "
+                                 f"(images), {err_b} (sums) against the twins")
+        if not (torch.equal(npr7, npr) and torch.equal(vals7, vals)):
+            raise AssertionError(f"B7a -> B7b differs from B6 on the {name} "
+                                 "row")
+        # Four shards cut on chunk boundaries: the summed images are the
+        # unsharded ones (30 chunks: 8 + 8 + 8 + 6).
+        parts = [fm.fused_warp_splat_images_call(
+            stat[a:a + 8], act[a:a + 8], pr[a:a + 8].contiguous(), scal,
+            **kw) for a in range(0, stat.shape[0], 8)]
+        sum_t, sum_c = fm.sum_images([(p[1], p[2]) for p in parts])
+        if not (torch.equal(sum_t, at) and torch.equal(sum_c, ac)
+                and torch.equal(torch.cat([p[0] for p in parts]), npr7)):
+            raise AssertionError(f"B7a {name} row: four shards' summed "
+                                 "images differ from the unsharded images")
+        n_acc = int(ac.sum())
+        timed_plain = lambda f, *a: timed(lambda: f(*a, **kw))
+        res[name] = {
+            "fused_warp_splat": dict(
+                max_abs_err=err,
+                ms=timed_plain(fm.fused_warp_splat_call, stat, act, pr, scal),
+                plain_ms=timed_plain(fm.fused_warp_splat_plain, stat, act, pr,
+                                     scal),
+                **bound(nbytes(scal, stat, act, pr, npr, vals),
+                        slots * OPS_WARP + n_acc * OPS_SPLAT
+                        + ops_finish(pixels, scale))),
+            "fused_warp_splat_images": dict(
+                max_abs_err=err_a,
+                ms=timed_plain(fm.fused_warp_splat_images_call, stat, act, pr,
+                               scal),
+                plain_ms=timed_plain(fm.fused_warp_splat_images_plain, stat,
+                                     act, pr, scal),
+                **bound(nbytes(scal, stat, act, pr, npr7, at, ac),
+                        slots * OPS_WARP + n_acc * OPS_SPLAT)),
+            "finish_partials": dict(
+                max_abs_err=err_b,
+                ms=timed_plain(fm.finish_partials_call, at, ac),
+                plain_ms=timed_plain(fm.finish_partials_plain, at, ac),
+                **bound(nbytes(at, ac, vals7), ops_finish(pixels, scale))),
+        }
+        for k, r in res[name].items():
+            log(f"[kernels] {k} {name} row: max_abs_err "
+                f"{r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms")
+        log(f"[kernels] {name} row: B7a -> B7b bitwise B6; four shards' "
+            "summed images bitwise the unsharded images")
     return res["f32"]
 
 
@@ -304,7 +413,7 @@ def phase_composed(d, dev):
     import numpy as np
     import torch
 
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
+    from better_flow_tpu_torch.config import OptimizerConfig, PipelineConfig
     from better_flow_tpu_torch.ops import fused_model as fm
     from better_flow_tpu_torch.runtime.offline import compensate_recording
     from better_flow_tpu_torch.runtime.scan_pipeline import (
@@ -373,6 +482,97 @@ def phase_composed(d, dev):
     return launches
 
 
+def phase_sharded(d, dev):
+    """The event-parallel path on the bench stream, all shards resident on
+    the one card: the sharded scan with 1 and 4 shards under ``fast()`` and
+    with f64 totals, each bitwise the unsharded scan on the same staging,
+    with its launch counts; then the multihost entry point in one process
+    over three chained slice ranges, bitwise the full scan.  Returns the
+    four-shard f64 run's launch counts."""
+    import numpy as np
+
+    from better_flow_tpu_torch.config import OptimizerConfig, PipelineConfig
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.parallel.event_parallel import (
+        compensate_recording_scan_sharded, prepare_recording_sharded,
+    )
+    from better_flow_tpu_torch.parallel.mesh import make_event_mesh
+    from better_flow_tpu_torch.parallel.multihost import (
+        compensate_recording_multihost,
+    )
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        compensate_recording_scan,
+    )
+
+    t_phase = time.perf_counter()
+    n = len(d["x"])
+    cfgs = (("fast", PipelineConfig(optimizer=OptimizerConfig.fast())),
+            ("f64", PipelineConfig(f64_totals=True)))
+    keep = None
+    for shards in (1, 4):
+        mesh = make_event_mesh(shards, device=dev)
+        # One staging serves both configs (it depends on neither the
+        # schedule nor the totals' dtype) and both the unsharded and the
+        # sharded run: the padding is the sharded run's.
+        prep = prepare_recording_sharded(d["x"], d["y"], d["t_ns"],
+                                         cfgs[0][1], mesh)
+        for name, cfg in cfgs:
+            ru = compensate_recording_scan(None, None, None, cfg,
+                                           prepared=prep)
+            fm.reset_launches()
+            rs = compensate_recording_scan_sharded(None, None, None, cfg,
+                                                   mesh, prepared=prep)
+            lc = dict(fm.LAUNCHES)
+            check_outputs(rs, n)
+            for k in ("u", "v", "noise", "iters", "ran"):
+                if not np.array_equal(ru[k], rs[k]):
+                    raise AssertionError(f"sharded {name} x{shards}: {k} "
+                                         "differs from the unsharded scan")
+            total = int(rs["iters"].sum())
+            want = dict.fromkeys(lc, 0)
+            want["act_rows"] = shards * len(rs["iters"])
+            if name == "fast":
+                want.update(warp_images_st=shards * total,
+                            megastep_finish=total,
+                            warp_uv=shards * int(rs["ran"].sum()))
+            else:
+                want.update(fused_warp_splat_images=shards * total,
+                            finish_partials=total)
+            if lc != want:
+                raise AssertionError(f"sharded {name} x{shards}: launches "
+                                     f"{lc}, expected {want}")
+            st, su = rs["stats"], ru["stats"]
+            log(f"[sharded] {name} x{shards}: bitwise the unsharded scan; "
+                f"events/s {st['events_per_s']:.1f} (unsharded "
+                f"{su['events_per_s']:.1f})  run_s {st['run_s']:.4f}  "
+                f"mean_iters {st['mean_iters']:.4f}  host_syncs "
+                f"{st['host_syncs']}  host_ms_per_iter "
+                f"{1e3 * st['run_s'] / max(1, st['host_syncs']):.4f} "
+                f"(unsharded {1e3 * su['run_s'] / max(1, su['host_syncs']):.4f})"
+                f"  n_devices {st['n_devices']}")
+            log(f"[sharded] {name} x{shards}: launches {json.dumps(lc)}")
+            if name == "f64" and shards == 4:
+                keep = lc
+                full = ru
+    cfg = cfgs[1][1]
+    fm.reset_launches()
+    rm = compensate_recording_multihost(d["x"], d["y"], d["t_ns"], cfg,
+                                        n_ranges=3, ev_per_host=2,
+                                        device=dev)
+    for k in ("u", "v", "noise", "iters"):
+        if not np.array_equal(rm[k], full[k]):
+            raise AssertionError(f"multihost, three ranges: {k} differs from "
+                                 "the full scan")
+    st = rm["stats"]
+    log(f"[sharded] multihost, one process, 3 chained ranges x 2 shards "
+        f"(f64): bitwise the full scan; events/s {st['events_per_s']:.1f}  "
+        f"run_s {st['run_s']:.4f}  plan_s {st['plan_s']:.4f}  B7a launches "
+        f"{fm.LAUNCHES['fused_warp_splat_images']}  B7b launches "
+        f"{fm.LAUNCHES['finish_partials']}")
+    log(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    return keep
+
+
 def same_twins(name, g, c):
     """Card run ``g`` against CPU-twin run ``c``: the same noise and
     iterations, median |du| = |dv| = 0."""
@@ -395,7 +595,7 @@ def live_slice_inputs(d, dev):
     import numpy as np
     import torch
 
-    from better_flow_tpu.config import low_latency_config
+    from better_flow_tpu_torch.config import low_latency_config
     from better_flow_tpu_torch.models.global_flow import (
         geo_row, geometry_from_bbox,
     )
@@ -423,7 +623,7 @@ def phase_megastep(scan_inputs, d, dev):
     import numpy as np
     import torch
 
-    from better_flow_tpu.config import OptimizerConfig, SensorConfig
+    from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
     from better_flow_tpu_torch.models.global_flow import (
         finish_statics, static_image_shape,
     )
@@ -468,7 +668,11 @@ def phase_megastep(scan_inputs, d, dev):
         r = dict(max_abs_err=err,
                  ms=timed(lambda: fm.megastep_call(*args, **kw)),
                  chain_ms=timed(chain),
-                 plain_ms=timed(lambda: fm.megastep_plain(*args, **kw)))
+                 plain_ms=timed(lambda: fm.megastep_plain(*args, **kw)),
+                 **bound(nbytes(*args, npr, st),
+                         args[0].shape[0] * args[0].shape[2] * OPS_WARP
+                         + int(ac.sum()) * OPS_SPLAT
+                         + ops_finish(H * W, opt.scale) + 300))
         HP, WP = padded_image_shape(H, W)
         log(f"[kernels] megastep {name} ({args[0].shape[0]} chunks, "
             f"{HP}x{WP} images): max_abs_err {err:.3g}, bitwise the B1 -> B2 chain; "
@@ -535,7 +739,7 @@ def phase_stream(d, dev):
     Returns each schedule's launch counts of its first run."""
     import numpy as np
 
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
+    from better_flow_tpu_torch.config import OptimizerConfig, PipelineConfig
     from better_flow_tpu_torch.ops import fused_model as fm
     from better_flow_tpu_torch.runtime.offline import compensate_recording
 
@@ -611,11 +815,12 @@ def phase_cli(d, dev):
     write_events_uv of the library call."""
     import tempfile
 
-    from better_flow_tpu.cli.motion_compensator import config_from_args
-    from better_flow_tpu.io.event_file import (
+    from better_flow_tpu_torch.cli.motion_compensator import (
+        build_parser, config_from_args,
+    )
+    from better_flow_tpu_torch.io.event_file import (
         read_events, write_events, write_events_uv,
     )
-    from better_flow_tpu_torch.cli.motion_compensator import build_parser
     from better_flow_tpu_torch.ops import _build
     from better_flow_tpu_torch.runtime.offline import compensate_recording
 
@@ -668,7 +873,7 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
+    from better_flow_tpu_torch.config import OptimizerConfig, PipelineConfig
     from better_flow_tpu_torch.ops import _build, fused_model as fm
     from better_flow_tpu_torch.runtime.scan_pipeline import (
         compensate_recording_scan, prepare_recording,
@@ -701,8 +906,8 @@ def main():
     t_phase = time.perf_counter()
     results, scan_inputs = phase_kernels(cfg, d, dev)
     mega = phase_megastep(scan_inputs, d, dev)
-    results["megastep"] = {k: mega["scale3"][k]
-                           for k in ("max_abs_err", "ms", "plain_ms")}
+    results["megastep"] = {k: v for k, v in mega["scale3"].items()
+                           if k != "chain_ms"}
     log(f"[kernels] phase {time.perf_counter() - t_phase:.1f} s")
 
     t0 = time.perf_counter()
@@ -751,8 +956,14 @@ def main():
     launches["megastep"] = stream_launches["reference"]["megastep"]
     if launches["megastep"] <= 0:
         raise AssertionError("megastep was not launched by the stream")
-    # ... and the f64-totals scan for B6.
+    # ... the f64-totals scan for B6 ...
     launches["fused_warp_splat"] = phase_composed(d, dev)["fused_warp_splat"]
+    # ... and the four-shard f64-totals scan for B7a and B7b.
+    sharded = phase_sharded(d, dev)
+    for k in ("fused_warp_splat_images", "finish_partials"):
+        launches[k] = sharded[k]
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched by the sharded scan")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain twins, on the card.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is
-present.  The file imports no JAX, so it also runs where JAX is not
-installed, from the root of a checkout on a machine with the card:
+present.  The file imports no JAX and nothing of the JAX package, so it
+also runs where JAX is not installed, from the root of a checkout on a
+machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -17,13 +18,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from better_flow_tpu.config import OptimizerConfig  # noqa: E402
-from better_flow_tpu.io.synthetic import synthetic_events  # noqa: E402
+from better_flow_tpu_torch.config import OptimizerConfig  # noqa: E402
+from better_flow_tpu_torch.io.synthetic import synthetic_events  # noqa: E402
 from better_flow_tpu_torch.models.global_flow import (  # noqa: E402
     finish_statics,
 )
 from better_flow_tpu_torch.ops import fused_model as tfm  # noqa: E402
 from better_flow_tpu_torch.ops import layout  # noqa: E402
+from better_flow_tpu_torch.parallel.event_parallel import (  # noqa: E402
+    compensate_recording_scan_sharded,
+)
+from better_flow_tpu_torch.parallel.mesh import make_event_mesh  # noqa: E402
 from better_flow_tpu_torch.runtime import offline as toff  # noqa: E402
 from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
 from torch_inputs import (  # noqa: E402
@@ -145,7 +150,9 @@ def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
     rg, rc, rg2 = run(cuda), run("cpu"), run(cuda)
     launches = rg["stats"]["launches"]
     assert launches.pop("megastep") == 0        # fast(): the split pair
-    assert launches.pop("fused_warp_splat") == 0   # not the composed loop
+    for k in ("fused_warp_splat", "fused_warp_splat_images",
+              "finish_partials"):
+        assert launches.pop(k) == 0             # not the composed loop
     assert all(v > 0 for v in launches.values())
     np.testing.assert_array_equal(rg["noise"], rc["noise"])
     np.testing.assert_array_equal(rg["ran"], rc["ran"])
@@ -317,3 +324,81 @@ def test_composed_path_on_card_matches_cpu_twins(cuda, case):
     flow_gates(rg, rc)
     for k in ("u", "v", "noise", "iters"):
         np.testing.assert_array_equal(rg[k], rg2[k])
+
+
+@pytest.mark.parametrize("carry", ["f32", "f64"])
+@pytest.mark.parametrize("res,nch", [((24, 32), NCH), ((180, 240), 8)])
+def test_b7_kernels_match_twins_and_chain_is_b6(cuda, res, nch, carry):
+    """B7a (warp + splat to the images) and B7b (finish to the seven sums)
+    against their twins on the card, bitwise, on the warp row of an f32 and
+    of an f64 carry; the B7a -> B7b chain bitwise B6; two shards' summed
+    images bitwise the unsharded images."""
+    Hs, Ws = image_shape(res, SCALE)
+    keys = ("stat", "act", "pr", "st", "geo")
+    _, gpu = _both(slice_inputs(2, res=res, nch=nch), keys, cuda)
+    stat, act, pr, st, geo = gpu
+    scal = tfm.warp_scal_row(geo, _carry_models(st, cuda)[carry])
+    kw = dict(scale=SCALE, H=Hs, W=Ws)
+    npr, at, ac, fb = _launched(
+        "fused_warp_splat_images",
+        lambda: tfm.fused_warp_splat_images_call(stat, act, pr, scal, **kw))
+    npr_p, at_p, ac_p, _ = tfm.fused_warp_splat_images_plain(stat, act, pr,
+                                                             scal, **kw)
+    assert fb == 0 and torch.equal(npr, npr_p)
+    assert torch.equal(at, at_p) and torch.equal(ac, ac_p)
+    assert int(ac.sum()) > 2000
+    vals = _launched("finish_partials",
+                     lambda: tfm.finish_partials_call(at, ac, **kw))
+    assert torch.equal(vals, tfm.finish_partials_plain(at, ac, **kw))
+    assert float(vals[0]) > 3000 and float(vals[7]) == 0.0
+    npr6, vals6 = tfm.fused_warp_splat_call(stat, act, pr, scal, **kw)
+    assert torch.equal(npr, npr6) and torch.equal(vals, vals6)
+    # The twins on the CPU give the same bits as the kernels on the card.
+    cpu = [t.cpu() for t in (stat, act, pr, scal)]
+    _, at_c, ac_c, _ = tfm.fused_warp_splat_images_call(*cpu, **kw)
+    assert torch.equal(at.cpu(), at_c) and torch.equal(ac.cpu(), ac_c)
+    np.testing.assert_array_equal(
+        vals.cpu().numpy(), tfm.finish_partials_call(at_c, ac_c, **kw).numpy())
+    half = nch // 2
+    parts = [tfm.fused_warp_splat_images_call(
+        stat[a:b], act[a:b], pr[a:b], scal, **kw)
+        for a, b in ((0, half), (half, nch))]
+    sum_t, sum_c = tfm.sum_images([(p[1], p[2]) for p in parts])
+    assert torch.equal(sum_t, at) and torch.equal(sum_c, ac)
+
+
+@pytest.mark.parametrize("case", ["fast", "reference", "f64",
+                                  "fast_nomega"])
+def test_sharded_scan_on_card_is_unsharded_and_cpu_twins(cuda, case):
+    """The event-parallel scan with 4 shards resident on the card: bitwise
+    the unsharded card run on the same staging, equal to the CPU twins'
+    4-shard run within the scan's gates, through B1 + B2 (megastep drives,
+    never B5) or B7a + B7b (composed drives), with shards x iterations
+    event launches and one finish per iteration."""
+    d = synthetic_events(20000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
+                         vy=-14.0, seed=4)
+    cfg = {"fast": small_cfg(),
+           "fast_nomega": small_cfg(use_megastep=False),
+           "reference": small_cfg().replace(
+               optimizer=OptimizerConfig(scale=3, min_events=500)),
+           "f64": small_cfg().replace(
+               f64_totals=True,
+               optimizer=OptimizerConfig(scale=3, min_events=500))}[case]
+    n = 4
+    run = lambda dev: compensate_recording_scan_sharded(
+        d["x"], d["y"], d["t_ns"], cfg, make_event_mesh(n, device=dev))
+    rg, rc = run(cuda), run("cpu")
+    prep = tscan.prepare_recording(d["x"], d["y"], d["t_ns"], cfg,
+                                   device=cuda, pad_quantum=n * layout.CHUNK)
+    ru = tscan.compensate_recording_scan(None, None, None, cfg, prepared=prep)
+    for k in ("u", "v", "noise", "iters", "ran"):
+        np.testing.assert_array_equal(rg[k], ru[k])
+    flow_gates(rg, rc)
+    lc, total = rg["stats"]["launches"], int(rg["iters"].sum())
+    assert rg["stats"]["n_devices"] == n and total > 0
+    event, finish = (("warp_images_st", "megastep_finish")
+                     if case in ("fast", "reference")
+                     else ("fused_warp_splat_images", "finish_partials"))
+    assert lc[event] == n * total and lc[finish] == total
+    assert lc["megastep"] == 0 and lc["fused_warp_splat"] == 0
+    assert lc["act_rows"] == n * len(rg["iters"])

@@ -166,9 +166,9 @@ def test_port_imports_no_jax():
         "import better_flow_tpu_torch as p\n"
         "from better_flow_tpu_torch.runtime.offline import "
         "compensate_recording\n"
-        "from better_flow_tpu.config import PipelineConfig, SensorConfig, "
-        "SliceConfig, OptimizerConfig\n"
-        "from better_flow_tpu.io.synthetic import synthetic_events\n"
+        "from better_flow_tpu_torch.config import PipelineConfig, "
+        "SensorConfig, SliceConfig, OptimizerConfig\n"
+        "from better_flow_tpu_torch.io.synthetic import synthetic_events\n"
         "d = synthetic_events(6000, duration_s=0.2, res_x=24, res_y=32, "
         "vx=20.0, vy=-14.0, seed=2)\n"
         "cfg = PipelineConfig(sensor=SensorConfig(24, 32), slice=SliceConfig("

@@ -1,0 +1,192 @@
+"""The event-parallel kernel pair of the PyTorch port against the JAX
+package's Pallas kernels.
+
+B7a (``fused_warp_splat_images``: warp + splat to the two pre-filter
+images) and B7b (``finish_partials``: the finish down to the seven sums) are
+the composed iteration cut where event shards sum their images.  The twins
+(what the wrappers run on CPU tensors) get the numpy-seeded inputs of
+``torch_inputs.py`` and are held against the Pallas kernels in interpret
+mode.
+
+Tolerances.  New positions: rtol 1e-6 (they are in fact bitwise).  Count
+image: exact.  Time image: rtol 1e-5, atol 1e-6, as ``test_torch_kernels.py``
+holds B1's (the JAX kernel sums in f32, the port exact fixed point).  The
+seven sums: within 1e-6 of the sum of each sum's terms' magnitudes (JAX sums
+in f32 in XLA's order, the port in f64; the gradient sums cancel, so an rtol
+on their own values fails).  The twin chain B7a -> B7b is bitwise B6's twin,
+and the summed images of n shards cut on chunk boundaries are exactly the
+unsharded images.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from better_flow_tpu.ops.pallas import fused_model as jfm  # noqa: E402
+from better_flow_tpu_torch.ops import fused_model as tfm  # noqa: E402
+from torch_inputs import image_shape, slice_inputs  # noqa: E402
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The twins work on small tensors; one intra-op thread keeps parallel
+    test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+PARTS = ("cnt", "s_row", "s_col", "s_gx", "s_gy", "s_rg", "s_dg")
+CASES = [((24, 32), 3, 3), ((24, 32), 1, 2), ((180, 240), 3, 4)]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _inputs(res, scale, nch, seed=6):
+    """Numpy inputs, the warp scalars in the carry's sign pattern, the angle
+    and the (1, 16) row as the JAX wrapper builds it."""
+    d = slice_inputs(seed, res=res, scale=scale, nch=nch)
+    st, geo = d["st"][0], d["geo"]
+    warp = [np.float32(v) for v in (-st[0], -st[1], st[8], st[9], st[3])]
+    crl = jnp.float32(-st[2])
+    vals = [geo[0, 0], geo[0, 1], geo[0, 2], geo[0, 3], *warp,
+            jnp.cos(crl), jnp.sin(crl)]
+    row = np.concatenate([np.array([np.float32(v) for v in vals]),
+                          np.zeros(5, np.float32)]).reshape(1, 16)
+    return d, warp, crl, row
+
+
+def _torch_args(d, row):
+    return [_t(d[k]) for k in ("stat", "act", "pr")] + [_t(row)]
+
+
+@pytest.mark.parametrize("res,scale,nch", CASES)
+def test_b7a_twin_matches_pallas(res, scale, nch):
+    H, W = image_shape(res, scale)
+    d, warp, crl, row = _inputs(res, scale, nch)
+    geo = d["geo"]
+    npr_j, at_j, ac_j, fb_j = jfm.fused_warp_splat_images(
+        jnp.asarray(d["stat"]), jnp.asarray(d["act"]), jnp.asarray(d["pr"]),
+        scale, geo[0, 0], geo[0, 1], geo[0, 2], geo[0, 3], *warp, crl, H, W)
+    npr, at, ac, fb = tfm.fused_warp_splat_images_call(
+        *_torch_args(d, row), scale=scale, H=H, W=W)
+    assert at.dtype == torch.int64 and ac.dtype == torch.int32 and fb == 0
+    assert tuple(at.shape) == tuple(ac.shape) == np.asarray(at_j).shape
+    np.testing.assert_allclose(npr.numpy(), np.asarray(npr_j), rtol=1e-6)
+    np.testing.assert_array_equal(ac.numpy().astype(np.float32),
+                                  np.asarray(ac_j))
+    assert int(ac.sum()) > 2000
+    np.testing.assert_allclose(tfm.time_image_f32(at).numpy(),
+                               np.asarray(at_j), rtol=1e-5, atol=1e-6)
+    assert tfm.LAUNCHES["fused_warp_splat_images"] == 0     # CPU: the twin
+
+
+def _term_scale(at, ac, scale, H, W):
+    """Each of the seven sums over its terms' magnitudes (f64)."""
+    def abs_partial(img, gx, gy):
+        f64 = torch.float64
+        m = (img > 1e-6).to(f64)
+        ax, ay = gx.abs().to(f64) * m, gy.abs().to(f64) * m
+        ri = torch.arange(img.shape[0])[:, None].to(f64)
+        ci = torch.arange(img.shape[1])[None, :].to(f64)
+        return torch.stack([m.sum(), (m * ri).sum(), (m * ci).sum(),
+                            ax.sum(), ay.sum(), (ay * ri + ax * ci).sum(),
+                            (ax * ri + ay * ci).sum()])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfm, "model_compute_partial", abs_partial)
+        mag = tfm.finish_partials_plain(at, ac, scale=scale, H=H, W=W)
+    return mag[:7].numpy()
+
+
+@pytest.mark.parametrize("res,scale,nch", CASES)
+def test_b7b_twin_matches_pallas(res, scale, nch):
+    """B7b's twin on the port's integer images against the Pallas kernel on
+    their f32 conversion."""
+    H, W = image_shape(res, scale)
+    d, _warp, _crl, row = _inputs(res, scale, nch, seed=9)
+    _, at, ac, _ = tfm.fused_warp_splat_images_call(
+        *_torch_args(d, row), scale=scale, H=H, W=W)
+    p = jfm.finish_partials(jnp.asarray(tfm.time_image_f32(at).numpy()),
+                            jnp.asarray(ac.numpy().astype(np.float32)),
+                            scale, H, W)
+    want = np.array([float(p[k]) for k in PARTS], np.float64)
+    got = tfm.finish_partials_call(at, ac, scale=scale, H=H, W=W)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (8,)
+    err = np.abs(got.numpy()[:7].astype(np.float64) - want)
+    mag = _term_scale(at, ac, scale, H, W)
+    assert np.all(err <= 1e-6 * mag), (got, want, mag)
+    assert want[0] > 500 and float(got[7]) == 0.0
+    assert tfm.LAUNCHES["finish_partials"] == 0
+
+
+@pytest.mark.parametrize("res,scale,nch", CASES)
+def test_b7_twin_chain_is_bitwise_b6_twin(res, scale, nch):
+    H, W = image_shape(res, scale)
+    d, _warp, _crl, row = _inputs(res, scale, nch, seed=11)
+    args = _torch_args(d, row)
+    kw = dict(scale=scale, H=H, W=W)
+    npr6, vals6 = tfm.fused_warp_splat_call(*args, **kw)
+    npr, at, ac, _ = tfm.fused_warp_splat_images_call(*args, **kw)
+    vals = tfm.finish_partials_call(at, ac, **kw)
+    assert torch.equal(npr, npr6) and torch.equal(vals, vals6)
+    # ... and, through B1's twin with the time pair, B2's finish: the
+    # images are those of the state-driven warp on the same scalars.
+    st, geo = _t(d["st"]), _t(d["geo"])
+    _, at1, ac1 = tfm.warp_images_st_call(args[0], args[1], args[2], st, geo,
+                                          time_lo=True, **kw)
+    assert torch.equal(ac1, ac)
+    np.testing.assert_allclose(tfm.time_image_f32(at1).numpy(),
+                               tfm.time_image_f32(at).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_summed_shard_images_are_the_unsharded_images(n_shards):
+    """Shards cut on chunk boundaries keep every chunk and its time base;
+    integer images add exactly in any order."""
+    res, scale, nch = (24, 32), 3, 8
+    H, W = image_shape(res, scale)
+    d, _warp, _crl, row = _inputs(res, scale, nch, seed=13)
+    stat, act, pr, scal = _torch_args(d, row)
+    kw = dict(scale=scale, H=H, W=W)
+    npr, at, ac, _ = tfm.fused_warp_splat_images_call(stat, act, pr, scal,
+                                                      **kw)
+    per = nch // n_shards
+    parts = [tfm.fused_warp_splat_images_call(
+        stat[a:a + per], act[a:a + per], pr[a:a + per], scal, **kw)
+        for a in range(0, nch, per)]
+    for order in (parts, parts[::-1]):
+        sum_t, sum_c = tfm.sum_images([(p[1], p[2]) for p in order])
+        assert torch.equal(sum_t, at) and torch.equal(sum_c, ac)
+    assert torch.equal(torch.cat([p[0] for p in parts]), npr)
+    # B1's images add the same way (the sharded megastep's seam).
+    st, geo = _t(d["st"]), _t(d["geo"])
+    _, at1, ac1 = tfm.warp_images_st_call(stat, act, pr, st, geo,
+                                          time_lo=False, **kw)
+    parts1 = [tfm.warp_images_st_call(stat[a:a + per], act[a:a + per],
+                                      pr[a:a + per], st, geo, time_lo=False,
+                                      **kw) for a in range(0, nch, per)]
+    sum_t, sum_c = tfm.sum_images([(p[1], p[2]) for p in parts1])
+    assert torch.equal(sum_t, at1) and torch.equal(sum_c, ac1)
+
+
+def test_b7_wrappers_check_their_tensors():
+    res, scale, nch = (24, 32), 3, 2
+    H, W = image_shape(res, scale)
+    d, _warp, _crl, row = _inputs(res, scale, nch)
+    stat, act, pr, scal = _torch_args(d, row)
+    kw = dict(scale=scale, H=H, W=W)
+    with pytest.raises(ValueError, match="scal"):
+        tfm.fused_warp_splat_images_call(stat, act, pr, scal[:, :8], **kw)
+    with pytest.raises(TypeError, match="pr"):
+        tfm.fused_warp_splat_images_call(stat, act, pr.double(), scal, **kw)
+    _, at, ac, _ = tfm.fused_warp_splat_images_call(stat, act, pr, scal, **kw)
+    with pytest.raises(TypeError, match="acc_t"):
+        tfm.finish_partials_call(at.to(torch.float32), ac, **kw)
+    with pytest.raises(ValueError, match="acc_c"):
+        tfm.finish_partials_call(at, ac[:-1], **kw)

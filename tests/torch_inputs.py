@@ -1,16 +1,18 @@
 """Numpy-seeded inputs for the PyTorch port's kernel tests.
 
 Shared by the CPU tests against the JAX package (``test_torch_kernels.py``)
-and the card tests (``test_torch_cuda.py``); imports no JAX.  Shapes are
+and the card tests (``test_torch_cuda.py``); imports no JAX and nothing of
+the JAX package (the configs are the port's own dataclasses, which both
+packages read by attribute).  Shapes are
 small: by default 3 chunks, a 24x32 sensor at scale 3 (images 128x256).
 """
 
 import numpy as np
 
-from better_flow_tpu.config import (
+from better_flow_tpu_torch.config import (
     OptimizerConfig, PipelineConfig, SensorConfig, SliceConfig,
 )
-from better_flow_tpu.io.synthetic import synthetic_events
+from better_flow_tpu_torch.io.synthetic import synthetic_events
 from better_flow_tpu_torch.models import global_flow as tgf
 from better_flow_tpu_torch.ops import layout
 
