@@ -105,6 +105,18 @@ __device__ inline float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// An event's fixed-point time weight, the TPU kernels' own (_windowed_splat):
+// the chunk's time base t0 (its slot 0, padding or not) plus the bf16 hi part
+// of the residual and, with time_lo, the bf16 lo part.  Shared by every
+// splat (warp_splat_event below and splat_local.cu).
+__device__ inline long long time_weight(float t_sec, float t0, int time_lo) {
+  const float tr = t_sec - t0;
+  const float w_hi = bf16_round(tr);
+  long long f = to_fixed(t0) + to_fixed(w_hi);
+  if (time_lo) f += to_fixed(bf16_round(tr - w_hi));
+  return f;
+}
+
 // Warp + splat of event i (chunk i / CHUNK, slot i % CHUNK), shared by
 // warp_images_st.cu (B1), megastep.cu (B5) and warp_splat_images.cu (B7a,
 // which fused_warp_splat.cu, B6, calls): re-warp with ``w`` (B1 and B5 take
@@ -140,12 +152,8 @@ __device__ inline void warp_splat_event(
                   iy >= half && static_cast<float>(iy) < hd + fhalf;
   if (!ok) return;
 
-  const float t_sec = t_ns * INV_NS_PER_SEC;
-  const float t0 = s[2 * CHUNK] * INV_NS_PER_SEC;
-  const float tr = t_sec - t0;
-  const float w_hi = bf16_round(tr);
-  long long f = to_fixed(t0) + to_fixed(w_hi);
-  if (time_lo) f += to_fixed(bf16_round(tr - w_hi));
+  const long long f = time_weight(t_ns * INV_NS_PER_SEC,
+                                  s[2 * CHUNK] * INV_NS_PER_SEC, time_lo);
   const size_t lin = static_cast<size_t>(ix) * WP + iy;
   atomicAdd(&acc_t[lin], static_cast<unsigned long long>(f));
   atomicAdd(&acc_c[lin], 1);

@@ -1,6 +1,7 @@
 // The finish of one optimizer iteration, shared by megastep_finish.cu (B2),
-// megastep.cu (B5) and finish_partials.cu (B7b, which fused_warp_splat.cu,
-// B6, calls): image -> gradient sums -> next state (B6 and B7b stop at the
+// megastep.cu (B5), finish_partials.cu (B7b, which fused_warp_splat.cu, B6,
+// calls) and finish_local.cu (B9, a batch of tiles with an ownership
+// window): image -> gradient sums -> next state (B6, B7b and B9 stop at the
 // seven sums).
 //
 // _finish_values of the TPU kernel (box filter, count normalisation, mask to
@@ -127,12 +128,20 @@ __device__ inline void block_sum(FinishShared& sh) {
 
 // Row i's nine f64 sums into partials[i]: per pixel the masks and the
 // Scharr pair, reduced in the block in a fixed order.  Every thread of the
-// block calls it.
-__device__ inline void gradient_row(const float* img, double* partials, int i,
-                                    int H, int W, FinishShared& sh) {
+// block calls it.  Only the pixels of the ownership window [r0, r1) x
+// [c0, c1) are summed (finish_local.cu: a tile's owned region); the
+// stencils read the whole image, and the row and column weights are the
+// image's own indices.  A thread keeps its columns whatever the window, so
+// the whole-image window sums in the order of gradient_row.
+__device__ inline void gradient_row_window(const float* img, double* partials,
+                                           int i, int H, int W, int r0,
+                                           int r1, int c0, int c1,
+                                           FinishShared& sh) {
   double acc[NSUM];
   for (int q = 0; q < NSUM; ++q) acc[q] = 0.0;
+  const bool row_owned = i >= r0 && i < r1;
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    if (!row_owned || j < c0 || j >= c1) continue;
     float v[3][3];
     bool all9 = true;
     for (int a = 0; a < 3; ++a)
@@ -167,6 +176,12 @@ __device__ inline void gradient_row(const float* img, double* partials, int i,
   block_sum(sh);
   if (threadIdx.x < NSUM)
     partials[static_cast<size_t>(i) * NSUM + threadIdx.x] = sh[threadIdx.x][0];
+}
+
+// The whole image's sums of row i.
+__device__ inline void gradient_row(const float* img, double* partials, int i,
+                                    int H, int W, FinishShared& sh) {
+  gradient_row_window(img, partials, i, H, W, 0, H, 0, W, sh);
 }
 
 // _model_update_phase, one thread.  Op order follows the JAX source.

@@ -143,10 +143,14 @@ def library() -> ctypes.CDLL:
         lib.bf_warp_splat_images.argtypes = [P, P, P, P, P, P, P,
                                              I, I, I, I, P]
         lib.bf_finish_partials.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+        lib.bf_splat_local.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+        lib.bf_finish_local.argtypes = [P, P, P, P, P,
+                                        I, I, I, I, I, I, I, I, I, I, P]
         for fn in (lib.bf_act_rows, lib.bf_warp_images_st,
                    lib.bf_megastep_finish, lib.bf_warp_uv, lib.bf_megastep,
                    lib.bf_fused_warp_splat, lib.bf_warp_splat_images,
-                   lib.bf_finish_partials):
+                   lib.bf_finish_partials, lib.bf_splat_local,
+                   lib.bf_finish_local):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -17,6 +17,8 @@ wrapper                     replaces (better_flow_tpu/ops/pallas/...)
 ``fused_warp_splat_call``   ``fused_model.fused_warp_splat``
 ``fused_warp_splat_images_call``  ``fused_model.fused_warp_splat_images``
 ``finish_partials_call``    ``fused_model.finish_partials``
+``splat_local_call``        ``fused_model.splat_local_call``
+``finish_local_call``       ``fused_model.finish_local_call``
 ==========================  =============================================
 
 Images.  ``warp_images_st_call`` returns the time image as int64 fixed
@@ -26,6 +28,9 @@ so that the card's atomic accumulation is exact and the same on every run
 that the JAX kernel returns.  ``fused_warp_splat_images_call`` returns the
 same integer images: event-parallel shards sum them (``sum_images``), and
 an integer sum is exact whatever the order and the number of shards.
+``splat_local_call`` returns them for a batch of tiles (the tiled
+pipeline's halo fold-in and escape lane add into them exactly), and
+``finish_local_call`` reads such a batch.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ FIXED_PER_SEC = 2.0 ** 32
 
 LAUNCHES = {"act_rows": 0, "warp_images_st": 0, "megastep_finish": 0,
             "warp_uv": 0, "megastep": 0, "fused_warp_splat": 0,
-            "fused_warp_splat_images": 0, "finish_partials": 0}
+            "fused_warp_splat_images": 0, "finish_partials": 0,
+            "splat_local": 0, "finish_local": 0}
 
 
 def reset_launches() -> None:
@@ -141,7 +147,7 @@ def _warp_args(st):
             st[0, ST_TDIV], -st[0, ST_TROT])
 
 
-def _to_fixed(v: torch.Tensor) -> torch.Tensor:
+def to_fixed(v: torch.Tensor) -> torch.Tensor:
     return torch.round(v.to(torch.float64) * FIXED_PER_SEC).to(torch.int64)
 
 
@@ -173,9 +179,9 @@ def _splat_plain(stat, act, prx, pry, geo, *, scale: int, H: int, W: int,
     t0 = t_sec[:, :1]
     tr = t_sec - t0
     w_hi = _bf16(tr)
-    fixed = _to_fixed(t0).expand(nch, CHUNK) + _to_fixed(w_hi)
+    fixed = to_fixed(t0).expand(nch, CHUNK) + to_fixed(w_hi)
     if time_lo:
-        fixed = fixed + _to_fixed(_bf16(tr - w_hi))
+        fixed = fixed + to_fixed(_bf16(tr - w_hi))
     # Rejected events add into a dump slot past the image.
     lin = torch.where(ok, ix.to(torch.int64) * WP + iy, HP * WP).reshape(-1)
     acc_t = torch.zeros(HP * WP + 1, dtype=torch.int64, device=stat.device)
@@ -238,13 +244,14 @@ def _shift(a: torch.Tensor, d: int, axis: int) -> torch.Tensor:
 
 
 def finish_values_plain(acc_t, acc_c, *, scale: int, H: int, W: int,
-                        shift=_shift):
+                        shift=_shift, own=None):
     """Box filter, normalise, mask to H x W, all-nine mask, Scharr and the
     seven sums (cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg) as a (7,) f32
     tensor.  The sums are taken in f64 and rounded to f32 once, as the
     kernel takes them; ``shift(a, d, axis)`` moves ``a`` by ``d`` (the
     kernel's zero padding by default; a circular roll gives the TPU
-    kernel's arithmetic)."""
+    kernel's arithmetic).  ``own`` = (r0, r1, c0, c1) restricts the sums to
+    that window of the image; the stencils still read all of it."""
     HP, WP = acc_t.shape
     half = scale // 2
     a_t = time_image_f32(acc_t)
@@ -280,6 +287,11 @@ def finish_values_plain(acc_t, acc_c, *, scale: int, H: int, W: int,
                      fma(three, shift(img, 1, 0), ten_img))
     gy = shift(row_smooth, 1, 1) - shift(row_smooth, -1, 1)
     zero = torch.zeros_like(img)
+    if own is not None:
+        r0, r1, c0, c1 = own
+        owned = (rr >= r0) & (rr < r1) & (cc >= c0) & (cc < c1)
+        img = torch.where(owned, img, zero)
+        allnine = allnine & owned
     # The all-nine mask implies the centre mask, so the masked gradients
     # are the sums' integrands.
     return model_compute_partial(img, torch.where(allnine, gx, zero),
@@ -700,6 +712,130 @@ def finish_partials_call(acc_t, acc_c, *, scale: int, H: int, W: int):
         _ptr(acc_t), _ptr(acc_c), _ptr(out), _ptr(ws["img"]),
         _ptr(ws["partials"]), HP, WP, H, W, scale, _stream(dev))
     _launch("finish_partials", rc)
+    return out
+
+
+# ------------------------------ B8 / B9 the tiled pipeline's splat and finish
+
+
+def _chunk_padded(a: torch.Tensor, fill: float) -> torch.Tensor:
+    """(n_tiles, n) -> (n_tiles, n_pad) with n_pad the next CHUNK multiple
+    (at least one chunk), new slots holding ``fill``; ``a`` itself when it
+    already is."""
+    n = a.shape[1]
+    n_pad = -(-max(n, CHUNK) // CHUNK) * CHUNK
+    if n_pad == n:
+        return a
+    return torch.nn.functional.pad(a, (0, n_pad - n), value=fill)
+
+
+def splat_local_plain(lx, ly, t_sec, *, H: int, W: int,
+                      time_lo: bool = True):
+    """The twin of B8 on chunk-padded (n_tiles, n_pad) slots."""
+    n_tiles, n_pad = lx.shape
+    ix = lx.to(torch.int32).to(torch.int64)   # toward zero
+    iy = ly.to(torch.int32).to(torch.int64)
+    ok = (lx >= 0) & (ly >= 0) & (ix < H) & (iy < W)
+    t0 = t_sec.reshape(n_tiles, -1, CHUNK)[:, :, :1]
+    tr = t_sec.reshape(n_tiles, -1, CHUNK) - t0
+    w_hi = _bf16(tr)
+    fixed = to_fixed(t0) + to_fixed(w_hi)
+    if time_lo:
+        fixed = fixed + to_fixed(_bf16(tr - w_hi))
+    tile = torch.arange(n_tiles, device=lx.device)[:, None]
+    # Rejected slots add into a dump slot past the images.
+    lin = torch.where(ok, (tile * H + ix) * W + iy,
+                      n_tiles * H * W).reshape(-1)
+    acc_t = torch.zeros(n_tiles * H * W + 1, dtype=torch.int64,
+                        device=lx.device)
+    acc_c = torch.zeros(n_tiles * H * W + 1, dtype=torch.int32,
+                        device=lx.device)
+    acc_t.index_add_(0, lin, fixed.reshape(-1))
+    acc_c.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
+    return (acc_t[:-1].reshape(n_tiles, H, W),
+            acc_c[:-1].reshape(n_tiles, H, W))
+
+
+def splat_local_call(lx, ly, t_sec, *, H: int, W: int, time_lo: bool = True):
+    """The splat of a batch of tiles from precomputed local positions:
+    ``lx``, ``ly`` (n_tiles, n) f32 integer positions in each tile's H x W
+    frame, negative in a rejected or padding slot, ``t_sec`` (n_tiles, n)
+    f32 timestamps in seconds.  Each tile's slots are padded to whole chunks
+    of CHUNK (position -1, time 0) unless they already are; an event's time
+    weight is relative to its chunk's slot 0, in bf16 hi and (``time_lo``) lo
+    parts.  Returns (acc_t (n_tiles, H, W) int64 fixed point, acc_c
+    (n_tiles, H, W) int32), allocated per call.  One launch whatever the
+    number of tiles."""
+    dev = lx.device
+    if lx.dim() != 2:
+        raise ValueError(f"lx: shape {tuple(lx.shape)}, expected "
+                         "(n_tiles, n)")
+    shape = tuple(lx.shape)
+    _check("lx", lx, torch.float32, shape, dev)
+    _check("ly", ly, torch.float32, shape, dev)
+    _check("t_sec", t_sec, torch.float32, shape, dev)
+    lx, ly = _chunk_padded(lx, -1.0), _chunk_padded(ly, -1.0)
+    t_sec = _chunk_padded(t_sec, 0.0)
+    if _on_cpu(dev):
+        return splat_local_plain(lx, ly, t_sec, H=H, W=W, time_lo=time_lo)
+    from better_flow_tpu_torch.ops._build import library
+
+    n_tiles, n_pad = lx.shape
+    acc_t = torch.empty((n_tiles, H, W), dtype=torch.int64, device=dev)
+    acc_c = torch.empty((n_tiles, H, W), dtype=torch.int32, device=dev)
+    rc = library().bf_splat_local(_ptr(lx), _ptr(ly), _ptr(t_sec),
+                                  _ptr(acc_t), _ptr(acc_c), n_tiles, n_pad,
+                                  H, W, int(time_lo), _stream(dev))
+    _launch("splat_local", rc)
+    return acc_t, acc_c
+
+
+def finish_local_plain(acc_t, acc_c, *, scale: int, H: int, W: int, own):
+    """The twin of B9: ``finish_values_plain`` with the ownership window,
+    tile by tile, with a zero eighth slot."""
+    rows = [finish_values_plain(t, c, scale=scale, H=H, W=W, own=own)
+            for t, c in zip(acc_t, acc_c)]
+    return torch.cat([torch.stack(rows),
+                      acc_t.new_zeros((len(rows), 1), dtype=torch.float32)],
+                     dim=1)
+
+
+def finish_local_call(acc_t, acc_c, *, scale: int, H: int, W: int, own):
+    """The finish of a batch of tiles' local images (n_tiles, HP, WP), the
+    logical H x W image in the top-left corner: box filter, normalise,
+    mask, Scharr over the whole local image, and the seven sums over the
+    window ``own`` = (r0, r1, c0, c1), the same for every tile, with local
+    row and column weights.  Returns (n_tiles, 8) f32 [cnt, s_row, s_col,
+    s_gx, s_gy, s_rg, s_dg, 0]; with the whole image as the window, bitwise
+    ``finish_partials_call``'s.  One call whatever the number of tiles."""
+    dev = acc_t.device
+    if acc_t.dim() != 3 or acc_t.shape[1] < H or acc_t.shape[2] < W:
+        raise ValueError(f"acc_t: shape {tuple(acc_t.shape)}, expected "
+                         f"(n_tiles, >= {H}, >= {W})")
+    n_tiles, HP, WP = acc_t.shape
+    _check("acc_t", acc_t, torch.int64, (n_tiles, HP, WP), dev)
+    _check("acc_c", acc_c, torch.int32, (n_tiles, HP, WP), dev)
+    r0, r1, c0, c1 = (int(v) for v in own)
+    if not (0 <= r0 <= r1 <= H and 0 <= c0 <= c1 <= W):
+        raise ValueError(f"own = {tuple(own)} outside the {H} x {W} image")
+    if _on_cpu(dev):
+        return finish_local_plain(acc_t, acc_c, scale=scale, H=H, W=W,
+                                  own=(r0, r1, c0, c1))
+    from better_flow_tpu_torch.ops._build import library
+
+    out = torch.empty((n_tiles, 8), dtype=torch.float32, device=dev)
+    key = (dev, n_tiles, H, W)
+    if key not in _WORKSPACE:
+        _WORKSPACE[key] = dict(
+            img=torch.empty((n_tiles, H, W), dtype=torch.float32, device=dev),
+            partials=torch.empty((n_tiles, H, 9), dtype=torch.float64,
+                                 device=dev))
+    ws = _WORKSPACE[key]
+    rc = library().bf_finish_local(
+        _ptr(acc_t), _ptr(acc_c), _ptr(out), _ptr(ws["img"]),
+        _ptr(ws["partials"]), n_tiles, HP, WP, H, W, scale, r0, r1, c0, c1,
+        _stream(dev))
+    _launch("finish_local", rc)
     return out
 
 

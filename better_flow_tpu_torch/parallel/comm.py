@@ -3,8 +3,8 @@
 Counterpart of what the JAX package takes from ``lax.psum`` / ``pmin`` /
 ``pmax``, ``multihost_utils.broadcast_one_to_all`` and
 ``process_allgather``: a communicator with ``size``, ``rank``,
-``all_reduce_sum``, ``all_reduce_min``, ``all_reduce_max``, ``broadcast``
-and ``all_gather``.  Two implementations:
+``all_reduce_sum``, ``all_reduce_min``, ``all_reduce_max``, ``broadcast``,
+``all_gather`` and ``permute`` (``lax.ppermute``).  Two implementations:
 
 - ``LocalComm``: one process; every collective is the identity and no
   process group is needed;
@@ -43,6 +43,15 @@ class LocalComm:
 
     def all_gather(self, tensor: torch.Tensor) -> torch.Tensor:
         return tensor[None]
+
+    def permute(self, tensors: Sequence[torch.Tensor], pairs
+                ) -> List[torch.Tensor]:
+        """See ``ProcessGroupComm.permute``: the one rank sends to itself
+        or to nobody."""
+        check_pairs(pairs, 1)
+        if pairs:
+            return list(tensors)
+        return [torch.zeros_like(t) for t in tensors]
 
 
 class ProcessGroupComm:
@@ -92,6 +101,47 @@ class ProcessGroupComm:
         parts = [torch.empty_like(tensor) for _ in range(self.size)]
         self._dist.all_gather(parts, tensor.contiguous(), group=self.group)
         return torch.stack(parts)
+
+
+    def permute(self, tensors, pairs):
+        """``lax.ppermute``: ``pairs`` is a list of (source rank, destination
+        rank), each rank at most once as a source and once as a
+        destination, the same list on every rank.  Every rank passes
+        tensors of the same shapes and dtypes; a rank receives its source's
+        tensors, or zeros when no pair names it as a destination."""
+        check_pairs(pairs, self.size)
+        dst = {a: b for a, b in pairs}.get(self.rank)
+        src = {b: a for a, b in pairs}.get(self.rank)
+        if src is None:
+            out = [torch.zeros_like(t) for t in tensors]
+        elif src == self.rank:
+            out = list(tensors)
+        else:
+            out = [torch.empty_like(t) for t in tensors]
+        ops = []
+        # Ranks of a group are global ranks only in the default group.
+        peer = (lambda r: r) if self.group is None else \
+            (lambda r: self._dist.get_global_rank(self.group, r))
+        if dst is not None and dst != self.rank:
+            ops += [self._dist.P2POp(self._dist.isend, t.contiguous(),
+                                     peer(dst), self.group) for t in tensors]
+        if src is not None and src != self.rank:
+            ops += [self._dist.P2POp(self._dist.irecv, t, peer(src),
+                                     self.group) for t in out]
+        if ops:
+            for req in self._dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
+
+def check_pairs(pairs, size: int) -> None:
+    srcs = [a for a, _ in pairs]
+    dsts = [b for _, b in pairs]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or any(
+            not 0 <= r < size for r in srcs + dsts):
+        raise ValueError(f"permute pairs {list(pairs)} over {size} ranks: "
+                         "each rank at most once as a source and once as a "
+                         "destination")
 
 
 def world():

@@ -11,7 +11,12 @@ shards, sum their images, then all-reduce across the ranks.
 
 A ``Mesh(('slice', 'ev'))`` becomes a ``PipelineGroup``: independent slices
 over the ranks of its communicator, each slice's events over a process-local
-``EventGroup``.  The tiled mesh waits for the tiled pipeline.
+``EventGroup``.
+
+A ``Mesh(('tile_x', 'tile_y'))`` becomes a ``TileGroup``: the image plane cut
+into n_tx x n_ty tiles, numbered tx-major (tile k is (k // n_ty, k % n_ty),
+the flattened order of the JAX mesh) and held rank by rank as an event
+group's shards are.
 """
 
 from __future__ import annotations
@@ -41,6 +46,21 @@ class PipelineGroup(NamedTuple):
     comm: object            # slices are split over its ranks
     n_slices: int           # slice lanes in all (a multiple of comm.size)
     ev: EventGroup          # process-local event shards of each slice
+
+
+class TileGroup(NamedTuple):
+    comm: object            # parallel.comm communicator
+    shape: tuple            # (n_tx, n_ty)
+    n_local: int            # tiles held by this process
+    device: torch.device    # where this process's tiles live
+
+    @property
+    def n_tiles(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    @property
+    def first_tile(self) -> int:
+        return self.comm.rank * self.n_local
 
 
 def group_device(device) -> torch.device:
@@ -77,3 +97,17 @@ def make_pipeline_mesh(n_slices: int, n_ev: int, comm=None,
     return PipelineGroup(comm, int(n_slices),
                          EventGroup(LocalComm(), int(n_ev),
                                     group_device(device)))
+
+
+def make_tiled_mesh(tiles, comm=None, device=None) -> TileGroup:
+    """A tile group of ``tiles`` = (n_tx, n_ty) tiles over the ranks of
+    ``comm`` (default: this process's world), equally many on each.
+    ``device`` defaults to the card and must be given as ``"cpu"`` to run
+    the plain twins."""
+    comm = world() if comm is None else comm
+    n_tx, n_ty = (int(v) for v in tiles)
+    if n_tx <= 0 or n_ty <= 0 or (n_tx * n_ty) % comm.size != 0:
+        raise ValueError(f"{n_tx} x {n_ty} tiles do not divide over "
+                         f"{comm.size} ranks")
+    return TileGroup(comm, (n_tx, n_ty), n_tx * n_ty // comm.size,
+                     group_device(device))

@@ -99,6 +99,21 @@ def plan_slices(t_ns: np.ndarray, cfg: PipelineConfig) -> SlicePlan:
     return SlicePlan(starts=starts, ends=ends, slice_start_ns=slice_start)
 
 
+def host_bbox(x, y, plan: SlicePlan):
+    """Per-slice integer bbox (S, 4) int32 (x_min, x_max, y_min, y_max) and
+    event count (S,) int32 of each slice's chronological window: what
+    OptimizerRolling::set_cloud scans per slice
+    (optimizer_rolling.h:252-261), taken on the host, which touches every
+    event anyway."""
+    S = len(plan.ends)
+    bbox = np.zeros((S, 4), np.int32)
+    for s in range(S):
+        a, b = int(plan.starts[s]), int(plan.ends[s]) + 1
+        xw, yw = x[a:b], y[a:b]
+        bbox[s] = (int(xw.min()), int(xw.max()), int(yw.min()), int(yw.max()))
+    return bbox, (plan.ends - plan.starts + 1).astype(np.int32)
+
+
 def history_depth(plan: SlicePlan) -> int:
     """K, the number of earlier slices whose windows can overlap a slice's
     window: the depth of the window-gate history."""

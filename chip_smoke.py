@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the eight CUDA kernels of
+Run from the root of a checkout.  It builds the ten CUDA kernels of
 ``better_flow_tpu_torch/csrc`` and then, in phases that each raise on
 failure:
 
@@ -45,7 +45,24 @@ failure:
    sum, B7b), each bitwise the unsharded scan staged with the same padding,
    with the launch counts; then ``compensate_recording_multihost`` in one
    process over three slice ranges (chained carries, disjoint claims),
-   bitwise the full scan.
+   bitwise the full scan;
+10. the tiled megapixel pipeline (``parallel.spatial``), all tiles resident
+    on the one card, at the protocol of ``tools/bench_tiled.py``: a 720x1280
+    sensor at scale 1, slices of <= 60,000 events / 70 ms, a retrigger every
+    25,000 events / 30 ms, ``max_iter`` 10, halo 32, ``esc_cap`` 32768,
+    600,000 synthetic events.  First B8 (``splat_local``) and B9
+    (``finish_local``) against their twins at the 1x1 tile's shapes (one
+    785x1345 image pair, 30 chunks) and at the 4x2 batch (eight 245x705
+    tiles), sorted and unsorted slots, an owned window and the whole image
+    (bitwise B7b).  Then ``compensate_recording_tiled`` on 1x1 and 4x2 tiles
+    under the reference schedule and on 4x2 under ``fast``: no event dropped
+    from the escape lane, B8 and B9 launched once per iteration, 4x2 against
+    1x1 and against the untiled scan under the gates of
+    ``tests/test_spatial.py`` (against the untiled scan the iteration gate
+    is printed, met or not, and does not decide the phase), a second run
+    bitwise the first, the card against the CPU twins on the first 150,000
+    events, and one slice whose warp drifts beyond an 8-pixel halo so that
+    the lane carries events.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -75,9 +92,16 @@ KERNELS = [   # name, source, the TPU kernel's pallas_call it replaces
      "better_flow_tpu_torch/csrc/warp_splat_images.cu", f"{PALLAS}:496"),
     ("finish_partials", "better_flow_tpu_torch/csrc/finish_partials.cu",
      f"{PALLAS}:544"),
+    ("splat_local", "better_flow_tpu_torch/csrc/splat_local.cu",
+     f"{PALLAS}:924"),
+    ("finish_local", "better_flow_tpu_torch/csrc/finish_local.cu",
+     f"{PALLAS}:981"),
 ]
 N_EVENTS = 2_000_000
 N_COMPARE = 200_000
+N_TILED = 600_000
+N_TILED_COMPARE = 150_000
+TILED_HALO, TILED_ESC_CAP = 32, 32768
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the f32 rate outside the tensor cores (no kernel here has a
@@ -573,6 +597,370 @@ def phase_sharded(d, dev):
     return keep
 
 
+def tiled_cfg(fast=False):
+    """The tiled protocol's configuration (tools/bench_tiled.py)."""
+    from better_flow_tpu_torch.config import (
+        OptimizerConfig, PipelineConfig, SensorConfig, SliceConfig,
+    )
+
+    opt = OptimizerConfig.fast(scale=1, min_events=1000) if fast else \
+        OptimizerConfig(scale=1, max_iter=10, min_events=1000)
+    return PipelineConfig(
+        sensor=SensorConfig(720, 1280),
+        slice=SliceConfig(max_events=60_000, span_ns=int(0.07e9),
+                          refresh_events=25_000, refresh_time_ns=int(0.03e9)),
+        optimizer=opt)
+
+
+def tiled_stream(n=N_TILED):
+    """``n`` events at 1.5M events/s on the megapixel sensor; the jitter
+    fattens the clusters so that 3x3 neighbourhoods fill at scale 1."""
+    from better_flow_tpu_torch.io.synthetic import synthetic_events
+
+    return synthetic_events(n, duration_s=n / 1.5e6, res_x=720, res_y=1280,
+                            vx=120.0, vy=-80.0, rot=0.1, div=0.03,
+                            n_points=600, jitter_px=1.5, seed=4)
+
+
+def phase_tiled_kernels(d, dev):
+    """B8 and B9 against their twins at the tiled path's shapes: the first
+    iteration's inputs of a full slice on 1x1 and on 4x2 tiles.  Returns the
+    4x2 batch's results for the ``kernels`` line."""
+    import torch
+
+    from better_flow_tpu_torch.models.global_flow import geometry_from_bbox
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.layout import padded_image_shape
+    from better_flow_tpu_torch.parallel import spatial as sp
+    from better_flow_tpu_torch.parallel.mesh import make_tiled_mesh
+
+    cfg = tiled_cfg()
+    opt = cfg.optimizer
+    m = min(len(d["x"]), 200_000)
+    for shape in ((1, 1), (4, 2)):
+        mesh = make_tiled_mesh(shape, device=dev)
+        prep = sp.prepare_recording_tiled(d["x"][:m], d["y"][:m],
+                                          d["t_ns"][:m], cfg, *shape)
+        staged = sp._stage_tiles(prep, mesh)
+        s = len(prep["plan"].ends) // 2          # a full, interior slice
+        tl = sp._Tiling(cfg.sensor, opt.scale, mesh, TILED_HALO)
+        geom = geometry_from_bbox(*prep["bbox"][s], opt.scale, cfg.sensor,
+                                  opt.min_window_fraction)
+        x, y, t, idx = (staged[k][s] for k in ("x", "y", "t", "idx"))
+        ev = sp._tile_events(x, y, t, idx >= 0, tl, geom)
+        lx, ly, *_ = sp._local_positions(x, y, ev, tl)
+        name = f"{shape[0]}x{shape[1]}"
+        kw = dict(H=tl.H, W=tl.W)
+        gen = torch.Generator().manual_seed(5)
+        perm = torch.stack([torch.randperm(lx.shape[1], generator=gen)
+                            for _ in range(lx.shape[0])]).to(dev)
+        cases = {"sorted": (lx, ly, ev.t_sec),
+                 "unsorted": tuple(a.gather(1, perm)
+                                   for a in (lx, ly, ev.t_sec))}
+        res8 = {}
+        for order, args in cases.items():
+            at, ac = fm.splat_local_call(*args, **kw)
+            at_p, ac_p = fm.splat_local_plain(*args, **kw)
+            err = max(max_err(at, at_p), max_err(ac, ac_p))
+            if err != 0.0:
+                raise AssertionError(f"splat_local {name} {order}: max abs "
+                                     f"error {err} against its twin")
+            n_acc = int(ac.sum())
+            # (On 4x2 tiles the window's shift moves most events off their
+            # home tiles, beyond the halo: those go by the escape lane.)
+            if n_acc < 20_000:
+                raise AssertionError(f"splat_local {name} {order}: only "
+                                     f"{n_acc} events splatted")
+            res8[order] = dict(
+                max_abs_err=err,
+                ms=timed(lambda: fm.splat_local_call(*args, **kw)),
+                plain_ms=timed(lambda: fm.splat_local_plain(*args, **kw)),
+                **bound(nbytes(*args, at, ac),
+                        args[0].numel() * 4 + n_acc * OPS_SPLAT))
+        at, ac = fm.splat_local_call(*cases["sorted"], **kw)
+        if not torch.equal(fm.splat_local_call(*cases["unsorted"], **kw)[1],
+                           ac):
+            raise AssertionError(f"splat_local {name}: the count image "
+                                 "depends on the slots' order")
+        # A yardstick, not the same function: one index_add_ of precomputed
+        # weights at precomputed pixels gives one of the two images.
+        ok = lx >= 0
+        tile = torch.arange(lx.shape[0], device=dev)[:, None]
+        lin = torch.where(ok, (tile * tl.H + lx.long()) * tl.W + ly.long(),
+                          0).reshape(-1)
+        w = torch.where(ok, fm.to_fixed(ev.t_sec), 0).reshape(-1)
+        ia_ms = timed(lambda: torch.zeros(at.numel(), dtype=torch.int64,
+                                          device=dev).index_add_(0, lin, w))
+
+        own = tl.own
+        kw9 = dict(scale=opt.scale, **kw)
+        vals = fm.finish_local_call(at, ac, own=own, **kw9)
+        err9 = max_err(vals, fm.finish_local_plain(at, ac, own=own, **kw9))
+        HP, WP = padded_image_shape(tl.H, tl.W)
+        pad = lambda a: torch.nn.functional.pad(a, (0, WP - tl.W, 0,
+                                                    HP - tl.H))
+        atp, acp = pad(at), pad(ac)
+        whole = fm.finish_local_call(atp, acp, own=(0, tl.H, 0, tl.W), **kw9)
+        b7b = torch.stack([fm.finish_partials_call(
+            atp[k].contiguous(), acp[k].contiguous(), **kw9)
+            for k in range(at.shape[0])])
+        if err9 != 0.0 or not torch.equal(whole, b7b):
+            raise AssertionError(
+                f"finish_local {name}: max abs error {err9} against its "
+                f"twin; whole image bitwise B7b: {torch.equal(whole, b7b)}")
+        if float(vals[:, 0].sum()) < 0.2 * n_acc or \
+                float(vals[:, 7].abs().max()) != 0.0:
+            raise AssertionError(f"finish_local {name}: sums {vals.tolist()}")
+        res9 = dict(
+            max_abs_err=err9,
+            ms=timed(lambda: fm.finish_local_call(at, ac, own=own, **kw9)),
+            plain_ms=timed(lambda: fm.finish_local_plain(at, ac, own=own,
+                                                         **kw9)),
+            **bound(nbytes(at, ac, vals), ops_finish(at.numel(), opt.scale)))
+        for k, r in (("splat_local sorted", res8["sorted"]),
+                     ("splat_local unsorted", res8["unsorted"]),
+                     ("finish_local", res9)):
+            log(f"[kernels] {k} {name} ({lx.shape[0]} x {lx.shape[1]} slots, "
+                f"{at.shape[0]} x {tl.H}x{tl.W} images): max_abs_err "
+                f"{r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+        log(f"[kernels] {name}: finish_local on the whole image bitwise "
+            f"finish_partials; index_add_ of one image {ia_ms:.4f} ms; "
+            f"{int(ac.sum())} of the slice's {int(prep['nval'][s])} events "
+            "land inside their home tile's halo ring (the others go by the "
+            "escape lane)")
+        out = dict(splat_local=res8["sorted"], finish_local=res9)
+    return out
+
+
+def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
+    """The tiled pipeline on the megapixel stream (see the module
+    docstring, 10).  Returns the 4x2 reference run's launch counts."""
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
+    from better_flow_tpu_torch.core.model import MotionModel
+    from better_flow_tpu_torch.io.synthetic import synthetic_events
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.parallel import spatial as sp
+    from better_flow_tpu_torch.parallel.mesh import make_tiled_mesh
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        compensate_recording_scan,
+    )
+
+    t_phase = time.perf_counter()
+    preps = {}
+
+    def run(shape, fast=False, device=dev, m=None, warm=False):
+        part = d if m is None else {k: d[k][:m] for k in ("x", "y", "t_ns")}
+        cfg = tiled_cfg(fast)
+        key = (shape, m)
+        if key not in preps:
+            preps[key] = sp.prepare_recording_tiled(
+                part["x"], part["y"], part["t_ns"], cfg, *shape)
+        call = lambda: sp.compensate_recording_tiled(
+            None, None, None, cfg, make_tiled_mesh(shape, device=device),
+            halo=TILED_HALO, esc_cap=TILED_ESC_CAP, prepared=preps[key])
+        if warm:
+            call()
+        return call()
+
+    def report(name, r):
+        st = r["stats"]
+        total = int(r["iters"].sum())
+        for k in ("u", "v", "noise"):
+            if r[k].shape != (st["n_events"],):
+                raise AssertionError(f"tiled {name}: {k} shape {r[k].shape}")
+        if not (np.isfinite(r["u"]).all() and np.isfinite(r["v"]).all()):
+            raise AssertionError(f"tiled {name}: non-finite flow")
+        if st["escaped_dropped"] != 0:
+            raise AssertionError(f"tiled {name}: escape lane dropped "
+                                 f"{st['escaped_dropped']} events")
+        lc = st["launches"]
+        want = dict.fromkeys(lc, 0)
+        want.update(splat_local=total, finish_local=total)
+        if lc != want or total <= st["n_slices"]:
+            raise AssertionError(f"tiled {name}: launches {lc}, expected "
+                                 f"{want}")
+        log(f"[tiled] {name}: events/s {st['events_per_s']:.1f}  run_s "
+            f"{st['run_s']:.4f}  plan_s {st['plan_s']:.4f}  n_slices "
+            f"{st['n_slices']}  mean_iters {st['mean_iters']:.4f}  "
+            f"host_syncs {st['host_syncs']} "
+            f"({st['host_syncs'] / total:.2f} an iteration)  "
+            f"host_ms_per_iter {1e3 * st['run_s'] / total:.4f}  "
+            f"cap_per_tile {st['cap_per_tile']}  launches: splat_local "
+            f"{lc['splat_local']}, finish_local {lc['finish_local']}")
+        return r
+
+    def tiled_gates(name, a, b, iterations=True):
+        """The gates of tests/test_spatial.py:192-205 of ``a`` against the
+        reference run ``b``: noise and iterations identical, median |du|,
+        |dv| <= 0.5% and max |du| <= 5% of a mean speed above 50.  With
+        ``iterations=False`` the iteration gate is reported (met or NOT MET,
+        with the counts) and does not decide the phase."""
+        if not np.array_equal(a["noise"], b["noise"]):
+            raise AssertionError(f"tiled {name}: noise flags differ")
+        same = a["iters"] == b["iters"]
+        if not same.all():
+            log(f"[tiled] {name}: iteration gate NOT MET: the counts differ "
+                f"in {int((~same).sum())} of {len(same)} slices: "
+                f"{a['iters'].tolist()} vs {b['iters'].tolist()}")
+            if iterations:
+                raise AssertionError(f"tiled {name}: iterations differ")
+        else:
+            log(f"[tiled] {name}: iteration gate met ({len(same)} slices)")
+        ok = ~b["noise"]
+        speed = float(np.hypot(b["u"][ok], b["v"][ok]).mean())
+        du = np.abs(a["u"][ok] - b["u"][ok])
+        dv = np.abs(a["v"][ok] - b["v"][ok])
+        got = dict(speed=speed, median_du=float(np.median(du)),
+                   median_dv=float(np.median(dv)), max_du=float(du.max()))
+        log(f"[tiled] {name}: {json.dumps(got)}")
+        if speed <= 50.0 or got["median_du"] > 0.005 * speed or \
+                got["median_dv"] > 0.005 * speed or \
+                got["max_du"] > 0.05 * speed:
+            raise AssertionError(f"tiled {name}: beyond the gates (median "
+                                 "<= 0.005 x speed, max <= 0.05 x speed, "
+                                 "speed > 50)")
+
+    def operations(shape):
+        """PyTorch operations dispatched inside one tiled iteration, views
+        apart, averaged over a run (the kernels' wrappers are two calls)."""
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        views = ("slice", "select", "view", "unsqueeze", "squeeze", "expand",
+                 "detach", "unbind", "reshape", "transpose", "permute",
+                 "alias", "narrow", "as_strided", "t.default", "unsafe_view")
+        count = dict(on=False, ops=0, views=0, iters=0)
+
+        class Counter(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if count["on"]:
+                    name = str(func).split("aten.")[-1]
+                    kind = "views" if name.startswith(views) else "ops"
+                    count[kind] += 1
+                return func(*args, **(kwargs or {}))
+
+        real = sp._tiled_iteration
+
+        def counted(*a, **k):
+            count["on"], count["iters"] = True, count["iters"] + 1
+            try:
+                return real(*a, **k)
+            finally:
+                count["on"] = False
+
+        sp._tiled_iteration = counted
+        try:
+            with Counter():
+                run(shape)
+        finally:
+            sp._tiled_iteration = real
+        return (round(count["ops"] / count["iters"], 1),
+                round(count["views"] / count["iters"], 1))
+
+    r11 = report("1x1 reference", run((1, 1), warm=True))
+    run((4, 2))                                             # warm-up
+    fm.reset_launches()
+    r42 = report("4x2 reference", run((4, 2)))
+    launches = dict(fm.LAUNCHES)
+    tiled_gates("4x2 against 1x1", r42, r11)
+    r42b = run((4, 2))
+    for k in ("u", "v", "noise", "iters"):
+        if not np.array_equal(r42[k], r42b[k]):
+            raise AssertionError(f"tiled 4x2: repeated run differs in {k}")
+    log(f"[tiled] 4x2 reference: second run bitwise identical; events/s "
+        f"{r42b['stats']['events_per_s']:.1f}")
+    log(f"[tiled] PyTorch operations (and views) an iteration around B8 and "
+        f"B9: 1x1 {operations((1, 1))}, 4x2 {operations((4, 2))}")
+    rf = report("4x2 fast", run((4, 2), fast=True, warm=True))
+    # The fast schedule against the reference one (reported, not gated:
+    # the reference schedule stops at max_iter in most slices).
+    okf = ~(rf["noise"] | r42["noise"])
+    speed = float(np.hypot(r42["u"][okf], r42["v"][okf]).mean())
+    dfu = float(np.median(np.abs(rf["u"][okf] - r42["u"][okf])))
+    dfv = float(np.median(np.abs(rf["v"][okf] - r42["v"][okf])))
+    log(f"[tiled] 4x2 fast against 4x2 reference: median |du| {dfu:.4f} "
+        f"|dv| {dfv:.4f} of speed {speed:.2f}; iterations "
+        f"{int(rf['iters'].sum())} vs {int(r42['iters'].sum())}")
+
+    # The untiled scan of the port at this geometry, on the card.
+    ru = compensate_recording_scan(d["x"], d["y"], d["t_ns"], tiled_cfg(),
+                                   device=dev)
+    su = ru["stats"]
+    log(f"[tiled] untiled scan: events/s {su['events_per_s']:.1f}  run_s "
+        f"{su['run_s']:.4f}  plan_s {su['plan_s']:.4f}  n_slices "
+        f"{su['n_slices']}  mean_iters {su['mean_iters']:.4f}  host_syncs "
+        f"{su['host_syncs']}  host_ms_per_iter "
+        f"{1e3 * su['run_s'] / max(1, su['host_syncs']):.4f}")
+    if su["n_slices"] != r42["stats"]["n_slices"]:
+        raise AssertionError("tiled: slice counts differ from the untiled "
+                             "scan's")
+    # Noise and flow are held to the gates.  The iteration gate is not met
+    # on this stream and is printed as it is: from the seventh slice on the
+    # exit falls within an ulp of the tolerance, and the untiled scan sums
+    # the image in the megastep's order, the tiled path tile by tile (the
+    # JAX package's own untiled and tiled runs part in the same slices:
+    # tests/test_torch_tiled_fullwidth.py).
+    tiled_gates("4x2 against the untiled scan", r42, ru, iterations=False)
+
+    # The card against the CPU twins.
+    m = n_compare
+    t0 = time.perf_counter()
+    same_twins("tiled 4x2", run((4, 2), m=m), run((4, 2), device="cpu", m=m))
+    part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
+    same_twins("untiled scan at 720x1280",
+               compensate_recording_scan(part["x"], part["y"], part["t_ns"],
+                                         tiled_cfg(), device=dev),
+               compensate_recording_scan(part["x"], part["y"], part["t_ns"],
+                                         tiled_cfg(), device="cpu"))
+    log(f"[tiled] card = CPU twins on {m} events, tiled 4x2 and the untiled "
+        f"scan (noise and iterations identical, median du = dv = 0); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # Beyond the halo: a fast scene on a small sensor, 4x1 tiles, halo 8.
+    e = synthetic_events(6000, duration_s=0.1, res_x=48, res_y=64, vx=80.0,
+                         vy=-50.0, n_points=100, seed=3)
+    opt = OptimizerConfig(scale=3, max_iter=16, min_events=100)
+
+    def lane(shape, esc_cap, device=dev):
+        args = sp.bucket_events_2d(e["x"], e["y"],
+                                   e["t_ns"].astype(np.float32), 48, 64, 3,
+                                   *shape, None)
+        mesh = make_tiled_mesh(shape, device=device)
+        return sp.process_slice_tiled(
+            *args, MotionModel.zero(mesh.device), opt, SensorConfig(48, 64),
+            mesh, halo=8, n_iters=16, esc_cap=esc_cap), args[3]
+
+    (sized, _), (starved, _), (one, ok1), (twin, _) = (
+        lane((4, 1), 4096), lane((4, 1), 1), lane((1, 1), 4096),
+        lane((4, 1), 4096, device="cpu"))
+    med = float(np.median(one.u.cpu().numpy()[ok1]))
+    twin_du = float((sized.u.cpu() - twin.u).abs().median())
+    close = lambda a, b: \
+        abs(float(a) - float(b)) <= 1e-4 * abs(float(b)) + 1e-6
+    if sized.escaped_dropped != 0 or starved.escaped_dropped <= 0 or \
+            not close(sized.model.total_dx, one.model.total_dx) or \
+            not close(sized.model.total_dy, one.model.total_dy) or \
+            abs(med - 80.0) >= 8.0 or twin_du != 0.0:
+        raise AssertionError(
+            f"tiled escape lane: dropped {sized.escaped_dropped} (sized), "
+            f"{starved.escaped_dropped} (esc_cap 1); total_dx "
+            f"{float(sized.model.total_dx)} vs 1x1 "
+            f"{float(one.model.total_dx)}; median u {med}; median |du| "
+            f"against the CPU twins {twin_du}")
+    log(f"[tiled] beyond an 8-pixel halo (4x1 tiles, 16 iterations): the "
+        f"lane carried the events (a lane of 1 drops "
+        f"{starved.escaped_dropped}), dropped none, total_dx "
+        f"{float(sized.model.total_dx):.6f} = the 1x1 run's "
+        f"{float(one.model.total_dx):.6f}, median u {med:.2f}, median |du| "
+        "against the CPU twins 0")
+    log(f"[tiled] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def same_twins(name, g, c):
     """Card run ``g`` against CPU-twin run ``c``: the same noise and
     iterations, median |du| = |dv| = 0."""
@@ -964,6 +1352,15 @@ def main():
         launches[k] = sharded[k]
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched by the sharded scan")
+
+    # ... and the 4x2 tiled recording for B8 and B9.
+    dt = tiled_stream()
+    results.update(phase_tiled_kernels(dt, dev))
+    tiled = phase_tiled(dt, dev)
+    for k in ("splat_local", "finish_local"):
+        launches[k] = tiled[k]
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched by the tiled run")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

@@ -28,12 +28,17 @@ from better_flow_tpu_torch.ops import layout  # noqa: E402
 from better_flow_tpu_torch.parallel.event_parallel import (  # noqa: E402
     compensate_recording_scan_sharded,
 )
-from better_flow_tpu_torch.parallel.mesh import make_event_mesh  # noqa: E402
+from better_flow_tpu_torch.parallel.mesh import (  # noqa: E402
+    make_event_mesh, make_tiled_mesh,
+)
+from better_flow_tpu_torch.parallel.spatial import (  # noqa: E402
+    compensate_recording_tiled,
+)
 from better_flow_tpu_torch.runtime import offline as toff  # noqa: E402
 from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    CH, H, NCH, SCALE, W, flow_gates, image_shape, slice_inputs, small_cfg,
-    statics,
+    CH, H, NCH, SCALE, W, flow_gates, image_shape, local_splat_inputs,
+    slice_inputs, small_cfg, statics, tiled_cfg, tiled_stream,
 )
 
 pytestmark = pytest.mark.cuda
@@ -151,8 +156,8 @@ def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
     launches = rg["stats"]["launches"]
     assert launches.pop("megastep") == 0        # fast(): the split pair
     for k in ("fused_warp_splat", "fused_warp_splat_images",
-              "finish_partials"):
-        assert launches.pop(k) == 0             # not the composed loop
+              "finish_partials", "splat_local", "finish_local"):
+        assert launches.pop(k) == 0     # not the composed or the tiled loop
     assert all(v > 0 for v in launches.values())
     np.testing.assert_array_equal(rg["noise"], rc["noise"])
     np.testing.assert_array_equal(rg["ran"], rc["ran"])
@@ -402,3 +407,85 @@ def test_sharded_scan_on_card_is_unsharded_and_cpu_twins(cuda, case):
     assert lc[event] == n * total and lc[finish] == total
     assert lc["megastep"] == 0 and lc["fused_warp_splat"] == 0
     assert lc["act_rows"] == n * len(rg["iters"])
+
+
+@pytest.mark.parametrize("time_lo", [True, False])
+@pytest.mark.parametrize("sort", [True, False])
+def test_splat_local_kernel_matches_twin(cuda, sort, time_lo):
+    """B8 on three tiles against its twin, bitwise: sorted and unsorted
+    slots, the hi+lo pair and hi only, a chunk whose slot 0 is rejected, a
+    ragged slot count (the wrapper pads to whole chunks)."""
+    Hs, Ws = 250, 300
+    cpu = [torch.from_numpy(a) for a in local_splat_inputs(
+        seed=3, n_tiles=3, H=Hs, W=Ws, sort=sort)]
+    gpu = [a.to(cuda) for a in cpu]
+    at, ac = _launched("splat_local", lambda: tfm.splat_local_call(
+        *gpu, H=Hs, W=Ws, time_lo=time_lo))
+    at_p, ac_p = tfm.splat_local_plain(
+        *(tfm._chunk_padded(a, v) for a, v in zip(gpu, (-1.0, -1.0, 0.0))),
+        H=Hs, W=Ws, time_lo=time_lo)
+    at_c, ac_c = tfm.splat_local_call(*cpu, H=Hs, W=Ws, time_lo=time_lo)
+    assert tuple(at.shape) == (3, Hs, Ws) and int(ac.sum()) > 12000
+    for a, b, c in ((at, at_p, at_c), (ac, ac_p, ac_c)):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.parametrize("scale", [1, 3])
+def test_finish_local_kernel_matches_twin_and_whole_image_is_b7b(cuda, scale):
+    """B9 on three tiles against its twin, bitwise, with a window strictly
+    inside the image; with the whole image as the window, in B7b's padded
+    layout, bitwise B7b tile by tile."""
+    Hs, Ws, own = 250, 300, (16, 230, 24, 270)
+    lx, ly, t = (torch.from_numpy(a).to(cuda) for a in local_splat_inputs(
+        seed=9, n_tiles=3, n=12000, H=Hs, W=Ws))
+    at, ac = tfm.splat_local_call(lx, ly, t, H=Hs, W=Ws)
+    kw = dict(scale=scale, H=Hs, W=Ws)
+    got = _launched("finish_local", lambda: tfm.finish_local_call(
+        at, ac, own=own, **kw))
+    assert torch.equal(got, tfm.finish_local_plain(at, ac, own=own, **kw))
+    assert torch.equal(got.cpu(), tfm.finish_local_call(
+        at.cpu(), ac.cpu(), own=own, **kw))
+    assert float(got[:, 0].min()) > 1000 and float(got[:, 7].abs().max()) == 0
+    HP, WP = layout.padded_image_shape(Hs, Ws)
+    pad = lambda a: torch.nn.functional.pad(a, (0, WP - Ws, 0, HP - Hs))
+    atp, acp = pad(at), pad(ac)
+    whole = tfm.finish_local_call(atp, acp, own=(0, Hs, 0, Ws), **kw)
+    for k in range(3):
+        assert torch.equal(whole[k], tfm.finish_partials_call(
+            atp[k].contiguous(), acp[k].contiguous(), **kw))
+    assert not torch.equal(whole, got)
+
+
+@pytest.mark.parametrize("schedule", ["reference", "fast"])
+def test_tiled_recording_on_card_is_1x1_and_cpu_twins(cuda, schedule):
+    """A 4x2 tiled recording on the card (B8 and B9 once per iteration for
+    all eight tiles): repeats bitwise; noise and iterations of the 1x1 card
+    run, flow within the tiled gates (median |du|, |dv| <= 0.5% of the mean
+    speed); and the CPU twins' 4x2 run within the scan's gates."""
+    res = (180, 240)
+    d = tiled_stream(res=res, n_points=150)
+    opt = None if schedule == "reference" else OptimizerConfig.fast(
+        scale=1, min_events=300)
+    cfg = tiled_cfg(res=res, optimizer=opt)
+    run = lambda shape, dev: compensate_recording_tiled(
+        d["x"], d["y"], d["t_ns"], cfg, make_tiled_mesh(shape, device=dev),
+        halo=8, esc_cap=4096)
+    rg, rg2 = run((4, 2), cuda), run((4, 2), cuda)
+    for k in ("u", "v", "noise", "iters"):
+        np.testing.assert_array_equal(rg[k], rg2[k])
+    st = rg["stats"]
+    total = int(rg["iters"].sum())
+    assert st["escaped_dropped"] == 0 and total > len(rg["iters"])
+    assert st["launches"]["splat_local"] == total
+    assert st["launches"]["finish_local"] == total
+    with_ran = lambda r: dict(r, ran=r["iters"] > 0)
+    flow_gates(with_ran(rg), with_ran(run((4, 2), "cpu")))
+    if schedule == "reference":
+        r1 = run((1, 1), cuda)
+        np.testing.assert_array_equal(rg["noise"], r1["noise"])
+        np.testing.assert_array_equal(rg["iters"], r1["iters"])
+        ok = ~r1["noise"]
+        speed = float(np.hypot(r1["u"][ok], r1["v"][ok]).mean())
+        assert speed > 30.0
+        for k in ("u", "v"):
+            assert np.median(np.abs(rg[k][ok] - r1[k][ok])) <= 0.005 * speed

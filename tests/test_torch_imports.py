@@ -32,6 +32,7 @@ def test_port_and_smoke_script_import_nothing_of_jax_or_the_jax_package():
             "better_flow_tpu_torch.viz.images",
             "better_flow_tpu_torch.parallel.comm",
             "better_flow_tpu_torch.parallel.multihost",
+            "better_flow_tpu_torch.parallel.spatial",
             "better_flow_tpu_torch.parallel.temporal",
             "better_flow_tpu_torch.cli.motion_compensator"} <= set(modules)
     code = (

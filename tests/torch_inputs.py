@@ -139,3 +139,54 @@ def gate_stream():
                      phase(3000, int(0.30e9), healthy))
     return {"x": np.concatenate(xs), "y": np.concatenate(ys),
             "t_ns": np.concatenate(ts).astype(np.int64)}
+
+
+def local_splat_inputs(seed=0, n_tiles=3, n=5000, H=250, W=300, sort=True):
+    """B8's inputs for ``n_tiles`` tiles of ``n`` slots: f32 integer
+    positions in an H x W frame drawn around 60 cluster centres (dense 3x3
+    neighbourhoods, so that the finish has gradients), about 5% rejected
+    (-1), times in [0, 0.2) s; slot CHUNK of every tile (the second chunk's
+    time base) is a rejected slot with t = 0.  ``sort`` orders each tile's
+    slots by (x, y), as the tiled staging does."""
+    rng = np.random.default_rng(seed)
+    lx = np.empty((n_tiles, n), np.float32)
+    ly = np.empty((n_tiles, n), np.float32)
+    for k in range(n_tiles):
+        c = rng.integers(0, 60, n)
+        cx, cy = rng.uniform(0, H, 60), rng.uniform(0, W, 60)
+        lx[k] = np.clip(np.rint(cx[c] + rng.normal(0, 2.0, n)), 0, H - 1)
+        ly[k] = np.clip(np.rint(cy[c] + rng.normal(0, 2.0, n)), 0, W - 1)
+    t = (rng.random((n_tiles, n)) * 0.2).astype(np.float32)
+    rej = rng.uniform(size=(n_tiles, n)) < 0.05
+    lx[rej] = ly[rej] = -1
+    if sort:
+        for k in range(n_tiles):
+            o = np.lexsort((ly[k], lx[k]))
+            lx[k], ly[k], t[k] = lx[k][o], ly[k][o], t[k][o]
+    if n > CH:
+        lx[:, CH] = ly[:, CH] = -1
+        t[:, CH] = 0
+    return lx, ly, t
+
+
+def tiled_cfg(res=(96, 128), optimizer=None):
+    """A small-sensor cut of the tiled recording protocol of
+    tests/test_spatial.py (slices of <= 6000 events / 70 ms, a retrigger
+    every 2500 events / 30 ms; scale 1, at most 10 iterations by
+    default)."""
+    return PipelineConfig(
+        sensor=SensorConfig(*res),
+        slice=SliceConfig(max_events=6000, span_ns=int(0.07e9),
+                          refresh_events=2500, refresh_time_ns=int(0.03e9)),
+        optimizer=optimizer or OptimizerConfig(scale=1, max_iter=10,
+                                               min_events=300))
+
+
+def tiled_stream(n=30_000, res=(96, 128), seed=4, **kw):
+    """A dense moving scene on a small sensor (jitter fattens the clusters
+    so that 3x3 neighbourhoods fill at scale 1)."""
+    args = dict(duration_s=n / 150_000, res_x=res[0], res_y=res[1], vx=60.0,
+                vy=-40.0, rot=0.1, div=0.03, n_points=60, jitter_px=1.5,
+                seed=seed)
+    args.update(kw)
+    return synthetic_events(n, **args)
