@@ -100,8 +100,9 @@ class OptimizerConfig:
     # scale*RES/15 (optimizer_rolling.h:49; integer division).
     min_window_fraction: int = 15
     # Scatter strategy of the JAX package's images.  The port runs the
-    # kernel branch for "auto" and "pallas" and raises for the others
-    # ("xla", "rep", "mxu").
+    # kernel branch for "auto" and "pallas", the XLA-composed branch (exact
+    # integer scatter, on one device) for "xla", and raises for the TPU
+    # scatter workarounds ("rep", "mxu").
     scatter_mode: str = "auto"
     # Keep the low-order bf16 part of the splatted time weight (the hi+lo
     # pair gives ~16-bit event-time precision).  False (fast schedule only:
@@ -151,7 +152,9 @@ class OptimizerConfig:
     # the same two kernels the event-parallel path runs around its sum.
     megastep_split: bool = False
     # Merged megastep (one call per iteration with the previous
-    # iteration's finish at its head).  The port raises for True.
+    # iteration's finish at its head; the exit call is the final warp).
+    # Taken on one device by the megastep drive only, as in the JAX
+    # package: ignored under an event group and on the composed loop.
     megastep_merged: bool = False
     # Iterations per loop trip of the split megastep drive.  The port
     # raises for values above 1.

@@ -117,12 +117,43 @@ __device__ inline long long time_weight(float t_sec, float t0, int time_lo) {
   return f;
 }
 
+// Scale the position (ox, oy), truncate to a pixel, accept it when the
+// slot is active and the pixel lies inside the dynamic window given by
+// geo[0..3] ([x_sh, y_sh, w_dyn, h_dyn]), and add the event's fixed-point
+// time weight and a count of one to that pixel.  Shared by every splat of
+// warped positions (warp_splat_event below, fused_model_partials.cu).
+__device__ inline bool accept_pixel(float ox, float oy, bool active,
+                                    const float* geo, int scale, int* pix_x,
+                                    int* pix_y) {
+  const float x_sh = geo[0], y_sh = geo[1], wd = geo[2], hd = geo[3];
+  const int half = scale / 2;
+  const float fscale = static_cast<float>(scale);
+  const float fhalf = static_cast<float>(half);
+  const int ix = static_cast<int>(fmaf(ox, fscale, x_sh));  // toward zero
+  const int iy = static_cast<int>(fmaf(oy, fscale, y_sh));
+  *pix_x = ix;
+  *pix_y = iy;
+  return active && ix >= half && static_cast<float>(ix) < wd + fhalf &&
+         iy >= half && static_cast<float>(iy) < hd + fhalf;
+}
+
+__device__ inline void splat_position(float ox, float oy, bool active,
+                                      float t_sec, float t0, const float* geo,
+                                      unsigned long long* acc_t, int* acc_c,
+                                      int WP, int scale, int time_lo) {
+  int ix, iy;
+  if (!accept_pixel(ox, oy, active, geo, scale, &ix, &iy)) return;
+  const long long f = time_weight(t_sec, t0, time_lo);
+  const size_t lin = static_cast<size_t>(ix) * WP + iy;
+  atomicAdd(&acc_t[lin], static_cast<unsigned long long>(f));
+  atomicAdd(&acc_c[lin], 1);
+}
+
 // Warp + splat of event i (chunk i / CHUNK, slot i % CHUNK), shared by
 // warp_images_st.cu (B1), megastep.cu (B5) and warp_splat_images.cu (B7a,
 // which fused_warp_splat.cu, B6, calls): re-warp with ``w`` (B1 and B5 take
-// it from the state vector's totals, B6 and B7a from their caller's row), write the new position, scale, truncate to a
-// pixel, accept inside the dynamic window given by geo[0..3], and add the
-// event's fixed-point time weight and a count of one to its pixel (see
+// it from the state vector's totals, B6 and B7a from their caller's row),
+// write the new position and splat it (splat_position; see
 // warp_images_st.cu).
 __device__ inline void warp_splat_event(
     int i, const float* geo, const Warp& w, const float* stat,
@@ -140,23 +171,9 @@ __device__ inline void warp_splat_event(
              &ny);
   q[k] = ox;
   q[CHUNK + k] = oy;
-
-  const float x_sh = geo[0], y_sh = geo[1], wd = geo[2], hd = geo[3];
-  const int half = scale / 2;
-  const float fscale = static_cast<float>(scale);
-  const float fhalf = static_cast<float>(half);
-  const int ix = static_cast<int>(fmaf(ox, fscale, x_sh));  // toward zero
-  const int iy = static_cast<int>(fmaf(oy, fscale, y_sh));
-  const bool ok = act[static_cast<size_t>(c) * CHUNK + k] > 0.0f &&
-                  ix >= half && static_cast<float>(ix) < wd + fhalf &&
-                  iy >= half && static_cast<float>(iy) < hd + fhalf;
-  if (!ok) return;
-
-  const long long f = time_weight(t_ns * INV_NS_PER_SEC,
-                                  s[2 * CHUNK] * INV_NS_PER_SEC, time_lo);
-  const size_t lin = static_cast<size_t>(ix) * WP + iy;
-  atomicAdd(&acc_t[lin], static_cast<unsigned long long>(f));
-  atomicAdd(&acc_c[lin], 1);
+  splat_position(ox, oy, act[static_cast<size_t>(c) * CHUNK + k] > 0.0f,
+                 t_ns * INV_NS_PER_SEC, s[2 * CHUNK] * INV_NS_PER_SEC, geo,
+                 acc_t, acc_c, WP, scale, time_lo);
 }
 
 }  // namespace bf

@@ -3,18 +3,42 @@
 Builds on first use if the shared library is missing and a toolchain is
 available; every entry point has a pure-Python fallback in io.event_file and
 runtime.slice_buffer, so the framework works without a compiler.
+
+Several processes may ask for the library at once (test workers, ranks).
+The build runs under an exclusive lock on ``native/.libbf_native.lock``,
+looks again for the library once it holds the lock, compiles into a
+temporary directory beside it and moves the result onto
+``libbf_native.so`` with ``os.replace``, so a reader finds no file or a
+whole one.  A load that dlopen refuses (a file another process is still
+writing in place) is retried and then rebuilt; a whole library that lacks
+the newest entry point (a stale build) is rebuilt at once.  Only a failed
+build is remembered.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import importlib.util
+import os
 import pathlib
+import shutil
+import tempfile
+import time
 from typing import Optional
 
 import numpy as np
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+
+NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
+LIB_NAME = "libbf_native.so"
+LOCK_NAME = ".libbf_native.lock"
+_SYMBOL = "bf_materialize_bandpad_u16"   # the newest entry point
+_LOAD_TRIES = 50        # x 0.2 s: time for another process's build
+_LOAD_WAIT_S = 0.2
 
 
 class _EventArrays(ctypes.Structure):
@@ -27,42 +51,83 @@ class _EventArrays(ctypes.Structure):
     ]
 
 
-def _build(root: pathlib.Path) -> bool:
+@contextlib.contextmanager
+def _build_lock(native_dir: pathlib.Path):
+    """Exclusive lock of the native directory's builds, across processes."""
+    with open(native_dir / LOCK_NAME, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build(native_dir: pathlib.Path) -> pathlib.Path:
+    """Compile ``native_dir/bf_native.cpp`` with ``native_dir/build.py``
+    into a temporary directory there, then move the library onto its final
+    name.  Raises when the toolchain fails.  Call under ``_build_lock``."""
+    spec = importlib.util.spec_from_file_location(
+        "_bf_native_build", native_dir / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    tmp = tempfile.mkdtemp(prefix=".build-", dir=native_dir)
     try:
-        import sys
-
-        sys.path.insert(0, str(root / "native"))
-        from build import build  # type: ignore
-
-        build()
-        return True
-    except Exception:
-        return False
+        out = pathlib.Path(mod.build(tmp))
+        final = native_dir / LIB_NAME
+        os.replace(out, final)
+        return final
     finally:
-        sys.path.pop(0)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _find_or_build() -> Optional[ctypes.CDLL]:
-    root = pathlib.Path(__file__).resolve().parents[2]
-    so = root / "native" / "libbf_native.so"
-    if not so.exists() and not _build(root):
+def _dlopen(so: pathlib.Path) -> Optional[ctypes.CDLL]:
+    """The library at ``so``, or None when dlopen refuses it."""
+    try:
+        return ctypes.CDLL(str(so))
+    except OSError:
         return None
-    if not so.exists():
-        return None
-    lib = ctypes.CDLL(str(so))
-    if not hasattr(lib, "bf_materialize_bandpad_u16"):
-        # stale library from an older build: rebuild, then load under a
-        # unique path (dlopen caches by path within a process)
-        if not _build(root):
-            return None
-        import shutil
-        import tempfile
 
-        tmp = tempfile.NamedTemporaryFile(suffix=".so", delete=False)
-        tmp.close()
-        shutil.copy(so, tmp.name)
-        lib = ctypes.CDLL(tmp.name)
-        if not hasattr(lib, "bf_materialize_bandpad_u16"):
+
+def _load(so: pathlib.Path) -> Optional[ctypes.CDLL]:
+    """The library at ``so`` if it loads and is current, else None."""
+    lib = _dlopen(so)
+    return lib if lib is not None and hasattr(lib, _SYMBOL) else None
+
+
+def _load_fresh(so: pathlib.Path) -> Optional[ctypes.CDLL]:
+    """Load a private copy of ``so``: dlopen caches by path within a
+    process, so a stale library loaded once under ``so`` would be returned
+    again."""
+    tmp = tempfile.mkdtemp(prefix=".load-", dir=so.parent)
+    try:
+        copy = pathlib.Path(tmp) / so.name
+        shutil.copy(so, copy)
+        return _load(copy)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _find_or_build(native_dir: Optional[pathlib.Path] = None
+                   ) -> Optional[ctypes.CDLL]:
+    """Load ``native_dir/libbf_native.so`` (the repository's ``native/`` by
+    default), building it first when it is missing, and rebuilding it when
+    it stays unloadable or is stale.  Raises when a build fails."""
+    d = pathlib.Path(native_dir) if native_dir is not None else NATIVE_DIR
+    so = d / LIB_NAME
+    with _build_lock(d):
+        if not so.exists():
+            _build(d)
+    lib = None
+    for _ in range(_LOAD_TRIES):
+        lib = _dlopen(so)
+        if lib is not None or not so.exists():
+            break
+        time.sleep(_LOAD_WAIT_S)
+    if lib is None or not hasattr(lib, _SYMBOL):
+        with _build_lock(d):
+            _build(d)
+            lib = _load_fresh(so)
+        if lib is None:
             return None
     lib.bf_parse_events.restype = ctypes.c_int64
     lib.bf_parse_events.argtypes = [ctypes.c_char_p, ctypes.POINTER(_EventArrays)]
@@ -232,13 +297,15 @@ def materialize_bandpad_u16(x16, y16, t_ns, starts, ends, slice_start_ns,
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
+    """The native library, or None when it cannot be built here (that
+    outcome is remembered for the process)."""
     global _LIB, _TRIED
     if not _TRIED:
-        _TRIED = True
         try:
             _LIB = _find_or_build()
         except Exception:
             _LIB = None
+        _TRIED = True
     return _LIB
 
 

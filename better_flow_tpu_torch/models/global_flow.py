@@ -1,13 +1,30 @@
-"""Global 4-parameter flow on one slice, driven through the kernels.
+"""Global 4-parameter flow on one slice.
 
-Counterpart of ``better_flow_tpu/models/global_flow.py`` for its kernel
-branch, ``process_slice`` and ``_run_fused``, which takes one of two drives:
+Counterpart of ``better_flow_tpu/models/global_flow.py``.  ``process_slice``
+takes one of two branches, by ``OptimizerConfig.scatter_mode``: "auto" and
+"pallas" the kernel branch (``_run_fused`` of the JAX package, below), "xla"
+the XLA-composed branch (``_run_optimizer``, the program the JAX package
+runs off the TPU): per iteration ``iteration_step`` builds the time image
+(``ops.time_image``), its centroid, masked Scharr gradients and the four
+model means (``ops.gradient``, ``ops.reductions``) in plain tensor
+operations, updates the model and re-warps every event, under the same
+``adaptive_loop`` / ``fast_loop`` drive as the composed loop.
+``run_optimizer`` with "pallas" (or "auto") takes the step's other branch,
+the seven sums of B11 (``fused_model_partials_windowed_call``) in place of
+the image chain.  The XLA branch runs on one device: under an event group
+it raises, as does the tiled path (``check_supported``).
+
+The kernel branch takes one of three drives:
 
 - the megastep drive (``_run_fused_mega``), for f32 totals with
   ``OptimizerConfig.use_megastep``: an iteration is one megastep (B5: warp +
   splat, finish, model update in one launch) unless
   ``OptimizerConfig.megastep_split`` or the ``fast`` presets ask for the
   split pair (B1 warp + splat, then B2 finish + model update);
+- under ``OptimizerConfig.megastep_merged`` on one device the merged drive
+  (``_run_fused_mega2``): one B12 launch an iteration, whose head runs the
+  previous iteration's finish and model update; the call whose head ends
+  the loop is the final warp, so no B4 runs;
 - the composed drive (``_run_fused``'s loop), for f64 totals or
   ``use_megastep=False``: an iteration is one B6 launch (warp + splat +
   finish to seven sums), then the scalar model update as 0-d tensor
@@ -42,16 +59,22 @@ from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
 from better_flow_tpu_torch.core.events import EventSlice, bounding_box
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.ops.fused_model import (
-    finish_partials_call, fused_warp_splat_call,
-    fused_warp_splat_images_call, megastep_call, megastep_finish_call,
-    sum_images, warp_images_st_call, warp_scal_row, warp_uv_call,
+    finish_partials_call, fused_model_partials_windowed_call,
+    fused_warp_splat_call,
+    fused_warp_splat_images_call, megastep2_call, megastep_call,
+    megastep_finish_call, sum_images, warp_images_st_call, warp_scal_row,
+    warp_uv_call,
 )
+from better_flow_tpu_torch.ops.gradient import masked_scharr
 from better_flow_tpu_torch.ops.layout import (
     CHUNK, ST_CDIV, ST_CDX, ST_CDY, ST_CNT, ST_CONT, ST_CROT, ST_CX, ST_CY,
     ST_DDIV, ST_DIV, ST_DX, ST_DY, ST_PD, ST_RDIV, ST_ROT, ST_SIZE, ST_SL,
-    ST_TDIV, ST_TDX, ST_TDY, ST_TROT, ST_XDIV, ST_YDIV,
+    ST_TDIV, ST_TDX, ST_TDY, ST_TROT, ST_XDIV, ST_YDIV, padded_image_shape,
 )
-from better_flow_tpu_torch.ops.reductions import model_from_partials
+from better_flow_tpu_torch.ops.reductions import (
+    center_of_mass, model_compute, model_from_partials,
+)
+from better_flow_tpu_torch.ops.time_image import time_image
 from better_flow_tpu_torch.ops.warp import (
     UV_K, compute_uv, project_4param_reinit, recip,
 )
@@ -129,21 +152,28 @@ class SliceResult(NamedTuple):
     noise: Optional[torch.Tensor] = None   # (cap,) bool, given ``ev``
 
 
-def check_supported(cfg: OptimizerConfig, f64_totals: bool = False) -> None:
-    """Raise for the configurations this port does not run."""
+def check_supported(cfg: OptimizerConfig, f64_totals: bool = False,
+                    sharded: bool = False, tiled: bool = False) -> None:
+    """Raise for the configurations this port does not run.  ``sharded``:
+    the events run as shards of an event group (the event-parallel and
+    multi-process paths); ``tiled``: the tiled pipeline."""
     if f64_totals and cfg.schedule == "fast":
         raise NotImplementedError(F64_FAST_DEFECT)
     if cfg.warm_extrapolate > 0:
         raise NotImplementedError("OptimizerConfig.warm_extrapolate")
-    if cfg.megastep_merged:
-        raise NotImplementedError("OptimizerConfig.megastep_merged")
     if cfg.splat_pair > 1:
         raise NotImplementedError("OptimizerConfig.splat_pair")
     if cfg.megastep_unroll > 1:
         raise NotImplementedError("OptimizerConfig.megastep_unroll")
-    if cfg.scatter_mode not in ("auto", "pallas"):
+    if cfg.scatter_mode not in ("auto", "pallas", "xla"):
         raise NotImplementedError(
-            f"OptimizerConfig.scatter_mode={cfg.scatter_mode!r}")
+            f"OptimizerConfig.scatter_mode={cfg.scatter_mode!r}: the JAX "
+            "package's TPU scatter workarounds are not ported")
+    if cfg.scatter_mode == "xla" and (sharded or tiled):
+        raise NotImplementedError(
+            "OptimizerConfig.scatter_mode='xla' "
+            + ("under an event group" if sharded else "on the tiled path")
+            + ": the port runs the XLA branch on one device only")
     if cfg.schedule not in ("fast", "reference"):
         raise NotImplementedError(f"OptimizerConfig.schedule={cfg.schedule!r}")
 
@@ -222,8 +252,14 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     ``cfg.megastep_split``; under an event ``group`` (``stat`` and ``act``
     one per local shard) B1 per shard, the sum of the images over shards
     and ranks, then B2.  The host reads the CONT flag once per iteration.
-    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out); under a
-    group ``out`` and ``uvn`` hold the local shards' chunks in order."""
+    On one device ``cfg.megastep_merged`` takes the merged drive
+    (``run_fused_mega2``); under a group it is ignored, as in the JAX
+    package.  Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out);
+    under a group ``out`` and ``uvn`` hold the local shards' chunks in
+    order."""
+    if group is None and cfg.megastep_merged:
+        return run_fused_mega2(stat, act, geo, model0, cfg, scale, H, W,
+                               seed=seed)
     statics = finish_statics(cfg)
     time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
     st = initial_state(model0, cfg, seed)
@@ -254,6 +290,46 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
             for k in range(len(stats))]
     return (model_from_state(st), _cat([o for o, _ in ends]),
             _cat([u for _, u in ends]), iters, seed_out)
+
+
+def run_fused_mega2(stat, act, geo, model0: MotionModel,
+                    cfg: OptimizerConfig, scale: int, H: int, W: int,
+                    seed=None):
+    """The merged megastep drive (``_run_fused_mega2`` of the JAX
+    package): one unconditional B12 call (its head copies the state and
+    sets CONT), then calls while the state's CONT flag is set; each call's
+    head runs the previous call's finish and model update, and the call
+    whose head clears CONT warps every event with the final model and
+    writes the direction vectors, so it is the final warp.  The images are
+    carried from call to call.  The first call always leads to a second,
+    so the host reads the CONT flag after every later call: once an
+    iteration, as in the megastep drive.  Returns (model, out (nch, 4,
+    CHUNK) [pr_x, pr_y, nx, ny], uvn (nch, 3, CHUNK) [nx * k, ny * k,
+    1 - act], iters, seed_out), bitwise those of the megastep drive (B5, or
+    B1 + B2, then B4)."""
+    statics = finish_statics(cfg)
+    time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
+    HP, WP = padded_image_shape(H, W)
+    dev = stat.device
+    step = lambda pr, st, img_t, img_c: megastep2_call(
+        stat, act, pr, st, img_t, img_c, geo, scale=scale, H=H, W=W,
+        time_lo=time_lo, **statics)
+    out = step(torch.cat([stat[:, 0:2], torch.zeros_like(stat[:, 0:2])],
+                         dim=1),
+               initial_state(model0, cfg, seed),
+               torch.zeros((HP, WP), dtype=torch.int64, device=dev),
+               torch.zeros((HP, WP), dtype=torch.int32, device=dev))
+    iters = 0          # the first call runs no finish: one update a call
+    while True:
+        out = step(*out)
+        iters += 1
+        if not out[1][0, ST_CONT].item() > 0:
+            break
+    pr, st = out[0], out[1]
+    seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
+    uvn = torch.stack([pr[:, 2] * UV_K, pr[:, 3] * UV_K, 1.0 - act[:, 0]],
+                      dim=1)
+    return model_from_state(st), pr, uvn, iters, seed_out
 
 
 class FusedFlowState(NamedTuple):
@@ -428,6 +504,129 @@ def drive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
                         device=init.model.cx.device))
 
 
+class GlobalFlowState(NamedTuple):
+    """The XLA branch's loop state (``GlobalFlowState`` of the JAX
+    package): the current warp of every event of the flat slice, its
+    direction vectors, the model, the four f32 step dividers as 0-d device
+    tensors and the iteration count, which the host keeps."""
+
+    pr_x: torch.Tensor
+    pr_y: torch.Tensor
+    nx: torch.Tensor
+    ny: torch.Tensor
+    model: MotionModel
+    x_div: torch.Tensor
+    y_div: torch.Tensor
+    rot_div: torch.Tensor
+    div_div: torch.Tensor
+    iters: int
+
+    def divs4(self) -> torch.Tensor:
+        """The dividers in (rot, div, dx, dy) order."""
+        return torch.stack([self.rot_div, self.div_div, self.x_div,
+                            self.y_div])
+
+
+def warp_init(ev: EventSlice, model: MotionModel) -> GlobalFlowState:
+    """The warm-start warp (set_model, optimizer_rolling.h:289-299): every
+    event re-projected from its pixel with ``model``'s totals about its
+    event-coordinate centroid (the identity for a zero model), dividers 1,
+    no iteration."""
+    pr_x, pr_y, nx, ny = project_4param_reinit(
+        ev.x, ev.y, ev.t, ev.x, ev.y, -model.total_dx, -model.total_dy,
+        model.cx, model.cy, model.total_div, -model.total_rot, sin_fma=True)
+    one = torch.ones((), dtype=torch.float32, device=ev.x.device)
+    return GlobalFlowState(pr_x=pr_x, pr_y=pr_y, nx=nx, ny=ny, model=model,
+                           x_div=one, y_div=one, rot_div=one, div_div=one,
+                           iters=0)
+
+
+def iteration_step(state: GlobalFlowState, ev: EventSlice,
+                   geom: SliceGeometry, scale: int, H: int, W: int,
+                   scatter_mode: str = "xla", update_fn=None,
+                   geo: Optional[torch.Tensor] = None,
+                   group=None) -> GlobalFlowState:
+    """One optimizer iteration (OptimizerRolling::iteration_step,
+    optimizer_rolling.h:305-347; ``_iteration_step`` of the JAX package).
+    "xla": the time image of the current warp, its centroid, the masked
+    Scharr gradients and the four model means; "pallas" or "auto": the seven
+    sums of B11 (``fused_model_partials_windowed_call``), for events sorted
+    by ``ops.layout.sort_key_blocks`` as ``process_slice`` of the JAX
+    package sorts them (exact in any order).  The (1, 8)
+    geometry row ``geo`` is built from ``geom`` when not given.  Then the
+    reference step (or ``update_fn(model, state)``, the
+    secant schedule's), the centroid back to event coordinates and the
+    re-warp of every event with the new totals.  The warp here (and in
+    ``warp_init``) fuses the rotation as XLA compiles this loop
+    (``sin_fma``, measured bit for bit on the CPU with the events traced,
+    as the JAX scan has them).  Under an event ``group`` it raises: the
+    port runs this branch on one device."""
+    if group is not None:
+        raise NotImplementedError(
+            "the XLA-composed iteration under an event group: the port runs "
+            "the XLA branch on one device only")
+    if scatter_mode in ("pallas", "auto"):
+        if geo is None:
+            geo = torch.from_numpy(geo_row(geom)).to(ev.x.device)
+        p = fused_model_partials_windowed_call(state.pr_x, state.pr_y, ev.t,
+                                               ev.active, geo, scale=scale,
+                                               H=H, W=W)
+        cx_img, cy_img, terms = model_from_partials(p)
+    elif scatter_mode == "xla":
+        img = time_image(state.pr_x, state.pr_y, ev.t, ev.active, scale,
+                         geom.x_shift, geom.y_shift, geom.w_dyn, geom.h_dyn,
+                         H, W)
+        cx_img, cy_img, _ = center_of_mass(img)
+        gx, gy = masked_scharr(img)
+        terms = model_compute(img, gx, gy, cx_img, cy_img)
+    else:
+        raise NotImplementedError(f"scatter_mode={scatter_mode!r}")
+    model = state.model.replace(cx=cx_img, cy=cy_img, dx=terms.dx,
+                                dy=terms.dy, rot=terms.rot, div=terms.div,
+                                cnt=terms.cnt)
+    if update_fn is None:
+        model = model.update_accumulators(state.rot_div, state.div_div,
+                                          state.x_div, state.y_div)
+    else:
+        model = update_fn(model, state)
+    model = model.replace(cx=_to_event(model.cx, geom.x_shift, scale),
+                          cy=_to_event(model.cy, geom.y_shift, scale))
+    pr_x, pr_y, nx, ny = project_4param_reinit(
+        ev.x, ev.y, ev.t, state.pr_x, state.pr_y, -model.total_dx,
+        -model.total_dy, model.cx, model.cy, model.total_div,
+        -model.total_rot, sin_fma=True)
+    return state._replace(pr_x=pr_x, pr_y=pr_y, nx=nx, ny=ny, model=model,
+                          iters=state.iters + 1)
+
+
+def run_optimizer(init: GlobalFlowState, ev: EventSlice,
+                  geom: SliceGeometry, scale: int, H: int, W: int,
+                  cfg: OptimizerConfig, seed=None,
+                  geo: Optional[torch.Tensor] = None, group=None):
+    """The XLA-composed optimizer loop (``_run_optimizer`` of the JAX
+    package): ``iteration_step`` with ``cfg.scatter_mode`` under the
+    configured schedule (``drive_loop``).  Returns (final state, (8,)
+    seed_out)."""
+    step = lambda s, u: iteration_step(s, ev, geom, scale, H, W,
+                                       cfg.scatter_mode, update_fn=u,
+                                       geo=geo, group=group)
+    return drive_loop(init, step, cfg, seed=seed)
+
+
+def uvn_pack(u: torch.Tensor, v: torch.Tensor, noise: torch.Tensor,
+             valid: torch.Tensor) -> torch.Tensor:
+    """The scan's (nch, 3, CHUNK) [u, v, noise] pack of a flat slice
+    (``scan_pipeline.py:360-369`` of the JAX package), zero-padded to whole
+    chunks: noise as 0/1 f32, 1 on padding slots."""
+    n = u.shape[0]
+    nch = -(-n // CHUNK)
+    pad = lambda a: torch.nn.functional.pad(
+        a, (0, nch * CHUNK - n)).reshape(nch, CHUNK)
+    noisef = torch.maximum(noise.to(torch.float32),
+                           1.0 - valid.to(torch.float32))
+    return torch.stack([pad(u), pad(v), pad(noisef)], dim=1)
+
+
 def _to_event(c_img: torch.Tensor, shift: float, scale: int) -> torch.Tensor:
     """An image-coordinate centroid back in event coordinates
     (optimizer_rolling.h:330-331): the division by the constant scale is a
@@ -506,8 +705,11 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
                   warm_start: bool = True, seed=None,
                   geo: Optional[torch.Tensor] = None,
                   ev: Optional[EventSlice] = None, group=None):
-    """Process one spatially pre-sorted slice (the kernel branch).
+    """Process one spatially pre-sorted slice.
 
+    With ``cfg.scatter_mode`` "xla" the XLA branch runs on the flat slice
+    ``ev`` alone (``stat`` and ``act`` are not read and may be None; see
+    ``process_slice_xla``).  Otherwise the kernel branch:
     ``stat`` (nch, 3, CHUNK) and ``act`` (nch, 1, CHUNK) are the slice's
     event pack and activity rows; ``bbox`` (x_min, x_max, y_min, y_max)
     and ``n_valid`` come from host staging (or, for shards, from
@@ -524,7 +726,14 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
 
     Returns (SliceResult, uvn) where uvn is the (nch, 3, CHUNK)
     [u, v, noise] pack."""
-    check_supported(cfg, last_model.totals_dtype == torch.float64)
+    check_supported(cfg, last_model.totals_dtype == torch.float64,
+                    sharded=group is not None)
+    if cfg.scatter_mode == "xla":
+        if ev is None:
+            raise ValueError("scatter_mode='xla' runs on the flat slice: "
+                             "pass ev")
+        return process_slice_xla(ev, last_model, cfg, sensor, bbox, n_valid,
+                                 warm_start=warm_start, seed=seed)
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
     geom = geometry_from_bbox(*bbox, scale, sensor, cfg.min_window_fraction)
@@ -567,3 +776,48 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
                       window_small=geom.window_small, seed=seed_out,
                       noise=noise)
     return res, uvn
+
+
+def process_slice_xla(ev: EventSlice, last_model: MotionModel,
+                      cfg: OptimizerConfig, sensor: SensorConfig, bbox,
+                      n_valid: int, warm_start: bool = True, seed=None):
+    """``process_slice``'s XLA branch (``global_flow.py:1034-1077`` of the
+    JAX package) on the flat slice ``ev``: the warm-start warp of every
+    event, then, when the slice passes the gates, ``run_optimizer`` from
+    it; a gated slice keeps the warm-start warp and the incoming model.
+    Per-event outputs are in ``ev``'s order; ``noise`` is
+    ``ev.noise | (window_small & ev.valid)``.  Returns (SliceResult, uvn)
+    with uvn the scan's (nch, 3, CHUNK) pack (``uvn_pack``)."""
+    scale = cfg.scale
+    H, W = static_image_shape(scale, sensor)
+    geom = geometry_from_bbox(*bbox, scale, sensor, cfg.min_window_fraction)
+    dev = ev.x.device
+    # As in the JAX package, a cold start is an f32 zero model.
+    model = last_model if warm_start else MotionModel.zero(dev)
+    ran = (not geom.window_small) and int(n_valid) >= cfg.min_events
+    # One warm-start warp serves both outcomes (the plain warm start).
+    final = warp_init(ev, model)
+    seed_out = torch.zeros(8, dtype=torch.float32, device=dev)
+    if ran:
+        final, seed_out = run_optimizer(final, ev, geom, scale, H, W, cfg,
+                                        seed=seed)
+    noise = ev.noise | (ev.valid & geom.window_small)
+    u, v = compute_uv(final.nx, final.ny)
+    res = SliceResult(model=final.model, pr_x=final.pr_x, pr_y=final.pr_y,
+                      nx=final.nx, ny=final.ny, u=u, v=v, iters=final.iters,
+                      ran=ran, window_small=geom.window_small, seed=seed_out,
+                      noise=noise)
+    return res, uvn_pack(u, v, noise, ev.valid)
+
+
+def final_time_image(ev: EventSlice, res: SliceResult, scale: int,
+                     sensor: SensorConfig) -> torch.Tensor:
+    """The time image of the converged (motion-compensated) slice: its
+    events that are valid and not noise, at their final warp, in the
+    window of the slice's own bbox (``final_time_image`` of the JAX
+    package, the image of the PSNR gate)."""
+    H, W = static_image_shape(scale, sensor)
+    geom = slice_geometry(ev, scale, sensor)
+    active = ev.valid & ~res.noise
+    return time_image(res.pr_x, res.pr_y, ev.t, active, scale, geom.x_shift,
+                      geom.y_shift, geom.w_dyn, geom.h_dyn, H, W)

@@ -27,9 +27,9 @@ BUILD_DIR = PKG / "_build"
 
 # --fmad=false: the warp and the Kahan model update must round after every
 # multiply and add, as the f32 reference does.  No fast-math: IEEE division
-# and the accurate cos/sin.  megastep.cu's grid-wide barrier
-# (cooperative_groups grid.sync()) needs no -rdc=true since CUDA 11; it needs
-# only the cooperative launch that bf_megastep makes.
+# and the accurate cos/sin.  The grid-wide barrier of megastep.cu and
+# megastep2.cu (cooperative_groups grid.sync()) needs no -rdc=true since
+# CUDA 11; it needs only the cooperative launch that their entry points make.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC",
@@ -146,11 +146,17 @@ def library() -> ctypes.CDLL:
         lib.bf_splat_local.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
         lib.bf_finish_local.argtypes = [P, P, P, P, P,
                                         I, I, I, I, I, I, I, I, I, I, P]
+        lib.bf_fused_model_partials.argtypes = [P] * 10 + [I] * 6 + [P]
+        lib.bf_fused_model_partials_windowed.argtypes = \
+            lib.bf_fused_model_partials.argtypes
+        lib.bf_megastep2.argtypes = [P] * 13 + [I] * 7 + [
+            ctypes.POINTER(UpdateParams), I, P]
         for fn in (lib.bf_act_rows, lib.bf_warp_images_st,
                    lib.bf_megastep_finish, lib.bf_warp_uv, lib.bf_megastep,
                    lib.bf_fused_warp_splat, lib.bf_warp_splat_images,
                    lib.bf_finish_partials, lib.bf_splat_local,
-                   lib.bf_finish_local):
+                   lib.bf_finish_local, lib.bf_fused_model_partials,
+                   lib.bf_fused_model_partials_windowed, lib.bf_megastep2):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -6,20 +6,13 @@ launch fails); for tensors on the CPU it returns its ``*_plain`` twin,
 which is the same function in plain PyTorch.  ``LAUNCHES`` counts the
 kernel launches of each wrapper.
 
-==========================  =============================================
-wrapper                     replaces (better_flow_tpu/ops/pallas/...)
-==========================  =============================================
-``act_rows_call``           ``fused_model.act_rows_call``
-``warp_images_st_call``     ``fused_model.warp_images_st_call``
-``megastep_finish_call``    ``fused_model.megastep_finish_call``
-``warp_uv_call``            ``fused_model.warp_uv_call``
-``megastep_call``           ``fused_model.megastep_call``
-``fused_warp_splat_call``   ``fused_model.fused_warp_splat``
-``fused_warp_splat_images_call``  ``fused_model.fused_warp_splat_images``
-``finish_partials_call``    ``fused_model.finish_partials``
-``splat_local_call``        ``fused_model.splat_local_call``
-``finish_local_call``       ``fused_model.finish_local_call``
-==========================  =============================================
+The wrappers replace the functions of the same name in
+``better_flow_tpu/ops/pallas/fused_model.py``: ``act_rows_call``,
+``warp_images_st_call``, ``megastep_finish_call``, ``warp_uv_call``,
+``megastep_call``, ``splat_local_call``, ``finish_local_call`` and
+``megastep2_call``; and, without the ``_call``, ``fused_warp_splat``,
+``fused_warp_splat_images``, ``finish_partials``, ``fused_model_partials``
+and ``fused_model_partials_windowed``.
 
 Images.  ``warp_images_st_call`` returns the time image as int64 fixed
 point (``FIXED_PER_SEC`` units per second) and the count image as int32,
@@ -55,7 +48,8 @@ FIXED_PER_SEC = 2.0 ** 32
 LAUNCHES = {"act_rows": 0, "warp_images_st": 0, "megastep_finish": 0,
             "warp_uv": 0, "megastep": 0, "fused_warp_splat": 0,
             "fused_warp_splat_images": 0, "finish_partials": 0,
-            "splat_local": 0, "finish_local": 0}
+            "splat_local": 0, "finish_local": 0, "fused_model_partials": 0,
+            "fused_model_partials_windowed": 0, "megastep2": 0}
 
 
 def reset_launches() -> None:
@@ -105,14 +99,21 @@ def _ptr(t: torch.Tensor):
 # ------------------------------------------------------------ B3 act rows
 
 
+def history_noise(sidx: torch.Tensor, hist: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: the original index ``sidx`` lies inside a gated
+    [start, end] of the (3, K) window-gate history [gate fired, start,
+    end]."""
+    s = sidx[:, None]
+    return ((hist[0] > 0)[None, :] & (s >= hist[1][None, :])
+            & (s <= hist[2][None, :])).any(dim=1)
+
+
 def act_rows_plain(sidx: torch.Tensor, hist: torch.Tensor) -> torch.Tensor:
     """(nch, 1, CHUNK) f32: 1 where ``sidx >= 0`` and the original index is
     outside every gated [start, end] of the (3, K) history
     [gate fired, start, end]."""
-    s = sidx[:, None]
-    noise = ((hist[0] > 0)[None, :] & (s >= hist[1][None, :])
-             & (s <= hist[2][None, :])).any(dim=1)
-    return ((sidx >= 0) & ~noise).to(torch.float32).reshape(-1, 1, CHUNK)
+    return ((sidx >= 0) & ~history_noise(sidx, hist)).to(
+        torch.float32).reshape(-1, 1, CHUNK)
 
 
 def act_rows_call(sidx: torch.Tensor, hist: torch.Tensor) -> torch.Tensor:
@@ -160,22 +161,22 @@ def time_image_f32(acc_t: torch.Tensor) -> torch.Tensor:
     return (acc_t.to(torch.float64) / FIXED_PER_SEC).to(torch.float32)
 
 
-def _splat_plain(stat, act, prx, pry, geo, *, scale: int, H: int, W: int,
+def _splat_plain(t_sec, act, prx, pry, geo, *, scale: int, H: int, W: int,
                  time_lo: bool):
-    """Splat the warped positions (prx, pry) (nch, CHUNK) inside the
-    dynamic window of ``geo[0, 0:4]``: the int64 fixed-point time image and
-    the int32 count image."""
+    """Splat the warped positions (prx, pry) (nch, CHUNK) of events with
+    times ``t_sec`` (nch, CHUNK) in seconds and activity ``act`` (nch,
+    CHUNK) inside the dynamic window of ``geo[0, 0:4]``: the int64
+    fixed-point time image and the int32 count image."""
     HP, WP = padded_image_shape(H, W)
-    nch = stat.shape[0]
+    nch = t_sec.shape[0]
     half = scale // 2
     x_sh, y_sh, wd, hd = geo[0, 0], geo[0, 1], geo[0, 2], geo[0, 3]
-    fscale = torch.full((), float(scale), device=stat.device)
+    fscale = torch.full((), float(scale), device=t_sec.device)
     ix = fma(prx, fscale, x_sh).to(torch.int32)   # toward zero
     iy = fma(pry, fscale, y_sh).to(torch.int32)
-    ok = ((act[:, 0] > 0)
+    ok = ((act > 0)
           & (ix >= half) & (ix.to(torch.float32) < wd + half)
           & (iy >= half) & (iy.to(torch.float32) < hd + half))
-    t_sec = mul_recip(stat[:, 2], 1e9)
     t0 = t_sec[:, :1]
     tr = t_sec - t0
     w_hi = _bf16(tr)
@@ -184,8 +185,8 @@ def _splat_plain(stat, act, prx, pry, geo, *, scale: int, H: int, W: int,
         fixed = fixed + to_fixed(_bf16(tr - w_hi))
     # Rejected events add into a dump slot past the image.
     lin = torch.where(ok, ix.to(torch.int64) * WP + iy, HP * WP).reshape(-1)
-    acc_t = torch.zeros(HP * WP + 1, dtype=torch.int64, device=stat.device)
-    acc_c = torch.zeros(HP * WP + 1, dtype=torch.int32, device=stat.device)
+    acc_t = torch.zeros(HP * WP + 1, dtype=torch.int64, device=t_sec.device)
+    acc_c = torch.zeros(HP * WP + 1, dtype=torch.int32, device=t_sec.device)
     acc_t.index_add_(0, lin, fixed.reshape(-1))
     acc_c.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
     return (acc_t[:-1].reshape(HP, WP).contiguous(),
@@ -197,8 +198,9 @@ def warp_images_st_plain(stat, act, pr, st, geo, *, scale: int, H: int,
     prx, pry, _, _ = project_4param_reinit(
         stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
         *_warp_args(st))
-    acc_t, acc_c = _splat_plain(stat, act, prx, pry, geo, scale=scale, H=H,
-                                W=W, time_lo=time_lo)
+    acc_t, acc_c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0], prx,
+                                pry, geo, scale=scale, H=H, W=W,
+                                time_lo=time_lo)
     return torch.stack([prx, pry], dim=1), acc_t, acc_c
 
 
@@ -605,8 +607,9 @@ def fused_warp_splat_images_plain(stat, act, pr, scal, *, scale: int,
     s = scal[0]
     prx, pry, _, _ = project_4param_reinit_cs(
         stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1], *s[4:11])
-    acc_t, acc_c = _splat_plain(stat, act, prx, pry, scal, scale=scale, H=H,
-                                W=W, time_lo=True)
+    acc_t, acc_c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0], prx,
+                                pry, scal, scale=scale, H=H, W=W,
+                                time_lo=True)
     return torch.stack([prx, pry], dim=1), acc_t, acc_c, 0
 
 
@@ -837,6 +840,172 @@ def finish_local_call(acc_t, acc_c, *, scale: int, H: int, W: int, own):
         _stream(dev))
     _launch("finish_local", rc)
     return out
+
+
+# --------------- B10 / B11 the seven sums of already-warped positions
+
+
+def partials_rows(pr_x, pr_y, t_ns, active):
+    """The flat (n,) inputs of B10 and B11 as (nch, CHUNK) f32 rows, padded
+    to whole chunks (at least one) with inactive slots: positions, times in
+    seconds (``t_ns / 1e9`` as a multiplication by the f32 reciprocal, as
+    XLA compiles the JAX wrapper) and activity."""
+    rows = lambda a: _chunk_padded(a.to(torch.float32)[None], 0.0).reshape(
+        -1, CHUNK)
+    return (rows(pr_x), rows(pr_y), rows(mul_recip(t_ns.to(torch.float32),
+                                                   1e9)), rows(active))
+
+
+def fused_model_partials_plain(prx, pry, t_sec, act, geo, *, scale: int,
+                               H: int, W: int):
+    """The twin of B10 on (nch, CHUNK) rows: the hi+lo splat of the
+    positions inside the window of ``geo``, then ``finish_partials_plain``.
+    Returns (8,) f32 [seven sums, 0]."""
+    acc_t, acc_c = _splat_plain(t_sec, act, prx, pry, geo, scale=scale, H=H,
+                                W=W, time_lo=True)
+    return finish_partials_plain(acc_t, acc_c, scale=scale, H=H, W=W)
+
+
+def fused_model_partials_windowed_plain(prx, pry, t_sec, act, geo, *,
+                                        scale: int, H: int, W: int):
+    """The twin of B11: B10's function.  The TPU kernel's splat windows
+    and fallbacks are a way to scatter, and the integer sums do not depend
+    on it."""
+    return fused_model_partials_plain(prx, pry, t_sec, act, geo, scale=scale,
+                                      H=H, W=W)
+
+
+def _partials_call(name, plain, pr_x, pr_y, t_ns, active, geo, scale, H, W):
+    dev = pr_x.device
+    n = pr_x.shape[0] if pr_x.dim() == 1 else -1
+    _check("pr_x", pr_x, torch.float32, (n,), dev)
+    _check("pr_y", pr_y, torch.float32, (n,), dev)
+    _check("t_ns", t_ns, torch.float32, (n,), dev)
+    if active.shape != (n,) or active.device != dev:
+        raise ValueError(f"active: shape {tuple(active.shape)} on "
+                         f"{active.device}, expected ({n},) on {dev}")
+    _check("geo", geo, torch.float32, (1, 8), dev)
+    prx, pry, t_sec, act = partials_rows(pr_x, pr_y, t_ns, active)
+    if _on_cpu(dev):
+        return plain(prx, pry, t_sec, act, geo, scale=scale, H=H, W=W)
+    from better_flow_tpu_torch.ops._build import library
+
+    HP, WP = padded_image_shape(H, W)
+    out = torch.empty(8, dtype=torch.float32, device=dev)
+    ws = _workspace(dev, H, W)
+    rc = getattr(library(), "bf_" + name)(
+        _ptr(geo), _ptr(prx), _ptr(pry), _ptr(t_sec), _ptr(act), _ptr(out),
+        _ptr(ws["acc_t"]), _ptr(ws["acc_c"]), _ptr(ws["img"]),
+        _ptr(ws["partials"]), prx.shape[0], HP, WP, H, W, scale, _stream(dev))
+    _launch(name, rc)
+    return out
+
+
+def fused_model_partials_call(pr_x, pr_y, t_ns, active, geo, *, scale: int,
+                              H: int, W: int):
+    """The seven sums of the time image of already-warped events: flat (n,)
+    f32 ``pr_x``, ``pr_y``, ``t_ns`` and bool ``active``, padded to whole
+    chunks with inactive slots; accepted inside the dynamic window of the
+    (1, 8) geometry row ``geo``; each chunk's time base its slot 0.
+    Returns (8,) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0]."""
+    return _partials_call("fused_model_partials", fused_model_partials_plain,
+                          pr_x, pr_y, t_ns, active, geo, scale, H, W)
+
+
+def fused_model_partials_windowed_call(pr_x, pr_y, t_ns, active, geo, *,
+                                       scale: int, H: int, W: int):
+    """``fused_model_partials_call`` for events sorted by
+    ``ops.layout.sort_key_blocks`` (spatially local chunks): B10's splat,
+    exact for any order and any warp, so bitwise
+    ``fused_model_partials_call``."""
+    return _partials_call("fused_model_partials_windowed",
+                          fused_model_partials_windowed_plain, pr_x, pr_y,
+                          t_ns, active, geo, scale, H, W)
+
+
+# ------------------------------------------------ B12 merged megastep
+
+
+def megastep2_plain(stat, act, pr, st, img_t, img_c, geo, *, scale: int,
+                    H: int, W: int, time_lo: bool = True, **statics):
+    """The twin of B12: the head (``megastep_finish_plain`` of the
+    previous call's images when ``st[ST_HAS]`` is set, else the state with
+    CONT forced to 1; then HAS = 1), the warp of every event with the head's
+    state with B4's direction vectors, and, while CONT > 0, the splat of
+    ``warp_images_st_plain``.  Returns (npr (nch, 4, CHUNK) [pr_x, pr_y,
+    nx, ny], st_out, acc_t, acc_c)."""
+    if st[0, ST_HAS].item() > 0.5:
+        st_out = megastep_finish_plain(img_t, img_c, st, geo, scale=scale,
+                                       H=H, W=W, **statics)
+    else:
+        st_out = st.clone()
+        st_out[0, ST_CONT] = 1.0
+    st_out[0, ST_HAS] = 1.0
+    prx, pry, nx, ny = project_4param_reinit(
+        stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
+        *_warp_args(st_out))
+    npr = torch.stack([prx, pry, nx, ny], dim=1)
+    if st_out[0, ST_CONT].item() > 0:
+        acc_t, acc_c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0],
+                                    prx, pry, geo, scale=scale, H=H, W=W,
+                                    time_lo=time_lo)
+    else:
+        HP, WP = padded_image_shape(H, W)
+        acc_t = torch.zeros((HP, WP), dtype=torch.int64, device=stat.device)
+        acc_c = torch.zeros((HP, WP), dtype=torch.int32, device=stat.device)
+    return npr, st_out, acc_t, acc_c
+
+
+def megastep2_call(stat, act, pr, st, img_t, img_c, geo, *, scale: int,
+                   H: int, W: int, schedule: str, rot_tol: float,
+                   div_tol: float, dx_tol: float, dy_tol: float,
+                   xy_cap: float, rotdiv_cap: float, max_iter: int,
+                   hard_cap: int, time_lo: bool = True,
+                   exit_grad: float = 0.0, exit_pred: float = 0.0,
+                   grid_blocks: int = 0):
+    """One merged iteration in one cooperative launch: the finish and model
+    update of the previous call's images (``img_t`` int64, ``img_c`` int32,
+    (HP, WP); read only when ``st[ST_HAS]`` is set), the warp of every event
+    from ``pr`` (nch, 4, CHUNK) (rows 0-1 read) with the updated state, and
+    the splat into new images while the updated CONT is set.  Returns
+    (npr (nch, 4, CHUNK) [pr_x, pr_y, nx, ny], st_out (1, 32), acc_t,
+    acc_c); the images are allocated per call, zero when CONT is 0.  The
+    call whose head clears CONT is the final warp.  ``grid_blocks`` as in
+    ``megastep_call``; a launch the card refuses raises."""
+    statics = dict(schedule=schedule, rot_tol=rot_tol, div_tol=div_tol,
+                   dx_tol=dx_tol, dy_tol=dy_tol, xy_cap=xy_cap,
+                   rotdiv_cap=rotdiv_cap, max_iter=max_iter,
+                   hard_cap=hard_cap, exit_grad=exit_grad,
+                   exit_pred=exit_pred)
+    dev = stat.device
+    nch = stat.shape[0]
+    HP, WP = padded_image_shape(H, W)
+    _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
+    _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
+    _check("pr", pr, torch.float32, (nch, 4, CHUNK), dev)
+    _check("st", st, torch.float32, (1, ST_SIZE), dev)
+    _check("img_t", img_t, torch.int64, (HP, WP), dev)
+    _check("img_c", img_c, torch.int32, (HP, WP), dev)
+    _check("geo", geo, torch.float32, (1, 8), dev)
+    if _on_cpu(dev):
+        return megastep2_plain(stat, act, pr, st, img_t, img_c, geo,
+                               scale=scale, H=H, W=W, time_lo=time_lo,
+                               **statics)
+    from better_flow_tpu_torch.ops._build import library
+
+    cp = _c_params(statics)
+    npr = torch.empty_like(pr)
+    st_out = torch.empty_like(st)
+    acc_t = torch.empty((HP, WP), dtype=torch.int64, device=dev)
+    acc_c = torch.empty((HP, WP), dtype=torch.int32, device=dev)
+    ws = _workspace(dev, H, W)
+    rc = library().bf_megastep2(
+        _ptr(geo), _ptr(st), _ptr(stat), _ptr(act), _ptr(pr), _ptr(img_t),
+        _ptr(img_c), _ptr(npr), _ptr(st_out), _ptr(acc_t), _ptr(acc_c),
+        _ptr(ws["img"]), _ptr(ws["partials"]), nch, HP, WP, H, W, scale,
+        int(time_lo), ctypes.byref(cp), int(grid_blocks), _stream(dev))
+    _launch("megastep2", rc)
+    return npr, st_out, acc_t, acc_c
 
 
 def sum_images(images, comm=None):

@@ -50,6 +50,13 @@ def padded_image_shape(H: int, W: int) -> Tuple[int, int]:
     return _round_up(max(H + 8, RH), 32), _round_up(max(W + 8, WC), 128)
 
 
+def sort_key_blocks(x, y, valid, band_rows: int = 32) -> torch.Tensor:
+    """Spatial sort key of the original pixels (``sort_key_blocks`` of the
+    JAX package): row band major, column minor, invalid events last.
+    Sorting a slice by it makes every chunk spatially local."""
+    key = (x.to(torch.int32) // band_rows) * 4096 + y.to(torch.int32)
+    return torch.where(valid, key, torch.full_like(key, 1 << 30))
+
 
 def _chunk_rows(a: torch.Tensor) -> torch.Tensor:
     """(n,) -> (nch, 1, CHUNK) f32, zero-padded to a CHUNK multiple (at

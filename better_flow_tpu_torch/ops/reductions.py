@@ -1,6 +1,9 @@
-"""The model's partial sums and the model terms made from them.
+"""Masked reductions over the time image, the model's partial sums and
+the model terms made from them.
 
-Counterpart of ``better_flow_tpu/ops/reductions.py``'s ``ModelTerms``,
+Counterpart of ``better_flow_tpu/ops/reductions.py``'s
+``nonzero_average``, ``center_of_mass`` and ``model_compute`` (the XLA
+branch's reductions over the whole image), ``ModelTerms``,
 ``model_compute_partial`` and ``model_from_partials``
 (ObjectModel::compute, object_model.cpp:4-39).  The seven partial sums
 (cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg) are sums over the pixels with
@@ -27,6 +30,70 @@ class ModelTerms(NamedTuple):
     rot: torch.Tensor
     div: torch.Tensor
     cnt: torch.Tensor
+
+
+def _sum32(v: torch.Tensor) -> torch.Tensor:
+    """Sum in f64, rounded to f32 once."""
+    return v.to(torch.float64).sum().to(torch.float32)
+
+
+def nonzero_average(img: torch.Tensor) -> torch.Tensor:
+    """Mean over the strictly nonzero pixels, 0 if none
+    (EventFile::nonzero_average, event_file.cpp:282-294)."""
+    mask = img != 0
+    cnt = mask.sum().to(torch.float32)
+    s = _sum32(torch.where(mask, img, torch.zeros_like(img)))
+    return torch.where(cnt == 0, torch.zeros_like(s),
+                       s / torch.clamp(cnt, min=1.0))
+
+
+def _pixel_grid(img: torch.Tensor):
+    H, W = img.shape
+    rows = torch.arange(H, dtype=torch.float32, device=img.device)[:, None]
+    cols = torch.arange(W, dtype=torch.float32, device=img.device)[None, :]
+    return rows, cols
+
+
+def center_of_mass(img: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(cx, cy, cnt): the mean (row, col) over pixels > 1e-6
+    (object_model.cpp:103-126); (0, 0, 0) for an empty image.  The sums
+    are f64, rounded to f32 once (the JAX package sums in f32 in XLA's
+    order), then divided in f32."""
+    mask = img > NONZERO_EPS
+    rows, cols = _pixel_grid(img)
+    zero = torch.zeros((), dtype=torch.float32, device=img.device)
+    cnt = _sum32(mask)
+    denom = torch.clamp(cnt, min=1.0)
+    cx = _sum32(torch.where(mask, rows, zero)) / denom
+    cy = _sum32(torch.where(mask, cols, zero)) / denom
+    return cx, cy, cnt
+
+
+def model_compute(img: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+                  cx, cy) -> ModelTerms:
+    """The four model reductions (ObjectModel::compute,
+    object_model.cpp:4-39) over every pixel with img > 1e-6 (pixels whose
+    gradient the all-nine mask zeroed still count):
+
+        dx = mean(gx)   dy = mean(gy)   rot = mean(r x g)   div = mean(r . g)
+
+    with r = (row - cx, col - cy).  The integrands are f32 as XLA compiles
+    them on the CPU (``rx*gy - ry*gx`` as ``fma(rx, gy, -(ry*gx))``,
+    ``rx*gx + ry*gy`` as ``fma(rx, gx, ry*gy)``, measured bit for bit); the
+    sums are f64, rounded to f32 once, then divided in f32."""
+    mask = img > NONZERO_EPS
+    rows, cols = _pixel_grid(img)
+    rx = rows - cx
+    ry = cols - cy
+    m = mask.to(torch.float32)
+    cnt = _sum32(m)
+    denom = torch.clamp(cnt, min=1.0)
+    rot = fma(rx, gy, -(ry * gx))
+    div = fma(rx, gx, ry * gy)
+    return ModelTerms(dx=_sum32(gx * m) / denom, dy=_sum32(gy * m) / denom,
+                      rot=_sum32(rot * m) / denom,
+                      div=_sum32(div * m) / denom, cnt=cnt)
 
 
 def model_compute_partial(img: torch.Tensor, gx: torch.Tensor,

@@ -1,0 +1,137 @@
+"""Time and count images of the XLA branch, in plain PyTorch.
+
+Counterpart of ``better_flow_tpu/ops/time_image.py`` (AccelLib::
+get_time_img_cpu, accel_lib.h:147-178): every accepted event adds its time
+in seconds and a count of one to its centre pixel, a scale x scale box
+filter spreads the sums over the footprint, and the time image is the sum
+over the count where the count is at least one.  Images have the static
+(H, W) shape of ``models.global_flow.static_image_shape``; the dynamic
+window enters only as acceptance bounds.
+
+Accumulation.  The JAX package adds f32 ``t / 1e9`` in event order through
+XLA's scatter.  A float atomic add on the card would sum in another order
+on every run, so the port adds each event's time as int64 fixed point
+(``FIXED_PER_SEC`` units a second, the kernels' convention of
+``csrc/common.cuh``) and its count as an integer, with ``index_add_``:
+integer sums are exact, so the images are the same in any order, on the
+CPU and on the card, and a run repeats bit for bit.  The sums become f32
+once, before the box filter.  Against the JAX package's f32 sums they
+differ by that sum's rounding (~1e-7 relative).
+
+Arithmetic, as XLA compiles the JAX functions on the CPU (measured bit for
+bit): the scaled position is a fused multiply-add, ``t / 1e9`` a
+multiplication by the f32 reciprocal, and the box filter adds the window
+in row-major order in f32.
+
+Only the "xla" scatter mode exists: "rep" and "mxu" are the JAX package's
+TPU scatter workarounds (``time_image.py:114-126``) and raise by name.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from better_flow_tpu_torch.ops.fused_model import FIXED_PER_SEC, to_fixed
+from better_flow_tpu_torch.ops.warp import fma, mul_recip
+
+
+def _check_mode(scatter_mode: str) -> None:
+    if scatter_mode != "xla":
+        raise NotImplementedError(
+            f"scatter_mode={scatter_mode!r}: the JAX package's TPU scatter "
+            "workarounds ('rep', 'mxu') are not ported; the port scatters "
+            "with exact integer sums ('xla')")
+
+
+def _shifted(padded: torch.Tensor, dr: int, dc: int, pad: int, H: int,
+             W: int) -> torch.Tensor:
+    """View of a zero-padded image moved by (dr, dc)."""
+    return padded[pad + dr:pad + dr + H, pad + dc:pad + dc + W]
+
+
+def box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Sum over a size x size window, zero padding, stride 1 (size odd):
+    ``out[p]`` is the sum of ``img`` over the window centred at ``p``, added
+    in row-major window order as XLA's ``reduce_window`` adds it."""
+    if size == 1:
+        return img
+    half = size // 2
+    H, W = img.shape
+    p = torch.nn.functional.pad(img, (half, half, half, half))
+    out = None
+    for dr in range(-half, half + 1):
+        for dc in range(-half, half + 1):
+            v = _shifted(p, dr, dc, half, H, W)
+            out = v if out is None else out + v
+    return out
+
+
+def splat_indices(pr_x, pr_y, mask, scale: int, x_sh, y_sh, w_dyn, h_dyn,
+                  H: int, W: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Centre pixels and acceptance of the footprint splat
+    (accel_lib.h:154-158): ``ix = int(pr_x * scale + x_sh)`` truncated
+    toward zero, accepted iff ``scale // 2 <= ix < w_dyn + scale // 2``
+    (and likewise for y) and ``mask``.  Returns (flat index (n,) int64,
+    accept (n,) bool); the index is the sentinel ``H * W`` where rejected."""
+    half = scale // 2
+    dev = pr_x.device
+    # A fill on the device, not an upload: a copy of a host scalar to the
+    # card blocks the host once per call.
+    f = lambda v: torch.full((), float(v), dtype=torch.float32, device=dev)
+    ix = fma(pr_x, f(scale), f(x_sh)).to(torch.int32)   # toward zero
+    iy = fma(pr_y, f(scale), f(y_sh)).to(torch.int32)
+    ok = (mask & (ix >= half) & (ix < int(w_dyn) + half)
+          & (iy >= half) & (iy < int(h_dyn) + half))
+    lin = ix.to(torch.int64) * W + iy.to(torch.int64)
+    return torch.where(ok, lin, torch.full_like(lin, H * W)), ok
+
+
+def scatter_fixed(lin: torch.Tensor, t_sec: torch.Tensor, H: int, W: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pre-filter sums of accepted events (``lin`` from
+    ``splat_indices``): (H, W) int64 fixed-point time and (H, W) int32
+    count, exact in any order."""
+    n = H * W
+    acc_t = torch.zeros(n + 1, dtype=torch.int64, device=lin.device)
+    acc_c = torch.zeros(n + 1, dtype=torch.int32, device=lin.device)
+    acc_t.index_add_(0, lin, to_fixed(t_sec))
+    acc_c.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
+    return acc_t[:n].reshape(H, W), acc_c[:n].reshape(H, W)
+
+
+def scatter_images(pr_x, pr_y, t_ns, mask, scale: int, x_sh, y_sh, w_dyn,
+                   h_dyn, H: int, W: int, scatter_mode: str = "xla"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel (time-sum, count) f32 images after the footprint splat,
+    with ``t_ns / 1e9`` seconds a contribution (accel_lib.h:151-166)."""
+    _check_mode(scatter_mode)
+    lin, _ = splat_indices(pr_x, pr_y, mask, scale, x_sh, y_sh, w_dyn,
+                           h_dyn, H, W)
+    acc_t, acc_c = scatter_fixed(lin, mul_recip(t_ns, 1e9), H, W)
+    t_sum = (acc_t.to(torch.float64) / FIXED_PER_SEC).to(torch.float32)
+    return box_filter(t_sum, scale), box_filter(acc_c.to(torch.float32),
+                                                scale)
+
+
+def time_image(pr_x, pr_y, t_ns, mask, scale: int, x_sh, y_sh, w_dyn, h_dyn,
+               H: int, W: int, scatter_mode: str = "xla") -> torch.Tensor:
+    """Average-timestamp image: the time sum over the count where the
+    count is at least one, else 0 (accel_lib.h:168-175)."""
+    t_sum, cnt = scatter_images(pr_x, pr_y, t_ns, mask, scale, x_sh, y_sh,
+                                w_dyn, h_dyn, H, W,
+                                scatter_mode=scatter_mode)
+    return torch.where(cnt >= 1, t_sum / torch.clamp(cnt, min=1.0),
+                       torch.zeros_like(t_sum))
+
+
+def count_image(pr_x, pr_y, mask, scale: int, x_sh, y_sh, w_dyn, h_dyn,
+                H: int, W: int) -> torch.Tensor:
+    """Footprint count image with the uint8 saturation of the reference's
+    projection images (event_file.h:500-505): ``min(count, 255)``, f32."""
+    lin, _ = splat_indices(pr_x, pr_y, mask, scale, x_sh, y_sh, w_dyn,
+                           h_dyn, H, W)
+    _, acc_c = scatter_fixed(lin, torch.zeros_like(pr_x), H, W)
+    return torch.clamp(box_filter(acc_c.to(torch.float32), scale),
+                       max=255.0)

@@ -51,6 +51,17 @@ def cos_sin_f32(crl: torch.Tensor):
     return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
 
 
+def apply_project(fr_x, fr_y, t, nx, ny):
+    """``pr = fr - (n / NZ) * t / 1e4`` (Event::apply_project,
+    event.h:164-168), as XLA compiles it: both divisions by constants are
+    multiplications by their f32 reciprocals and the product is fused into
+    the subtraction (measured bit for bit on the CPU)."""
+    kx = mul_recip(nx, float(NZ))
+    ky = mul_recip(ny, float(NZ))
+    ts = mul_recip(t, WARP_TIME_DIV)
+    return fma(-kx, ts, fr_x), fma(-ky, ts, fr_y)
+
+
 def project_4param_reinit(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
                           div, crl, sin_fma: bool = False):
     """Rotate/diverge the current ``pr`` about (cx, cy), overwrite n with
@@ -86,10 +97,7 @@ def project_4param_reinit_cs(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
         rpy = fma(s, rx, c * ry)
     nx = fma(-rpx, div, rpx - rx) + dnx_
     ny = fma(-rpy, div, rpy - ry) + dny_
-    kx = mul_recip(nx, float(NZ))
-    ky = mul_recip(ny, float(NZ))
-    ts = mul_recip(t, WARP_TIME_DIV)
-    return fma(-kx, ts, fr_x), fma(-ky, ts, fr_y), nx, ny
+    return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
 
 
 def compute_uv(nx, ny):

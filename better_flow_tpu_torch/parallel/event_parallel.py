@@ -130,7 +130,7 @@ def compensate_recording_scan_sharded(
     first-slice-wins accumulation); ``stats['n_devices']`` is the number of
     shards.  Pass ``prepared`` from ``prepare_recording_sharded`` to reuse
     the staging, ``carry_in`` to continue a chain."""
-    check_supported(cfg.optimizer, cfg.f64_totals)
+    check_supported(cfg.optimizer, cfg.f64_totals, sharded=True)
     if prepared is None:
         prepared = prepare_recording_sharded(x, y, t_ns, cfg, mesh)
     check_staged_for(prepared, mesh)

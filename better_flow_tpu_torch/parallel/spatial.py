@@ -387,7 +387,7 @@ def _initial_state(pr_x, pr_y, nx, ny, model: MotionModel,
 
 
 def _check_tiled(cfg: OptimizerConfig, f64_totals: bool) -> None:
-    check_supported(cfg)
+    check_supported(cfg, tiled=True)
     if f64_totals:
         raise NotImplementedError(
             "f64 totals on the tiled path: the JAX package's tiled pipeline "

@@ -7,9 +7,12 @@ each fired slice is sorted by (32-row band, column) on the host, copied to
 the device as one packed (5, cap) f32 input from pinned memory, and run
 through ``models.global_flow.process_slice``: under the reference schedule
 one megastep launch (B5) per optimizer iteration, under the ``fast``
-presets the split pair (B1 + B2), then the final warp (B4); with f64
-totals (``PipelineConfig.f64_totals``) or ``use_megastep=False`` the
-composed loop, one B6 launch per iteration.  The motion model (f64 totals
+presets the split pair (B1 + B2), then the final warp (B4); under
+``megastep_merged`` one B12 launch per iteration and none for the final
+warp; with f64 totals (``PipelineConfig.f64_totals``) or
+``use_megastep=False`` the composed loop, one B6 launch per iteration;
+with ``scatter_mode="xla"`` the XLA branch on the flat slice, in plain
+tensor operations.  The motion model (f64 totals
 under ``f64_totals``) and the secant seed carried from slice to slice stay
 on the device.
 One packed output per slice comes back; every per-event output is mapped
@@ -229,8 +232,11 @@ class DVSFlow:
         valid = torch.arange(cap, device=dev) < n
         ev = EventSlice(x=d[0], y=d[1], t=d[2], valid=valid,
                         noise=d[3] > 0.5)
-        stat = prepare_chunk_layouts(ev.x, ev.y, ev.t)
-        act = pack_act(ev.active)
+        if self.cfg.optimizer.scatter_mode == "xla":
+            stat = act = None            # the XLA branch reads ``ev``
+        else:
+            stat = prepare_chunk_layouts(ev.x, ev.y, ev.t)
+            act = pack_act(ev.active)
         geo = d[4, 0:8].reshape(1, 8)
         res, _ = process_slice(
             stat, act, self.last_model, self.cfg.optimizer, self.cfg.sensor,

@@ -9,11 +9,16 @@ Counterpart of ``better_flow_tpu/runtime/scan_pipeline.py`` (the path
    batch's copy overlaps the next batch's sort.
 2. Device: a Python loop over the slices.  Per slice the activity rows are
    built from the window-gate history (B3) and the optimizer runs through
-   the kernels: the megastep drive (B5, or B1 + B2) with B4, or, for f64
-   totals (``PipelineConfig.f64_totals``) or ``use_megastep=False``, the
-   composed loop on B6.  The gates, the history and the geometry are host
-   values known after staging, so the loop reads the device only for the
-   optimizer's continue flag.
+   the kernels: the megastep drive (B5, or B1 + B2) with B4, the merged
+   drive (B12) under ``megastep_merged``, or, for f64 totals
+   (``PipelineConfig.f64_totals``) or ``use_megastep=False``, the composed
+   loop on B6.  With ``scatter_mode="xla"`` the slice runs as a flat
+   ``EventSlice`` (valid slots and the history's noise flags, built in
+   plain tensor code, ``slice_events``) through the XLA branch, whose
+   [u, v, noise] pack goes to the accumulation as the kernels' does.  The
+   gates, the history and the geometry are host values known after
+   staging, so the loop reads the device only for the optimizer's continue
+   flag.
 3. First-slice-wins accumulation into per-event arrays on the device, one
    slice at a time in reverse order, then one fetch to the host.
 
@@ -47,11 +52,14 @@ import torch
 
 from better_flow_tpu_torch.config import PipelineConfig
 from better_flow_tpu_torch.io import native
+from better_flow_tpu_torch.core.events import EventSlice
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.models.global_flow import (
     check_supported, geo_row, geometry_from_bbox, process_slice,
 )
-from better_flow_tpu_torch.ops.fused_model import LAUNCHES, act_rows_call
+from better_flow_tpu_torch.ops.fused_model import (
+    LAUNCHES, act_rows_call, history_noise,
+)
 from better_flow_tpu_torch.ops.layout import BAND_ROWS, CHUNK, PERM_SENTINEL
 
 
@@ -357,6 +365,19 @@ def _histories(ws_h, st_h, en_h, plan: SlicePlan, small):
     return hist, (h[0].astype(bool), h[1].copy(), h[2].copy())
 
 
+def slice_events(stat_s: torch.Tensor, sidx_s: torch.Tensor,
+                 hist_s: torch.Tensor) -> EventSlice:
+    """The flat ``EventSlice`` of one staged slice for the XLA branch
+    (``scan_pipeline.py:298-307`` of the JAX package): x, y and t of the
+    (nch, 3, CHUNK) pack, valid where the slot holds an event (``sidx >=
+    0``), noise where the (3, K) window-gate history covers its original
+    index."""
+    valid = sidx_s >= 0
+    x, y, t = (stat_s[:, k].reshape(-1) for k in range(3))
+    return EventSlice(x=x, y=y, t=t, valid=valid,
+                      noise=history_noise(sidx_s, hist_s) & valid)
+
+
 def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     """The slice loop.  Returns (final carry, uvn (S, nch, 3, CHUNK),
     iters [S], ran [S], host_syncs).  Under an event ``group``
@@ -388,8 +409,13 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
                              f"{group.n_local} local shards")
         per = nch // group.n_local
         cuts = [(k * per, (k + 1) * per) for k in range(group.n_local)]
+    xla = opt.scatter_mode == "xla"
     for s in range(S):
-        if group is None:
+        ev = None
+        if xla:
+            ev = slice_events(stat[s], sidx[s], hist[s])
+            stat_s = act = None
+        elif group is None:
             stat_s = stat[s]
             act = act_rows_call(sidx[s], hist[s])
         else:
@@ -400,7 +426,7 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
         res, uvn_s = process_slice(
             stat_s, act, model, opt, cfg.sensor,
             prepared["bbox"][s], int(prepared["nval"][s]),
-            warm_start=not cfg.stm_disable, seed=sd[:8], geo=geo[s],
+            warm_start=not cfg.stm_disable, seed=sd[:8], geo=geo[s], ev=ev,
             group=group)
         uvn[s] = uvn_s
         model = res.model

@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the ten CUDA kernels of
-``better_flow_tpu_torch/csrc`` and then, in phases that each raise on
-failure:
+Run from the root of a checkout.  It builds the thirteen CUDA kernels of
+``better_flow_tpu_torch/csrc`` (one nvcc per source, in parallel) and then,
+in phases that each raise on failure:
 
 1. environment: the card, its power limit, the torch, CUDA and nvcc
    versions and the build time;
@@ -62,7 +62,23 @@ failure:
     is printed, met or not, and does not decide the phase), a second run
     bitwise the first, the card against the CPU twins on the first 150,000
     events, and one slice whose warp drifts beyond an 8-pixel halo so that
-    the lane carries events.
+    the lane carries events;
+11. B10 and B11 (``fused_model_partials``, ``fused_model_partials_windowed``:
+    the seven sums of already-warped events) against their twins at the
+    main path's shapes (a 30-chunk slice's B1 positions, in the staged band
+    order and sorted by ``sort_key_blocks``), B11 bitwise B10; B10's
+    launches are those two calls, its only path;
+12. the merged megastep (B12, ``OptimizerConfig.megastep_merged``): the
+    kernel against its twin and the B1 -> B2 -> B1 chain, its exit call
+    against B4, then the ``fast()`` scan with ``megastep_merged`` on the 2M
+    events, bitwise the B1-B4 scan, with its launches (no B4), its run time
+    in turns with the B1-B4 scan and the calls of each that block the host;
+13. the XLA-composed branch (``scatter_mode="xla"``): the ``fast()`` scan
+    on the 2M events twice (bitwise equal), its host time, PyTorch
+    operations and blocking calls an iteration, the card against the CPU
+    run on the first 100,000 events; then ``run_optimizer`` with "pallas"
+    as a warm-start chain over the first 20 slices, sorted (B11), with its
+    host time an iteration.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -96,11 +112,19 @@ KERNELS = [   # name, source, the TPU kernel's pallas_call it replaces
      f"{PALLAS}:924"),
     ("finish_local", "better_flow_tpu_torch/csrc/finish_local.cu",
      f"{PALLAS}:981"),
+    ("fused_model_partials",
+     "better_flow_tpu_torch/csrc/fused_model_partials.cu", f"{PALLAS}:263"),
+    ("fused_model_partials_windowed",
+     "better_flow_tpu_torch/csrc/fused_model_partials.cu", f"{PALLAS}:1056"),
+    ("megastep2", "better_flow_tpu_torch/csrc/megastep2.cu",
+     f"{PALLAS}:1933"),
 ]
 N_EVENTS = 2_000_000
 N_COMPARE = 200_000
 N_TILED = 600_000
 N_TILED_COMPARE = 150_000
+N_XLA_COMPARE = 100_000
+N_PARTIALS_SLICES = 20
 TILED_HALO, TILED_ESC_CAP = 32, 32768
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
@@ -114,6 +138,7 @@ OPS_WARP = 40      # a slot's re-warp (28), scaled truncation and window test
 OPS_SPLAT = 16     # an accepted event's time weight (t0 + bf16 hi + lo as
 #                    fixed point) and its two integer adds
 OPS_UV = 4         # B4's u, v and noise per slot, on top of the warp
+OPS_ACCEPT = 12    # a slot's scaled truncation and window test (B10, B11)
 
 
 def ops_finish(pixels, scale):
@@ -828,38 +853,7 @@ def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
     def operations(shape):
         """PyTorch operations dispatched inside one tiled iteration, views
         apart, averaged over a run (the kernels' wrappers are two calls)."""
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        views = ("slice", "select", "view", "unsqueeze", "squeeze", "expand",
-                 "detach", "unbind", "reshape", "transpose", "permute",
-                 "alias", "narrow", "as_strided", "t.default", "unsafe_view")
-        count = dict(on=False, ops=0, views=0, iters=0)
-
-        class Counter(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                if count["on"]:
-                    name = str(func).split("aten.")[-1]
-                    kind = "views" if name.startswith(views) else "ops"
-                    count[kind] += 1
-                return func(*args, **(kwargs or {}))
-
-        real = sp._tiled_iteration
-
-        def counted(*a, **k):
-            count["on"], count["iters"] = True, count["iters"] + 1
-            try:
-                return real(*a, **k)
-            finally:
-                count["on"] = False
-
-        sp._tiled_iteration = counted
-        try:
-            with Counter():
-                run(shape)
-        finally:
-            sp._tiled_iteration = real
-        return (round(count["ops"] / count["iters"], 1),
-                round(count["views"] / count["iters"], 1))
+        return count_operations(sp, "_tiled_iteration", lambda: run(shape))
 
     r11 = report("1x1 reference", run((1, 1), warm=True))
     run((4, 2))                                             # warm-up
@@ -1068,6 +1062,374 @@ def phase_megastep(scan_inputs, d, dev):
             f"{r['plain_ms']:.4f} ms")
         out[name] = r
     return out
+
+
+def count_operations(module, name, run):
+    """PyTorch operations dispatched inside each call of ``module.name``
+    during ``run()``, views apart, averaged over the calls (a kernel's
+    wrapper counts as the operations it dispatches around its launch).
+    Returns (operations, views) per call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    views = ("slice", "select", "view", "unsqueeze", "squeeze", "expand",
+             "detach", "unbind", "reshape", "transpose", "permute",
+             "alias", "narrow", "as_strided", "t.default", "unsafe_view")
+    count = dict(on=False, ops=0, views=0, calls=0)
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if count["on"]:
+                op = str(func).split("aten.")[-1]
+                count["views" if op.startswith(views) else "ops"] += 1
+            return func(*args, **(kwargs or {}))
+
+    real = getattr(module, name)
+
+    def counted(*a, **k):
+        count["on"], count["calls"] = True, count["calls"] + 1
+        try:
+            return real(*a, **k)
+        finally:
+            count["on"] = False
+
+    setattr(module, name, counted)
+    try:
+        with Counter():
+            run()
+    finally:
+        setattr(module, name, real)
+    return (round(count["ops"] / max(count["calls"], 1), 1),
+            round(count["views"] / max(count["calls"], 1), 1))
+
+
+def count_syncs(run):
+    """Calls that block the host until the card catches up, made during
+    ``run()``: the warnings of PyTorch's sync debug mode (reads of a device
+    value, copies between the card and pageable host memory, stream and
+    device synchronisations)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_partials_kernels(scan_inputs, cfg, dev):
+    """B10 and B11 at the main path's shapes: the warped positions of a
+    full 30-chunk slice (B1's), its times and activity, in the staged band
+    order and sorted by ``sort_key_blocks``.  First B10 on both orders with
+    every count set to 0 just before: B10's path, since the JAX package
+    calls it from its tests only.  Then each kernel bitwise its twin, B11
+    bitwise B10, with the median device times of the calls (their
+    wrappers' chunk padding included) and of the twins.  Returns (the
+    results, B10's launches)."""
+    import torch
+
+    from better_flow_tpu_torch.models.global_flow import static_image_shape
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.layout import sort_key_blocks
+
+    opt = cfg.optimizer
+    H, W = static_image_shape(opt.scale, cfg.sensor)
+    inp = scan_inputs
+    npr, _, _ = fm.warp_images_st_call(inp["stat"], inp["act"], inp["pr"],
+                                       inp["st"], inp["geo"], scale=opt.scale,
+                                       H=H, W=W)
+    flat = lambda a: a.reshape(-1).contiguous()
+    x, y, t = (flat(inp["stat"][:, k]) for k in range(3))
+    band = dict(pr_x=flat(npr[:, 0]), pr_y=flat(npr[:, 1]), t_ns=t,
+                active=flat(inp["act"][:, 0]) > 0)
+    order = torch.argsort(sort_key_blocks(x, y, band["active"]), stable=True)
+    ordered = {k: v[order].contiguous() for k, v in band.items()}
+    geo = inp["geo"]
+    kw = dict(scale=opt.scale, H=H, W=W)
+    orders = (("band", band), ("sorted", ordered))
+    fm.reset_launches()
+    b10 = {o: fm.fused_model_partials_call(e["pr_x"], e["pr_y"], e["t_ns"],
+                                           e["active"], geo, **kw)
+           for o, e in orders}
+    b10_launches = fm.LAUNCHES["fused_model_partials"]
+    if b10_launches != len(orders):
+        raise AssertionError(f"fused_model_partials launched {b10_launches} "
+                             f"times in {len(orders)} calls")
+    out = {}
+    for name, call, plain in (
+            ("fused_model_partials", fm.fused_model_partials_call,
+             fm.fused_model_partials_plain),
+            ("fused_model_partials_windowed",
+             fm.fused_model_partials_windowed_call,
+             fm.fused_model_partials_windowed_plain)):
+        res = {}
+        for order_name, e in orders:
+            args = (e["pr_x"], e["pr_y"], e["t_ns"], e["active"], geo)
+            got = call(*args, **kw)
+            rows = fm.partials_rows(*args[:4])
+            want = plain(*rows, geo, **kw)
+            err = max_err(got, want)
+            if err != 0.0 or not torch.equal(got, b10[order_name]):
+                raise AssertionError(f"{name} ({order_name}): max abs error "
+                                     f"{err} against its twin, or not B10")
+            if float(got[0]) < 10_000:
+                raise AssertionError(f"{name}: only {float(got[0])} pixels")
+            res[order_name] = dict(
+                err=err, ms=timed(lambda: call(*args, **kw)),
+                plain_ms=timed(lambda: plain(*rows, geo, **kw)))
+        slots = band["pr_x"].numel()
+        accepted = int(band["active"].sum())
+        main = "sorted" if name.endswith("windowed") else "band"
+        out[name] = dict(
+            max_abs_err=max(r["err"] for r in res.values()),
+            ms=res[main]["ms"], plain_ms=res[main]["plain_ms"],
+            **bound(nbytes(*(band[k] for k in ("pr_x", "pr_y", "t_ns")),
+                           geo) + slots + 32,
+                    slots * OPS_ACCEPT + accepted * OPS_SPLAT
+                    + ops_finish(H * W, opt.scale)))
+        log(f"[kernels] {name}: bitwise its twin and B10 on band-ordered and "
+            f"sorted events; kernel {res['band']['ms']:.4f} ms (band order) "
+            f"{res['sorted']['ms']:.4f} ms (sorted)  plain "
+            f"{out[name]['plain_ms']:.4f} ms  bound "
+            f"{out[name]['bound_ms']:.5f} ms ({out[name]['bound_by']})")
+    log(f"[kernels] fused_model_partials: {b10_launches} launches on its "
+        "path (the slice in band order and sorted)")
+    return out, b10_launches
+
+
+def phase_merged(scan_inputs, cfg, prep, r_split, dev):
+    """B12 at the main path's shapes, then the merged drive on the bench
+    stream.  The kernel: a slice's first call and a full iteration (the
+    head finish of the first call's images, the warp and the splat)
+    bitwise their twins and the B1 -> B2 -> B1 chain, and a call whose
+    head ends the loop bitwise B4's final warp.  The drive: the ``fast()``
+    scan with ``megastep_merged`` on the staged 2M events, bitwise the
+    B1-B4 scan ``r_split`` (iterations, u, v, noise), with its launches:
+    one B12 an iteration plus one a slice that runs, no B1, B2 or B4.
+    Returns (the kernel's results, its launches in the merged scan)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.models.global_flow import (
+        finish_statics, static_image_shape,
+    )
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.layout import (
+        ST_CONT, ST_HAS, padded_image_shape,
+    )
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        compensate_recording_scan,
+    )
+
+    t_phase = time.perf_counter()
+    opt = cfg.optimizer
+    H, W = static_image_shape(opt.scale, cfg.sensor)
+    HP, WP = padded_image_shape(H, W)
+    inp = scan_inputs
+    stat, act, pr, geo = inp["stat"], inp["act"], inp["pr"], inp["geo"]
+    st = inp["st"].clone()
+    st[0, ST_HAS] = 0.0
+    time_lo = opt.splat_time_lo or opt.schedule != "fast"
+    kw = dict(scale=opt.scale, H=H, W=W, time_lo=time_lo,
+              **finish_statics(opt))
+    chain_kw = dict(scale=opt.scale, H=H, W=W)
+    z_t = torch.zeros((HP, WP), dtype=torch.int64, device=dev)
+    z_c = torch.zeros((HP, WP), dtype=torch.int32, device=dev)
+    pr4 = torch.cat([pr, torch.zeros_like(pr)], dim=1)
+    first = fm.megastep2_call(stat, act, pr4, st, z_t, z_c, geo, **kw)
+    second = fm.megastep2_call(stat, act, *first, geo, **kw)
+    err = 0.0
+    for got, args in ((first, (pr4, st, z_t, z_c)), (second, first)):
+        want = fm.megastep2_plain(stat, act, *args, geo, **kw)
+        err = max(err, *(max_err(g, w) for g, w in zip(got, want)))
+    if err != 0.0:
+        raise AssertionError(f"megastep2: max abs error {err} against its "
+                             "twin")
+    npr1, at1, ac1 = fm.warp_images_st_call(stat, act, pr, first[1], geo,
+                                            time_lo=time_lo, **chain_kw)
+    st2 = fm.megastep_finish_call(at1, ac1, first[1], geo,
+                                  **{k: v for k, v in kw.items()
+                                     if k != "time_lo"})
+    npr2, at2, ac2 = fm.warp_images_st_call(stat, act, npr1, st2, geo,
+                                            time_lo=time_lo, **chain_kw)
+    same = (torch.equal(first[0][:, 0:2], npr1) and torch.equal(first[2], at1)
+            and torch.equal(second[1], st2))
+    if float(st2[0, ST_CONT]) > 0:     # the loop goes on: the next B1
+        same = same and torch.equal(second[0][:, 0:2], npr2) and \
+            torch.equal(second[2], at2) and torch.equal(second[3], ac2)
+    if not same:
+        raise AssertionError("megastep2 differs from the B1 -> B2 -> B1 chain")
+    # A head that ends the loop: the call is B4's final warp.
+    ended = dataclasses.replace(opt, max_iter=1)
+    kw_end = dict(kw, **finish_statics(ended))
+    last = fm.megastep2_call(stat, act, *first, geo, **kw_end)
+    st_end = fm.megastep_finish_call(at1, ac1, first[1], geo,
+                                     **{k: v for k, v in kw_end.items()
+                                        if k != "time_lo"})
+    out4, _ = fm.warp_uv_call(stat, npr1, act, st_end)
+    if float(last[1][0, ST_CONT]) != 0.0 or not torch.equal(last[0], out4) \
+            or int(last[3].sum()) != 0:
+        raise AssertionError("megastep2's exit call is not B4's final warp")
+    slots = stat.shape[0] * stat.shape[2]
+    r = dict(max_abs_err=err,
+             ms=timed(lambda: fm.megastep2_call(stat, act, *first, geo, **kw)),
+             plain_ms=timed(lambda: fm.megastep2_plain(stat, act, *first, geo,
+                                                       **kw)),
+             # pr's rows 0-1 are read; nx, ny (rows 2-3) only written.
+             **bound(nbytes(stat, act, first[0][:, 0:2], first[1], first[2],
+                            first[3], geo, *second),
+                     slots * (OPS_WARP + OPS_UV) + int(ac2.sum()) * OPS_SPLAT
+                     + ops_finish(H * W, opt.scale) + 300))
+    log(f"[merged] megastep2: max_abs_err {err:.3g}, bitwise the B1 -> B2 -> "
+        f"B1 chain and, on its exit call, B4; kernel {r['ms']:.4f} ms  plain "
+        f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+        f"({r['bound_by']})")
+
+    merged_cfg = dataclasses.replace(
+        cfg, optimizer=dataclasses.replace(opt, megastep_merged=True))
+    compensate_recording_scan(None, None, None, merged_cfg, prepared=prep)
+    fm.reset_launches()
+    rm = compensate_recording_scan(None, None, None, merged_cfg,
+                                   prepared=prep)
+    lc = dict(fm.LAUNCHES)
+    for k in ("u", "v", "noise", "iters", "ran"):
+        if not np.array_equal(rm[k], r_split[k]):
+            raise AssertionError(f"merged scan differs from the B1-B4 scan "
+                                 f"in {k}")
+    iters, ran = int(rm["iters"].sum()), int(rm["ran"].sum())
+    want = dict(megastep2=iters + ran, warp_images_st=0, megastep_finish=0,
+                warp_uv=0, megastep=0)
+    for k, v in want.items():
+        if lc[k] != v:
+            raise AssertionError(f"merged scan: {k} launched {lc[k]} times, "
+                                 f"expected {v}")
+    st = rm["stats"]
+    log(f"[merged] fast() scan with megastep_merged: bitwise the B1-B4 scan "
+        f"(iterations, u, v, noise); events/s {st['events_per_s']:.1f} "
+        f"(B1-B4 scan {r_split['stats']['events_per_s']:.1f})  run_s "
+        f"{st['run_s']:.4f}  host_syncs {st['host_syncs']}  launches "
+        f"{json.dumps(lc)}")
+    # The two drives in turns, and the calls of each that block the host.
+    scan = lambda c: compensate_recording_scan(None, None, None, c,
+                                               prepared=prep)
+    runs = dict(split=[], merged=[])
+    for name in ("split", "merged", "merged", "split", "split", "merged"):
+        runs[name].append(
+            scan(cfg if name == "split" else merged_cfg)["stats"]["run_s"])
+    syncs = {name: count_syncs(lambda: scan(c)) for name, c in
+             (("split", cfg), ("merged", merged_cfg))}
+    log(f"[merged] run_s in turns (split, merged, merged, split, split, "
+        f"merged): split {runs['split']}  merged {runs['merged']}; blocking "
+        f"calls a scan (sync debug mode, {iters} iterations, {ran} slices "
+        f"run): {json.dumps(syncs)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return r, lc["megastep2"]
+
+
+def phase_xla(d, cfg, prep, r_fast, dev):
+    """The XLA-composed branch: the ``fast(scatter_mode="xla")`` scan on the
+    bench stream twice (bitwise equal), with its host time and PyTorch
+    operations an iteration beside the ``fast()`` kernel scan ``r_fast``,
+    and against the CPU run on the first N_XLA_COMPARE events; then
+    ``run_optimizer`` with "pallas" over the first N_PARTIALS_SLICES staged
+    slices as a warm-start chain, on events sorted by ``sort_key_blocks``.
+    Returns B11's launches in that run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.core.events import EventSlice
+    from better_flow_tpu_torch.core.model import MotionModel
+    from better_flow_tpu_torch.models import global_flow as gf
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.layout import sort_key_blocks
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        compensate_recording_scan, slice_events,
+    )
+
+    t_phase = time.perf_counter()
+    opt = dataclasses.replace(cfg.optimizer, scatter_mode="xla")
+    xcfg = dataclasses.replace(cfg, optimizer=opt)
+    compensate_recording_scan(None, None, None, xcfg, prepared=prep)
+    fm.reset_launches()
+    r1 = compensate_recording_scan(None, None, None, xcfg, prepared=prep)
+    if any(fm.LAUNCHES.values()):
+        raise AssertionError(f"xla scan launched kernels: {fm.LAUNCHES}")
+    check_outputs(r1, len(d["x"]))
+    r2 = compensate_recording_scan(None, None, None, xcfg, prepared=prep)
+    for k in ("u", "v", "noise", "iters"):
+        if not np.array_equal(r1[k], r2[k]):
+            raise AssertionError(f"xla scan: repeated run differs in {k}")
+    st, sf = r1["stats"], r_fast["stats"]
+    iters, iters_f = int(r1["iters"].sum()), int(r_fast["iters"].sum())
+    xla_scan = lambda: compensate_recording_scan(None, None, None, xcfg,
+                                                 prepared=prep)
+    ops = count_operations(gf, "iteration_step", xla_scan)
+    syncs = count_syncs(xla_scan)
+    log(f"[xla] fast(scatter_mode='xla') scan: events/s "
+        f"{st['events_per_s']:.1f} (kernel scan {sf['events_per_s']:.1f})  "
+        f"run_s {st['run_s']:.4f}  mean_iters {st['mean_iters']:.4f} "
+        f"(kernel scan {sf['mean_iters']:.4f})  host ms an iteration "
+        f"{1e3 * st['run_s'] / iters:.4f} (kernel scan "
+        f"{1e3 * sf['run_s'] / iters_f:.4f})  PyTorch operations (and views) "
+        f"an iteration {ops}; blocking calls a scan {syncs} ({iters} "
+        f"iterations); second run bitwise identical")
+    m = N_XLA_COMPARE
+    part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
+    rg = compensate_recording_scan(part["x"], part["y"], part["t_ns"], xcfg,
+                                   device=dev)
+    rc = compensate_recording_scan(part["x"], part["y"], part["t_ns"], xcfg,
+                                   device="cpu")
+    gates = compare_runs(rg, rc, d, m)
+    log(f"[xla] card against the CPU run on {m} events: {json.dumps(gates)}")
+
+    # run_optimizer's pallas branch over the first slices, chained, on
+    # events sorted by sort_key_blocks as the JAX package's process_slice
+    # sorts them.
+    H, W = gf.static_image_shape(opt.scale, cfg.sensor)
+    popt = dataclasses.replace(cfg.optimizer, scatter_mode="pallas")
+    hist = torch.zeros((3, prep["hist_k"]), dtype=torch.int32, device=dev)
+    hist[2] = -1
+    S = min(N_PARTIALS_SLICES, len(prep["plan"].ends))
+    key = "fused_model_partials_windowed"
+    model = MotionModel.zero(dev)
+    seed = torch.zeros(8, dtype=torch.float32, device=dev)
+    fm.reset_launches()
+    n_it = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_run = time.perf_counter()
+    for s in range(S):
+        ev = slice_events(prep["stat"][s], prep["sidx"][s], hist)
+        o = torch.argsort(sort_key_blocks(ev.x, ev.y, ev.valid), stable=True)
+        ev = EventSlice(*(f[o] for f in ev))
+        final, seed = gf.run_optimizer(
+            gf.warp_init(ev, model), ev, prep["geoms"][s], opt.scale, H, W,
+            popt, seed=seed, geo=prep["geo"][s])
+        model = final.model
+        n_it.append(final.iters)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_run = time.perf_counter() - t_run
+    launches = {key: fm.LAUNCHES[key]}
+    if launches[key] != sum(n_it) or sum(n_it) <= 0:
+        raise AssertionError(f"run_optimizer pallas: {key} launched "
+                             f"{launches[key]} times in {sum(n_it)} "
+                             "iterations")
+    if not np.isfinite(model.totals4().cpu().numpy()).all():
+        raise AssertionError("run_optimizer pallas: non-finite totals")
+    log(f"[xla] run_optimizer(scatter_mode='pallas') over {S} slices, sorted "
+        f"(B11): iterations {n_it}; xla scan {r1['iters'][:S].tolist()}; "
+        f"host ms an iteration {1e3 * t_run / max(sum(n_it), 1):.4f}")
+    log(f"[xla] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def check_outputs(r, n):
@@ -1296,6 +1658,8 @@ def main():
     mega = phase_megastep(scan_inputs, d, dev)
     results["megastep"] = {k: v for k, v in mega["scale3"].items()
                            if k != "chain_ms"}
+    partials, b10_launches = phase_partials_kernels(scan_inputs, cfg, dev)
+    results.update(partials)
     log(f"[kernels] phase {time.perf_counter() - t_phase:.1f} s")
 
     t0 = time.perf_counter()
@@ -1352,6 +1716,17 @@ def main():
         launches[k] = sharded[k]
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched by the sharded scan")
+
+    # ... the merged fast() scan for B12 ...
+    results["megastep2"], launches["megastep2"] = phase_merged(
+        scan_inputs, cfg, prep, r1, dev)
+    # ... run_optimizer's pallas branch for B11, its kernel phase for B10 ...
+    launches.update(phase_xla(d, cfg, prep, r1, dev))
+    launches["fused_model_partials"] = b10_launches
+    for k in ("megastep2", "fused_model_partials",
+              "fused_model_partials_windowed"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched by its path")
 
     # ... and the 4x2 tiled recording for B8 and B9.
     dt = tiled_stream()

@@ -13,6 +13,8 @@ twin the same inputs on the CPU.  ``chip_smoke.py`` repeats the kernel
 checks at the main path's shapes and drives the main path.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -38,7 +40,8 @@ from better_flow_tpu_torch.runtime import offline as toff  # noqa: E402
 from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
 from torch_inputs import (  # noqa: E402
     CH, H, NCH, SCALE, W, flow_gates, image_shape, local_splat_inputs,
-    slice_inputs, small_cfg, statics, tiled_cfg, tiled_stream,
+    partials_inputs, slice_inputs, small_cfg, statics, tiled_cfg,
+    tiled_stream,
 )
 
 pytestmark = pytest.mark.cuda
@@ -156,8 +159,11 @@ def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
     launches = rg["stats"]["launches"]
     assert launches.pop("megastep") == 0        # fast(): the split pair
     for k in ("fused_warp_splat", "fused_warp_splat_images",
-              "finish_partials", "splat_local", "finish_local"):
-        assert launches.pop(k) == 0     # not the composed or the tiled loop
+              "finish_partials", "splat_local", "finish_local",
+              "fused_model_partials", "fused_model_partials_windowed",
+              "megastep2"):
+        # not the composed, the tiled, the XLA or the merged loop
+        assert launches.pop(k) == 0
     assert all(v > 0 for v in launches.values())
     np.testing.assert_array_equal(rg["noise"], rc["noise"])
     np.testing.assert_array_equal(rg["ran"], rc["ran"])
@@ -489,3 +495,171 @@ def test_tiled_recording_on_card_is_1x1_and_cpu_twins(cuda, schedule):
         assert speed > 30.0
         for k in ("u", "v"):
             assert np.median(np.abs(rg[k][ok] - r1[k][ok])) <= 0.005 * speed
+
+
+@pytest.mark.parametrize("spread", ["wide", "tight"])
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("res", [(24, 32), (180, 240)])
+def test_partials_kernels_match_twin_and_each_other(cuda, res, sort, spread):
+    """B10 and B11 on sorted and unsorted events, spread wide or piled up
+    (many events on few pixels): each bitwise its twin, and B11 bitwise
+    B10."""
+    scale = SCALE
+    Hs, Ws = image_shape(res, scale)
+    n = 2 * CH + 700 if res == (24, 32) else 30 * CH - 333
+    d = partials_inputs(5, res=res, scale=scale, n=n, spread=spread,
+                        sort=sort)
+    keys = ("pr_x", "pr_y", "t_ns", "active", "geo")
+    cpu, gpu = _both(d, keys, cuda)
+    kw = dict(scale=scale, H=Hs, W=Ws)
+    b10 = _launched("fused_model_partials",
+                    lambda: tfm.fused_model_partials_call(*gpu, **kw))
+    b11 = _launched("fused_model_partials_windowed",
+                    lambda: tfm.fused_model_partials_windowed_call(*gpu,
+                                                                   **kw))
+    want = tfm.fused_model_partials_plain(*tfm.partials_rows(*cpu[:4]),
+                                          cpu[4], **kw)
+    assert torch.equal(b10.cpu(), want) and torch.equal(b11.cpu(), want)
+    assert float(want[0]) > 100 and float(want[7]) == 0.0
+
+
+@pytest.mark.parametrize("exits", [False, True])
+@pytest.mark.parametrize("schedule", ["reference", "fast"])
+def test_megastep2_kernel_is_twin_and_b1_b2_b4_chain(cuda, schedule, exits):
+    """B12 on the production sensor: a slice's first call (no head finish)
+    and its second (the finish of the first call's images, then the warp
+    and, unless the head ends the loop, the splat) bitwise their twins, and
+    bitwise the B1 -> B2 chain with B4's final warp: positions, direction
+    vectors, state and images."""
+    res, scale = (180, 240), 3
+    Hs, Ws = image_shape(res, scale)
+    opt = OptimizerConfig() if schedule == "reference" \
+        else OptimizerConfig.fast()
+    if exits:                  # the second call's head passes max_iter
+        opt = dataclasses.replace(opt, max_iter=1)
+    kw = dict(scale=scale, H=Hs, W=Ws, time_lo=True, **finish_statics(opt))
+    chain = {k: v for k, v in kw.items() if k != "time_lo"}
+    keys = ("stat", "act", "pr", "st", "geo")
+    d = slice_inputs(2, res=res, scale=scale, nch=8)
+    d["st"][0, layout.ST_HAS] = 0.0
+    _, (stat, act, pr, st, geo) = _both(d, keys, cuda)
+    HP, WP = layout.padded_image_shape(Hs, Ws)
+    z_t = torch.zeros((HP, WP), dtype=torch.int64, device=cuda)
+    z_c = torch.zeros((HP, WP), dtype=torch.int32, device=cuda)
+    pr4 = torch.cat([pr, torch.zeros_like(pr)], dim=1)
+    first = _launched("megastep2", lambda: tfm.megastep2_call(
+        stat, act, pr4, st, z_t, z_c, geo, **kw))
+    second = _launched("megastep2", lambda: tfm.megastep2_call(
+        stat, act, first[0], first[1], first[2], first[3], geo, **kw))
+    for got, args in ((first, (pr4, st, z_t, z_c)),
+                      (second, (first[0], first[1], first[2], first[3]))):
+        want = tfm.megastep2_plain(stat, act, args[0], args[1], args[2],
+                                   args[3], geo, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    # The chain: B1 from the first call's state, B2 on its images, then the
+    # next B1 (or, when the head ends the loop, B4) from B2's state.
+    st_a = first[1]
+    assert float(st_a[0, layout.ST_CONT]) == 1.0
+    npr1, at1, ac1 = tfm.warp_images_st_call(stat, act, pr, st_a, geo,
+                                             scale=scale, H=Hs, W=Ws)
+    assert torch.equal(first[0][:, 0:2], npr1)
+    assert torch.equal(first[2], at1) and torch.equal(first[3], ac1)
+    st_2 = tfm.megastep_finish_call(at1, ac1, st_a, geo, **chain)
+    assert torch.equal(second[1], st_2)
+    out, _ = tfm.warp_uv_call(stat, npr1, act, st_2)
+    assert torch.equal(second[0], out)
+    cont = float(st_2[0, layout.ST_CONT])
+    assert cont == 0.0 or not exits
+    if cont == 0.0:
+        assert int(second[3].abs().sum()) == 0
+    else:
+        _, at2, ac2 = tfm.warp_images_st_call(stat, act, npr1, st_2, geo,
+                                              scale=scale, H=Hs, W=Ws)
+        assert torch.equal(second[2], at2) and torch.equal(second[3], ac2)
+
+
+def test_megastep2_refused_launch_raises(cuda):
+    """A cooperative B12 launch the card cannot hold resident raises and
+    counts no launch."""
+    keys = ("stat", "act", "pr", "st", "geo")
+    _, (stat, act, pr, st, geo) = _both(slice_inputs(0), keys, cuda)
+    HP, WP = layout.padded_image_shape(H, W)
+    z_t = torch.zeros((HP, WP), dtype=torch.int64, device=cuda)
+    z_c = torch.zeros((HP, WP), dtype=torch.int32, device=cuda)
+    pr4 = torch.cat([pr, torch.zeros_like(pr)], dim=1)
+    kw = dict(scale=SCALE, H=H, W=W, **statics("reference", 0.0))
+    before = dict(tfm.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        tfm.megastep2_call(stat, act, pr4, st, z_t, z_c, geo,
+                           grid_blocks=10_000_000, **kw)
+    assert tfm.LAUNCHES == before
+
+
+def test_xla_scan_on_card_matches_cpu_and_repeats(cuda):
+    """The XLA-composed branch on the card: no kernel launched, the same
+    noise and iterations as the CPU run and median |du| = |dv| = 0, and a
+    second card run bitwise the first."""
+    d = synthetic_events(30000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
+                         vy=-14.0, seed=2)
+    cfg = small_cfg(scatter_mode="xla")
+    run = lambda dev: tscan.compensate_recording_scan(
+        d["x"], d["y"], d["t_ns"], cfg, device=dev)
+    rg, rc, rg2 = run(cuda), run("cpu"), run(cuda)
+    assert not any(rg["stats"]["launches"].values())
+    for k in ("noise", "iters", "ran"):
+        np.testing.assert_array_equal(rg[k], rc[k])
+    assert float(np.median(np.abs(rg["u"] - rc["u"]))) == 0.0
+    for k in ("u", "v", "noise", "iters"):
+        np.testing.assert_array_equal(rg[k], rg2[k])
+
+
+def test_merged_scan_on_card_is_the_split_scan(cuda):
+    """``megastep_merged`` on the card: bitwise the B1 + B2 + B4 scan, one
+    B12 launch an iteration plus one a slice that runs, and no B4."""
+    d = synthetic_events(30000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
+                         vy=-14.0, seed=2)
+    run = lambda cfg: tscan.compensate_recording_scan(
+        d["x"], d["y"], d["t_ns"], cfg, device=cuda)
+    rs = run(small_cfg())
+    rm = run(small_cfg(megastep_merged=True))
+    for k in ("u", "v", "noise", "iters", "ran"):
+        np.testing.assert_array_equal(rm[k], rs[k])
+    lm = rm["stats"]["launches"]
+    assert lm["megastep2"] == int(rm["iters"].sum()) + int(rm["ran"].sum())
+    assert lm["warp_uv"] == lm["warp_images_st"] == lm["megastep"] == 0
+
+
+@pytest.mark.parametrize("order", ["sorted", "staged"])
+def test_run_optimizer_pallas_branch_on_card(cuda, order):
+    """``run_optimizer`` with "pallas": one B11 launch an iteration, on
+    events sorted by ``sort_key_blocks`` or in their staged order; the CPU
+    run's iterations, and its warp and totals within f32 rounding."""
+    from better_flow_tpu_torch.core.events import make_slice
+    from better_flow_tpu_torch.core.model import MotionModel
+    from better_flow_tpu_torch.models import global_flow as tgf
+
+    d = synthetic_events(3000, duration_s=0.1, res_x=24, res_y=32, vx=18.0,
+                         vy=-12.0, n_points=60, seed=6)
+    t = (d["t_ns"] - d["t_ns"][0]).astype(np.float32)
+    key = (d["x"].astype(np.int64) // 32) * 4096 + d["y"]
+    o = np.argsort(key, kind="stable") if order == "sorted" \
+        else np.arange(len(t))
+    bbox = (int(d["x"].min()), int(d["x"].max()), int(d["y"].min()),
+            int(d["y"].max()))
+    geom = tgf.geometry_from_bbox(*bbox, 3, small_cfg().sensor)
+    opt = OptimizerConfig(scale=3, scatter_mode="pallas")
+    name = "fused_model_partials_windowed"
+
+    def run(dev):
+        ev = make_slice(d["x"][o], d["y"][o], t[o], capacity=4096,
+                        device=dev)
+        before = tfm.LAUNCHES[name]
+        final, _ = tgf.run_optimizer(tgf.warp_init(ev, MotionModel.zero(dev)),
+                                     ev, geom, 3, H, W, opt)
+        return final, tfm.LAUNCHES[name] - before
+
+    (fg, n), (fc, _) = run(cuda), run(torch.device("cpu"))
+    assert n == fg.iters == fc.iters > 2
+    _close(fg.pr_x, fc.pr_x, rtol=1e-5, atol=1e-4)
+    _close(fg.model.totals4(), fc.model.totals4(), rtol=1e-5, atol=1e-8)

@@ -53,6 +53,25 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """The JAX scans stage through ``native/libbf_native.so``.  The JAX
+    package's loader compiles it in place and remembers a failed load for
+    the process, so a test worker that imported it while another was still
+    writing the file runs the JAX sharded scan on its numpy staging
+    fallback, which fails there (ROADMAP C).  Once the port's loader holds
+    a whole library, forget that failure so that the JAX loader loads
+    again.  This resets module state of the JAX package inside the test
+    process; it changes none of its files."""
+    from better_flow_tpu.io import native as jax_native
+    from better_flow_tpu_torch.io import native as torch_native
+
+    if (jax_native._TRIED and jax_native._LIB is None
+            and torch_native.get_lib() is not None):
+        jax_native._TRIED = False
+    yield
+
+
 @pytest.fixture
 def eight():
     if len(jax.devices()) < 8:

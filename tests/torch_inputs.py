@@ -190,3 +190,38 @@ def tiled_stream(n=30_000, res=(96, 128), seed=4, **kw):
                 seed=seed)
     args.update(kw)
     return synthetic_events(n, **args)
+
+
+def partials_inputs(seed=0, res=(RES_X, RES_Y), scale=SCALE, n=None,
+                    spread="wide", sort=True):
+    """B10's and B11's flat inputs on a ``res`` sensor: f32 warped
+    positions ``pr_x``, ``pr_y`` (pixels drawn around 40 cluster centres,
+    ``spread`` "wide" with 2.5 px around them, "tight" with 0.3 px around
+    three, as a converged slice piles events up), f32 ``t_ns`` in [0, 0.1)
+    s, ``active`` with about 5% inactive slots and a ragged padded tail
+    (n not a chunk multiple), the original pixels ``x``, ``y`` and the
+    full-sensor (1, 8) geometry row.  ``sort`` orders the events by
+    ``sort_key_blocks`` of their original pixels, inactive ones last."""
+    rng = np.random.default_rng(seed)
+    res_x, res_y = res
+    n = n if n is not None else 2 * CH + 700
+    k_c, sd = (40, 2.5) if spread == "wide" else (3, 0.3)
+    c = rng.integers(0, k_c, n)
+    cx, cy = rng.uniform(2, res_x - 2, k_c), rng.uniform(2, res_y - 2, k_c)
+    x = np.clip(np.rint(cx[c] + rng.normal(0, sd, n)), 0, res_x - 1)
+    y = np.clip(np.rint(cy[c] + rng.normal(0, sd, n)), 0, res_y - 1)
+    pr_x = (x + rng.normal(0, 0.3, n)).astype(np.float32)
+    pr_y = (y + rng.normal(0, 0.3, n)).astype(np.float32)
+    t = rng.uniform(0, 0.1e9, n).astype(np.float32)
+    active = rng.uniform(size=n) > 0.05
+    if sort:
+        key = np.where(active, (x.astype(np.int64) // 32) * 4096 + y,
+                       1 << 30)
+        o = np.argsort(key, kind="stable")
+        x, y, pr_x, pr_y, t, active = (a[o] for a in
+                                       (x, y, pr_x, pr_y, t, active))
+    g = tgf.geometry_from_bbox(0, res_x - 1, 0, res_y - 1, scale,
+                               SensorConfig(res_x, res_y))
+    return dict(pr_x=pr_x, pr_y=pr_y, t_ns=t, active=active,
+                x=x.astype(np.float32), y=y.astype(np.float32),
+                geo=tgf.geo_row(g))
