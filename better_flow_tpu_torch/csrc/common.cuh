@@ -150,9 +150,9 @@ __device__ inline void splat_position(float ox, float oy, bool active,
 }
 
 // Warp + splat of event i (chunk i / CHUNK, slot i % CHUNK), shared by
-// warp_images_st.cu (B1), megastep.cu (B5) and warp_splat_images.cu (B7a,
-// which fused_warp_splat.cu, B6, calls): re-warp with ``w`` (B1 and B5 take
-// it from the state vector's totals, B6 and B7a from their caller's row),
+// warp_images_st.cu (B1), warp_splat_images.cu (B7a) and iteration.cuh (B5
+// and B6): re-warp with ``w`` (B1 and B5 take it from the state vector's
+// totals, B6 and B7a from their caller's row),
 // write the new position and splat it (splat_position; see
 // warp_images_st.cu).
 __device__ inline void warp_splat_event(

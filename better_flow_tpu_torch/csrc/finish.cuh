@@ -1,8 +1,8 @@
 // The finish of one optimizer iteration, shared by megastep_finish.cu (B2),
-// megastep.cu (B5), finish_partials.cu (B7b, which fused_warp_splat.cu, B6,
-// calls) and finish_local.cu (B9, a batch of tiles with an ownership
-// window): image -> gradient sums -> next state (B6, B7b and B9 stop at the
-// seven sums).
+// finish_partials.cu (B7b), finish_local.cu (B9, a batch of tiles with an
+// ownership window) and iteration.cuh (B5 and B6, whose band pass repeats
+// the per-row order on rows held in shared memory): image -> gradient sums
+// -> next state (B6, B7b and B9 stop at the seven sums).
 //
 // _finish_values of the TPU kernel (box filter, count normalisation, mask to
 // the logical H x W image, all-nine nonzero mask, Scharr, seven sums) as

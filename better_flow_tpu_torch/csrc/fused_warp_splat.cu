@@ -12,37 +12,36 @@
 // no window, so no chunk falls back).  The scalar model update runs outside,
 // in the composed loop.
 //
-// One host call that queues, on one stream, the event-parallel path's two
-// entry points back to back: bf_warp_splat_images (warp_splat_images.cu:
-// two memsets and the warp + splat launch) and bf_finish_partials
-// (finish_partials.cu: image rows, gradient rows, one block of row sums).
-// The unsharded iteration is therefore bitwise the sharded one (whose
-// images are summed between the two), and, those being built on B1's and
-// B2's device functions (common.cuh, finish.cuh) with their block size,
-// bitwise B1 with time_lo followed by B2's finish.
+// One cooperative launch of iteration.cuh's kernel, the template B5 runs
+// too (warp from the row; the sums as the tail).  It runs the per-event
+// function of common.cuh and the sums of finish.cuh in their order, so its
+// output is bitwise that of the event-parallel path's two entry points,
+// warp_splat_images.cu (B7a) then finish_partials.cu (B7b), which the
+// sharded loop runs with the image sum between them.  The caller's image
+// pair is zero on entry and left zero (see megastep.cu): no memset.
 //
-// Bound: launch latency and bytes, as B1 + B2 (61k events, 442k pixels at
-// scale 3); the sums are f64 in a fixed order, so the output is the same on
-// every run.
-extern "C" int bf_warp_splat_images(const float* scal, const float* stat,
-                                    const float* act, const float* pr,
-                                    float* npr, long long* acc_t, int* acc_c,
-                                    int nch, int HP, int WP, int scale,
-                                    void* stream);
-extern "C" int bf_finish_partials(const long long* acc_t, const int* acc_c,
-                                  float* out, float* img, double* partials,
-                                  int HP, int WP, int H, int W, int scale,
-                                  void* stream);
+// Bound: latency (iteration.cuh); the bytes bound is ~0.6 us at the main
+// path's shapes (61k slots, 576x768 images).  The sums are f64 in a fixed
+// order, so the output is the same on every run.
+#include "iteration.cuh"
 
 extern "C" int bf_fused_warp_splat(const float* scal, const float* stat,
                                    const float* act, const float* pr,
                                    float* npr, float* out, long long* acc_t,
-                                   int* acc_c, float* img, double* partials,
-                                   int nch, int HP, int WP, int H, int W,
-                                   int scale, void* stream) {
-  const int e = bf_warp_splat_images(scal, stat, act, pr, npr, acc_t, acc_c,
-                                     nch, HP, WP, scale, stream);
-  if (e != 0) return e;
-  return bf_finish_partials(acc_t, acc_c, out, img, partials, HP, WP, H, W,
-                            scale, stream);
+                                   int* acc_c, double* partials, int nch,
+                                   int HP, int WP, int H, int W, int scale,
+                                   int rows, int smem, void* stream) {
+  bf::IterationArgs a{scal, scal, stat, act, pr, npr,
+                      reinterpret_cast<unsigned long long*>(acc_t), acc_c,
+                      partials, out, nch * bf::CHUNK, HP, WP, H, W, scale,
+                      /*time_lo=*/1, rows, bf::UpdateParams{}};
+  return bf::launch_iteration<false>(a, smem, 0, stream);
+}
+
+// The grid bf_fused_warp_splat launches at ``smem`` dynamic bytes (0 on
+// error).
+extern "C" int bf_fused_warp_splat_grid(int smem) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  return bf::iteration_resident_blocks<false>(dev, smem);
 }

@@ -1,0 +1,422 @@
+// One optimizer iteration in one cooperative launch, written for the H100:
+// the kernel template of megastep.cu (B5) and fused_warp_splat.cu (B6).
+//
+// Both compute warp + splat, then the finish down to the seven sums; B5
+// then runs the scalar update into the next state, B6 writes the sums.
+// The template runs the per-event function of common.cuh and the sums of
+// finish.cuh in their order, so its outputs are bitwise those of the
+// B1 -> B2 chain (B5) and of the B7a -> B7b chain (B6).
+//
+// Phases of one launch:
+//   1. grid-stride warp + splat of every slot (warp_splat_event, integer
+//      atomics) into the caller's image pair, which is zero on entry.  B5's
+//      warp scalars (the f64 cos and sin among them) are computed once per
+//      block.
+//   grid.sync(): the only barrier before the band pass.
+//   2. the band pass, in place of the image pass and the gradient pass:
+//      blocks take bands of R image rows in a grid-stride loop.  A band
+//      stages the integer rows it needs into shared memory with 16-byte
+//      loads, converting each value to f32 once; builds the normalised f32
+//      rows [r0 - 1, r1 + 1) there (the f32 image never goes to device
+//      memory); and reduces its rows' nine f64 sums, each in finish.cuh's
+//      tree order, into partials[i].
+//   grid.sync()
+//   3. block 0 sums the rows with finish_sums and runs the tail, while the
+//      other blocks zero the image pair for the next call: no zeroing phase
+//      and no memset.
+//
+// Bound: the images (12 B a pixel, written by the splat, read by the band
+// pass, zeroed for the next call) and the slots (32 B read and written)
+// put the bytes bound at ~0.6 us at the main path's shapes; the kernel is
+// bound by latency: the splat's atomics, two grid barriers, the band
+// pass's chain of staging, box filter and trees on a few warps per SM, and
+// the one-block tail.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "finish.cuh"
+
+namespace bf {
+
+// Threads per block: the finish's tree runs over this many values.
+constexpr int BAND_THREADS = FINISH_THREADS;
+// Dynamic shared memory a launch may ask for (227 KB less 1 KB of static
+// shared memory); ops/fused_model.py mirrors it and picks R.
+constexpr int BAND_SMEM_BUDGET = 231424;
+// A row's leaves: the nine f64 sums of each of the BAND_THREADS threads.
+constexpr int BAND_LEAF_BYTES = NSUM * BAND_THREADS * 8;
+
+static_assert(BAND_THREADS == 256, "the tree below has 256 leaves");
+
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Shared-memory layout of a band of R rows at width W: the staged time and
+// count rows [r0 - 1 - half, r1 + 1 + half) at columns [-half, ...), which
+// the R rows' leaves overwrite once the f32 rows are built; then the f32
+// rows [r0 - 1, r1 + 1) at columns [-1, W + 1).  The tail reuses it as
+// finish.cuh's FinishShared (never larger than R rows' leaves).
+struct BandLayout {
+  int half, ns, sw, iw;
+  __host__ __device__ BandLayout(int R, int W, int scale)
+      : half(scale / 2),
+        ns(R + 2 + 2 * (scale / 2)),
+        sw(round4(round4(W + scale / 2) + 2 * (scale / 2))),
+        iw(round4(W + 2)) {}
+  // Bytes of the staged rows or of the leaves, whichever is larger.
+  __host__ __device__ int stage_bytes(int R) const {
+    return 8 * ns * sw > R * BAND_LEAF_BYTES ? 8 * ns * sw
+                                              : R * BAND_LEAF_BYTES;
+  }
+  __host__ __device__ int bytes(int R) const {
+    return stage_bytes(R) + 4 * (R + 2) * iw;
+  }
+};
+
+struct IterationArgs {
+  const float* geo;   // [x_sh, y_sh, w_dyn, h_dyn, ...]: B5's geometry row,
+                      // B6's warp row
+  const float* src;   // B5: the (1, 32) state; B6: the (1, 16) warp row
+  const float* stat;
+  const float* act;
+  const float* pr;
+  float* npr;
+  unsigned long long* acc_t;  // the image pair: zero on entry and on exit
+  int* acc_c;
+  double* partials;            // (H, 9)
+  float* out;                  // B5: the next state; B6: the (8,) sums
+  int n, HP, WP, H, W, scale, time_lo, rows;
+  UpdateParams p;
+};
+
+// time_at's conversion of one fixed-point value.
+__device__ inline float fixed_to_f32(long long v) {
+  return static_cast<float>(static_cast<double>(v) * (1.0 / FIXED_PER_SEC));
+}
+
+// Rows [r0 - 1 - half, r1 + 1 + half) of the integer images, as f32, into
+// sT and sC (columns offset by half; zero outside the padded image).  Each
+// thread takes items (row, 4 columns) in batches of four whose loads are
+// all issued before any is used.
+__device__ inline void stage_band(const long long* acc_t, const int* acc_c,
+                                  int r0, int HP, int WP, int W,
+                                  const BandLayout& L, float* sT, float* sC) {
+  constexpr int BATCH = 4;
+  const int ws = min(WP, W + L.half);   // image columns [0, ws) are read
+  const int quads = (ws + 3) / 4;       // ws <= WP and WP % 4 == 0
+  const int items = L.ns * quads;
+  for (int e0 = threadIdx.x; e0 < items; e0 += BATCH * blockDim.x) {
+    longlong2 t01[BATCH], t23[BATCH];
+    int4 cc[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int e = e0 + u * blockDim.x;
+      const int s = e / quads;
+      const int i = r0 - 1 - L.half + s;
+      t01[u] = t23[u] = make_longlong2(0, 0);
+      cc[u] = make_int4(0, 0, 0, 0);
+      if (e < items && i >= 0 && i < HP) {
+        const size_t base = static_cast<size_t>(i) * WP + 4 * (e - s * quads);
+        t01[u] = __ldcg(reinterpret_cast<const longlong2*>(acc_t + base));
+        t23[u] = __ldcg(reinterpret_cast<const longlong2*>(acc_t + base + 2));
+        cc[u] = __ldcg(reinterpret_cast<const int4*>(acc_c + base));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e >= items) break;
+      const int s = e / quads;
+      const int j0 = 4 * (e - s * quads);
+      const float tv[4] = {fixed_to_f32(t01[u].x), fixed_to_f32(t01[u].y),
+                           fixed_to_f32(t23[u].x), fixed_to_f32(t23[u].y)};
+      const float cv[4] = {static_cast<float>(cc[u].x),
+                           static_cast<float>(cc[u].y),
+                           static_cast<float>(cc[u].z),
+                           static_cast<float>(cc[u].w)};
+      float* rt = sT + s * L.sw + L.half + j0;
+      float* rc = sC + s * L.sw + L.half + j0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        rt[k] = j0 + k < ws ? tv[k] : 0.0f;
+        rc[k] = j0 + k < ws ? cv[k] : 0.0f;
+      }
+    }
+  }
+  // The margins: columns [-half, 0) and beyond the staged quads.
+  const int hi0 = L.half + 4 * quads;
+  const int margin = L.half + L.sw - hi0;
+  for (int e = threadIdx.x; e < L.ns * margin; e += blockDim.x) {
+    const int s = e / margin;
+    const int m = e - s * margin;
+    const int col = m < L.half ? m : hi0 + (m - L.half);
+    sT[s * L.sw + col] = 0.0f;
+    sC[s * L.sw + col] = 0.0f;
+  }
+}
+
+// box_time's (and box_count's) sum at staged row s, column b: rows first
+// ((r + a[s+d]) + a[s-d]), then the columns of the row sums in the order
+// b, b+1, b-1, b+2, ...  HALF >= 0 fixes scale / 2 at compile time, so
+// every load of the box is issued at once; HALF < 0 reads it from ``half``.
+template <int HALF>
+__device__ inline float box_sum(const float* a, int s, int b, int sw,
+                                int half) {
+  const int h = HALF >= 0 ? HALF : half;
+  float out = 0.0f;
+#pragma unroll
+  for (int dc = 0; dc <= h; ++dc) {
+#pragma unroll
+    for (int sgn = 0; sgn < (dc == 0 ? 1 : 2); ++sgn) {
+      const int bb = dc == 0 ? b : (sgn == 0 ? b + dc : b - dc);
+      float r = a[s * sw + bb];
+#pragma unroll
+      for (int dr = 1; dr <= h; ++dr) {
+        r = r + a[(s + dr) * sw + bb];
+        r = r + a[(s - dr) * sw + bb];
+      }
+      out = dc == 0 ? r : out + r;
+    }
+  }
+  return out;
+}
+
+// The normalised f32 rows [r0 - 1, r1 + 1) at columns [-1, W + 1) into sI,
+// zero outside the logical H x W image: image_row's box sums and quotient
+// on the staged rows.
+template <int HALF>
+__device__ inline void band_image(int r0, int R, int H, int W,
+                                  const BandLayout& L, const float* sT,
+                                  const float* sC, float* sI) {
+  for (int r = 0; r < R + 2; ++r) {
+    const int i = r0 - 1 + r;
+    const bool row_in = i >= 0 && i < H;
+    for (int cidx = threadIdx.x; cidx < L.iw; cidx += blockDim.x) {
+      const int j = cidx - 1;
+      float v = 0.0f;
+      if (row_in && j >= 0 && j < W) {
+        const float tb = box_sum<HALF>(sT, r + L.half, j + L.half, L.sw,
+                                       L.half);
+        const float cb = box_sum<HALF>(sC, r + L.half, j + L.half, L.sw,
+                                       L.half);
+        v = cb >= 1.0f ? tb / fmaxf(cb, 1.0f) : 0.0f;
+      }
+      sI[r * L.iw + cidx] = v;
+    }
+  }
+}
+
+// Band rows [r0, r1)'s nine f64 sums into partials: per row, each
+// thread's leaf is gradient_row's per-pixel terms over its columns j = t,
+// t + 256, ... in that order; then block_sum's tree over the 256 leaves of
+// every row and sum at once (strides 128, 64 and 32 through shared memory,
+// 16 to 1 by shuffles), pairing the same elements in the same order.
+__device__ inline void band_sums(int r0, int r1, int W, const BandLayout& L,
+                                 const float* sI, double* leaf,
+                                 double* partials) {
+  const int t = threadIdx.x;
+  for (int i = r0; i < r1; ++i) {
+    const int r = i - r0 + 1;   // the band's f32 row of image row i
+    double acc[NSUM];
+    for (int q = 0; q < NSUM; ++q) acc[q] = 0.0;
+    for (int j = t; j < W; j += blockDim.x) {
+      float v[3][3];
+      bool all9 = true;
+      for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b) {
+          v[a][b] = sI[(r + a - 1) * L.iw + j + b];
+          all9 = all9 && v[a][b] > NONZERO_EPS;
+        }
+      const bool m = v[1][1] > NONZERO_EPS;
+      const float cs_up = fmaf(3.0f, v[0][2], fmaf(3.0f, v[0][0], 10.0f * v[0][1]));
+      const float cs_dn = fmaf(3.0f, v[2][2], fmaf(3.0f, v[2][0], 10.0f * v[2][1]));
+      const float rs_lf = fmaf(3.0f, v[2][0], fmaf(3.0f, v[0][0], 10.0f * v[1][0]));
+      const float rs_rt = fmaf(3.0f, v[2][2], fmaf(3.0f, v[0][2], 10.0f * v[1][2]));
+      const float gxm = all9 ? cs_up - cs_dn : 0.0f;
+      const float gym = all9 ? rs_lf - rs_rt : 0.0f;
+      const double md = m ? 1.0 : 0.0;
+      const double di = static_cast<double>(i), dj = static_cast<double>(j);
+      acc[0] += md;
+      acc[1] += md * di;
+      acc[2] += md * dj;
+      acc[3] += static_cast<double>(gxm);
+      acc[4] += static_cast<double>(gym);
+      acc[5] += static_cast<double>(gym) * di;
+      acc[6] += static_cast<double>(gxm) * dj;
+      acc[7] += static_cast<double>(gxm) * di;
+      acc[8] += static_cast<double>(gym) * dj;
+    }
+    double* row = leaf + (i - r0) * NSUM * BAND_THREADS;
+    for (int q = 0; q < NSUM; ++q) row[q * BAND_THREADS + t] = acc[q];
+  }
+  // Series (row, sum) of 256 leaves each: leaf[series * 256 + k].
+  const int series = (r1 - r0) * NSUM;
+  constexpr int BATCH = 4;
+#pragma unroll
+  for (int stride = 128; stride >= 32; stride >>= 1) {
+    __syncthreads();
+    const int n = series * stride;   // leaf[k] += leaf[k + stride], k < stride
+    for (int e0 = t; e0 < n; e0 += BATCH * BAND_THREADS) {
+      double x[BATCH], y[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int e = e0 + u * BAND_THREADS;
+        const int at = (e / stride) * BAND_THREADS + e % stride;
+        x[u] = e < n ? leaf[at] : 0.0;
+        y[u] = e < n ? leaf[at + stride] : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int e = e0 + u * BAND_THREADS;
+        if (e < n)
+          leaf[(e / stride) * BAND_THREADS + e % stride] = x[u] + y[u];
+      }
+    }
+  }
+  __syncthreads();
+  const int lane = t & 31;
+  for (int sr = t >> 5; sr < series; sr += BAND_THREADS / 32) {
+    double v = leaf[sr * BAND_THREADS + lane];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+    if (lane == 0)
+      partials[static_cast<size_t>(r0 + sr / NSUM) * NSUM + sr % NSUM] = v;
+  }
+}
+
+// Blocks [b0, gridDim.x) zero the image pair, each its share (16-byte
+// stores; HP * WP is a multiple of 4).
+__device__ inline void zero_pair(unsigned long long* acc_t, int* acc_c,
+                                 int HP, int WP, int b0) {
+  const size_t nthreads = static_cast<size_t>(gridDim.x - b0) * blockDim.x;
+  const size_t quads = static_cast<size_t>(HP) * WP / 4;
+  for (size_t k = static_cast<size_t>(blockIdx.x - b0) * blockDim.x +
+                  threadIdx.x;
+       k < quads; k += nthreads) {
+    reinterpret_cast<longlong2*>(acc_t)[2 * k] = make_longlong2(0, 0);
+    reinterpret_cast<longlong2*>(acc_t)[2 * k + 1] = make_longlong2(0, 0);
+    reinterpret_cast<int4*>(acc_c)[k] = make_int4(0, 0, 0, 0);
+  }
+}
+
+// kState: B5 (warp from the state, scalar update into the next state);
+// otherwise B6 (warp from the row, the seven sums and a zero).
+template <bool kState>
+__global__ void __launch_bounds__(BAND_THREADS, 2)
+iteration_kernel(IterationArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Warp sw;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+
+  if (threadIdx.x == 0)
+    sw = kState ? warp_from_state(a.src) : warp_from_row(a.src);
+  __syncthreads();
+  const Warp w = sw;
+  const size_t nthreads = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < static_cast<size_t>(a.n); i += nthreads)
+    warp_splat_event(static_cast<int>(i), a.geo, w, a.stat, a.act, a.pr,
+                     a.npr, a.acc_t, a.acc_c, a.WP, a.scale, a.time_lo);
+  grid.sync();
+
+  const BandLayout L(a.rows, a.W, a.scale);
+  float* sT = reinterpret_cast<float*>(smem);
+  float* sC = sT + L.ns * L.sw;
+  double* leaf = reinterpret_cast<double*>(smem);
+  float* sI = reinterpret_cast<float*>(smem + L.stage_bytes(a.rows));
+  const long long* acc_t = reinterpret_cast<const long long*>(a.acc_t);
+  const int nbands = (a.H + a.rows - 1) / a.rows;
+  for (int band = blockIdx.x; band < nbands; band += gridDim.x) {
+    const int r0 = band * a.rows;
+    const int r1 = min(r0 + a.rows, a.H);
+    __syncthreads();   // the previous band's reads are done
+    stage_band(acc_t, a.acc_c, r0, a.HP, a.WP, a.W, L, sT, sC);
+    __syncthreads();
+    if (L.half == 0)
+      band_image<0>(r0, a.rows, a.H, a.W, L, sT, sC, sI);
+    else if (L.half == 1)
+      band_image<1>(r0, a.rows, a.H, a.W, L, sT, sC, sI);
+    else
+      band_image<-1>(r0, a.rows, a.H, a.W, L, sT, sC, sI);
+    __syncthreads();
+    band_sums(r0, r1, a.W, L, sI, leaf, a.partials);
+  }
+  grid.sync();
+
+  if (blockIdx.x != 0) {
+    zero_pair(a.acc_t, a.acc_c, a.HP, a.WP, 1);
+    return;
+  }
+  float vals[7];
+  finish_sums(a.partials, a.H, vals, *reinterpret_cast<FinishShared*>(smem));
+  if (threadIdx.x == 0) {
+    if (kState) {
+      model_update(vals, a.src, a.geo, a.out, static_cast<float>(a.scale),
+                   a.p);
+    } else {
+      for (int q = 0; q < 7; ++q) a.out[q] = vals[q];
+      a.out[7] = 0.0f;
+    }
+  }
+  if (gridDim.x == 1) zero_pair(a.acc_t, a.acc_c, a.HP, a.WP, 0);
+}
+
+// Resident blocks of iteration_kernel<kState> per device at ``smem``
+// dynamic bytes, found once per (device, bytes); 0 on error.
+template <bool kState>
+inline int iteration_resident_blocks(int dev, int smem) {
+  struct Entry { int dev, smem, blocks; };
+  static Entry cache[32];
+  static int used = 0;
+  for (int k = 0; k < used; ++k)
+    if (cache[k].dev == dev && cache[k].smem == smem) return cache[k].blocks;
+  int per_sm = 0, sms = 0;
+  auto* kernel = iteration_kernel<kState>;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BAND_SMEM_BUDGET) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, BAND_THREADS, smem) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  const int blocks = per_sm * sms;
+  if (used < 32) cache[used++] = Entry{dev, smem, blocks};
+  return blocks;
+}
+
+// One cooperative launch of iteration_kernel<kState>.  blocks <= 0: as
+// many as can be resident.  ``smem`` below the band layout's need or above
+// the budget, a card without cooperative launch and a grid that cannot be
+// resident are refused with their CUDA error; nothing runs in their place.
+template <bool kState>
+inline int launch_iteration(IterationArgs& a, int smem, int blocks,
+                            void* stream) {
+  if (a.rows < 1 || smem < BandLayout(a.rows, a.W, a.scale).bytes(a.rows) ||
+      smem > BAND_SMEM_BUDGET)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const int resident = iteration_resident_blocks<kState>(dev, smem);
+  if (resident <= 0) {
+    cudaGetLastError();
+    return static_cast<int>(cudaErrorLaunchOutOfResources);
+  }
+  if (blocks <= 0) blocks = resident;
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(iteration_kernel<kState>), dim3(blocks),
+      dim3(BAND_THREADS), args, static_cast<size_t>(smem),
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // clear it: the next launch must not report it
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bf

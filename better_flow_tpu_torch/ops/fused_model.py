@@ -347,10 +347,11 @@ _WORKSPACE: dict = {}
 def _workspace(dev: torch.device, H: int, W: int) -> dict:
     """Scratch of the finish passes, one set per device and image shape,
     allocated at first use: the H x W f32 image, the (H, 9) f64 row sums and
-    the two pre-filter images of the megastep and B6.  The kernels run in
-    stream order and no scratch is returned to a caller, so one set serves
-    every call (the images that B1 and B7a return are allocated per call:
-    several shards on one device each keep their own)."""
+    the two pre-filter images of B10 and B11.  The kernels run in stream
+    order and no scratch is returned to a caller, so one set serves every
+    call (the images that B1 and B7a return are allocated per call: several
+    shards on one device each keep their own; B5 and B6 splat into their
+    own pair, ``_images``)."""
     key = (dev, H, W)
     if key not in _WORKSPACE:
         HP, WP = padded_image_shape(H, W)
@@ -360,6 +361,90 @@ def _workspace(dev: torch.device, H: int, W: int) -> dict:
             acc_t=torch.empty((HP, WP), dtype=torch.int64, device=dev),
             acc_c=torch.empty((HP, WP), dtype=torch.int32, device=dev))
     return _WORKSPACE[key]
+
+
+# Band geometry of B5 and B6 (csrc/iteration.cuh's BandLayout; a CPU test
+# parses the header's constants).
+BAND_THREADS = 256
+BAND_SMEM_BUDGET = 231_424          # 227 KB less 1 KB of static shared
+_BAND_LEAF_BYTES = 9 * BAND_THREADS * 8
+# At most three rows a band: against 1, 2, 4, 5 and 6 rows at 543x723
+# (scale 3) and 721x1281 (scale 1), three were the fastest on the H100
+# at both (chip_smoke.py's sweep_band_rows; PERF.md).
+BAND_MAX_ROWS = 3
+H100_SMS = 132
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def band_smem_bytes(R: int, W: int, scale: int) -> int:
+    """Dynamic shared bytes of a band of ``R`` rows of a width-``W`` image
+    at ``scale``: the staged time and count rows (R + 2 + 2 * half,
+    ``scale // 2`` columns of margin) or the R rows' leaves of the nine
+    sums, whichever is larger (they share the space), and the R + 2
+    normalised f32 rows (one column of margin)."""
+    half = scale // 2
+    sw = _round4(_round4(W + half) + 2 * half)
+    iw = _round4(W + 2)
+    ns = R + 2 + 2 * half
+    return max(8 * ns * sw, R * _BAND_LEAF_BYTES) + 4 * (R + 2) * iw
+
+
+def band_rows(H: int, W: int, scale: int, sms: int = H100_SMS):
+    """(R, dynamic shared bytes) of the band pass of B5 and B6: the largest
+    R up to ``BAND_MAX_ROWS`` that still gives at least one band per SM and
+    fits the shared-memory budget, else 1.  Raises when one row does not
+    fit."""
+    if band_smem_bytes(1, W, scale) > BAND_SMEM_BUDGET:
+        raise ValueError(f"a band of one row of width {W} at scale {scale} "
+                         f"needs {band_smem_bytes(1, W, scale)} bytes of "
+                         f"shared memory, over {BAND_SMEM_BUDGET}")
+    R = 1
+    while (R < BAND_MAX_ROWS and -(-H // (R + 1)) >= sms
+           and band_smem_bytes(R + 1, W, scale) <= BAND_SMEM_BUDGET):
+        R += 1
+    return R, band_smem_bytes(R, W, scale)
+
+
+_SMS: dict = {}
+
+
+def _device_bands(dev: torch.device, H: int, W: int, scale: int):
+    """``band_rows`` with the device's SM count."""
+    if dev not in _SMS:
+        props = torch.cuda.get_device_properties(dev)
+        _SMS[dev] = props.multi_processor_count
+    return band_rows(H, W, scale, _SMS[dev])
+
+
+_IMAGES: dict = {}
+
+
+def _images(dev: torch.device, H: int, W: int):
+    """The image pair of B5 and B6, one per device and image shape: the
+    (HP, WP) int64 fixed-point time and int32 count images, made zero.  A
+    call splats into them and leaves them zero (the blocks that do not run
+    its tail zero them), so they are zero at every call's start; a launch
+    the card refuses runs nothing.  No other kernel touches them."""
+    key = (dev, H, W)
+    if key not in _IMAGES:
+        HP, WP = padded_image_shape(H, W)
+        _IMAGES[key] = (torch.zeros((HP, WP), dtype=torch.int64, device=dev),
+                        torch.zeros((HP, WP), dtype=torch.int32, device=dev))
+    return _IMAGES[key]
+
+
+def iteration_grid(kernel: str, dev: torch.device, H: int, W: int,
+                   scale: int):
+    """(R, resident grid) of B5 (``"megastep"``) or B6
+    (``"fused_warp_splat"``) at this image shape on ``dev``."""
+    from better_flow_tpu_torch.ops._build import library
+
+    R, smem = _device_bands(dev, H, W, scale)
+    with torch.cuda.device(dev):
+        return R, getattr(library(), f"bf_{kernel}_grid")(smem)
 
 
 def model_update_plain(vals, st, geo, *, scale: int, params: dict):
@@ -547,7 +632,8 @@ def megastep_call(stat, act, pr, st, geo, *, scale: int, H: int, W: int,
     f32, next state (1, 32) f32), bitwise those of
     ``warp_images_st_call`` then ``megastep_finish_call``.  ``grid_blocks``
     > 0 asks for that many blocks instead of as many as can be resident;
-    a launch the card refuses raises."""
+    a launch the card refuses raises.  The band height and shared bytes
+    come from ``band_rows``; it splats into the pair of ``_images``."""
     statics = dict(schedule=schedule, rot_tol=rot_tol, div_tol=div_tol,
                    dx_tol=dx_tol, dy_tol=dy_tol, xy_cap=xy_cap,
                    rotdiv_cap=rotdiv_cap, max_iter=max_iter,
@@ -566,15 +652,17 @@ def megastep_call(stat, act, pr, st, geo, *, scale: int, H: int, W: int,
     from better_flow_tpu_torch.ops._build import library
 
     HP, WP = padded_image_shape(H, W)
+    R, smem = _device_bands(dev, H, W, scale)
     cp = _c_params(statics)
     npr = torch.empty_like(pr)
     st_out = torch.empty_like(st)
-    ws = _workspace(dev, H, W)
+    acc_t, acc_c = _images(dev, H, W)
     rc = library().bf_megastep(
         _ptr(geo), _ptr(st), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr),
-        _ptr(st_out), _ptr(ws["acc_t"]), _ptr(ws["acc_c"]), _ptr(ws["img"]),
-        _ptr(ws["partials"]), nch, HP, WP, H, W, scale, int(time_lo),
-        ctypes.byref(cp), int(grid_blocks), _stream(dev))
+        _ptr(st_out), _ptr(acc_t), _ptr(acc_c),
+        _ptr(_workspace(dev, H, W)["partials"]), nch, HP, WP, H, W, scale,
+        int(time_lo), R, smem, ctypes.byref(cp), int(grid_blocks),
+        _stream(dev))
     _launch("megastep", rc)
     return npr, st_out
 
@@ -651,13 +739,14 @@ def fused_warp_splat_call(stat, act, pr, scal, *, scale: int, H: int,
     from better_flow_tpu_torch.ops._build import library
 
     HP, WP = padded_image_shape(H, W)
+    R, smem = _device_bands(dev, H, W, scale)
     npr = torch.empty_like(pr)
     out = torch.empty(8, dtype=torch.float32, device=dev)
-    ws = _workspace(dev, H, W)
+    acc_t, acc_c = _images(dev, H, W)
     rc = library().bf_fused_warp_splat(
         _ptr(scal), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr), _ptr(out),
-        _ptr(ws["acc_t"]), _ptr(ws["acc_c"]), _ptr(ws["img"]),
-        _ptr(ws["partials"]), nch, HP, WP, H, W, scale, _stream(dev))
+        _ptr(acc_t), _ptr(acc_c), _ptr(_workspace(dev, H, W)["partials"]),
+        nch, HP, WP, H, W, scale, R, smem, _stream(dev))
     _launch("fused_warp_splat", rc)
     return npr, out
 

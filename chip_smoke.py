@@ -16,7 +16,11 @@ in phases that each raise on failure:
    also at the live preset's scale-1 shapes (15 chunks, 192x256 images),
    bitwise equal to its twin and to the B1 -> B2 kernel chain, with the
    chain's time beside its own; the composed path's kernel (B6) on the
-   warp rows of an f32 and of an f64 carry, bitwise equal to its twin; the
+   warp rows of an f32 and of an f64 carry, bitwise equal to its twin and
+   to the B7a -> B7b chain, with that chain's time beside its own; for B5
+   and B6 their band height R and resident grid, and each chain's device
+   operations one by one (``[kernels] breakdown`` lines, torch.profiler,
+   median of 20 calls); the
    event-parallel pair (B7a warp + splat to images, B7b finish to the seven
    sums) against their twins on both rows, their chain bitwise B6, and the
    sum of four shards' images bitwise the unsharded images; beside each
@@ -192,6 +196,55 @@ def timed(fn, runs=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _op_name(name):
+    """A device operation's short name: a kernel's function name without
+    its namespace, template arguments and parameters; a memset or a copy as
+    the profiler names it."""
+    if name.startswith(("Memset", "Memcpy")):
+        return name
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip() or name
+
+
+def breakdown(fn, runs=20):
+    """The device operations of one ``fn()`` in launch order, each with its
+    median time in microseconds over ``runs`` calls, from torch.profiler's
+    device trace.  Raises if the trace holds no device operation or a call
+    queued another number of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted((e.start_ns(), _op_name(e.name()),
+                  (e.end_ns() - e.start_ns()) * 1e-3)
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA)
+    if not ops or len(ops) % runs:
+        raise AssertionError(f"breakdown: {len(ops)} device operations in "
+                             f"{runs} calls")
+    per = len(ops) // runs
+    return [(ops[k][1], statistics.median(ops[r * per + k][2]
+                                          for r in range(runs)))
+            for k in range(per)]
+
+
+def log_breakdown(label, fn):
+    """Print ``breakdown(fn)`` as one ``[kernels] breakdown`` line; return
+    it."""
+    ops = breakdown(fn)
+    log(f"[kernels] breakdown {label}: " + ", ".join(
+        f"{name} {us:.2f} us" for name, us in ops)
+        + f"; sum {sum(us for _, us in ops):.2f} us")
+    return ops
 
 
 def nbytes(*tensors):
@@ -421,15 +474,29 @@ def check_b6_b7(stat, act, pr, st, geo, scale, H, W, dev):
                                  "images differ from the unsharded images")
         n_acc = int(ac.sum())
         timed_plain = lambda f, *a: timed(lambda: f(*a, **kw))
+
+        def chain(scal=scal):
+            _, t, c, _ = fm.fused_warp_splat_images_call(stat, act, pr,
+                                                         scal, **kw)
+            return fm.finish_partials_call(t, c, **kw)
+
+        log_breakdown(f"B7a -> B7b chain {name} row", chain)
+        log_breakdown(f"fused_warp_splat {name} row",
+                      lambda: fm.fused_warp_splat_call(stat, act, pr, scal,
+                                                       **kw))
         res[name] = {
             "fused_warp_splat": dict(
                 max_abs_err=err,
                 ms=timed_plain(fm.fused_warp_splat_call, stat, act, pr, scal),
+                chain_ms=timed(chain),
                 plain_ms=timed_plain(fm.fused_warp_splat_plain, stat, act, pr,
                                      scal),
                 **bound(nbytes(scal, stat, act, pr, npr, vals),
                         slots * OPS_WARP + n_acc * OPS_SPLAT
-                        + ops_finish(pixels, scale))),
+                        + ops_finish(pixels, scale)),
+                **dict(zip(("R", "grid"), fm.iteration_grid(
+                    "fused_warp_splat", dev, H, W, scale))),
+                redesigned=7),
             "fused_warp_splat_images": dict(
                 max_abs_err=err_a,
                 ms=timed_plain(fm.fused_warp_splat_images_call, stat, act, pr,
@@ -447,7 +514,10 @@ def check_b6_b7(stat, act, pr, st, geo, scale, H, W, dev):
         for k, r in res[name].items():
             log(f"[kernels] {k} {name} row: max_abs_err "
                 f"{r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  plain "
-                f"{r['plain_ms']:.4f} ms")
+                f"{r['plain_ms']:.4f} ms"
+                + (f"  chain {r['chain_ms']:.4f} ms  bound "
+                   f"{r['bound_ms']:.5f} ms  R {r['R']}  grid {r['grid']}"
+                   if "chain_ms" in r else ""))
         log(f"[kernels] {name} row: B7a -> B7b bitwise B6; four shards' "
             "summed images bitwise the unsharded images")
     return res["f32"]
@@ -1047,6 +1117,10 @@ def phase_megastep(scan_inputs, d, dev):
         if int(ac.sum()) < 10_000:
             raise AssertionError(f"megastep {name}: only {int(ac.sum())} "
                                  "events splatted")
+        log_breakdown(f"B1 -> B2 chain {name}", chain)
+        log_breakdown(f"megastep {name}", lambda: fm.megastep_call(*args,
+                                                                   **kw))
+        R, grid = fm.iteration_grid("megastep", dev, H, W, opt.scale)
         r = dict(max_abs_err=err,
                  ms=timed(lambda: fm.megastep_call(*args, **kw)),
                  chain_ms=timed(chain),
@@ -1054,14 +1128,69 @@ def phase_megastep(scan_inputs, d, dev):
                  **bound(nbytes(*args, npr, st),
                          args[0].shape[0] * args[0].shape[2] * OPS_WARP
                          + int(ac.sum()) * OPS_SPLAT
-                         + ops_finish(H * W, opt.scale) + 300))
+                         + ops_finish(H * W, opt.scale) + 300),
+                 R=R, grid=grid, redesigned=7)
+        if name == "scale3":
+            sweep_band_rows(args, kw, dev)
         HP, WP = padded_image_shape(H, W)
         log(f"[kernels] megastep {name} ({args[0].shape[0]} chunks, "
-            f"{HP}x{WP} images): max_abs_err {err:.3g}, bitwise the B1 -> B2 chain; "
-            f"kernel {r['ms']:.4f} ms  chain {r['chain_ms']:.4f} ms  plain "
-            f"{r['plain_ms']:.4f} ms")
+            f"{HP}x{WP} images, R {R}, grid {grid}): max_abs_err "
+            f"{err:.3g}, "
+            f"bitwise the B1 -> B2 chain; kernel {r['ms']:.4f} ms  chain "
+            f"{r['chain_ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.5f} ms")
         out[name] = r
     return out
+
+
+def sweep_band_rows(args, kw, dev):
+    """B5 at band heights R = 1 to 6 beside ``band_rows``' choice, at the
+    main path's image (543x723, scale 3) and at 721x1281, scale 1 (the
+    same slice: its events land in the image's corner, and the band pass
+    covers the whole image), in turns: each bitwise B5 at that shape, with
+    its median time.  ``BAND_MAX_ROWS`` rests on these times."""
+    import ctypes
+
+    import torch
+
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops._build import library
+    from better_flow_tpu_torch.ops.layout import padded_image_shape
+
+    stat, act, pr, st, geo = args
+    statics = {k: v for k, v in kw.items()
+               if k not in ("scale", "H", "W", "time_lo")}
+    cp = fm._c_params(statics)
+
+    def run(R, H, W, scale):
+        HP, WP = padded_image_shape(H, W)
+        acc_t, acc_c = fm._images(dev, H, W)
+        npr, st_out = torch.empty_like(pr), torch.empty_like(st)
+        rc = library().bf_megastep(
+            fm._ptr(geo), fm._ptr(st), fm._ptr(stat), fm._ptr(act),
+            fm._ptr(pr), fm._ptr(npr), fm._ptr(st_out), fm._ptr(acc_t),
+            fm._ptr(acc_c), fm._ptr(fm._workspace(dev, H, W)["partials"]),
+            stat.shape[0], HP, WP, H, W, scale, int(kw["time_lo"]), R,
+            fm.band_smem_bytes(R, W, scale), ctypes.byref(cp), 0,
+            fm._stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"megastep at R {R}: CUDA error {rc}")
+        return npr, st_out
+
+    for H, W, scale in ((kw["H"], kw["W"], kw["scale"]), (721, 1281, 1)):
+        want = fm.megastep_call(*args, **dict(kw, H=H, W=W, scale=scale))
+        chosen = fm._device_bands(dev, H, W, scale)[0]
+        times = []
+        for R in (chosen, 1, 2, 3, 4, 5, 6, chosen):
+            got = run(R, H, W, scale)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"megastep at R {R}, {H}x{W}: differs "
+                                     "from B5")
+            us = 1e3 * timed(lambda: run(R, H, W, scale))
+            times.append(f"R {R} {us:.2f}")
+        log(f"[kernels] megastep band heights at {H}x{W}, scale {scale} "
+            f"(band_rows: {chosen}), us in turns: " + ", ".join(times))
 
 
 def count_operations(module, name, run):
@@ -1656,8 +1785,7 @@ def main():
     t_phase = time.perf_counter()
     results, scan_inputs = phase_kernels(cfg, d, dev)
     mega = phase_megastep(scan_inputs, d, dev)
-    results["megastep"] = {k: v for k, v in mega["scale3"].items()
-                           if k != "chain_ms"}
+    results["megastep"] = mega["scale3"]
     partials, b10_launches = phase_partials_kernels(scan_inputs, cfg, dev)
     results.update(partials)
     log(f"[kernels] phase {time.perf_counter() - t_phase:.1f} s")

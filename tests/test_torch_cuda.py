@@ -292,6 +292,77 @@ def test_fused_warp_splat_kernel_matches_twin(cuda, res, nch, carry):
     np.testing.assert_array_equal(vals.cpu().numpy(), vals_c.numpy())
 
 
+def test_image_pair_stays_zero_across_interleaved_kernels(cuda):
+    """Three B5 calls on different states and images, interleaved on the
+    same device and image shape with B6, B2 and B7b calls: every output
+    bitwise its twin's, so the image pair that B5 and B6 splat into and
+    leave zero is zero at each call's start and no other kernel disturbs
+    it."""
+    res = (180, 240)
+    Hs, Ws = image_shape(res, SCALE)
+    kw = dict(scale=SCALE, H=Hs, W=Ws)
+    kw5 = dict(kw, time_lo=True, **finish_statics(OptimizerConfig()))
+    chain = {k: v for k, v in kw5.items() if k != "time_lo"}
+    keys = ("stat", "act", "pr", "st", "geo")
+    for k, seed in enumerate((2, 5, 8)):
+        d = slice_inputs(seed, res=res, nch=8)
+        d["st"][0, 0:4] *= 1.0 + 0.25 * k
+        d["st"][0, 24:28] *= 1.0 - 0.2 * k
+        _, gpu = _both(d, keys, cuda)
+        stat, act, pr, st, geo = gpu
+        npr, st5 = _launched("megastep",
+                             lambda: tfm.megastep_call(*gpu, **kw5))
+        npr_p, st5_p = tfm.megastep_plain(*gpu, **kw5)
+        assert torch.equal(npr, npr_p) and torch.equal(st5, st5_p)
+        scal = tfm.warp_scal_row(geo, _carry_models(st, cuda)["f32"])
+        npr6, vals = _launched(
+            "fused_warp_splat",
+            lambda: tfm.fused_warp_splat_call(stat, act, pr, scal, **kw))
+        npr6_p, vals_p = tfm.fused_warp_splat_plain(stat, act, pr, scal,
+                                                    **kw)
+        assert torch.equal(npr6, npr6_p) and torch.equal(vals, vals_p)
+        _, at, ac = tfm.warp_images_st_call(*gpu, **kw, time_lo=True)
+        st2 = _launched("megastep_finish",
+                        lambda: tfm.megastep_finish_call(at, ac, st, geo,
+                                                         **chain))
+        assert torch.equal(st2, st5)
+        _, at7, ac7, _ = tfm.fused_warp_splat_images_call(stat, act, pr,
+                                                          scal, **kw)
+        vals7 = _launched("finish_partials",
+                          lambda: tfm.finish_partials_call(at7, ac7, **kw))
+        assert torch.equal(vals7, vals)
+        assert int(ac.sum()) > 10_000
+
+
+@pytest.mark.parametrize("kernel,res,scale", [
+    ("megastep", (100, 1220), 3), ("fused_warp_splat", (100, 1220), 3),
+    ("megastep", (720, 1280), 1)])
+def test_iteration_kernels_at_other_band_heights(cuda, kernel, res, scale):
+    """B5 and B6 where a band holds one row (303x3663 images at scale 3:
+    two rows exceed the shared-memory budget) and B5 at 720x1280, scale 1
+    (three rows a band), bitwise their twins."""
+    Hs, Ws = image_shape(res, scale)
+    R, _ = tfm.band_rows(Hs, Ws, scale)
+    assert R == (1 if scale == 3 else 3) and -(-Hs // 2) >= 132
+    keys = ("stat", "act", "pr", "st", "geo")
+    _, gpu = _both(slice_inputs(2, res=res, scale=scale, nch=8), keys, cuda)
+    stat, act, pr, st, geo = gpu
+    if kernel == "megastep":
+        kw = dict(scale=scale, H=Hs, W=Ws, time_lo=True,
+                  **finish_statics(OptimizerConfig()))
+        got = _launched("megastep", lambda: tfm.megastep_call(*gpu, **kw))
+        want = tfm.megastep_plain(*gpu, **kw)
+    else:
+        scal = tfm.warp_scal_row(geo, _carry_models(st, cuda)["f64"])
+        kw = dict(scale=scale, H=Hs, W=Ws)
+        got = _launched("fused_warp_splat",
+                        lambda: tfm.fused_warp_splat_call(stat, act, pr,
+                                                          scal, **kw))
+        want = tfm.fused_warp_splat_plain(stat, act, pr, scal, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(got[1]).all()
+
+
 @pytest.mark.parametrize("case", ["f64_scan", "f64_stream",
                                   "fast_nomega_stream"])
 def test_composed_path_on_card_matches_cpu_twins(cuda, case):

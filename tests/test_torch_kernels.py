@@ -62,6 +62,27 @@ def test_cuda_header_constants_match_layout():
     st_names = [n for n in dir(layout) if re.fullmatch(r"ST_[A-Z]+", n)]
     for name in st_names:
         assert found[name] == getattr(layout, name), name
+    # The kernel template of B5 and B6: its block size and shared-memory
+    # budget, which ops/fused_model.band_rows mirrors.
+    csrc = Path(tgf.__file__).parents[1] / "csrc"
+    finish = (csrc / "finish.cuh").read_text()
+    iteration = (csrc / "iteration.cuh").read_text()
+    assert re.search(r"\bFINISH_THREADS = (\d+);", finish).group(1) == "256"
+    assert '#include "finish.cuh"' in iteration
+    assert "BAND_THREADS = FINISH_THREADS;" in iteration
+    assert tfm.BAND_THREADS == 256
+    budget = re.search(r"\bBAND_SMEM_BUDGET = (\d+);", iteration).group(1)
+    assert int(budget) == tfm.BAND_SMEM_BUDGET
+    leaf = re.search(r"\bBAND_LEAF_BYTES = NSUM \* BAND_THREADS \* 8;",
+                     iteration)
+    assert leaf is not None and tfm._BAND_LEAF_BYTES == 9 * 256 * 8
+    # Its slots: the entry points count them in chunks of common.cuh's
+    # CHUNK, which finish.cuh brings in.
+    assert '#include "common.cuh"' in finish
+    for entry in ("megastep.cu", "fused_warp_splat.cu"):
+        src = (csrc / entry).read_text()
+        assert '#include "iteration.cuh"' in src
+        assert "nch * bf::CHUNK" in src
 
 
 # ----------------------------------------------------- small numpy ports
