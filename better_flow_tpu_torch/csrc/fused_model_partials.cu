@@ -12,9 +12,11 @@
 // truncated, accepted inside the dynamic window and splatted with the TPU
 // kernel's time weight (bf::splat_position, bf::time_weight: relative to its
 // chunk's slot 0, bf16 hi + lo parts) into the int64 fixed-point time image
-// and the int32 count image; then the finish passes of finish_partials.cu
-// (B7b: image rows, gradient rows, one block of f64 row sums in a fixed
-// order) write the (8,) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0].
+// and the int32 count image; then three finish launches (image rows,
+// gradient rows, one block of f64 row sums in a fixed order; finish.cuh's
+// device functions, as B2 runs them) write the (8,) f32 [cnt, s_row, s_col,
+// s_gx, s_gy, s_rg, s_dg, 0], bitwise finish_partials.cu's (B7b) sums of
+// the same images.
 //
 // The TPU kernel of B11 splats a sorted chunk into an (RH, WC) window of its
 // image, with a full-image fallback: a way to scatter into VMEM.  The card
@@ -28,6 +30,7 @@
 
 namespace {
 
+using bf::FINISH_THREADS;
 constexpr int SPLAT_THREADS = 256;
 
 __global__ void splat_positions_kernel(const float* __restrict__ geo,
@@ -53,12 +56,51 @@ int zero_images(long long* acc_t, int* acc_c, int HP, int WP,
   return static_cast<int>(cudaMemsetAsync(acc_c, 0, pixels * sizeof(int), s));
 }
 
-}  // namespace
+__global__ void image_kernel(const long long* __restrict__ acc_t,
+                             const int* __restrict__ acc_c,
+                             float* __restrict__ img, int HP, int WP, int W,
+                             int half) {
+  bf::image_row(acc_t, acc_c, img, blockIdx.x, HP, WP, W, half);
+}
 
-extern "C" int bf_finish_partials(const long long* acc_t, const int* acc_c,
-                                  float* out, float* img, double* partials,
-                                  int HP, int WP, int H, int W, int scale,
-                                  void* stream);
+__global__ void gradient_kernel(const float* __restrict__ img,
+                                double* __restrict__ partials, int H, int W) {
+  __shared__ bf::FinishShared sh;
+  bf::gradient_row(img, partials, blockIdx.x, H, W, sh);
+}
+
+__global__ void sums_kernel(const double* __restrict__ partials, int rows,
+                            float* __restrict__ out) {
+  __shared__ bf::FinishShared sh;
+  float vals[7];
+  bf::finish_sums(partials, rows, vals, sh);
+  if (threadIdx.x != 0) return;
+  for (int q = 0; q < 7; ++q) out[q] = vals[q];
+  out[7] = 0.0f;
+}
+
+// The finish of the splatted images in three launches: one block per row
+// normalises the box-filtered images into ``img``, one block per row takes
+// the row's nine f64 sums, one block sums the rows.  This is the finish
+// that finish_partials.cu ran before it became iteration.cuh's band pass,
+// kept here so that B10's and B11's times stay comparable; ROADMAP P5's
+// item "B10 and B11's finish onto B7b's band pass and tail" replaces it
+// with bf_finish_partials, and it goes then.
+int finish_three_launches(const long long* acc_t, const int* acc_c,
+                          float* out, float* img, double* partials, int HP,
+                          int WP, int H, int W, int scale, cudaStream_t s) {
+  image_kernel<<<H, FINISH_THREADS, 0, s>>>(acc_t, acc_c, img, HP, WP, W,
+                                            scale / 2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gradient_kernel<<<H, FINISH_THREADS, 0, s>>>(img, partials, H, W);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sums_kernel<<<1, FINISH_THREADS, 0, s>>>(partials, H, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 extern "C" int bf_fused_model_partials(const float* geo, const float* prx,
                                        const float* pry, const float* t_sec,
@@ -77,8 +119,8 @@ extern "C" int bf_fused_model_partials(const float* geo, const float* prx,
       acc_c, n, WP, scale);
   e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
-  return bf_finish_partials(acc_t, acc_c, out, img, partials, HP, WP, H, W,
-                            scale, stream);
+  return finish_three_launches(acc_t, acc_c, out, img, partials, HP, WP, H,
+                               W, scale, s);
 }
 
 extern "C" int bf_fused_model_partials_windowed(

@@ -12,13 +12,13 @@
 // no window, so no chunk falls back).  The scalar model update runs outside,
 // in the composed loop.
 //
-// One cooperative launch of iteration.cuh's kernel, the template B5 runs
-// too (warp from the row; the sums as the tail).  It runs the per-event
-// function of common.cuh and the sums of finish.cuh in their order, so its
-// output is bitwise that of the event-parallel path's two entry points,
-// warp_splat_images.cu (B7a) then finish_partials.cu (B7b), which the
-// sharded loop runs with the image sum between them.  The caller's image
-// pair is zero on entry and left zero (see megastep.cu): no memset.
+// One cooperative launch of iteration.cuh's three phases, the template B5
+// runs too (warp from the row; the sums as the tail).  The event-parallel
+// path's two entry points run the same phases cut at the image seam:
+// warp_splat_images.cu (B7a) the splat phase, finish_partials.cu (B7b) the
+// band pass and the tail, with the image sum between them; so B6's output
+// is bitwise the B7a -> B7b chain's.  The image pair is zero on entry and
+// left zero (see megastep.cu): no memset.
 //
 // Bound: latency (iteration.cuh); the bytes bound is ~0.6 us at the main
 // path's shapes (61k slots, 576x768 images).  The sums are f64 in a fixed
@@ -35,7 +35,7 @@ extern "C" int bf_fused_warp_splat(const float* scal, const float* stat,
                       reinterpret_cast<unsigned long long*>(acc_t), acc_c,
                       partials, out, nch * bf::CHUNK, HP, WP, H, W, scale,
                       /*time_lo=*/1, rows, bf::UpdateParams{}};
-  return bf::launch_iteration<false>(a, smem, 0, stream);
+  return bf::launch_iteration<bf::kFused>(a, smem, 0, stream);
 }
 
 // The grid bf_fused_warp_splat launches at ``smem`` dynamic bytes (0 on
@@ -43,5 +43,5 @@ extern "C" int bf_fused_warp_splat(const float* scal, const float* stat,
 extern "C" int bf_fused_warp_splat_grid(int smem) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  return bf::iteration_resident_blocks<false>(dev, smem);
+  return bf::iteration_resident_blocks<bf::kFused>(dev, smem);
 }

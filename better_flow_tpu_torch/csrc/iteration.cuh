@@ -1,34 +1,41 @@
-// One optimizer iteration in one cooperative launch, written for the H100:
-// the kernel template of megastep.cu (B5) and fused_warp_splat.cu (B6).
+// One optimizer iteration on the H100, as three phases that three kernels
+// compose: megastep.cu (B5), fused_warp_splat.cu (B6), warp_splat_images.cu
+// (B7a) and finish_partials.cu (B7b).
 //
-// Both compute warp + splat, then the finish down to the seven sums; B5
-// then runs the scalar update into the next state, B6 writes the sums.
-// The template runs the per-event function of common.cuh and the sums of
-// finish.cuh in their order, so its outputs are bitwise those of the
-// B1 -> B2 chain (B5) and of the B7a -> B7b chain (B6).
+// The phases:
+//   1. splat_phase: grid-stride warp + splat of every slot
+//      (warp_splat_event, integer atomics) into the caller's image pair,
+//      which is zero on entry, with the warp scalars its caller gives: B5
+//      and B6 compute them once per block (block_warp, B5's f64 cos and
+//      sin among them), B7a in every thread from the row.
+//   2. band_phase, in place of an image pass and a gradient pass: blocks
+//      take bands of R image rows in a grid-stride loop.  A band stages the
+//      integer rows it needs into shared memory with 16-byte loads,
+//      converting each value to f32 once; builds the normalised f32 rows
+//      [r0 - 1, r1 + 1) there (the f32 image never goes to device memory);
+//      and reduces its rows' nine f64 sums, each in finish.cuh's tree order,
+//      into partials[i].
+//   3. tail_phase: block 0 sums the rows with finish_sums and writes the
+//      output, while the other blocks zero the image pair it read: no
+//      zeroing phase and no memset.
 //
-// Phases of one launch:
-//   1. grid-stride warp + splat of every slot (warp_splat_event, integer
-//      atomics) into the caller's image pair, which is zero on entry.  B5's
-//      warp scalars (the f64 cos and sin among them) are computed once per
-//      block.
-//   grid.sync(): the only barrier before the band pass.
-//   2. the band pass, in place of the image pass and the gradient pass:
-//      blocks take bands of R image rows in a grid-stride loop.  A band
-//      stages the integer rows it needs into shared memory with 16-byte
-//      loads, converting each value to f32 once; builds the normalised f32
-//      rows [r0 - 1, r1 + 1) there (the f32 image never goes to device
-//      memory); and reduces its rows' nine f64 sums, each in finish.cuh's
-//      tree order, into partials[i].
-//   grid.sync()
-//   3. block 0 sums the rows with finish_sums and runs the tail, while the
-//      other blocks zero the image pair for the next call: no zeroing phase
-//      and no memset.
+// The kernels:
+//   - iteration_kernel<kMegastep> (B5) and <kFused> (B6): one cooperative
+//     launch of all three phases, a grid.sync() between each two;
+//   - iteration_kernel<kFinish> (B7b): one cooperative launch of phases 2
+//     and 3 on a pair its caller filled, one grid.sync() between them;
+//   - B7a's kernel (warp_splat_images.cu): phase 1 alone, an ordinary
+//     launch with no barrier.
+// So B7a -> B7b is B6 cut at the image seam, where event-parallel shards
+// sum their pairs.  Every kernel runs the per-event function of common.cuh
+// and the sums of finish.cuh in their order, so B5 is bitwise the B1 -> B2
+// chain and B6 the B7a -> B7b chain; the image pair is zero before B5, B6
+// and B7a and again after B5, B6 and B7b.
 //
 // Bound: the images (12 B a pixel, written by the splat, read by the band
 // pass, zeroed for the next call) and the slots (32 B read and written)
-// put the bytes bound at ~0.6 us at the main path's shapes; the kernel is
-// bound by latency: the splat's atomics, two grid barriers, the band
+// put the bytes bound at ~0.6 us at the main path's shapes; the kernels are
+// bound by latency: the splat's atomics, the grid barriers, the band
 // pass's chain of staging, box filter and trees on a few warps per SM, and
 // the one-block tail.
 #pragma once
@@ -75,8 +82,8 @@ struct BandLayout {
 
 struct IterationArgs {
   const float* geo;   // [x_sh, y_sh, w_dyn, h_dyn, ...]: B5's geometry row,
-                      // B6's warp row
-  const float* src;   // B5: the (1, 32) state; B6: the (1, 16) warp row
+                      // B6's and B7a's warp row (B7b: unused)
+  const float* src;   // B5: the (1, 32) state; B6, B7a: the (1, 16) warp row
   const float* stat;
   const float* act;
   const float* pr;
@@ -84,8 +91,8 @@ struct IterationArgs {
   unsigned long long* acc_t;  // the image pair: zero on entry and on exit
   int* acc_c;
   double* partials;            // (H, 9)
-  float* out;                  // B5: the next state; B6: the (8,) sums
-  int n, HP, WP, H, W, scale, time_lo, rows;
+  float* out;                  // B5: the next state; B6, B7b: the (8,) sums
+  int n, HP, WP, H, W, scale, time_lo, rows;   // n: slots (B7b: 0)
   UpdateParams p;
 };
 
@@ -299,26 +306,34 @@ __device__ inline void zero_pair(unsigned long long* acc_t, int* acc_c,
   }
 }
 
-// kState: B5 (warp from the state, scalar update into the next state);
-// otherwise B6 (warp from the row, the seven sums and a zero).
-template <bool kState>
-__global__ void __launch_bounds__(BAND_THREADS, 2)
-iteration_kernel(IterationArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Warp sw;
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+// The kernels of this template.
+enum IterationKind { kMegastep = 0, kFused = 1, kFinish = 2 };
 
+// The warp scalars, computed once per block by thread 0: from the state
+// (kState, B5) or from the caller's row (B6).  B7a reads the row in every
+// thread instead: its one-slot-a-thread blocks would wait on this barrier
+// before their first load (0.15-0.2 us more device time on an H100).
+template <bool kState>
+__device__ inline Warp block_warp(const float* src) {
+  __shared__ Warp sw;
   if (threadIdx.x == 0)
-    sw = kState ? warp_from_state(a.src) : warp_from_row(a.src);
+    sw = kState ? warp_from_state(src) : warp_from_row(src);
   __syncthreads();
-  const Warp w = sw;
+  return sw;
+}
+
+// Phase 1: warp + splat of slots [0, a.n) in a grid-stride loop.
+__device__ inline void splat_phase(const IterationArgs& a, const Warp& w) {
   const size_t nthreads = static_cast<size_t>(gridDim.x) * blockDim.x;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < static_cast<size_t>(a.n); i += nthreads)
     warp_splat_event(static_cast<int>(i), a.geo, w, a.stat, a.act, a.pr,
                      a.npr, a.acc_t, a.acc_c, a.WP, a.scale, a.time_lo);
-  grid.sync();
+}
 
+// Phase 2: the band pass over the image pair into a.partials.
+__device__ inline void band_phase(const IterationArgs& a,
+                                  unsigned char* smem) {
   const BandLayout L(a.rows, a.W, a.scale);
   float* sT = reinterpret_cast<float*>(smem);
   float* sC = sT + L.ns * L.sw;
@@ -341,8 +356,15 @@ iteration_kernel(IterationArgs a) {
     __syncthreads();
     band_sums(r0, r1, a.W, L, sI, leaf, a.partials);
   }
-  grid.sync();
+}
 
+// Phase 3, after a grid barrier: block 0 sums the rows and writes the
+// output (kState: the scalar update into the next state; otherwise the
+// seven sums and a zero), the other blocks zero the image pair (block 0
+// too when it is alone).
+template <bool kState>
+__device__ inline void tail_phase(const IterationArgs& a,
+                                  unsigned char* smem) {
   if (blockIdx.x != 0) {
     zero_pair(a.acc_t, a.acc_c, a.HP, a.WP, 1);
     return;
@@ -361,9 +383,26 @@ iteration_kernel(IterationArgs a) {
   if (gridDim.x == 1) zero_pair(a.acc_t, a.acc_c, a.HP, a.WP, 0);
 }
 
-// Resident blocks of iteration_kernel<kState> per device at ``smem``
+// kKind: kMegastep (B5: warp from the state, scalar update into the next
+// state), kFused (B6: warp from the row, the seven sums and a zero) or
+// kFinish (B7b: no splat; the seven sums of the caller's pair).
+template <int kKind>
+__global__ void __launch_bounds__(BAND_THREADS, 2)
+iteration_kernel(IterationArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if constexpr (kKind != kFinish) {
+    splat_phase(a, block_warp<kKind == kMegastep>(a.src));
+    grid.sync();
+  }
+  band_phase(a, smem);
+  grid.sync();
+  tail_phase<kKind == kMegastep>(a, smem);
+}
+
+// Resident blocks of iteration_kernel<kKind> per device at ``smem``
 // dynamic bytes, found once per (device, bytes); 0 on error.
-template <bool kState>
+template <int kKind>
 inline int iteration_resident_blocks(int dev, int smem) {
   struct Entry { int dev, smem, blocks; };
   static Entry cache[32];
@@ -371,7 +410,7 @@ inline int iteration_resident_blocks(int dev, int smem) {
   for (int k = 0; k < used; ++k)
     if (cache[k].dev == dev && cache[k].smem == smem) return cache[k].blocks;
   int per_sm = 0, sms = 0;
-  auto* kernel = iteration_kernel<kState>;
+  auto* kernel = iteration_kernel<kKind>;
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            BAND_SMEM_BUDGET) != cudaSuccess ||
@@ -385,11 +424,11 @@ inline int iteration_resident_blocks(int dev, int smem) {
   return blocks;
 }
 
-// One cooperative launch of iteration_kernel<kState>.  blocks <= 0: as
+// One cooperative launch of iteration_kernel<kKind>.  blocks <= 0: as
 // many as can be resident.  ``smem`` below the band layout's need or above
 // the budget, a card without cooperative launch and a grid that cannot be
 // resident are refused with their CUDA error; nothing runs in their place.
-template <bool kState>
+template <int kKind>
 inline int launch_iteration(IterationArgs& a, int smem, int blocks,
                             void* stream) {
   if (a.rows < 1 || smem < BandLayout(a.rows, a.W, a.scale).bytes(a.rows) ||
@@ -401,7 +440,7 @@ inline int launch_iteration(IterationArgs& a, int smem, int blocks,
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  const int resident = iteration_resident_blocks<kState>(dev, smem);
+  const int resident = iteration_resident_blocks<kKind>(dev, smem);
   if (resident <= 0) {
     cudaGetLastError();
     return static_cast<int>(cudaErrorLaunchOutOfResources);
@@ -409,7 +448,7 @@ inline int launch_iteration(IterationArgs& a, int smem, int blocks,
   if (blocks <= 0) blocks = resident;
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(iteration_kernel<kState>), dim3(blocks),
+      reinterpret_cast<void*>(iteration_kernel<kKind>), dim3(blocks),
       dim3(BAND_THREADS), args, static_cast<size_t>(smem),
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {

@@ -35,12 +35,12 @@ extern "C" int bf_megastep(const float* geo, const float* st,
                       reinterpret_cast<unsigned long long*>(acc_t), acc_c,
                       partials, st_out, nch * bf::CHUNK, HP, WP, H, W, scale,
                       time_lo, rows, *params};
-  return bf::launch_iteration<true>(a, smem, blocks, stream);
+  return bf::launch_iteration<bf::kMegastep>(a, smem, blocks, stream);
 }
 
 // The grid bf_megastep launches at ``smem`` dynamic bytes (0 on error).
 extern "C" int bf_megastep_grid(int smem) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  return bf::iteration_resident_blocks<true>(dev, smem);
+  return bf::iteration_resident_blocks<bf::kMegastep>(dev, smem);
 }

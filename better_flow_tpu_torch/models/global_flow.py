@@ -36,15 +36,18 @@ host decides them without reading the device; either loop reads one
 continue flag from the device per iteration.
 
 Event parallelism (the JAX package's ``axis_name`` seam).  Given an
-``EventGroup`` (``parallel.mesh``), ``process_slice`` takes one ``stat`` and
-``act`` per local shard and every iteration splits where the shards'
+``EventGroup`` (``parallel.mesh``), ``process_slice`` takes the local
+shards' ``stat`` and ``act`` (one tensor each, holding their chunks in
+order) and every iteration splits where the shards'
 pre-filter images are summed: the megastep drive runs B1 per shard, the sum
 (``ops.fused_model.sum_images``: local shards, then one all-reduce across
 ranks), then B2 once (never B5, as in the JAX package); the composed drive
-runs B7a per shard, the sum, then B7b.  The images are integers, so the sum
-is exact and every rank computes the same state from it: the continue flag
-needs no collective, and a sharded slice is bitwise the unsharded one when
-the shards are cut on chunk boundaries.
+runs one B7a launch over all the local shards into the image pair it owns
+for the slice, the all-reduce of that pair in place, then B7b, which reads
+the pair and leaves it zero for the next iteration.  The images are
+integers, so the sum is exact and every rank computes the same state from
+it: the continue flag needs no collective, and a sharded slice is bitwise
+the unsharded one when the shards are cut on chunk boundaries.
 """
 
 from __future__ import annotations
@@ -60,10 +63,9 @@ from better_flow_tpu_torch.core.events import EventSlice, bounding_box
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.ops.fused_model import (
     finish_partials_call, fused_model_partials_windowed_call,
-    fused_warp_splat_call,
-    fused_warp_splat_images_call, megastep2_call, megastep_call,
-    megastep_finish_call, sum_images, warp_images_st_call, warp_scal_row,
-    warp_uv_call,
+    fused_warp_splat_call, fused_warp_splat_images_call, image_pair,
+    megastep2_call, megastep_call, megastep_finish_call, sum_images,
+    warp_images_st_call, warp_scal_row, warp_uv_call,
 )
 from better_flow_tpu_torch.ops.gradient import masked_scharr
 from better_flow_tpu_torch.ops.layout import (
@@ -233,10 +235,16 @@ def model_from_state(st: torch.Tensor) -> MotionModel:
         comp_div=s[ST_CDIV])
 
 
-def _as_shards(x, group) -> list:
-    """The per-shard list of a drive's ``stat`` or ``act`` argument: the
-    argument itself under an event group, else the one tensor."""
-    return list(x) if group is not None else [x]
+def _as_shards(x: torch.Tensor, group) -> list:
+    """A drive's ``stat`` or ``act`` argument (under an event group the
+    local shards' chunks in order) cut into ``group.n_local`` equal chunk
+    ranges; without a group the one tensor."""
+    if group is None:
+        return [x]
+    if x.shape[0] % group.n_local != 0:
+        raise ValueError(f"{x.shape[0]} chunks do not divide into "
+                         f"{group.n_local} local shards")
+    return list(x.chunk(group.n_local))
 
 
 def _cat(parts) -> torch.Tensor:
@@ -250,10 +258,10 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     while the state's CONT flag is set, then the final-warp epilogue.  An
     iteration is one B5 launch, or the B1 + B2 pair under
     ``cfg.megastep_split``; under an event ``group`` (``stat`` and ``act``
-    one per local shard) B1 per shard, the sum of the images over shards
-    and ranks, then B2.  The host reads the CONT flag once per iteration.
-    On one device ``cfg.megastep_merged`` takes the merged drive
-    (``run_fused_mega2``); under a group it is ignored, as in the JAX
+    the local shards' chunks in order) B1 per shard, the sum of the images
+    over shards and ranks, then B2.  The host reads the CONT flag once per
+    iteration.  On one device ``cfg.megastep_merged`` takes the merged
+    drive (``run_fused_mega2``); under a group it is ignored, as in the JAX
     package.  Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out);
     under a group ``out`` and ``uvn`` hold the local shards' chunks in
     order."""
@@ -334,11 +342,11 @@ def run_fused_mega2(stat, act, geo, model0: MotionModel,
 
 class FusedFlowState(NamedTuple):
     """The composed loop's state: the warped positions in the kernels'
-    (nch, 2, CHUNK) layout, one tensor per local shard, the model, the four
+    (nch, 2, CHUNK) layout (all local shards' chunks), the model, the four
     f32 step dividers as 0-d device tensors and the iteration count, which
     the host keeps."""
 
-    pr: Tuple[torch.Tensor, ...]
+    pr: torch.Tensor
     model: MotionModel
     x_div: torch.Tensor
     y_div: torch.Tensor
@@ -642,34 +650,30 @@ def run_fused_composed(stat, act, geo, geom: SliceGeometry,
     model update from its seven sums in 0-d tensor operations on the
     device (the model's dtype: f64 totals stay f64), the centroid back to
     event coordinates, and the schedule's exit test, read once by the host.
-    Under an event ``group`` (``stat`` and ``act`` one per local shard) the
-    B6 launch becomes B7a per shard, the sum of the images over shards and
-    ranks, then B7b: bitwise the same seven sums.
+    Under an event ``group`` the B6 launch becomes one B7a launch over all
+    the local shards' chunks (``stat`` and ``act`` as one range) into an
+    image pair allocated once per call, the in-place sum of that pair
+    across ranks (``sum_images``), then B7b, which reads it and leaves it
+    zero for the next iteration: bitwise the same seven sums.
     The epilogue warps the events once more with the f32-cast totals and
     packs [u, v, noise] in plain tensor operations, as the JAX package's
     XLA epilogue does (its arithmetic differs from B4's, see
     ``project_4param_reinit_cs``).
     Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out); under a
     group ``out`` and ``uvn`` hold the local shards' chunks in order."""
-    stats, acts = _as_shards(stat, group), _as_shards(act, group)
+    pair = None if group is None else image_pair(stat.device, H, W)
 
     def step(s: FusedFlowState, update_fn=None) -> FusedFlowState:
         m = s.model
         scal = warp_scal_row(geo, m)
         if group is None:
-            pr0, p = fused_warp_splat_call(stats[0], acts[0], s.pr[0], scal,
-                                           scale=scale, H=H, W=W)
-            pr = (pr0,)
+            pr, p = fused_warp_splat_call(stat, act, s.pr, scal, scale=scale,
+                                          H=H, W=W)
         else:
-            pr, images = [], []
-            for k in range(len(stats)):
-                npr, acc_t, acc_c, _fb = fused_warp_splat_images_call(
-                    stats[k], acts[k], s.pr[k], scal, scale=scale, H=H, W=W)
-                pr.append(npr)
-                images.append((acc_t, acc_c))
-            acc_t, acc_c = sum_images(images, group.comm)
+            pr, acc_t, acc_c, _fb = fused_warp_splat_images_call(
+                stat, act, s.pr, scal, *pair, scale=scale, H=H, W=W)
+            acc_t, acc_c = sum_images([(acc_t, acc_c)], group.comm)
             p = finish_partials_call(acc_t, acc_c, scale=scale, H=H, W=W)
-            pr = tuple(pr)
         cx_img, cy_img, terms = model_from_partials(p)
         model = m.replace(cx=cx_img, cy=cy_img, dx=terms.dx, dy=terms.dy,
                           rot=terms.rot, div=terms.div, cnt=terms.cnt)
@@ -682,22 +686,19 @@ def run_fused_composed(stat, act, geo, geom: SliceGeometry,
                               cy=_to_event(model.cy, geom.y_shift, scale))
         return s._replace(pr=pr, model=model, iters=s.iters + 1)
 
-    one = torch.ones((), dtype=torch.float32, device=stats[0].device)
-    init = FusedFlowState(
-        pr=tuple(st[:, 0:2].contiguous() for st in stats), model=model0,
-        x_div=one, y_div=one, rot_div=one, div_div=one, iters=0)
+    one = torch.ones((), dtype=torch.float32, device=stat.device)
+    init = FusedFlowState(pr=stat[:, 0:2].contiguous(), model=model0,
+                          x_div=one, y_div=one, rot_div=one, div_div=one,
+                          iters=0)
     final, seed_out = drive_loop(init, step, cfg, seed=seed)
     m = final.model
-    outs, uvns = [], []
-    for k in range(len(stats)):
-        pr_x, pr_y, nx, ny = project_4param_reinit(
-            stats[k][:, 0], stats[k][:, 1], stats[k][:, 2], final.pr[k][:, 0],
-            final.pr[k][:, 1], -m.total_dx, -m.total_dy, m.cx, m.cy,
-            m.total_div, -m.total_rot, sin_fma=True)
-        outs.append(torch.stack([pr_x, pr_y, nx, ny], dim=1))
-        uvns.append(torch.stack([nx * UV_K, ny * UV_K, 1.0 - acts[k][:, 0]],
-                                dim=1))
-    return m, _cat(outs), _cat(uvns), final.iters, seed_out
+    pr_x, pr_y, nx, ny = project_4param_reinit(
+        stat[:, 0], stat[:, 1], stat[:, 2], final.pr[:, 0], final.pr[:, 1],
+        -m.total_dx, -m.total_dy, m.cx, m.cy, m.total_div, -m.total_rot,
+        sin_fma=True)
+    out = torch.stack([pr_x, pr_y, nx, ny], dim=1)
+    uvn = torch.stack([nx * UV_K, ny * UV_K, 1.0 - act[:, 0]], dim=1)
+    return m, out, uvn, final.iters, seed_out
 
 
 def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
@@ -720,9 +721,10 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     streaming path reads it; the scan reads the noise row of uvn).
 
     Under an event ``group`` (``parallel.mesh.EventGroup``) ``stat`` and
-    ``act`` are sequences with one tensor per local shard, the optimizer
-    splits at the image sum (see the module docstring), and the per-event
-    results hold the local shards' slots in order.
+    ``act`` hold the local shards: one tensor each with their chunks in
+    order (``group.n_local`` equal ranges); the optimizer splits at the
+    image sum (see the module docstring), and the per-event results hold
+    the local shards' slots in order.
 
     Returns (SliceResult, uvn) where uvn is the (nch, 3, CHUNK)
     [u, v, noise] pack."""
@@ -737,8 +739,7 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
     geom = geometry_from_bbox(*bbox, scale, sensor, cfg.min_window_fraction)
-    stats, acts = _as_shards(stat, group), _as_shards(act, group)
-    dev = stats[0].device
+    dev = stat.device
     # As in the JAX package, a cold start is an f32 zero model.
     model = last_model if warm_start else MotionModel.zero(dev)
     ran = (not geom.window_small) and int(n_valid) >= cfg.min_events
@@ -755,12 +756,11 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     else:
         # The skipped slice keeps the warm-start warp (set_model) and the
         # incoming model; its events are noise when the window gate fired.
-        fx, fy, t = (_cat([s[:, k].reshape(-1) for s in stats])
-                     for k in range(3))
+        fx, fy, t = (stat[:, k].reshape(-1) for k in range(3))
         pr_x, pr_y, nx, ny = project_4param_reinit(
             fx, fy, t, fx, fy, -model.total_dx, -model.total_dy, model.cx,
             model.cy, model.total_div, -model.total_rot)
-        noise = torch.clamp(1.0 - _cat([a[:, 0] for a in acts]),
+        noise = torch.clamp(1.0 - act[:, 0],
                             min=float(geom.window_small))
         uvn = torch.stack([nx.reshape(-1, CHUNK) * UV_K,
                            ny.reshape(-1, CHUNK) * UV_K, noise], dim=1)

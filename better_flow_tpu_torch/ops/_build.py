@@ -27,9 +27,10 @@ BUILD_DIR = PKG / "_build"
 
 # --fmad=false: the warp and the Kahan model update must round after every
 # multiply and add, as the f32 reference does.  No fast-math: IEEE division
-# and the accurate cos/sin.  The grid-wide barrier of iteration.cuh (B5, B6)
-# and megastep2.cu (cooperative_groups grid.sync()) needs no -rdc=true since
-# CUDA 11; it needs only the cooperative launch that their entry points make.
+# and the accurate cos/sin.  The grid-wide barrier of iteration.cuh (B5,
+# B6, B7b) and megastep2.cu (cooperative_groups grid.sync()) needs no
+# -rdc=true since CUDA 11; it needs only the cooperative launch that their
+# entry points make.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC",
@@ -140,9 +141,9 @@ def library() -> ctypes.CDLL:
         lib.bf_fused_warp_splat.argtypes = [P] * 9 + [I] * 8 + [P]
         lib.bf_megastep_grid.argtypes = [I]
         lib.bf_fused_warp_splat_grid.argtypes = [I]
-        lib.bf_warp_splat_images.argtypes = [P, P, P, P, P, P, P,
-                                             I, I, I, I, P]
-        lib.bf_finish_partials.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+        lib.bf_warp_splat_images.argtypes = [P] * 7 + [I] * 4 + [P]
+        lib.bf_finish_partials.argtypes = [P] * 4 + [I] * 7 + [P]
+        lib.bf_finish_partials_grid.argtypes = [I]
         lib.bf_splat_local.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
         lib.bf_finish_local.argtypes = [P, P, P, P, P,
                                         I, I, I, I, I, I, I, I, I, I, P]
@@ -157,7 +158,8 @@ def library() -> ctypes.CDLL:
                    lib.bf_finish_partials, lib.bf_splat_local,
                    lib.bf_finish_local, lib.bf_fused_model_partials,
                    lib.bf_fused_model_partials_windowed, lib.bf_megastep2,
-                   lib.bf_megastep_grid, lib.bf_fused_warp_splat_grid):
+                   lib.bf_megastep_grid, lib.bf_fused_warp_splat_grid,
+                   lib.bf_finish_partials_grid):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

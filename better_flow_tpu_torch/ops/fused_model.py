@@ -18,9 +18,11 @@ Images.  ``warp_images_st_call`` returns the time image as int64 fixed
 point (``FIXED_PER_SEC`` units per second) and the count image as int32,
 so that the card's atomic accumulation is exact and the same on every run
 (see csrc/warp_images_st.cu); ``time_image_f32`` gives the f32 time image
-that the JAX kernel returns.  ``fused_warp_splat_images_call`` returns the
-same integer images: event-parallel shards sum them (``sum_images``), and
-an integer sum is exact whatever the order and the number of shards.
+that the JAX kernel returns.  ``fused_warp_splat_images_call`` adds the
+same integer images into an image pair its caller owns (``image_pair``),
+which ``sum_images`` sums across ranks in place and ``finish_partials_call``
+reads and leaves zero; an integer sum is exact whatever the order and the
+number of launches, shards and ranks.
 ``splat_local_call`` returns them for a batch of tiles (the tiled
 pipeline's halo fold-in and escape lane add into them exactly), and
 ``finish_local_call`` reads such a batch.
@@ -80,6 +82,21 @@ def _on_cpu(device: torch.device) -> bool:
     if device.type == "cuda":
         return False
     raise ValueError(f"no kernel for device {device}")
+
+
+def _check_pair(acc_t, acc_c, H: int, W: int, device) -> None:
+    HP, WP = padded_image_shape(H, W)
+    _check("acc_t", acc_t, torch.int64, (HP, WP), device)
+    _check("acc_c", acc_c, torch.int32, (HP, WP), device)
+
+
+def image_pair(device, H: int, W: int):
+    """A zero image pair for ``H`` x ``W`` images on ``device``: the (HP,
+    WP) int64 fixed-point time image and int32 count image that B7a adds
+    into and B7b reads and leaves zero."""
+    HP, WP = padded_image_shape(H, W)
+    return (torch.zeros((HP, WP), dtype=torch.int64, device=device),
+            torch.zeros((HP, WP), dtype=torch.int32, device=device))
 
 
 def _launch(name: str, rc: int) -> None:
@@ -349,9 +366,9 @@ def _workspace(dev: torch.device, H: int, W: int) -> dict:
     allocated at first use: the H x W f32 image, the (H, 9) f64 row sums and
     the two pre-filter images of B10 and B11.  The kernels run in stream
     order and no scratch is returned to a caller, so one set serves every
-    call (the images that B1 and B7a return are allocated per call: several
-    shards on one device each keep their own; B5 and B6 splat into their
-    own pair, ``_images``)."""
+    call (the images that B1 returns are allocated per call: several shards
+    on one device each keep their own; B5 and B6 splat into their own pair,
+    ``_images``; B7a and B7b work on the pair their caller owns)."""
     key = (dev, H, W)
     if key not in _WORKSPACE:
         HP, WP = padded_image_shape(H, W)
@@ -363,8 +380,8 @@ def _workspace(dev: torch.device, H: int, W: int) -> dict:
     return _WORKSPACE[key]
 
 
-# Band geometry of B5 and B6 (csrc/iteration.cuh's BandLayout; a CPU test
-# parses the header's constants).
+# Band geometry of B5, B6 and B7b (csrc/iteration.cuh's BandLayout; a CPU
+# test parses the header's constants).
 BAND_THREADS = 256
 BAND_SMEM_BUDGET = 231_424          # 227 KB less 1 KB of static shared
 _BAND_LEAF_BYTES = 9 * BAND_THREADS * 8
@@ -393,10 +410,10 @@ def band_smem_bytes(R: int, W: int, scale: int) -> int:
 
 
 def band_rows(H: int, W: int, scale: int, sms: int = H100_SMS):
-    """(R, dynamic shared bytes) of the band pass of B5 and B6: the largest
-    R up to ``BAND_MAX_ROWS`` that still gives at least one band per SM and
-    fits the shared-memory budget, else 1.  Raises when one row does not
-    fit."""
+    """(R, dynamic shared bytes) of the band pass of B5, B6 and B7b: the
+    largest R up to ``BAND_MAX_ROWS`` that still gives at least one band per
+    SM and fits the shared-memory budget, else 1.  Raises when one row does
+    not fit."""
     if band_smem_bytes(1, W, scale) > BAND_SMEM_BUDGET:
         raise ValueError(f"a band of one row of width {W} at scale {scale} "
                          f"needs {band_smem_bytes(1, W, scale)} bytes of "
@@ -430,16 +447,15 @@ def _images(dev: torch.device, H: int, W: int):
     the card refuses runs nothing.  No other kernel touches them."""
     key = (dev, H, W)
     if key not in _IMAGES:
-        HP, WP = padded_image_shape(H, W)
-        _IMAGES[key] = (torch.zeros((HP, WP), dtype=torch.int64, device=dev),
-                        torch.zeros((HP, WP), dtype=torch.int32, device=dev))
+        _IMAGES[key] = image_pair(dev, H, W)
     return _IMAGES[key]
 
 
 def iteration_grid(kernel: str, dev: torch.device, H: int, W: int,
                    scale: int):
-    """(R, resident grid) of B5 (``"megastep"``) or B6
-    (``"fused_warp_splat"``) at this image shape on ``dev``."""
+    """(R, resident grid) of B5 (``"megastep"``), B6
+    (``"fused_warp_splat"``) or B7b (``"finish_partials"``) at this image
+    shape on ``dev``."""
     from better_flow_tpu_torch.ops._build import library
 
     R, smem = _device_bands(dev, H, W, scale)
@@ -687,32 +703,37 @@ def warp_scal_row(geo: torch.Tensor, model) -> torch.Tensor:
                      ).reshape(1, 16)
 
 
-def fused_warp_splat_images_plain(stat, act, pr, scal, *, scale: int,
-                                  H: int, W: int):
+def fused_warp_splat_images_plain(stat, act, pr, scal, acc_t, acc_c, *,
+                                  scale: int, H: int, W: int):
     """The twin of B7a: the warp of ``warp_images_st_plain`` with the row's
-    explicit scalars, then the hi+lo splat.  Returns (new_pr, acc_t int64,
-    acc_c int32, 0)."""
+    explicit scalars, then the hi+lo splat added into the pair (acc_t,
+    acc_c) in place.  Returns (new_pr, acc_t, acc_c, 0)."""
     s = scal[0]
     prx, pry, _, _ = project_4param_reinit_cs(
         stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1], *s[4:11])
-    acc_t, acc_c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0], prx,
-                                pry, scal, scale=scale, H=H, W=W,
-                                time_lo=True)
+    t, c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0], prx, pry,
+                        scal, scale=scale, H=H, W=W, time_lo=True)
+    acc_t += t
+    acc_c += c
     return torch.stack([prx, pry], dim=1), acc_t, acc_c, 0
 
 
 def finish_partials_plain(acc_t, acc_c, *, scale: int, H: int, W: int):
-    """The twin of B7b: ``finish_values_plain`` with a zero eighth slot."""
+    """The twin of B7b: ``finish_values_plain`` with a zero eighth slot;
+    then the pair is cleared, as the kernel leaves it."""
     vals = finish_values_plain(acc_t, acc_c, scale=scale, H=H, W=W)
+    acc_t.zero_()
+    acc_c.zero_()
     return torch.cat([vals, vals.new_zeros(1)])
 
 
 def fused_warp_splat_plain(stat, act, pr, scal, *, scale: int, H: int,
                            W: int):
-    """The twin of B6: B7a's twin then B7b's.  Returns (new_pr, (8,) f32
-    [seven sums, 0])."""
-    npr, acc_t, acc_c, _ = fused_warp_splat_images_plain(
-        stat, act, pr, scal, scale=scale, H=H, W=W)
+    """The twin of B6: B7a's twin into a zero pair, then B7b's.  Returns
+    (new_pr, (8,) f32 [seven sums, 0])."""
+    acc_t, acc_c = image_pair(stat.device, H, W)
+    npr, *_ = fused_warp_splat_images_plain(stat, act, pr, scal, acc_t, acc_c,
+                                            scale=scale, H=H, W=W)
     return npr, finish_partials_plain(acc_t, acc_c, scale=scale, H=H, W=W)
 
 
@@ -754,14 +775,16 @@ def fused_warp_splat_call(stat, act, pr, scal, *, scale: int, H: int,
 # --------------------- B7a / B7b the composed iteration, cut at the images
 
 
-def fused_warp_splat_images_call(stat, act, pr, scal, *, scale: int, H: int,
-                                 W: int):
-    """The shard-local half of an event-parallel composed iteration: warp
-    every event slot with the (1, 16) row ``scal`` (``warp_scal_row``) and
-    splat the hi+lo time pair.  Returns (new_pr (nch, 2, CHUNK) f32, acc_t
-    (HP, WP) int64 fixed point, acc_c (HP, WP) int32, fallback_chunks).
-    The images are allocated per call, so each of several shards on one
-    device keeps its own until they are summed (``sum_images``);
+def fused_warp_splat_images_call(stat, act, pr, scal, acc_t, acc_c, *,
+                                 scale: int, H: int, W: int):
+    """The event phase of an event-parallel composed iteration: warp every
+    event slot with the (1, 16) row ``scal`` (``warp_scal_row``) and add the
+    hi+lo splat into the caller's pair ``acc_t`` (HP, WP) int64 fixed point,
+    ``acc_c`` (HP, WP) int32 (``image_pair``), which is zero at an
+    iteration's first launch; later launches of the same iteration add to
+    it.  One launch serves all of a process's shards: pass their chunks as
+    one range.  Returns (new_pr (nch, 2, CHUNK) f32, acc_t, acc_c,
+    fallback_chunks), the pair being the caller's own tensors;
     ``fallback_chunks`` is always 0 (see ``fused_warp_splat_call``)."""
     dev = stat.device
     nch = stat.shape[0]
@@ -769,15 +792,14 @@ def fused_warp_splat_images_call(stat, act, pr, scal, *, scale: int, H: int,
     _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
     _check("pr", pr, torch.float32, (nch, 2, CHUNK), dev)
     _check("scal", scal, torch.float32, (1, 16), dev)
+    _check_pair(acc_t, acc_c, H, W, dev)
     if _on_cpu(dev):
-        return fused_warp_splat_images_plain(stat, act, pr, scal,
-                                             scale=scale, H=H, W=W)
+        return fused_warp_splat_images_plain(stat, act, pr, scal, acc_t,
+                                             acc_c, scale=scale, H=H, W=W)
     from better_flow_tpu_torch.ops._build import library
 
     HP, WP = padded_image_shape(H, W)
     npr = torch.empty_like(pr)
-    acc_t = torch.empty((HP, WP), dtype=torch.int64, device=dev)
-    acc_c = torch.empty((HP, WP), dtype=torch.int32, device=dev)
     rc = library().bf_warp_splat_images(
         _ptr(scal), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr), _ptr(acc_t),
         _ptr(acc_c), nch, HP, WP, scale, _stream(dev))
@@ -787,22 +809,25 @@ def fused_warp_splat_images_call(stat, act, pr, scal, *, scale: int, H: int,
 
 def finish_partials_call(acc_t, acc_c, *, scale: int, H: int, W: int):
     """The replicated half of an event-parallel composed iteration, on the
-    summed images: box filter, normalise, mask, Scharr and the seven partial
-    sums.  Returns (8,) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0],
-    bitwise ``fused_warp_splat_call``'s on the same events."""
+    pair that B7a filled and the seam summed: box filter, normalise, mask,
+    Scharr and the seven partial sums, in one cooperative launch that
+    leaves the pair zero for the next iteration.  Returns (8,) f32 [cnt,
+    s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0], bitwise
+    ``fused_warp_splat_call``'s on the same events.  A launch the card
+    refuses raises and leaves the pair as it was."""
     dev = acc_t.device
-    HP, WP = padded_image_shape(H, W)
-    _check("acc_t", acc_t, torch.int64, (HP, WP), dev)
-    _check("acc_c", acc_c, torch.int32, (HP, WP), dev)
+    _check_pair(acc_t, acc_c, H, W, dev)
     if _on_cpu(dev):
         return finish_partials_plain(acc_t, acc_c, scale=scale, H=H, W=W)
     from better_flow_tpu_torch.ops._build import library
 
+    HP, WP = padded_image_shape(H, W)
+    R, smem = _device_bands(dev, H, W, scale)
     out = torch.empty(8, dtype=torch.float32, device=dev)
-    ws = _workspace(dev, H, W)
     rc = library().bf_finish_partials(
-        _ptr(acc_t), _ptr(acc_c), _ptr(out), _ptr(ws["img"]),
-        _ptr(ws["partials"]), HP, WP, H, W, scale, _stream(dev))
+        _ptr(acc_t), _ptr(acc_c), _ptr(out),
+        _ptr(_workspace(dev, H, W)["partials"]), HP, WP, H, W, scale, R, smem,
+        _stream(dev))
     _launch("finish_partials", rc)
     return out
 
@@ -1098,14 +1123,17 @@ def megastep2_call(stat, act, pr, st, img_t, img_c, geo, *, scale: int,
 
 
 def sum_images(images, comm=None):
-    """The seam of the event-parallel paths: the sum of the local shards'
-    (acc_t, acc_c) image pairs, then summed across the ranks of ``comm``
-    (a ``parallel.comm`` communicator; None or size 1: no collective).
-    Integer sums: exact and independent of the order."""
+    """The seam of the event-parallel paths, in place: the local (acc_t,
+    acc_c) image pairs are added into the first, which is then summed
+    across the ranks of ``comm`` in place (``all_reduce_sum_`` of a
+    ``parallel.comm`` communicator; None or size 1: no collective).
+    Returns the first pair, the very tensors that the finish then reads (B7b
+    also clears them for the drive's next iteration).  Integer sums: exact
+    and independent of the order."""
     acc_t, acc_c = images[0]
     for t, c in images[1:]:
-        acc_t = acc_t + t
-        acc_c = acc_c + c
+        acc_t += t
+        acc_c += c
     if comm is not None and comm.size > 1:
-        acc_t, acc_c = comm.all_reduce_sum([acc_t, acc_c])
+        comm.all_reduce_sum_([acc_t, acc_c])
     return acc_t, acc_c

@@ -12,7 +12,10 @@ Counterpart of what the JAX package takes from ``lax.psum`` / ``pmin`` /
   (NCCL moves CUDA tensors, gloo CPU tensors: ``distributed.initialize``
   creates the group with both backends where a card is present).
 
-Collectives take and return tensors; none works in place on its argument.
+Collectives take and return tensors; none works in place on its argument,
+except ``ProcessGroupComm.all_reduce_sum_``, the in-place sum that the
+event-parallel image seam (``ops.fused_model.sum_images``) calls when there
+is more than one rank.
 """
 
 from __future__ import annotations
@@ -79,6 +82,14 @@ class ProcessGroupComm:
 
     def all_reduce_sum(self, tensors):
         return self._reduce(tensors, self._dist.ReduceOp.SUM)
+
+    def all_reduce_sum_(self, tensors):
+        """``all_reduce_sum`` in place: every rank's contiguous tensors
+        become the sums over the ranks.  Returns them."""
+        for t in tensors:
+            self._dist.all_reduce(t, op=self._dist.ReduceOp.SUM,
+                                  group=self.group)
+        return list(tensors)
 
     def all_reduce_min(self, tensors):
         return self._reduce(tensors, self._dist.ReduceOp.MIN)

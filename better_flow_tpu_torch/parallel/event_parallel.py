@@ -2,14 +2,17 @@
 
 Counterpart of ``better_flow_tpu/parallel/event_parallel.py``.  The events
 of one slice are cut into shards over an ``EventGroup`` (``mesh``); every
-optimizer iteration runs the event phase per shard (B1, or B7a on the
-composed path), sums the shards' pre-filter images (local shards, then one
-all-reduce across ranks) and runs the image-space finish and the model
-update once per process on the summed images (B2, or B7b and the scalar
-chain).  The summed images are integers, so every rank computes the same
-model and the same continue flag with no further communication, and the
-result does not depend on the number of shards when they are cut on chunk
-boundaries (the scan pads the capacity to ``n_shards * CHUNK`` for that).
+optimizer iteration runs the event phase of the local shards, sums their
+pre-filter images across ranks and runs the image-space finish and the
+model update once per process on the summed images.  The megastep drive
+runs B1 per shard, adds the local images, all-reduces them and runs B2; the
+composed drive runs one B7a launch over all the local shards' chunks into
+the image pair it owns, all-reduces that pair in place and runs B7b and the
+scalar chain (B7b leaves the pair zero for the next iteration).  The summed
+images are integers, so every rank computes the same model and the same
+continue flag with no further communication, and the result does not
+depend on the number of shards when they are cut on chunk boundaries (the
+scan pads the capacity to ``n_shards * CHUNK`` for that).
 """
 
 from __future__ import annotations
@@ -66,8 +69,10 @@ def process_slice_event_parallel(ev: EventSlice, last_model: MotionModel,
         n_valid, = mesh.comm.all_reduce_sum([n_valid])
     stats = [prepare_chunk_layouts(e.x, e.y, e.t) for e in shards]
     acts = [pack_act(e.active) for e in shards]
-    res, _uvn = process_slice(stats, acts, last_model, cfg, sensor, bbox,
-                              int(n_valid), warm_start=warm_start, group=mesh)
+    # The local shards as one range of chunks, joined once a slice.
+    res, _uvn = process_slice(torch.cat(stats), torch.cat(acts), last_model,
+                              cfg, sensor, bbox, int(n_valid),
+                              warm_start=warm_start, group=mesh)
     # Each shard was padded to whole chunks: keep its own slots.
     slots = stats[0].shape[0] * CHUNK
 

@@ -6,8 +6,10 @@ process holds and their device.  The shards of a group are numbered rank by
 rank: rank r holds shards [r * n_local, (r + 1) * n_local).  One rank per
 card holding one shard is the deployment; several shards resident in one
 process are the analogue of the JAX tests' virtual CPU devices, and what
-the tests on the CPU and a single card run.  The drives loop over the local
-shards, sum their images, then all-reduce across the ranks.
+the tests on the CPU and a single card run.  The megastep drive loops over
+the local shards and sums their images, the composed drive splats all of
+them in one launch; either then all-reduces the image pair across the
+ranks.
 
 A ``Mesh(('slice', 'ev'))`` becomes a ``PipelineGroup``: independent slices
 over the ranks of its communicator, each slice's events over a process-local

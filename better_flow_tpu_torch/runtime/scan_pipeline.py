@@ -381,10 +381,11 @@ def slice_events(stat_s: torch.Tensor, sidx_s: torch.Tensor,
 def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     """The slice loop.  Returns (final carry, uvn (S, nch, 3, CHUNK),
     iters [S], ran [S], host_syncs).  Under an event ``group``
-    (``parallel.mesh.EventGroup``) the staged chunks are this process's:
-    they are cut into its ``n_local`` shards on chunk boundaries (every
-    chunk, and so its time base, is the unsharded one), and the activity
-    rows, the event phase and the final warp run per shard."""
+    (``parallel.mesh.EventGroup``) the staged chunks are this process's,
+    its ``n_local`` shards as equal chunk ranges in order (every chunk, and
+    so its time base, is the unsharded one): the activity rows run once
+    over them, the composed drive's event phase too (one B7a launch), the
+    megastep drive's event phase and final warp per shard."""
     dev = prepared["device"]
     plan = prepared["plan"]
     opt = cfg.optimizer
@@ -403,25 +404,18 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     ran = np.zeros(S, bool)
     syncs = 0
     nch = stat.shape[1]
-    if group is not None:
-        if nch % group.n_local != 0:
-            raise ValueError(f"{nch} staged chunks do not divide into "
-                             f"{group.n_local} local shards")
-        per = nch // group.n_local
-        cuts = [(k * per, (k + 1) * per) for k in range(group.n_local)]
+    if group is not None and nch % group.n_local != 0:
+        raise ValueError(f"{nch} staged chunks do not divide into "
+                         f"{group.n_local} local shards")
     xla = opt.scatter_mode == "xla"
     for s in range(S):
         ev = None
         if xla:
             ev = slice_events(stat[s], sidx[s], hist[s])
             stat_s = act = None
-        elif group is None:
+        else:
             stat_s = stat[s]
             act = act_rows_call(sidx[s], hist[s])
-        else:
-            stat_s = [stat[s, a:b] for a, b in cuts]
-            act = [act_rows_call(sidx[s, a * CHUNK:b * CHUNK], hist[s])
-                   for a, b in cuts]
         cur_tot = model.totals4().to(torch.float32)   # the seed row is f32
         res, uvn_s = process_slice(
             stat_s, act, model, opt, cfg.sensor,

@@ -17,14 +17,14 @@ in phases that each raise on failure:
    bitwise equal to its twin and to the B1 -> B2 kernel chain, with the
    chain's time beside its own; the composed path's kernel (B6) on the
    warp rows of an f32 and of an f64 carry, bitwise equal to its twin and
-   to the B7a -> B7b chain, with that chain's time beside its own; for B5
-   and B6 their band height R and resident grid, and each chain's device
-   operations one by one (``[kernels] breakdown`` lines, torch.profiler,
-   median of 20 calls); the
-   event-parallel pair (B7a warp + splat to images, B7b finish to the seven
-   sums) against their twins on both rows, their chain bitwise B6, and the
-   sum of four shards' images bitwise the unsharded images; beside each
-   kernel's time the least time the card could take (``bound_ms``);
+   to the B7a -> B7b chain, with that chain's time beside its own; for B5,
+   B6 and B7b their band height R and resident grid, and each chain's
+   device operations one by one (``[kernels] breakdown`` lines,
+   torch.profiler, median of 20 calls: one kernel for B7a and one for B7b,
+   no memset); the event-parallel pair (B7a warp + splat added into an
+   image pair, B7b finish to the seven sums, leaving the pair zero) against
+   their twins on both rows, their chain bitwise B6, and four shards a B7a
+   launch each bitwise one launch over them all; beside each kernel's time the least time the card could take (``bound_ms``);
 3. the scan, ``compensate_recording_scan`` with ``OptimizerConfig.fast()``,
    on the 2,000,000-event bench stream of ``bench.py`` (one warm-up run,
    then a measured run), with every kernel's launch count in that run;
@@ -45,9 +45,11 @@ in phases that each raise on failure:
    twins;
 9. the event-parallel path: ``compensate_recording_scan_sharded`` on the 2M
    events with 1 and 4 shards on the one card, under ``fast()`` (B1 per
-   shard, the image sum, B2) and with f64 totals (B7a per shard, the image
-   sum, B7b), each bitwise the unsharded scan staged with the same padding,
-   with the launch counts; then ``compensate_recording_multihost`` in one
+   shard, the image sum, B2) and with f64 totals (one B7a launch for all
+   shards, the seam, B7b), each bitwise the unsharded scan staged with the
+   same padding, with the launch counts (B3 once a slice) and the host ms
+   an iteration beside the unsharded run's; then
+   ``compensate_recording_multihost`` in one
    process over three slice ranges (chained carries, disjoint claims),
    bitwise the full scan;
 10. the tiled megapixel pipeline (``parallel.spatial``), all tiles resident
@@ -175,20 +177,26 @@ def bench_stream(n_events):
                                     for j in range(k)])}
 
 
-def timed(fn, runs=25, warmup=3):
+def timed(fn, runs=25, warmup=3, setup=None):
     """Median milliseconds of one ``fn()`` on the card, between two CUDA
     events queued behind a ~1 ms spin kernel: the host enqueues the call
     while the card spins, so the time is the card's and not the launch
-    overhead's (unless the call itself waits for the card)."""
+    overhead's (unless the call itself waits for the card).  ``setup()``,
+    run before each call and queued before the spin, is not timed (it puts
+    back the inputs that a call consumes)."""
     import torch
 
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if setup is not None:
+            setup()
         torch.cuda._sleep(2_000_000)
         a.record()
         fn()
@@ -208,29 +216,38 @@ def _op_name(name):
     return name.split("(")[0].split("<")[0].split("::")[-1].strip() or name
 
 
-def breakdown(fn, runs=20):
+def breakdown(fn, runs=20, traces=3):
     """The device operations of one ``fn()`` in launch order, each with its
     median time in microseconds over ``runs`` calls, from torch.profiler's
-    device trace.  Raises if the trace holds no device operation or a call
-    queued another number of them."""
+    device trace.  A trace whose operations do not divide into the calls
+    (the profiler dropped a record: 119 operations in 20 calls of six once)
+    is taken again, up to ``traces`` times; raises if none does or a trace
+    holds no device operation."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    ops = sorted((e.start_ns(), _op_name(e.name()),
-                  (e.end_ns() - e.start_ns()) * 1e-3)
-                 for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == DeviceType.CUDA)
-    if not ops or len(ops) % runs:
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        ops = sorted((e.start_ns(), _op_name(e.name()),
+                      (e.end_ns() - e.start_ns()) * 1e-3)
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA)
+        if not ops:
+            raise AssertionError("breakdown: no device operation traced")
+        if len(ops) % runs == 0:
+            break
+        log(f"[kernels] breakdown: {len(ops)} device operations in {runs} "
+            "calls; tracing again")
+    else:
         raise AssertionError(f"breakdown: {len(ops)} device operations in "
-                             f"{runs} calls")
+                             f"{runs} calls, {traces} traces")
     per = len(ops) // runs
     return [(ops[k][1], statistics.median(ops[r * per + k][2]
                                           for r in range(runs)))
@@ -413,9 +430,10 @@ def check_b6_b7(stat, act, pr, st, geo, scale, H, W, dev):
     """B6, B7a and B7b against their twins on the warp row of an f32 carry
     (the state's model) and of an f64 carry (f64 totals whose angle's f32
     rounding changes the row's sine): new positions, images and the seven
-    sums bitwise; the B7a -> B7b chain bitwise B6; the sum of four shards'
-    images bitwise the unsharded images.  Returns the three kernels' errors,
-    median times and bounds on the f32 row."""
+    sums bitwise; B7b leaves the pair zero; the B7a -> B7b chain bitwise
+    B6; four shards, a B7a launch each into one pair, bitwise one launch
+    over them all.  Returns the three kernels' errors, median times and
+    bounds on the f32 row."""
     import torch
 
     from better_flow_tpu_torch.models.global_flow import model_from_state
@@ -431,8 +449,10 @@ def check_b6_b7(stat, act, pr, st, geo, scale, H, W, dev):
                           m32.total_div)), comp_dx=f64(0.0), comp_dy=f64(0.0),
                       comp_rot=f64(0.0), comp_div=f64(0.0))
     _, s32 = cos_sin_f32(torch.tensor(-angle, dtype=torch.float32))
-    slots, pixels = stat.shape[0] * stat.shape[2], H * W
+    nch = stat.shape[0]
+    slots, pixels = nch * stat.shape[2], H * W
     kw = dict(scale=scale, H=H, W=W)
+    one_per_slot = -(-slots // fm.BAND_THREADS)
     res = {}
     for name, model in (("f32", m32), ("f64", m64)):
         scal = fm.warp_scal_row(geo, model)
@@ -448,78 +468,101 @@ def check_b6_b7(stat, act, pr, st, geo, scale, H, W, dev):
             raise AssertionError(f"fused_warp_splat {name} row: sums "
                                  f"{vals.tolist()}")
 
+        pair = fm.image_pair(dev, H, W)
         npr7, at, ac, fb = fm.fused_warp_splat_images_call(stat, act, pr,
-                                                           scal, **kw)
+                                                           scal, *pair, **kw)
         npr7_p, at_p, ac_p, _ = fm.fused_warp_splat_images_plain(
-            stat, act, pr, scal, **kw)
+            stat, act, pr, scal, *fm.image_pair(dev, H, W), **kw)
         err_a = max(max_err(npr7, npr7_p), max_err(at, at_p),
                     max_err(ac, ac_p))
+        at0, ac0 = at.clone(), ac.clone()
         vals7 = fm.finish_partials_call(at, ac, **kw)
-        err_b = max_err(vals7, fm.finish_partials_plain(at, ac, **kw))
+        err_b = max_err(vals7, fm.finish_partials_plain(at_p, ac_p, **kw))
         if err_a != 0.0 or err_b != 0.0 or fb != 0:
             raise AssertionError(f"B7 {name} row: max abs errors {err_a} "
                                  f"(images), {err_b} (sums) against the twins")
+        if at.any() or ac.any():
+            raise AssertionError(f"B7b {name} row: the pair is not zero")
         if not (torch.equal(npr7, npr) and torch.equal(vals7, vals)):
             raise AssertionError(f"B7a -> B7b differs from B6 on the {name} "
                                  "row")
-        # Four shards cut on chunk boundaries: the summed images are the
-        # unsharded ones (30 chunks: 8 + 8 + 8 + 6).
-        parts = [fm.fused_warp_splat_images_call(
-            stat[a:a + 8], act[a:a + 8], pr[a:a + 8].contiguous(), scal,
-            **kw) for a in range(0, stat.shape[0], 8)]
-        sum_t, sum_c = fm.sum_images([(p[1], p[2]) for p in parts])
-        if not (torch.equal(sum_t, at) and torch.equal(sum_c, ac)
-                and torch.equal(torch.cat([p[0] for p in parts]), npr7)):
-            raise AssertionError(f"B7a {name} row: four shards' summed "
-                                 "images differ from the unsharded images")
-        n_acc = int(ac.sum())
-        timed_plain = lambda f, *a: timed(lambda: f(*a, **kw))
+        # Four shards cut on chunk boundaries (30 chunks: 8 + 8 + 8 + 6), a
+        # launch a shard into one pair: bitwise the one launch over them all.
+        cuts = [slice(a, min(a + 8, nch)) for a in range(0, nch, 8)]
+        p = fm.image_pair(dev, H, W)
+        got = torch.cat([fm.fused_warp_splat_images_call(
+            stat[c], act[c], pr[c].contiguous(), scal, *p, **kw)[0]
+            for c in cuts])
+        if not (torch.equal(got, npr7) and torch.equal(p[0], at0)
+                and torch.equal(p[1], ac0)):
+            raise AssertionError(f"B7a {name} row: a launch a shard differs "
+                                 "from the one launch over all shards")
+        n_acc = int(ac0.sum())
+        filled = lambda: (pair[0].copy_(at0), pair[1].copy_(ac0))
+        zeroed = lambda: (pair[0].zero_(), pair[1].zero_())
 
         def chain(scal=scal):
-            _, t, c, _ = fm.fused_warp_splat_images_call(stat, act, pr,
-                                                         scal, **kw)
+            _, t, c, _ = fm.fused_warp_splat_images_call(stat, act, pr, scal,
+                                                         *pair, **kw)
             return fm.finish_partials_call(t, c, **kw)
 
-        log_breakdown(f"B7a -> B7b chain {name} row", chain)
+        ops = log_breakdown(f"B7a -> B7b chain {name} row", chain)
+        if len(ops) != 2 or any(o.startswith("Memset") for o, _ in ops):
+            raise AssertionError(f"B7a -> B7b chain {name} row: device "
+                                 f"operations {ops}, expected one kernel "
+                                 "each and no memset")
         log_breakdown(f"fused_warp_splat {name} row",
                       lambda: fm.fused_warp_splat_call(stat, act, pr, scal,
                                                        **kw))
+        b7a = lambda: fm.fused_warp_splat_images_call(stat, act, pr, scal,
+                                                      *pair, **kw)
+        b7a_plain = lambda: fm.fused_warp_splat_images_plain(
+            stat, act, pr, scal, *pair, **kw)
+        b7b = lambda: fm.finish_partials_call(*pair, **kw)
+        b7b_plain = lambda: fm.finish_partials_plain(*pair, **kw)
         res[name] = {
             "fused_warp_splat": dict(
                 max_abs_err=err,
-                ms=timed_plain(fm.fused_warp_splat_call, stat, act, pr, scal),
+                ms=timed(lambda: fm.fused_warp_splat_call(stat, act, pr, scal,
+                                                          **kw)),
                 chain_ms=timed(chain),
-                plain_ms=timed_plain(fm.fused_warp_splat_plain, stat, act, pr,
-                                     scal),
+                plain_ms=timed(lambda: fm.fused_warp_splat_plain(
+                    stat, act, pr, scal, **kw)),
                 **bound(nbytes(scal, stat, act, pr, npr, vals),
                         slots * OPS_WARP + n_acc * OPS_SPLAT
                         + ops_finish(pixels, scale)),
                 **dict(zip(("R", "grid"), fm.iteration_grid(
                     "fused_warp_splat", dev, H, W, scale))),
                 redesigned=7),
+            # The bounds count the function's own work: B7a's slots and the
+            # pair written once, B7b's pair read once (the zeroing that
+            # leaves the pair clear for the next call is in neither).
             "fused_warp_splat_images": dict(
                 max_abs_err=err_a,
-                ms=timed_plain(fm.fused_warp_splat_images_call, stat, act, pr,
-                               scal),
-                plain_ms=timed_plain(fm.fused_warp_splat_images_plain, stat,
-                                     act, pr, scal),
-                **bound(nbytes(scal, stat, act, pr, npr7, at, ac),
-                        slots * OPS_WARP + n_acc * OPS_SPLAT)),
+                ms=timed(b7a, setup=zeroed),
+                plain_ms=timed(b7a_plain, setup=zeroed),
+                **bound(nbytes(scal, stat, act, pr, npr7, at0, ac0),
+                        slots * OPS_WARP + n_acc * OPS_SPLAT),
+                grid=one_per_slot, redesigned=8),
             "finish_partials": dict(
                 max_abs_err=err_b,
-                ms=timed_plain(fm.finish_partials_call, at, ac),
-                plain_ms=timed_plain(fm.finish_partials_plain, at, ac),
-                **bound(nbytes(at, ac, vals7), ops_finish(pixels, scale))),
+                ms=timed(b7b, setup=filled),
+                plain_ms=timed(b7b_plain, setup=filled),
+                **bound(nbytes(at0, ac0, vals7), ops_finish(pixels, scale)),
+                **dict(zip(("R", "grid"), fm.iteration_grid(
+                    "finish_partials", dev, H, W, scale))),
+                redesigned=8),
         }
         for k, r in res[name].items():
             log(f"[kernels] {k} {name} row: max_abs_err "
                 f"{r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  plain "
-                f"{r['plain_ms']:.4f} ms"
-                + (f"  chain {r['chain_ms']:.4f} ms  bound "
-                   f"{r['bound_ms']:.5f} ms  R {r['R']}  grid {r['grid']}"
-                   if "chain_ms" in r else ""))
-        log(f"[kernels] {name} row: B7a -> B7b bitwise B6; four shards' "
-            "summed images bitwise the unsharded images")
+                f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms"
+                + (f"  chain {r['chain_ms']:.4f} ms" if "chain_ms" in r
+                   else "")
+                + (f"  R {r['R']}" if "R" in r else "")
+                + f"  grid {r['grid']}")
+        log(f"[kernels] {name} row: B7a -> B7b bitwise B6, the pair zero "
+            "after B7b; a launch a shard bitwise one launch over all shards")
     return res["f32"]
 
 
@@ -619,6 +662,7 @@ def phase_sharded(d, dev):
     from better_flow_tpu_torch.parallel.multihost import (
         compensate_recording_multihost,
     )
+    from better_flow_tpu_torch.runtime import scan_pipeline
     from better_flow_tpu_torch.runtime.scan_pipeline import (
         compensate_recording_scan,
     )
@@ -648,14 +692,16 @@ def phase_sharded(d, dev):
                     raise AssertionError(f"sharded {name} x{shards}: {k} "
                                          "differs from the unsharded scan")
             total = int(rs["iters"].sum())
+            # B3 once a slice and, on the composed path, B7a once an
+            # iteration for all the resident shards; B1 and B4 per shard.
             want = dict.fromkeys(lc, 0)
-            want["act_rows"] = shards * len(rs["iters"])
+            want["act_rows"] = len(rs["iters"])
             if name == "fast":
                 want.update(warp_images_st=shards * total,
                             megastep_finish=total,
                             warp_uv=shards * int(rs["ran"].sum()))
             else:
-                want.update(fused_warp_splat_images=shards * total,
+                want.update(fused_warp_splat_images=total,
                             finish_partials=total)
             if lc != want:
                 raise AssertionError(f"sharded {name} x{shards}: launches "
@@ -673,6 +719,20 @@ def phase_sharded(d, dev):
             if name == "f64" and shards == 4:
                 keep = lc
                 full = ru
+                # The host's share: PyTorch operations (and views) a slice
+                # of each run, the wrappers' own included.
+                per_slice = {tag: count_operations(scan_pipeline,
+                                                   "process_slice", f)
+                             for tag, f in (("unsharded", lambda: (
+                                 compensate_recording_scan(
+                                     None, None, None, cfg, prepared=prep))),
+                                 ("x4", lambda: (
+                                     compensate_recording_scan_sharded(
+                                         None, None, None, cfg, mesh,
+                                         prepared=prep))))}
+                log(f"[sharded] f64 x4: PyTorch operations, views a slice "
+                    f"{per_slice['x4']} (unsharded {per_slice['unsharded']})"
+                    f", {total / len(rs['iters']):.4f} iterations a slice")
     cfg = cfgs[1][1]
     fm.reset_launches()
     rm = compensate_recording_multihost(d["x"], d["y"], d["t_ns"], cfg,

@@ -326,8 +326,8 @@ def test_image_pair_stays_zero_across_interleaved_kernels(cuda):
                         lambda: tfm.megastep_finish_call(at, ac, st, geo,
                                                          **chain))
         assert torch.equal(st2, st5)
-        _, at7, ac7, _ = tfm.fused_warp_splat_images_call(stat, act, pr,
-                                                          scal, **kw)
+        _, at7, ac7, _ = tfm.fused_warp_splat_images_call(
+            stat, act, pr, scal, *tfm.image_pair(cuda, Hs, Ws), **kw)
         vals7 = _launched("finish_partials",
                           lambda: tfm.finish_partials_call(at7, ac7, **kw))
         assert torch.equal(vals7, vals)
@@ -411,42 +411,92 @@ def test_composed_path_on_card_matches_cpu_twins(cuda, case):
 @pytest.mark.parametrize("carry", ["f32", "f64"])
 @pytest.mark.parametrize("res,nch", [((24, 32), NCH), ((180, 240), 8)])
 def test_b7_kernels_match_twins_and_chain_is_b6(cuda, res, nch, carry):
-    """B7a (warp + splat to the images) and B7b (finish to the seven sums)
-    against their twins on the card, bitwise, on the warp row of an f32 and
-    of an f64 carry; the B7a -> B7b chain bitwise B6; two shards' summed
-    images bitwise the unsharded images."""
+    """B7a (warp + splat added into the caller's pair) and B7b (finish to
+    the seven sums, leaving the pair zero) against their twins on the card,
+    bitwise, on the warp row of an f32 and of an f64 carry; the B7a -> B7b
+    chain bitwise B6; B7a over 4 resident shards in one launch, and in one
+    launch a shard into one pair, bitwise the unsharded launch."""
     Hs, Ws = image_shape(res, SCALE)
     keys = ("stat", "act", "pr", "st", "geo")
     _, gpu = _both(slice_inputs(2, res=res, nch=nch), keys, cuda)
     stat, act, pr, st, geo = gpu
     scal = tfm.warp_scal_row(geo, _carry_models(st, cuda)[carry])
     kw = dict(scale=SCALE, H=Hs, W=Ws)
+    pair = tfm.image_pair(cuda, Hs, Ws)
     npr, at, ac, fb = _launched(
         "fused_warp_splat_images",
-        lambda: tfm.fused_warp_splat_images_call(stat, act, pr, scal, **kw))
-    npr_p, at_p, ac_p, _ = tfm.fused_warp_splat_images_plain(stat, act, pr,
-                                                             scal, **kw)
-    assert fb == 0 and torch.equal(npr, npr_p)
+        lambda: tfm.fused_warp_splat_images_call(stat, act, pr, scal, *pair,
+                                                 **kw))
+    assert at is pair[0] and ac is pair[1] and fb == 0
+    npr_p, at_p, ac_p, _ = tfm.fused_warp_splat_images_plain(
+        stat, act, pr, scal, *tfm.image_pair(cuda, Hs, Ws), **kw)
+    assert torch.equal(npr, npr_p)
     assert torch.equal(at, at_p) and torch.equal(ac, ac_p)
     assert int(ac.sum()) > 2000
+    at0, ac0 = at.clone(), ac.clone()
+    vals_p = tfm.finish_partials_plain(at_p, ac_p, **kw)
     vals = _launched("finish_partials",
                      lambda: tfm.finish_partials_call(at, ac, **kw))
-    assert torch.equal(vals, tfm.finish_partials_plain(at, ac, **kw))
+    assert torch.equal(vals, vals_p)
+    assert not at.any() and not ac.any()      # left zero for the next B7a
     assert float(vals[0]) > 3000 and float(vals[7]) == 0.0
     npr6, vals6 = tfm.fused_warp_splat_call(stat, act, pr, scal, **kw)
     assert torch.equal(npr, npr6) and torch.equal(vals, vals6)
     # The twins on the CPU give the same bits as the kernels on the card.
     cpu = [t.cpu() for t in (stat, act, pr, scal)]
-    _, at_c, ac_c, _ = tfm.fused_warp_splat_images_call(*cpu, **kw)
-    assert torch.equal(at.cpu(), at_c) and torch.equal(ac.cpu(), ac_c)
+    _, at_c, ac_c, _ = tfm.fused_warp_splat_images_call(
+        *cpu, *tfm.image_pair("cpu", Hs, Ws), **kw)
+    assert torch.equal(at0.cpu(), at_c) and torch.equal(ac0.cpu(), ac_c)
     np.testing.assert_array_equal(
         vals.cpu().numpy(), tfm.finish_partials_call(at_c, ac_c, **kw).numpy())
-    half = nch // 2
-    parts = [tfm.fused_warp_splat_images_call(
-        stat[a:b], act[a:b], pr[a:b], scal, **kw)
-        for a, b in ((0, half), (half, nch))]
-    sum_t, sum_c = tfm.sum_images([(p[1], p[2]) for p in parts])
-    assert torch.equal(sum_t, at) and torch.equal(sum_c, ac)
+    # Four resident shards (as many as there are chunks, up to four): made
+    # separately and joined, one launch; or a launch each into one pair.
+    n_sh = min(4, nch)
+    cuts = [slice(k * nch // n_sh, (k + 1) * nch // n_sh)
+            for k in range(n_sh)]
+    joined = [torch.cat([a[c].clone() for c in cuts]) for a in (stat, act,
+                                                                 pr)]
+    for how in ("joined", "per shard"):
+        two = tfm.image_pair(cuda, Hs, Ws)
+        before = tfm.LAUNCHES["fused_warp_splat_images"]
+        if how == "per shard":
+            got = torch.cat([tfm.fused_warp_splat_images_call(
+                stat[c], act[c], pr[c], scal, *two, **kw)[0] for c in cuts])
+        else:
+            got = tfm.fused_warp_splat_images_call(*joined, scal, *two,
+                                                   **kw)[0]
+        torch.cuda.synchronize()
+        assert tfm.LAUNCHES["fused_warp_splat_images"] - before == \
+            (n_sh if how == "per shard" else 1)
+        assert torch.equal(got, npr), how
+        assert torch.equal(two[0], at0) and torch.equal(two[1], ac0), how
+
+
+def test_b7b_refused_launch_raises_and_leaves_the_pair(cuda, monkeypatch):
+    """A B7b launch with too little shared memory for its band, or a band
+    height of 0, raises, counts no launch and runs nothing: the pair still
+    holds its images, which the next launch reads and clears."""
+    keys = ("stat", "act", "pr", "st", "geo")
+    _, (stat, act, pr, st, geo) = _both(slice_inputs(0), keys, cuda)
+    scal = tfm.warp_scal_row(geo, _carry_models(st, cuda)["f32"])
+    kw = dict(scale=SCALE, H=H, W=W)
+    _, at, ac, _ = tfm.fused_warp_splat_images_call(
+        stat, act, pr, scal, *tfm.image_pair(cuda, H, W), **kw)
+    at0, ac0 = at.clone(), ac.clone()
+    want = tfm.finish_partials_plain(at0.clone(), ac0.clone(), **kw)
+    R, smem = tfm.band_rows(H, W, SCALE)
+    for bad in ((R, smem - 16), (0, smem), (R, tfm.BAND_SMEM_BUDGET + 16)):
+        monkeypatch.setattr(tfm, "_device_bands", lambda *a, bad=bad: bad)
+        before = dict(tfm.LAUNCHES)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            tfm.finish_partials_call(at, ac, **kw)
+        torch.cuda.synchronize()
+        assert tfm.LAUNCHES == before
+        assert torch.equal(at, at0) and torch.equal(ac, ac0), bad
+    monkeypatch.undo()
+    got = _launched("finish_partials",
+                    lambda: tfm.finish_partials_call(at, ac, **kw))
+    assert torch.equal(got, want) and not at.any() and not ac.any()
 
 
 @pytest.mark.parametrize("case", ["fast", "reference", "f64",
@@ -455,8 +505,9 @@ def test_sharded_scan_on_card_is_unsharded_and_cpu_twins(cuda, case):
     """The event-parallel scan with 4 shards resident on the card: bitwise
     the unsharded card run on the same staging, equal to the CPU twins'
     4-shard run within the scan's gates, through B1 + B2 (megastep drives,
-    never B5) or B7a + B7b (composed drives), with shards x iterations
-    event launches and one finish per iteration."""
+    never B5) or B7a + B7b (composed drives): B1 once a shard an
+    iteration, B7a once an iteration for all four shards, one finish an
+    iteration and one B3 launch a slice."""
     d = synthetic_events(20000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
                          vy=-14.0, seed=4)
     cfg = {"fast": small_cfg(),
@@ -481,9 +532,10 @@ def test_sharded_scan_on_card_is_unsharded_and_cpu_twins(cuda, case):
     event, finish = (("warp_images_st", "megastep_finish")
                      if case in ("fast", "reference")
                      else ("fused_warp_splat_images", "finish_partials"))
-    assert lc[event] == n * total and lc[finish] == total
+    assert lc[event] == (n if event == "warp_images_st" else 1) * total
+    assert lc[finish] == total
     assert lc["megastep"] == 0 and lc["fused_warp_splat"] == 0
-    assert lc["act_rows"] == n * len(rg["iters"])
+    assert lc["act_rows"] == len(rg["iters"])
 
 
 @pytest.mark.parametrize("time_lo", [True, False])

@@ -62,8 +62,8 @@ def test_cuda_header_constants_match_layout():
     st_names = [n for n in dir(layout) if re.fullmatch(r"ST_[A-Z]+", n)]
     for name in st_names:
         assert found[name] == getattr(layout, name), name
-    # The kernel template of B5 and B6: its block size and shared-memory
-    # budget, which ops/fused_model.band_rows mirrors.
+    # The kernel template of B5, B6, B7a and B7b: its block size and
+    # shared-memory budget, which ops/fused_model.band_rows mirrors.
     csrc = Path(tgf.__file__).parents[1] / "csrc"
     finish = (csrc / "finish.cuh").read_text()
     iteration = (csrc / "iteration.cuh").read_text()
@@ -79,10 +79,11 @@ def test_cuda_header_constants_match_layout():
     # Its slots: the entry points count them in chunks of common.cuh's
     # CHUNK, which finish.cuh brings in.
     assert '#include "common.cuh"' in finish
-    for entry in ("megastep.cu", "fused_warp_splat.cu"):
+    for entry in ("megastep.cu", "fused_warp_splat.cu",
+                  "warp_splat_images.cu", "finish_partials.cu"):
         src = (csrc / entry).read_text()
         assert '#include "iteration.cuh"' in src
-        assert "nch * bf::CHUNK" in src
+        assert ("nch * bf::CHUNK" in src) != (entry == "finish_partials.cu")
 
 
 # ----------------------------------------------------- small numpy ports

@@ -181,10 +181,6 @@ def _slice(seed=3):
 def _port_slice(s, opt, group=None):
     stat = layout.prepare_chunk_layouts(_t(s["x"]), _t(s["y"]), _t(s["t"]))
     act = pack_act(_t(s["valid"]))
-    if group is not None:
-        half = stat.shape[0] // 2 + 1
-        stat = [stat[:half], stat[half:]]
-        act = [act[:half], act[half:]]
     return tgf.process_slice(stat, act, MotionModel.zero(), opt, SENSOR,
                              s["bbox"], s["n"], group=group)
 
@@ -274,7 +270,7 @@ def test_merged_flag_ignored_under_a_group_and_on_the_composed_loop(
     image sum) and the composed loop (``use_megastep=False``) run as
     without the flag, bitwise, and never call B12."""
     s = _slice()
-    group = make_event_mesh(2, device="cpu")
+    group = make_event_mesh(3, device="cpu")   # a chunk a shard
     base = SCHEDULES["fast"]
     cases = [(dict(group=group), base),
              (dict(), dataclasses.replace(base, use_megastep=False))]

@@ -345,6 +345,8 @@ _WORKER = textwrap.dedent("""
     assert c.broadcast([t], src=1)[0].tolist() == [2, 20]
     assert c.all_gather(t).tolist() == [[1, 10], [2, 20]]
     assert t.tolist() == [c.rank + 1, 10 * (c.rank + 1)]   # not in place
+    u = t.clone()
+    assert c.all_reduce_sum_([u])[0] is u and u.tolist() == [3, 30]
     assert process_local_slice_range(10) == ((0, 5), (5, 10))[c.rank]
     host = make_host_mesh(ev_per_host=2, device="cpu")
     assert (host.comm.size, host.n_slices, host.ev.n_local) == (2, 2, 2)

@@ -1,12 +1,13 @@
 """The event-parallel kernel pair of the PyTorch port against the JAX
 package's Pallas kernels.
 
-B7a (``fused_warp_splat_images``: warp + splat to the two pre-filter
-images) and B7b (``finish_partials``: the finish down to the seven sums) are
-the composed iteration cut where event shards sum their images.  The twins
-(what the wrappers run on CPU tensors) get the numpy-seeded inputs of
-``torch_inputs.py`` and are held against the Pallas kernels in interpret
-mode.
+B7a (``fused_warp_splat_images``: warp + splat added into the caller's
+pair of pre-filter images) and B7b (``finish_partials``: the finish down to
+the seven sums, leaving the pair zero) are the composed iteration cut where
+event shards sum their images.  The twins (what the wrappers run on CPU
+tensors) get the numpy-seeded inputs of ``torch_inputs.py`` and are held
+against the Pallas kernels in interpret mode, and hold the pair's contract
+as the kernels do: B7a adds into it, B7b reads and clears it.
 
 Tolerances.  New positions: rtol 1e-6 (they are in fact bitwise).  Count
 image: exact.  Time image: rtol 1e-5, atol 1e-6, as ``test_torch_kernels.py``
@@ -14,8 +15,8 @@ holds B1's (the JAX kernel sums in f32, the port exact fixed point).  The
 seven sums: within 1e-6 of the sum of each sum's terms' magnitudes (JAX sums
 in f32 in XLA's order, the port in f64; the gradient sums cancel, so an rtol
 on their own values fails).  The twin chain B7a -> B7b is bitwise B6's twin,
-and the summed images of n shards cut on chunk boundaries are exactly the
-unsharded images.
+and n shards cut on chunk boundaries, launched into one pair or summed from
+pairs of their own, give exactly the unsharded images.
 """
 
 import numpy as np
@@ -65,6 +66,13 @@ def _torch_args(d, row):
     return [_t(d[k]) for k in ("stat", "act", "pr")] + [_t(row)]
 
 
+def _b7a(stat, act, pr, scal, **kw):
+    """B7a into a new zero pair: (new_pr, acc_t, acc_c, fallback)."""
+    return tfm.fused_warp_splat_images_call(
+        stat, act, pr, scal, *tfm.image_pair(stat.device, kw["H"], kw["W"]),
+        **kw)
+
+
 @pytest.mark.parametrize("res,scale,nch", CASES)
 def test_b7a_twin_matches_pallas(res, scale, nch):
     H, W = image_shape(res, scale)
@@ -73,9 +81,11 @@ def test_b7a_twin_matches_pallas(res, scale, nch):
     npr_j, at_j, ac_j, fb_j = jfm.fused_warp_splat_images(
         jnp.asarray(d["stat"]), jnp.asarray(d["act"]), jnp.asarray(d["pr"]),
         scale, geo[0, 0], geo[0, 1], geo[0, 2], geo[0, 3], *warp, crl, H, W)
+    pair = tfm.image_pair("cpu", H, W)
     npr, at, ac, fb = tfm.fused_warp_splat_images_call(
-        *_torch_args(d, row), scale=scale, H=H, W=W)
-    assert at.dtype == torch.int64 and ac.dtype == torch.int32 and fb == 0
+        *_torch_args(d, row), *pair, scale=scale, H=H, W=W)
+    assert at is pair[0] and ac is pair[1] and fb == 0
+    assert at.dtype == torch.int64 and ac.dtype == torch.int32
     assert tuple(at.shape) == tuple(ac.shape) == np.asarray(at_j).shape
     np.testing.assert_allclose(npr.numpy(), np.asarray(npr_j), rtol=1e-6)
     np.testing.assert_array_equal(ac.numpy().astype(np.float32),
@@ -83,6 +93,15 @@ def test_b7a_twin_matches_pallas(res, scale, nch):
     assert int(ac.sum()) > 2000
     np.testing.assert_allclose(tfm.time_image_f32(at).numpy(),
                                np.asarray(at_j), rtol=1e-5, atol=1e-6)
+    # Two launches over the two halves of the chunks into one zero pair:
+    # the same images and positions as the one launch.
+    stat, act, pr, scal = _torch_args(d, row)
+    half = tfm.image_pair("cpu", H, W)
+    nprs = [tfm.fused_warp_splat_images_call(
+        stat[c], act[c], pr[c], scal, *half, scale=scale, H=H, W=W)[0]
+        for c in (slice(0, nch // 2), slice(nch // 2, nch))]
+    assert torch.equal(half[0], at) and torch.equal(half[1], ac)
+    assert torch.equal(torch.cat(nprs), npr)
     assert tfm.LAUNCHES["fused_warp_splat_images"] == 0     # CPU: the twin
 
 
@@ -110,18 +129,19 @@ def test_b7b_twin_matches_pallas(res, scale, nch):
     their f32 conversion."""
     H, W = image_shape(res, scale)
     d, _warp, _crl, row = _inputs(res, scale, nch, seed=9)
-    _, at, ac, _ = tfm.fused_warp_splat_images_call(
-        *_torch_args(d, row), scale=scale, H=H, W=W)
+    _, at, ac, _ = _b7a(*_torch_args(d, row), scale=scale, H=H, W=W)
     p = jfm.finish_partials(jnp.asarray(tfm.time_image_f32(at).numpy()),
                             jnp.asarray(ac.numpy().astype(np.float32)),
                             scale, H, W)
     want = np.array([float(p[k]) for k in PARTS], np.float64)
+    mag = _term_scale(at.clone(), ac.clone(), scale, H, W)
     got = tfm.finish_partials_call(at, ac, scale=scale, H=H, W=W)
     assert got.dtype == torch.float32 and tuple(got.shape) == (8,)
     err = np.abs(got.numpy()[:7].astype(np.float64) - want)
-    mag = _term_scale(at, ac, scale, H, W)
     assert np.all(err <= 1e-6 * mag), (got, want, mag)
     assert want[0] > 500 and float(got[7]) == 0.0
+    # B7b leaves the pair zero, ready for the next iteration's B7a.
+    assert not at.any() and not ac.any()
     assert tfm.LAUNCHES["finish_partials"] == 0
 
 
@@ -132,38 +152,44 @@ def test_b7_twin_chain_is_bitwise_b6_twin(res, scale, nch):
     args = _torch_args(d, row)
     kw = dict(scale=scale, H=H, W=W)
     npr6, vals6 = tfm.fused_warp_splat_call(*args, **kw)
-    npr, at, ac, _ = tfm.fused_warp_splat_images_call(*args, **kw)
-    vals = tfm.finish_partials_call(at, ac, **kw)
-    assert torch.equal(npr, npr6) and torch.equal(vals, vals6)
-    # ... and, through B1's twin with the time pair, B2's finish: the
-    # images are those of the state-driven warp on the same scalars.
+    npr, at, ac, _ = _b7a(*args, **kw)
+    # Through B1's twin with the time pair, B2's finish: the images are
+    # those of the state-driven warp on the same scalars.
     st, geo = _t(d["st"]), _t(d["geo"])
     _, at1, ac1 = tfm.warp_images_st_call(args[0], args[1], args[2], st, geo,
                                           time_lo=True, **kw)
     assert torch.equal(ac1, ac)
     np.testing.assert_allclose(tfm.time_image_f32(at1).numpy(),
                                tfm.time_image_f32(at).numpy(), rtol=1e-6)
+    vals = tfm.finish_partials_call(at, ac, **kw)
+    assert torch.equal(npr, npr6) and torch.equal(vals, vals6)
 
 
 @pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
 def test_summed_shard_images_are_the_unsharded_images(n_shards):
     """Shards cut on chunk boundaries keep every chunk and its time base;
-    integer images add exactly in any order."""
+    integer images add exactly in any order: launched one after another
+    into one pair, or each into a pair of its own and summed by the seam
+    (in place, into the first pair)."""
     res, scale, nch = (24, 32), 3, 8
     H, W = image_shape(res, scale)
     d, _warp, _crl, row = _inputs(res, scale, nch, seed=13)
     stat, act, pr, scal = _torch_args(d, row)
     kw = dict(scale=scale, H=H, W=W)
-    npr, at, ac, _ = tfm.fused_warp_splat_images_call(stat, act, pr, scal,
-                                                      **kw)
+    npr, at, ac, _ = _b7a(stat, act, pr, scal, **kw)
     per = nch // n_shards
-    parts = [tfm.fused_warp_splat_images_call(
-        stat[a:a + per], act[a:a + per], pr[a:a + per], scal, **kw)
-        for a in range(0, nch, per)]
-    for order in (parts, parts[::-1]):
-        sum_t, sum_c = tfm.sum_images([(p[1], p[2]) for p in order])
+    cuts = [slice(a, a + per) for a in range(0, nch, per)]
+    for order in (cuts, cuts[::-1]):
+        pair = tfm.image_pair("cpu", H, W)
+        nprs = {c.start: tfm.fused_warp_splat_images_call(
+            stat[c], act[c], pr[c], scal, *pair, **kw)[0] for c in order}
+        assert torch.equal(pair[0], at) and torch.equal(pair[1], ac)
+        assert torch.equal(torch.cat([nprs[c.start] for c in cuts]), npr)
+        parts = [_b7a(stat[c], act[c], pr[c], scal, **kw) for c in order]
+        first = parts[0][1]
+        sum_t, sum_c = tfm.sum_images([(p[1], p[2]) for p in parts])
+        assert sum_t is first
         assert torch.equal(sum_t, at) and torch.equal(sum_c, ac)
-    assert torch.equal(torch.cat([p[0] for p in parts]), npr)
     # B1's images add the same way (the sharded megastep's seam).
     st, geo = _t(d["st"]), _t(d["geo"])
     _, at1, ac1 = tfm.warp_images_st_call(stat, act, pr, st, geo,
@@ -181,12 +207,31 @@ def test_b7_wrappers_check_their_tensors():
     d, _warp, _crl, row = _inputs(res, scale, nch)
     stat, act, pr, scal = _torch_args(d, row)
     kw = dict(scale=scale, H=H, W=W)
+    at, ac = tfm.image_pair("cpu", H, W)
     with pytest.raises(ValueError, match="scal"):
-        tfm.fused_warp_splat_images_call(stat, act, pr, scal[:, :8], **kw)
+        tfm.fused_warp_splat_images_call(stat, act, pr, scal[:, :8], at, ac,
+                                         **kw)
     with pytest.raises(TypeError, match="pr"):
-        tfm.fused_warp_splat_images_call(stat, act, pr.double(), scal, **kw)
-    _, at, ac, _ = tfm.fused_warp_splat_images_call(stat, act, pr, scal, **kw)
+        tfm.fused_warp_splat_images_call(stat, act, pr.double(), scal, at, ac,
+                                         **kw)
+    # The pair: its dtype, shape, device and layout, for both kernels.
+    meta = torch.empty(ac.shape, dtype=torch.int32, device="meta")
+    bad = [(TypeError, "acc_t", (at.to(torch.float32), ac)),
+           (TypeError, "acc_c", (at, ac.to(torch.int64))),
+           (ValueError, "acc_c", (at, ac[:-1])),
+           (ValueError, "acc_t", (at[:, :-4], ac)),
+           (ValueError, "acc_c", (at, meta)),
+           (ValueError, "acc_c", (at, ac.t().contiguous().t()))]
+    for err, name, pair in bad:
+        with pytest.raises(err, match=name):
+            tfm.fused_warp_splat_images_call(stat, act, pr, scal, *pair, **kw)
+        with pytest.raises(err, match=name):
+            tfm.finish_partials_call(*pair, **kw)
+    _, at, ac, _ = tfm.fused_warp_splat_images_call(stat, act, pr, scal, at,
+                                                    ac, **kw)
+    assert ac.any()
     with pytest.raises(TypeError, match="acc_t"):
         tfm.finish_partials_call(at.to(torch.float32), ac, **kw)
     with pytest.raises(ValueError, match="acc_c"):
         tfm.finish_partials_call(at, ac[:-1], **kw)
+    assert ac.any()   # a refused call leaves the pair as it was
