@@ -1,16 +1,17 @@
-// The finish of one optimizer iteration, shared by megastep_finish.cu (B2),
-// finish_partials.cu (B7b), finish_local.cu (B9, a batch of tiles with an
-// ownership window) and iteration.cuh (B5 and B6, whose band pass repeats
-// the per-row order on rows held in shared memory): image -> gradient sums
-// -> next state (B6, B7b and B9 stop at the seven sums).
+// The finish of one optimizer iteration, shared by finish_local.cu (B9, a
+// batch of tiles with an ownership window) and iteration.cuh (B2, B5, B6,
+// B7b and B12, whose band pass repeats the per-row order on rows held in
+// shared memory): image -> gradient sums -> next state (B6, B7b and B9 stop
+// at the seven sums).
 //
 // _finish_values of the TPU kernel (box filter, count normalisation, mask to
 // the logical H x W image, all-nine nonzero mask, Scharr, seven sums) as
 // per-row device functions, and _model_update_phase (gradient from the
 // sums, reference divider step or safeguarded secant step, Kahan totals,
-// divider doubling, exit test) as one thread's function.  Both kernels call
-// these same functions with FINISH_THREADS threads per block, so their sums
-// are taken in the same order and their states are bitwise equal.
+// divider doubling, exit test) as one thread's function.  Every kernel
+// calls these same functions, or repeats their order, with FINISH_THREADS
+// threads per block, so their sums are taken in the same order and their
+// states are bitwise equal.
 //
 // The TPU kernel rolls the padded image circularly and masks to H x W; here
 // a read outside the image is zero.  The two agree because no accepted
@@ -41,7 +42,7 @@ struct UpdateParams {
 
 // Threads per block of every finish pass.  The per-row and the row-sum
 // reductions run in a tree over this many values, so the sums (and the
-// state) depend on it: B2 and B5 must use the same value.
+// state) depend on it: every finish must use the same value.
 constexpr int FINISH_THREADS = 256;
 constexpr int NSUM = 9;
 
@@ -132,7 +133,7 @@ __device__ inline void block_sum(FinishShared& sh) {
 // [c0, c1) are summed (finish_local.cu: a tile's owned region); the
 // stencils read the whole image, and the row and column weights are the
 // image's own indices.  A thread keeps its columns whatever the window, so
-// the whole-image window sums in the order of gradient_row.
+// the whole-image window sums in iteration.cuh's band order.
 __device__ inline void gradient_row_window(const float* img, double* partials,
                                            int i, int H, int W, int r0,
                                            int r1, int c0, int c1,
@@ -176,12 +177,6 @@ __device__ inline void gradient_row_window(const float* img, double* partials,
   block_sum(sh);
   if (threadIdx.x < NSUM)
     partials[static_cast<size_t>(i) * NSUM + threadIdx.x] = sh[threadIdx.x][0];
-}
-
-// The whole image's sums of row i.
-__device__ inline void gradient_row(const float* img, double* partials, int i,
-                                    int H, int W, FinishShared& sh) {
-  gradient_row_window(img, partials, i, H, W, 0, H, 0, W, sh);
 }
 
 // _model_update_phase, one thread.  Op order follows the JAX source.
@@ -316,18 +311,6 @@ __device__ inline void finish_sums(const double* partials, int rows,
   for (int q = 0; q < 5; ++q) vals[q] = static_cast<float>(sh[q][0]);
   vals[5] = static_cast<float>(sh[5][0]) - static_cast<float>(sh[6][0]);
   vals[6] = static_cast<float>(sh[7][0]) + static_cast<float>(sh[8][0]);
-}
-
-// The seven sums and, on thread 0, the scalar update into st_out.  Every
-// thread of one block calls it.
-__device__ inline void update_block(const double* partials, int rows,
-                                    const float* st, const float* geo,
-                                    float* st_out, float fscale,
-                                    const UpdateParams& p, FinishShared& sh) {
-  float vals[7];
-  finish_sums(partials, rows, vals, sh);
-  if (threadIdx.x != 0) return;
-  model_update(vals, st, geo, st_out, fscale, p);
 }
 
 }  // namespace bf

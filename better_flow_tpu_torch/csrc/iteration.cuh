@@ -1,6 +1,7 @@
-// One optimizer iteration on the H100, as three phases that three kernels
+// One optimizer iteration on the H100, as three phases that six kernels
 // compose: megastep.cu (B5), fused_warp_splat.cu (B6), warp_splat_images.cu
-// (B7a) and finish_partials.cu (B7b).
+// (B7a), finish_partials.cu (B7b), megastep_finish.cu (B2) and megastep2.cu
+// (B12).
 //
 // The phases:
 //   1. splat_phase: grid-stride warp + splat of every slot
@@ -22,15 +23,24 @@
 // The kernels:
 //   - iteration_kernel<kMegastep> (B5) and <kFused> (B6): one cooperative
 //     launch of all three phases, a grid.sync() between each two;
-//   - iteration_kernel<kFinish> (B7b): one cooperative launch of phases 2
-//     and 3 on a pair its caller filled, one grid.sync() between them;
-//   - B7a's kernel (warp_splat_images.cu): phase 1 alone, an ordinary
-//     launch with no barrier.
-// So B7a -> B7b is B6 cut at the image seam, where event-parallel shards
-// sum their pairs.  Every kernel runs the per-event function of common.cuh
-// and the sums of finish.cuh in their order, so B5 is bitwise the B1 -> B2
-// chain and B6 the B7a -> B7b chain; the image pair is zero before B5, B6
-// and B7a and again after B5, B6 and B7b.
+//   - <kFinish> (B7b, and B10/B11 after their splat) and <kFinishState>
+//     (B2): one cooperative launch of phases 2 and 3 on a pair its caller
+//     filled, one grid.sync() between them; B7b writes the seven sums, B2
+//     the scalar update into the next state;
+//   - <kMerged> (B12): phases 2 and 3 on the previous call's pair when the
+//     state's HAS flag is set (B2's), a grid.sync(), then merged_phase: the
+//     warp of every slot with B4's direction vectors and, while the new
+//     state's CONT is set, the splat into the same pair, which the tail
+//     left zero;
+//   - B7a's kernel (warp_splat_images.cu) and B1's (warp_images_st.cu):
+//     phase 1 alone, an ordinary launch with no barrier and no memset.
+// So B7a -> B7b is B6 cut at the image seam, B1 -> B2 is B5 cut there, and
+// B12 is B2 -> B1 (or B2 -> B4 on the call that clears CONT).  Every kernel
+// runs the per-event function of common.cuh and the sums of finish.cuh in
+// their order, so B5 is bitwise the B1 -> B2 chain, B6 the B7a -> B7b
+// chain and B12 the B2 -> B1 chain with B4; the image pair is zero before
+// B1, B5, B6, B7a and a slice's first B12, and again after B2, B5, B6, B7b
+// and a B12 that clears CONT.
 //
 // Bound: the images (12 B a pixel, written by the splat, read by the band
 // pass, zeroed for the next call) and the slots (32 B read and written)
@@ -81,18 +91,19 @@ struct BandLayout {
 };
 
 struct IterationArgs {
-  const float* geo;   // [x_sh, y_sh, w_dyn, h_dyn, ...]: B5's geometry row,
-                      // B6's and B7a's warp row (B7b: unused)
-  const float* src;   // B5: the (1, 32) state; B6, B7a: the (1, 16) warp row
+  const float* geo;   // [x_sh, y_sh, w_dyn, h_dyn, ...]: the geometry row
+                      // (B2, B5, B12), B6's and B7a's warp row (B7b: unused)
+  const float* src;   // B2, B5, B12: the (1, 32) state; B6, B7a: the warp row
   const float* stat;
   const float* act;
-  const float* pr;
-  float* npr;
-  unsigned long long* acc_t;  // the image pair: zero on entry and on exit
+  const float* pr;    // (nch, 2, CHUNK); B12: (nch, 4, CHUNK), rows 0-1 read
+  float* npr;         // as pr
+  unsigned long long* acc_t;  // the image pair (see the contract above)
   int* acc_c;
   double* partials;            // (H, 9)
-  float* out;                  // B5: the next state; B6, B7b: the (8,) sums
-  int n, HP, WP, H, W, scale, time_lo, rows;   // n: slots (B7b: 0)
+  float* out;                  // B2, B5, B12: the next state, never src;
+                               // B6, B7b: the (8,) sums
+  int n, HP, WP, H, W, scale, time_lo, rows;   // n: slots (B2, B7b: 0)
   UpdateParams p;
 };
 
@@ -214,10 +225,11 @@ __device__ inline void band_image(int r0, int R, int H, int W,
 }
 
 // Band rows [r0, r1)'s nine f64 sums into partials: per row, each
-// thread's leaf is gradient_row's per-pixel terms over its columns j = t,
-// t + 256, ... in that order; then block_sum's tree over the 256 leaves of
-// every row and sum at once (strides 128, 64 and 32 through shared memory,
-// 16 to 1 by shuffles), pairing the same elements in the same order.
+// thread's leaf is gradient_row_window's per-pixel terms over its columns
+// j = t, t + 256, ... in that order; then block_sum's tree over the 256
+// leaves of every row and sum at once (strides 128, 64 and 32 through
+// shared memory, 16 to 1 by shuffles), pairing the same elements in the
+// same order.
 __device__ inline void band_sums(int r0, int r1, int W, const BandLayout& L,
                                  const float* sI, double* leaf,
                                  double* partials) {
@@ -307,12 +319,15 @@ __device__ inline void zero_pair(unsigned long long* acc_t, int* acc_c,
 }
 
 // The kernels of this template.
-enum IterationKind { kMegastep = 0, kFused = 1, kFinish = 2 };
+enum IterationKind {
+  kMegastep = 0, kFused = 1, kFinish = 2, kFinishState = 3, kMerged = 4
+};
 
 // The warp scalars, computed once per block by thread 0: from the state
-// (kState, B5) or from the caller's row (B6).  B7a reads the row in every
-// thread instead: its one-slot-a-thread blocks would wait on this barrier
-// before their first load (0.15-0.2 us more device time on an H100).
+// (kState: B5, and B12 from the new state) or from the caller's row (B6).
+// B7a reads the row in every thread instead: its one-slot-a-thread blocks
+// would wait on this barrier before their first load (0.15-0.2 us more
+// device time on an H100).
 template <bool kState>
 __device__ inline Warp block_warp(const float* src) {
   __shared__ Warp sw;
@@ -383,21 +398,67 @@ __device__ inline void tail_phase(const IterationArgs& a,
   if (gridDim.x == 1) zero_pair(a.acc_t, a.acc_c, a.HP, a.WP, 0);
 }
 
+// B12 after its head: every slot warped with the new state ``w`` (B4's
+// arithmetic), [pr_x, pr_y, nx, ny] written, and, while the new state's
+// CONT is set, the position splatted into the pair (B1's splat).
+__device__ inline void merged_phase(const IterationArgs& a, const Warp& w) {
+  const bool splat = a.out[ST_CONT] > 0.0f;
+  const size_t nthreads = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < static_cast<size_t>(a.n); i += nthreads) {
+    const size_t c = i / CHUNK;
+    const size_t k = i - c * CHUNK;
+    const float* s = a.stat + c * 3 * CHUNK;
+    const float* p = a.pr + c * 4 * CHUNK;
+    float* q = a.npr + c * 4 * CHUNK;
+    const float t_ns = s[2 * CHUNK + k];
+    float ox, oy, nx, ny;
+    warp_event(w, s[k], s[CHUNK + k], t_ns, p[k], p[CHUNK + k], &ox, &oy, &nx,
+               &ny);
+    q[k] = ox;
+    q[CHUNK + k] = oy;
+    q[2 * CHUNK + k] = nx;
+    q[3 * CHUNK + k] = ny;
+    if (splat)
+      splat_position(ox, oy, a.act[c * CHUNK + k] > 0.0f,
+                     t_ns * INV_NS_PER_SEC, s[2 * CHUNK] * INV_NS_PER_SEC,
+                     a.geo, a.acc_t, a.acc_c, a.WP, a.scale, a.time_lo);
+  }
+}
+
 // kKind: kMegastep (B5: warp from the state, scalar update into the next
-// state), kFused (B6: warp from the row, the seven sums and a zero) or
-// kFinish (B7b: no splat; the seven sums of the caller's pair).
+// state), kFused (B6: warp from the row, the seven sums and a zero),
+// kFinish (B7b: no splat; the seven sums of the caller's pair),
+// kFinishState (B2: no splat; the scalar update) or kMerged (B12).
 template <int kKind>
 __global__ void __launch_bounds__(BAND_THREADS, 2)
 iteration_kernel(IterationArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  if constexpr (kKind != kFinish) {
+  if constexpr (kKind == kMegastep || kKind == kFused) {
     splat_phase(a, block_warp<kKind == kMegastep>(a.src));
     grid.sync();
   }
-  band_phase(a, smem);
-  grid.sync();
-  tail_phase<kKind == kMegastep>(a, smem);
+  if constexpr (kKind == kMerged) {
+    // The head: every thread reads the same flag, so the branch is uniform
+    // across the grid; the barriers stay outside it.
+    const bool head = a.src[ST_HAS] > 0.5f;
+    if (head) band_phase(a, smem);
+    grid.sync();
+    if (head) {
+      tail_phase<true>(a, smem);
+    } else if (blockIdx.x == 0 && threadIdx.x == 0) {
+      for (int k = 0; k < ST_SIZE; ++k) a.out[k] = a.src[k];
+      a.out[ST_CONT] = 1.0f;
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) a.out[ST_HAS] = 1.0f;
+    grid.sync();   // the new state is written and the pair is zero
+    merged_phase(a, block_warp<true>(a.out));
+  } else {
+    band_phase(a, smem);
+    grid.sync();
+    tail_phase<kKind != kFused && kKind != kFinish>(a, smem);
+  }
 }
 
 // Resident blocks of iteration_kernel<kKind> per device at ``smem``

@@ -1,4 +1,5 @@
-// Warp every event of a slice and splat it into the time and count images.
+// Warp every event of a slice and add its splat into the time and count
+// images of the caller's pair.
 //
 // Replaces _kernel_warp_images_st / warp_images_st_call (better_flow_tpu/
 // ops/pallas/fused_model.py).  Per event (bf::warp_splat_event in
@@ -20,8 +21,13 @@
 // quantisation of the weight; an int64 holds 2^31 s of summed time per
 // pixel, beyond 61,440 events of any slice span a sensor records.
 //
+// The pair is zero on entry: megastep_finish.cu (B2), which reads it, leaves
+// it zero, so this launch needs no memset.  One launch may cover all of a
+// process's event-parallel shards (contiguous chunk ranges of one slice):
+// the integer sum is that of a launch a shard.
+//
 // Bound: on a spread slice, bytes (36 B read and 8 B written per event plus
-// the two 1.8 MB images zeroed per call); on a converged slice, where
+// the two images, 12 B a pixel, written once); on a converged slice, where
 // events pile onto a few pixels, atomic contention on those pixels.  The
 // grid runs over events, not chunks (30 chunks would fill 30 of 132 SMs);
 // the window, the row-band fallbacks and the one-hot matmul of the TPU
@@ -48,17 +54,12 @@ extern "C" int bf_warp_images_st(const float* geo, const float* st,
                                  const float* stat, const float* act,
                                  const float* pr, float* npr,
                                  long long* acc_t, int* acc_c, int nch,
-                                 int HP, int WP, int scale, int time_lo,
+                                 int WP, int scale, int time_lo,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t pixels = static_cast<size_t>(HP) * WP;
-  cudaError_t e = cudaMemsetAsync(acc_t, 0, pixels * sizeof(long long), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaMemsetAsync(acc_c, 0, pixels * sizeof(int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int n = nch * bf::CHUNK;
   const int threads = 256;
-  warp_images_st_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(
+  warp_images_st_kernel<<<(n + threads - 1) / threads, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       geo, st, stat, act, pr, npr,
       reinterpret_cast<unsigned long long*>(acc_t), acc_c, n, WP, scale,
       time_lo);

@@ -39,12 +39,12 @@ Event parallelism (the JAX package's ``axis_name`` seam).  Given an
 ``EventGroup`` (``parallel.mesh``), ``process_slice`` takes the local
 shards' ``stat`` and ``act`` (one tensor each, holding their chunks in
 order) and every iteration splits where the shards'
-pre-filter images are summed: the megastep drive runs B1 per shard, the sum
-(``ops.fused_model.sum_images``: local shards, then one all-reduce across
-ranks), then B2 once (never B5, as in the JAX package); the composed drive
-runs one B7a launch over all the local shards into the image pair it owns
-for the slice, the all-reduce of that pair in place, then B7b, which reads
-the pair and leaves it zero for the next iteration.  The images are
+pre-filter images are summed: each drive runs one splat launch over all the
+local shards (B1 in the megastep drive, B7a in the composed drive) into the
+image pair it owns for the slice, the all-reduce of that pair across ranks
+in place (``ops.fused_model.sum_images``), then one finish (B2, never B5,
+as in the JAX package; B7b), which reads the pair and leaves it zero for
+the next iteration.  The images are
 integers, so the sum is exact and every rank computes the same state from
 it: the continue flag needs no collective, and a sharded slice is bitwise
 the unsharded one when the shards are cut on chunk boundaries.
@@ -71,7 +71,7 @@ from better_flow_tpu_torch.ops.gradient import masked_scharr
 from better_flow_tpu_torch.ops.layout import (
     CHUNK, ST_CDIV, ST_CDX, ST_CDY, ST_CNT, ST_CONT, ST_CROT, ST_CX, ST_CY,
     ST_DDIV, ST_DIV, ST_DX, ST_DY, ST_PD, ST_RDIV, ST_ROT, ST_SIZE, ST_SL,
-    ST_TDIV, ST_TDX, ST_TDY, ST_TROT, ST_XDIV, ST_YDIV, padded_image_shape,
+    ST_TDIV, ST_TDX, ST_TDY, ST_TROT, ST_XDIV, ST_YDIV,
 )
 from better_flow_tpu_torch.ops.reductions import (
     center_of_mass, model_compute, model_from_partials,
@@ -257,14 +257,16 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     """The megastep drive: one unconditional iteration, then iterations
     while the state's CONT flag is set, then the final-warp epilogue.  An
     iteration is one B5 launch, or the B1 + B2 pair under
-    ``cfg.megastep_split``; under an event ``group`` (``stat`` and ``act``
-    the local shards' chunks in order) B1 per shard, the sum of the images
-    over shards and ranks, then B2.  The host reads the CONT flag once per
-    iteration.  On one device ``cfg.megastep_merged`` takes the merged
-    drive (``run_fused_mega2``); under a group it is ignored, as in the JAX
-    package.  Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out);
-    under a group ``out`` and ``uvn`` hold the local shards' chunks in
-    order."""
+    ``cfg.megastep_split`` (B1 adds into an image pair allocated once per
+    call, which B2 reads and leaves zero); under an event ``group``
+    (``stat`` and ``act`` the local shards' chunks in order) one B1 launch
+    over all the local shards, the in-place sum of the pair across ranks
+    (``sum_images``), then B2; the final warp (B4) runs per shard.  The host
+    reads the CONT flag once per iteration.  On one device
+    ``cfg.megastep_merged`` takes the merged drive (``run_fused_mega2``);
+    under a group it is ignored, as in the JAX package.  Returns (model,
+    out (nch, 4, CHUNK), uvn, iters, seed_out); under a group ``out`` and
+    ``uvn`` hold the local shards' chunks in order."""
     if group is None and cfg.megastep_merged:
         return run_fused_mega2(stat, act, geo, model0, cfg, scale, H, W,
                                seed=seed)
@@ -272,30 +274,28 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
     st = initial_state(model0, cfg, seed)
     stats, acts = _as_shards(stat, group), _as_shards(act, group)
-    prs = [s[:, 0:2].contiguous() for s in stats]
+    pr = stat[:, 0:2].contiguous()
+    split = group is not None or cfg.megastep_split
+    pair = image_pair(stat.device, H, W) if split else None
     iters = 0
     while True:
-        if group is None and not cfg.megastep_split:
-            prs[0], st = megastep_call(stats[0], acts[0], prs[0], st, geo,
-                                       scale=scale, H=H, W=W,
-                                       time_lo=time_lo, **statics)
+        if not split:
+            pr, st = megastep_call(stat, act, pr, st, geo, scale=scale, H=H,
+                                   W=W, time_lo=time_lo, **statics)
         else:
-            images = []
-            for k in range(len(stats)):
-                prs[k], acc_t, acc_c = warp_images_st_call(
-                    stats[k], acts[k], prs[k], st, geo, scale=scale, H=H,
-                    W=W, time_lo=time_lo)
-                images.append((acc_t, acc_c))
-            acc_t, acc_c = images[0] if group is None \
-                else sum_images(images, group.comm)
+            pr, acc_t, acc_c = warp_images_st_call(
+                stat, act, pr, st, geo, *pair, scale=scale, H=H, W=W,
+                time_lo=time_lo)
+            if group is not None:
+                acc_t, acc_c = sum_images(acc_t, acc_c, group.comm)
             st = megastep_finish_call(acc_t, acc_c, st, geo, scale=scale,
                                       H=H, W=W, **statics)
         iters += 1
         if not st[0, ST_CONT].item() > 0:
             break
     seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
-    ends = [warp_uv_call(stats[k], prs[k], acts[k], st, 0.0)
-            for k in range(len(stats))]
+    ends = [warp_uv_call(s, p, a, st, 0.0) for s, p, a in
+            zip(stats, _as_shards(pr, group), acts)]
     return (model_from_state(st), _cat([o for o, _ in ends]),
             _cat([u for _, u in ends]), iters, seed_out)
 
@@ -308,28 +308,26 @@ def run_fused_mega2(stat, act, geo, model0: MotionModel,
     sets CONT), then calls while the state's CONT flag is set; each call's
     head runs the previous call's finish and model update, and the call
     whose head clears CONT warps every event with the final model and
-    writes the direction vectors, so it is the final warp.  The images are
-    carried from call to call.  The first call always leads to a second,
-    so the host reads the CONT flag after every later call: once an
-    iteration, as in the megastep drive.  Returns (model, out (nch, 4,
-    CHUNK) [pr_x, pr_y, nx, ny], uvn (nch, 3, CHUNK) [nx * k, ny * k,
-    1 - act], iters, seed_out), bitwise those of the megastep drive (B5, or
-    B1 + B2, then B4)."""
+    writes the direction vectors, so it is the final warp.  The calls share
+    one image pair, allocated once per call of this drive: each call reads
+    the previous call's splat, leaves the pair zero and splats into it.  The
+    first call always leads to a second, so the host reads the CONT flag
+    after every later call: once an iteration, as in the megastep drive.
+    Returns (model, out (nch, 4, CHUNK) [pr_x, pr_y, nx, ny], uvn (nch, 3,
+    CHUNK) [nx * k, ny * k, 1 - act], iters, seed_out), bitwise those of the
+    megastep drive (B5, or B1 + B2, then B4)."""
     statics = finish_statics(cfg)
     time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
-    HP, WP = padded_image_shape(H, W)
-    dev = stat.device
-    step = lambda pr, st, img_t, img_c: megastep2_call(
-        stat, act, pr, st, img_t, img_c, geo, scale=scale, H=H, W=W,
+    pair = image_pair(stat.device, H, W)
+    step = lambda pr, st: megastep2_call(
+        stat, act, pr, st, *pair, geo, scale=scale, H=H, W=W,
         time_lo=time_lo, **statics)
     out = step(torch.cat([stat[:, 0:2], torch.zeros_like(stat[:, 0:2])],
                          dim=1),
-               initial_state(model0, cfg, seed),
-               torch.zeros((HP, WP), dtype=torch.int64, device=dev),
-               torch.zeros((HP, WP), dtype=torch.int32, device=dev))
+               initial_state(model0, cfg, seed))
     iters = 0          # the first call runs no finish: one update a call
     while True:
-        out = step(*out)
+        out = step(out[0], out[1])
         iters += 1
         if not out[1][0, ST_CONT].item() > 0:
             break
@@ -672,7 +670,7 @@ def run_fused_composed(stat, act, geo, geom: SliceGeometry,
         else:
             pr, acc_t, acc_c, _fb = fused_warp_splat_images_call(
                 stat, act, s.pr, scal, *pair, scale=scale, H=H, W=W)
-            acc_t, acc_c = sum_images([(acc_t, acc_c)], group.comm)
+            acc_t, acc_c = sum_images(acc_t, acc_c, group.comm)
             p = finish_partials_call(acc_t, acc_c, scale=scale, H=H, W=W)
         cx_img, cy_img, terms = model_from_partials(p)
         model = m.replace(cx=cx_img, cy=cy_img, dx=terms.dx, dy=terms.dy,

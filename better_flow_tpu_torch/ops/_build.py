@@ -27,10 +27,10 @@ BUILD_DIR = PKG / "_build"
 
 # --fmad=false: the warp and the Kahan model update must round after every
 # multiply and add, as the f32 reference does.  No fast-math: IEEE division
-# and the accurate cos/sin.  The grid-wide barrier of iteration.cuh (B5,
-# B6, B7b) and megastep2.cu (cooperative_groups grid.sync()) needs no
-# -rdc=true since CUDA 11; it needs only the cooperative launch that their
-# entry points make.
+# and the accurate cos/sin.  The grid-wide barrier of iteration.cuh (B2,
+# B5, B6, B7b, B12: cooperative_groups grid.sync()) needs no -rdc=true
+# since CUDA 11; it needs only the cooperative launch that their entry
+# points make.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC",
@@ -130,36 +130,34 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bf_act_rows.argtypes = [P, P, I, I, P, P]
-        lib.bf_warp_images_st.argtypes = [P, P, P, P, P, P, P, P,
-                                          I, I, I, I, I, P]
-        lib.bf_megastep_finish.argtypes = [
-            P, P, P, P, P, P, P, I, I, I, I, I,
+        lib.bf_warp_images_st.argtypes = [P] * 8 + [I] * 4 + [P]
+        lib.bf_megastep_finish.argtypes = [P] * 6 + [I] * 7 + [
             ctypes.POINTER(UpdateParams), P]
         lib.bf_warp_uv.argtypes = [P, P, P, P, F, P, P, I, P]
         lib.bf_megastep.argtypes = [P] * 10 + [I] * 9 + [
             ctypes.POINTER(UpdateParams), I, P]
+        lib.bf_megastep2.argtypes = lib.bf_megastep.argtypes
         lib.bf_fused_warp_splat.argtypes = [P] * 9 + [I] * 8 + [P]
-        lib.bf_megastep_grid.argtypes = [I]
-        lib.bf_fused_warp_splat_grid.argtypes = [I]
         lib.bf_warp_splat_images.argtypes = [P] * 7 + [I] * 4 + [P]
         lib.bf_finish_partials.argtypes = [P] * 4 + [I] * 7 + [P]
-        lib.bf_finish_partials_grid.argtypes = [I]
         lib.bf_splat_local.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
         lib.bf_finish_local.argtypes = [P, P, P, P, P,
                                         I, I, I, I, I, I, I, I, I, I, P]
-        lib.bf_fused_model_partials.argtypes = [P] * 10 + [I] * 6 + [P]
+        lib.bf_fused_model_partials.argtypes = [P] * 9 + [I] * 8 + [P]
         lib.bf_fused_model_partials_windowed.argtypes = \
             lib.bf_fused_model_partials.argtypes
-        lib.bf_megastep2.argtypes = [P] * 13 + [I] * 7 + [
-            ctypes.POINTER(UpdateParams), I, P]
-        for fn in (lib.bf_act_rows, lib.bf_warp_images_st,
+        grids = [getattr(lib, f"bf_{k}_grid") for k in (
+            "megastep", "fused_warp_splat", "finish_partials",
+            "megastep_finish", "megastep2")]
+        for fn in grids:
+            fn.argtypes = [I]
+        for fn in [lib.bf_act_rows, lib.bf_warp_images_st,
                    lib.bf_megastep_finish, lib.bf_warp_uv, lib.bf_megastep,
                    lib.bf_fused_warp_splat, lib.bf_warp_splat_images,
                    lib.bf_finish_partials, lib.bf_splat_local,
                    lib.bf_finish_local, lib.bf_fused_model_partials,
-                   lib.bf_fused_model_partials_windowed, lib.bf_megastep2,
-                   lib.bf_megastep_grid, lib.bf_fused_warp_splat_grid,
-                   lib.bf_finish_partials_grid):
+                   lib.bf_fused_model_partials_windowed,
+                   lib.bf_megastep2] + grids:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

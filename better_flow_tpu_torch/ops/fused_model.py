@@ -14,15 +14,18 @@ The wrappers replace the functions of the same name in
 ``fused_warp_splat_images``, ``finish_partials``, ``fused_model_partials``
 and ``fused_model_partials_windowed``.
 
-Images.  ``warp_images_st_call`` returns the time image as int64 fixed
-point (``FIXED_PER_SEC`` units per second) and the count image as int32,
-so that the card's atomic accumulation is exact and the same on every run
-(see csrc/warp_images_st.cu); ``time_image_f32`` gives the f32 time image
-that the JAX kernel returns.  ``fused_warp_splat_images_call`` adds the
-same integer images into an image pair its caller owns (``image_pair``),
-which ``sum_images`` sums across ranks in place and ``finish_partials_call``
-reads and leaves zero; an integer sum is exact whatever the order and the
-number of launches, shards and ranks.
+Images.  The splats accumulate the time image as int64 fixed point
+(``FIXED_PER_SEC`` units per second) and the count image as int32, so that
+the card's atomic accumulation is exact and the same on every run (see
+csrc/warp_images_st.cu); ``time_image_f32`` gives the f32 time image that
+the JAX kernel returns.  The pair is its caller's (``image_pair``) and
+zero when a splat starts: ``warp_images_st_call`` (B1) and
+``fused_warp_splat_images_call`` (B7a) add into it, ``sum_images`` sums it
+across ranks in place, and ``megastep_finish_call`` (B2) and
+``finish_partials_call`` (B7b) read it and leave it zero;
+``megastep2_call`` (B12) reads it, leaves it zero and splats into it.  An
+integer sum is exact whatever the order and the number of launches, shards
+and ranks.  The plain twins keep the same contract on the CPU.
 ``splat_local_call`` returns them for a batch of tiles (the tiled
 pipeline's halo fold-in and escape lane add into them exactly), and
 ``finish_local_call`` reads such a batch.
@@ -92,8 +95,9 @@ def _check_pair(acc_t, acc_c, H: int, W: int, device) -> None:
 
 def image_pair(device, H: int, W: int):
     """A zero image pair for ``H`` x ``W`` images on ``device``: the (HP,
-    WP) int64 fixed-point time image and int32 count image that B7a adds
-    into and B7b reads and leaves zero."""
+    WP) int64 fixed-point time image and int32 count image that B1 and B7a
+    add into, B2 and B7b read and leave zero, and B12 reads, leaves zero and
+    splats into."""
     HP, WP = padded_image_shape(H, W)
     return (torch.zeros((HP, WP), dtype=torch.int64, device=device),
             torch.zeros((HP, WP), dtype=torch.int32, device=device))
@@ -210,22 +214,28 @@ def _splat_plain(t_sec, act, prx, pry, geo, *, scale: int, H: int, W: int,
             acc_c[:-1].reshape(HP, WP).contiguous())
 
 
-def warp_images_st_plain(stat, act, pr, st, geo, *, scale: int, H: int,
-                         W: int, time_lo: bool = True):
+def warp_images_st_plain(stat, act, pr, st, geo, acc_t, acc_c, *,
+                         scale: int, H: int, W: int, time_lo: bool = True):
+    """The twin of B1: the warp from the state, then the splat added into
+    the pair (acc_t, acc_c) in place."""
     prx, pry, _, _ = project_4param_reinit(
         stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
         *_warp_args(st))
-    acc_t, acc_c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0], prx,
-                                pry, geo, scale=scale, H=H, W=W,
-                                time_lo=time_lo)
+    t, c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0], prx, pry, geo,
+                        scale=scale, H=H, W=W, time_lo=time_lo)
+    acc_t += t
+    acc_c += c
     return torch.stack([prx, pry], dim=1), acc_t, acc_c
 
 
-def warp_images_st_call(stat, act, pr, st, geo, *, scale: int, H: int,
-                        W: int, time_lo: bool = True):
-    """Warp every event from the state ``st`` and splat it.  Returns
-    (new_pr (nch, 2, CHUNK) f32, acc_t (HP, WP) int64 fixed point,
-    acc_c (HP, WP) int32)."""
+def warp_images_st_call(stat, act, pr, st, geo, acc_t, acc_c, *, scale: int,
+                        H: int, W: int, time_lo: bool = True):
+    """Warp every event from the state ``st`` and add its splat into the
+    caller's pair ``acc_t`` (HP, WP) int64 fixed point, ``acc_c`` (HP, WP)
+    int32 (``image_pair``), which is zero at an iteration's first launch;
+    one launch may cover all of a process's shards.  Returns (new_pr (nch,
+    2, CHUNK) f32, acc_t, acc_c), the pair being the caller's own
+    tensors."""
     dev = stat.device
     nch = stat.shape[0]
     _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
@@ -233,19 +243,17 @@ def warp_images_st_call(stat, act, pr, st, geo, *, scale: int, H: int,
     _check("pr", pr, torch.float32, (nch, 2, CHUNK), dev)
     _check("st", st, torch.float32, (1, ST_SIZE), dev)
     _check("geo", geo, torch.float32, (1, 8), dev)
+    _check_pair(acc_t, acc_c, H, W, dev)
     if _on_cpu(dev):
-        return warp_images_st_plain(stat, act, pr, st, geo, scale=scale,
-                                    H=H, W=W, time_lo=time_lo)
+        return warp_images_st_plain(stat, act, pr, st, geo, acc_t, acc_c,
+                                    scale=scale, H=H, W=W, time_lo=time_lo)
     from better_flow_tpu_torch.ops._build import library
 
-    HP, WP = padded_image_shape(H, W)
+    _, WP = padded_image_shape(H, W)
     npr = torch.empty_like(pr)
-    acc_t = torch.empty((HP, WP), dtype=torch.int64, device=dev)
-    acc_c = torch.empty((HP, WP), dtype=torch.int32, device=dev)
     rc = library().bf_warp_images_st(
         _ptr(geo), _ptr(st), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr),
-        _ptr(acc_t), _ptr(acc_c), nch, HP, WP, scale, int(time_lo),
-        _stream(dev))
+        _ptr(acc_t), _ptr(acc_c), nch, WP, scale, int(time_lo), _stream(dev))
     _launch("warp_images_st", rc)
     return npr, acc_t, acc_c
 
@@ -363,25 +371,23 @@ _WORKSPACE: dict = {}
 
 def _workspace(dev: torch.device, H: int, W: int) -> dict:
     """Scratch of the finish passes, one set per device and image shape,
-    allocated at first use: the H x W f32 image, the (H, 9) f64 row sums and
-    the two pre-filter images of B10 and B11.  The kernels run in stream
-    order and no scratch is returned to a caller, so one set serves every
-    call (the images that B1 returns are allocated per call: several shards
-    on one device each keep their own; B5 and B6 splat into their own pair,
-    ``_images``; B7a and B7b work on the pair their caller owns)."""
+    allocated at first use: the (H, 9) f64 row sums and the image pair of
+    B10 and B11, made zero (their finish, B7b's, leaves it zero; a launch
+    that fails clears it).  The kernels run in stream order and no scratch
+    is returned to a caller, so one set serves every call (B5 and B6 splat
+    into their own pair, ``_images``; B1, B2, B7a, B7b and B12 work on the
+    pair their caller owns)."""
     key = (dev, H, W)
     if key not in _WORKSPACE:
-        HP, WP = padded_image_shape(H, W)
+        acc_t, acc_c = image_pair(dev, H, W)
         _WORKSPACE[key] = dict(
-            img=torch.empty((H, W), dtype=torch.float32, device=dev),
             partials=torch.empty((H, 9), dtype=torch.float64, device=dev),
-            acc_t=torch.empty((HP, WP), dtype=torch.int64, device=dev),
-            acc_c=torch.empty((HP, WP), dtype=torch.int32, device=dev))
+            acc_t=acc_t, acc_c=acc_c)
     return _WORKSPACE[key]
 
 
-# Band geometry of B5, B6 and B7b (csrc/iteration.cuh's BandLayout; a CPU
-# test parses the header's constants).
+# Band geometry of the cooperative kernels (csrc/iteration.cuh's
+# BandLayout; a CPU test parses the header's constants).
 BAND_THREADS = 256
 BAND_SMEM_BUDGET = 231_424          # 227 KB less 1 KB of static shared
 _BAND_LEAF_BYTES = 9 * BAND_THREADS * 8
@@ -410,7 +416,8 @@ def band_smem_bytes(R: int, W: int, scale: int) -> int:
 
 
 def band_rows(H: int, W: int, scale: int, sms: int = H100_SMS):
-    """(R, dynamic shared bytes) of the band pass of B5, B6 and B7b: the
+    """(R, dynamic shared bytes) of the band pass of B2, B5, B6, B7b and
+    B12: the
     largest R up to ``BAND_MAX_ROWS`` that still gives at least one band per
     SM and fits the shared-memory budget, else 1.  Raises when one row does
     not fit."""
@@ -453,9 +460,10 @@ def _images(dev: torch.device, H: int, W: int):
 
 def iteration_grid(kernel: str, dev: torch.device, H: int, W: int,
                    scale: int):
-    """(R, resident grid) of B5 (``"megastep"``), B6
-    (``"fused_warp_splat"``) or B7b (``"finish_partials"``) at this image
-    shape on ``dev``."""
+    """(R, resident grid) of B2 (``"megastep_finish"``), B5
+    (``"megastep"``), B6 (``"fused_warp_splat"``), B7b
+    (``"finish_partials"``) or B12 (``"megastep2"``) at this image shape on
+    ``dev``."""
     from better_flow_tpu_torch.ops._build import library
 
     R, smem = _device_bands(dev, H, W, scale)
@@ -548,7 +556,11 @@ def model_update_plain(vals, st, geo, *, scale: int, params: dict):
 
 def megastep_finish_plain(acc_t, acc_c, st, geo, *, scale: int, H: int,
                           W: int, **statics):
+    """The twin of B2: the finish and the scalar update; then the pair is
+    cleared, as the kernel leaves it."""
     vals = finish_values_plain(acc_t, acc_c, scale=scale, H=H, W=W)
+    acc_t.zero_()
+    acc_c.zero_()
     return model_update_plain(vals, st, geo, scale=scale,
                               params=_update_params(**statics))
 
@@ -559,17 +571,18 @@ def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
                          xy_cap: float, rotdiv_cap: float, max_iter: int,
                          hard_cap: int, exit_grad: float = 0.0,
                          exit_pred: float = 0.0):
-    """Finish + model update on the images of ``warp_images_st_call``.
-    Returns the next (1, 32) state."""
+    """Finish + model update on the pair that ``warp_images_st_call``
+    filled (and, under an event group, the seam summed), in one cooperative
+    launch that leaves the pair zero for the next iteration.  Returns the
+    next (1, 32) state, bitwise ``megastep_call``'s on the same events.  A
+    launch the card refuses raises and leaves the pair as it was."""
     statics = dict(schedule=schedule, rot_tol=rot_tol, div_tol=div_tol,
                    dx_tol=dx_tol, dy_tol=dy_tol, xy_cap=xy_cap,
                    rotdiv_cap=rotdiv_cap, max_iter=max_iter,
                    hard_cap=hard_cap, exit_grad=exit_grad,
                    exit_pred=exit_pred)
     dev = acc_t.device
-    HP, WP = padded_image_shape(H, W)
-    _check("acc_t", acc_t, torch.int64, (HP, WP), dev)
-    _check("acc_c", acc_c, torch.int32, (HP, WP), dev)
+    _check_pair(acc_t, acc_c, H, W, dev)
     _check("st", st, torch.float32, (1, ST_SIZE), dev)
     _check("geo", geo, torch.float32, (1, 8), dev)
     if _on_cpu(dev):
@@ -577,13 +590,14 @@ def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
                                      H=H, W=W, **statics)
     from better_flow_tpu_torch.ops._build import library
 
+    HP, WP = padded_image_shape(H, W)
+    R, smem = _device_bands(dev, H, W, scale)
     cp = _c_params(statics)
     st_out = torch.empty_like(st)
-    ws = _workspace(dev, H, W)
     rc = library().bf_megastep_finish(
         _ptr(acc_t), _ptr(acc_c), _ptr(st), _ptr(geo), _ptr(st_out),
-        _ptr(ws["img"]), _ptr(ws["partials"]), HP, WP, H, W, scale,
-        ctypes.byref(cp), _stream(dev))
+        _ptr(_workspace(dev, H, W)["partials"]), HP, WP, H, W, scale, R,
+        smem, ctypes.byref(cp), _stream(dev))
     _launch("megastep_finish", rc)
     return st_out
 
@@ -628,9 +642,10 @@ def warp_uv_call(stat, pr, act, st, window_small: float = 0.0):
 
 def megastep_plain(stat, act, pr, st, geo, *, scale: int, H: int, W: int,
                    time_lo: bool = True, **statics):
-    """The twin of B5: ``warp_images_st_plain`` then
+    """The twin of B5: ``warp_images_st_plain`` into a zero pair, then
     ``megastep_finish_plain``.  Returns (new_pr, next state)."""
     npr, acc_t, acc_c = warp_images_st_plain(stat, act, pr, st, geo,
+                                             *image_pair(stat.device, H, W),
                                              scale=scale, H=H, W=W,
                                              time_lo=time_lo)
     return npr, megastep_finish_plain(acc_t, acc_c, st, geo, scale=scale,
@@ -646,9 +661,9 @@ def megastep_call(stat, act, pr, st, geo, *, scale: int, H: int, W: int,
     """One whole optimizer iteration (warp + splat, finish, model update,
     exit test) in one cooperative launch.  Returns (new_pr (nch, 2, CHUNK)
     f32, next state (1, 32) f32), bitwise those of
-    ``warp_images_st_call`` then ``megastep_finish_call``.  ``grid_blocks``
-    > 0 asks for that many blocks instead of as many as can be resident;
-    a launch the card refuses raises.  The band height and shared bytes
+    ``warp_images_st_call`` into a zero pair then ``megastep_finish_call``.
+    ``grid_blocks`` > 0 asks for that many blocks instead of as many as can
+    be resident; a launch the card refuses raises.  The band height and shared bytes
     come from ``band_rows``; it splats into the pair of ``_images``."""
     statics = dict(schedule=schedule, rot_tol=rot_tol, div_tol=div_tol,
                    dx_tol=dx_tol, dy_tol=dy_tol, xy_cap=xy_cap,
@@ -973,8 +988,9 @@ def partials_rows(pr_x, pr_y, t_ns, active):
 def fused_model_partials_plain(prx, pry, t_sec, act, geo, *, scale: int,
                                H: int, W: int):
     """The twin of B10 on (nch, CHUNK) rows: the hi+lo splat of the
-    positions inside the window of ``geo``, then ``finish_partials_plain``.
-    Returns (8,) f32 [seven sums, 0]."""
+    positions inside the window of ``geo``, then ``finish_partials_plain``
+    (B7b's twin; the kernel runs B7b on its own pair).  Returns (8,) f32
+    [seven sums, 0]."""
     acc_t, acc_c = _splat_plain(t_sec, act, prx, pry, geo, scale=scale, H=H,
                                 W=W, time_lo=True)
     return finish_partials_plain(acc_t, acc_c, scale=scale, H=H, W=W)
@@ -1005,12 +1021,16 @@ def _partials_call(name, plain, pr_x, pr_y, t_ns, active, geo, scale, H, W):
     from better_flow_tpu_torch.ops._build import library
 
     HP, WP = padded_image_shape(H, W)
+    R, smem = _device_bands(dev, H, W, scale)
     out = torch.empty(8, dtype=torch.float32, device=dev)
     ws = _workspace(dev, H, W)
     rc = getattr(library(), "bf_" + name)(
         _ptr(geo), _ptr(prx), _ptr(pry), _ptr(t_sec), _ptr(act), _ptr(out),
-        _ptr(ws["acc_t"]), _ptr(ws["acc_c"]), _ptr(ws["img"]),
-        _ptr(ws["partials"]), prx.shape[0], HP, WP, H, W, scale, _stream(dev))
+        _ptr(ws["acc_t"]), _ptr(ws["acc_c"]), _ptr(ws["partials"]),
+        prx.shape[0], HP, WP, H, W, scale, R, smem, _stream(dev))
+    if rc != 0:          # a refused finish leaves the splat in the pair
+        ws["acc_t"].zero_()
+        ws["acc_c"].zero_()
     _launch(name, rc)
     return out
 
@@ -1040,16 +1060,16 @@ def fused_model_partials_windowed_call(pr_x, pr_y, t_ns, active, geo, *,
 # ------------------------------------------------ B12 merged megastep
 
 
-def megastep2_plain(stat, act, pr, st, img_t, img_c, geo, *, scale: int,
+def megastep2_plain(stat, act, pr, st, acc_t, acc_c, geo, *, scale: int,
                     H: int, W: int, time_lo: bool = True, **statics):
-    """The twin of B12: the head (``megastep_finish_plain`` of the
-    previous call's images when ``st[ST_HAS]`` is set, else the state with
+    """The twin of B12: the head (``megastep_finish_plain`` of the pair,
+    which it leaves zero, when ``st[ST_HAS]`` is set, else the state with
     CONT forced to 1; then HAS = 1), the warp of every event with the head's
     state with B4's direction vectors, and, while CONT > 0, the splat of
-    ``warp_images_st_plain``.  Returns (npr (nch, 4, CHUNK) [pr_x, pr_y,
-    nx, ny], st_out, acc_t, acc_c)."""
+    ``warp_images_st_plain`` added into the same pair.  Returns (npr (nch,
+    4, CHUNK) [pr_x, pr_y, nx, ny], st_out, acc_t, acc_c)."""
     if st[0, ST_HAS].item() > 0.5:
-        st_out = megastep_finish_plain(img_t, img_c, st, geo, scale=scale,
+        st_out = megastep_finish_plain(acc_t, acc_c, st, geo, scale=scale,
                                        H=H, W=W, **statics)
     else:
         st_out = st.clone()
@@ -1060,32 +1080,32 @@ def megastep2_plain(stat, act, pr, st, img_t, img_c, geo, *, scale: int,
         *_warp_args(st_out))
     npr = torch.stack([prx, pry, nx, ny], dim=1)
     if st_out[0, ST_CONT].item() > 0:
-        acc_t, acc_c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0],
-                                    prx, pry, geo, scale=scale, H=H, W=W,
-                                    time_lo=time_lo)
-    else:
-        HP, WP = padded_image_shape(H, W)
-        acc_t = torch.zeros((HP, WP), dtype=torch.int64, device=stat.device)
-        acc_c = torch.zeros((HP, WP), dtype=torch.int32, device=stat.device)
+        t, c = _splat_plain(mul_recip(stat[:, 2], 1e9), act[:, 0], prx, pry,
+                            geo, scale=scale, H=H, W=W, time_lo=time_lo)
+        acc_t += t
+        acc_c += c
     return npr, st_out, acc_t, acc_c
 
 
-def megastep2_call(stat, act, pr, st, img_t, img_c, geo, *, scale: int,
+def megastep2_call(stat, act, pr, st, acc_t, acc_c, geo, *, scale: int,
                    H: int, W: int, schedule: str, rot_tol: float,
                    div_tol: float, dx_tol: float, dy_tol: float,
                    xy_cap: float, rotdiv_cap: float, max_iter: int,
                    hard_cap: int, time_lo: bool = True,
                    exit_grad: float = 0.0, exit_pred: float = 0.0,
                    grid_blocks: int = 0):
-    """One merged iteration in one cooperative launch: the finish and model
-    update of the previous call's images (``img_t`` int64, ``img_c`` int32,
-    (HP, WP); read only when ``st[ST_HAS]`` is set), the warp of every event
-    from ``pr`` (nch, 4, CHUNK) (rows 0-1 read) with the updated state, and
-    the splat into new images while the updated CONT is set.  Returns
-    (npr (nch, 4, CHUNK) [pr_x, pr_y, nx, ny], st_out (1, 32), acc_t,
-    acc_c); the images are allocated per call, zero when CONT is 0.  The
-    call whose head clears CONT is the final warp.  ``grid_blocks`` as in
-    ``megastep_call``; a launch the card refuses raises."""
+    """One merged iteration in one cooperative launch on the caller's pair
+    ``acc_t`` (HP, WP) int64, ``acc_c`` (HP, WP) int32 (``image_pair``):
+    when ``st[ST_HAS]`` is set, the finish and model update of the previous
+    call's splat in the pair, which the launch then leaves zero (on a
+    slice's first call, HAS unset, the pair must be zero); the warp of every
+    event from ``pr`` (nch, 4, CHUNK) (rows 0-1 read) with the updated
+    state; and, while the updated CONT is set, the splat added into the same
+    pair.  Returns (npr (nch, 4, CHUNK) [pr_x, pr_y, nx, ny], st_out (1,
+    32), acc_t, acc_c), the pair being the caller's own tensors, zero when
+    CONT is 0.  The call whose head clears CONT is the final warp.
+    ``grid_blocks`` as in ``megastep_call``; a launch the card refuses
+    raises and leaves the pair as it was."""
     statics = dict(schedule=schedule, rot_tol=rot_tol, div_tol=div_tol,
                    dx_tol=dx_tol, dy_tol=dy_tol, xy_cap=xy_cap,
                    rotdiv_cap=rotdiv_cap, max_iter=max_iter,
@@ -1093,47 +1113,40 @@ def megastep2_call(stat, act, pr, st, img_t, img_c, geo, *, scale: int,
                    exit_pred=exit_pred)
     dev = stat.device
     nch = stat.shape[0]
-    HP, WP = padded_image_shape(H, W)
     _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
     _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
     _check("pr", pr, torch.float32, (nch, 4, CHUNK), dev)
     _check("st", st, torch.float32, (1, ST_SIZE), dev)
-    _check("img_t", img_t, torch.int64, (HP, WP), dev)
-    _check("img_c", img_c, torch.int32, (HP, WP), dev)
+    _check_pair(acc_t, acc_c, H, W, dev)
     _check("geo", geo, torch.float32, (1, 8), dev)
     if _on_cpu(dev):
-        return megastep2_plain(stat, act, pr, st, img_t, img_c, geo,
+        return megastep2_plain(stat, act, pr, st, acc_t, acc_c, geo,
                                scale=scale, H=H, W=W, time_lo=time_lo,
                                **statics)
     from better_flow_tpu_torch.ops._build import library
 
+    HP, WP = padded_image_shape(H, W)
+    R, smem = _device_bands(dev, H, W, scale)
     cp = _c_params(statics)
     npr = torch.empty_like(pr)
     st_out = torch.empty_like(st)
-    acc_t = torch.empty((HP, WP), dtype=torch.int64, device=dev)
-    acc_c = torch.empty((HP, WP), dtype=torch.int32, device=dev)
-    ws = _workspace(dev, H, W)
     rc = library().bf_megastep2(
-        _ptr(geo), _ptr(st), _ptr(stat), _ptr(act), _ptr(pr), _ptr(img_t),
-        _ptr(img_c), _ptr(npr), _ptr(st_out), _ptr(acc_t), _ptr(acc_c),
-        _ptr(ws["img"]), _ptr(ws["partials"]), nch, HP, WP, H, W, scale,
-        int(time_lo), ctypes.byref(cp), int(grid_blocks), _stream(dev))
+        _ptr(geo), _ptr(st), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr),
+        _ptr(st_out), _ptr(acc_t), _ptr(acc_c),
+        _ptr(_workspace(dev, H, W)["partials"]), nch, HP, WP, H, W, scale,
+        int(time_lo), R, smem, ctypes.byref(cp), int(grid_blocks),
+        _stream(dev))
     _launch("megastep2", rc)
     return npr, st_out, acc_t, acc_c
 
 
-def sum_images(images, comm=None):
-    """The seam of the event-parallel paths, in place: the local (acc_t,
-    acc_c) image pairs are added into the first, which is then summed
-    across the ranks of ``comm`` in place (``all_reduce_sum_`` of a
-    ``parallel.comm`` communicator; None or size 1: no collective).
-    Returns the first pair, the very tensors that the finish then reads (B7b
-    also clears them for the drive's next iteration).  Integer sums: exact
-    and independent of the order."""
-    acc_t, acc_c = images[0]
-    for t, c in images[1:]:
-        acc_t += t
-        acc_c += c
+def sum_images(acc_t, acc_c, comm=None):
+    """The seam of the event-parallel paths, in place: the local image
+    pair, which one splat launch over all local shards filled, summed
+    across the ranks of ``comm`` (``all_reduce_sum_`` of a ``parallel.comm``
+    communicator; None or size 1: no collective).  Returns the pair, the
+    very tensors that the finish then reads and clears for the drive's next
+    iteration.  Integer sums: exact and independent of the order."""
     if comm is not None and comm.size > 1:
         comm.all_reduce_sum_([acc_t, acc_c])
     return acc_t, acc_c

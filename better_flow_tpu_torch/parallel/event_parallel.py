@@ -4,11 +4,11 @@ Counterpart of ``better_flow_tpu/parallel/event_parallel.py``.  The events
 of one slice are cut into shards over an ``EventGroup`` (``mesh``); every
 optimizer iteration runs the event phase of the local shards, sums their
 pre-filter images across ranks and runs the image-space finish and the
-model update once per process on the summed images.  The megastep drive
-runs B1 per shard, adds the local images, all-reduces them and runs B2; the
-composed drive runs one B7a launch over all the local shards' chunks into
-the image pair it owns, all-reduces that pair in place and runs B7b and the
-scalar chain (B7b leaves the pair zero for the next iteration).  The summed
+model update once per process on the summed images.  Each drive runs one
+splat launch over all the local shards' chunks into the image pair it owns
+(B1 in the megastep drive, B7a in the composed drive), all-reduces that pair
+in place and runs the finish (B2; B7b and the scalar chain), which leaves
+the pair zero for the next iteration.  The summed
 images are integers, so every rank computes the same model and the same
 continue flag with no further communication, and the result does not
 depend on the number of shards when they are cut on chunk boundaries (the
@@ -126,11 +126,11 @@ def compensate_recording_scan_sharded(
         init_model: Optional[MotionModel] = None,
         prepared: Optional[dict] = None, carry_in=None) -> dict:
     """The offline slice loop with each slice's events sharded over
-    ``mesh``: per iteration the event kernel per shard, the image sum, then
-    the finish and the model update once per process.  Cross-slice noise
-    needs no communication: its only source is the per-slice window gate,
-    decided on the host from the whole slice's bbox, and each shard rebuilds
-    its events' flags from the gate history (B3).  Every rank returns the
+    ``mesh``: per iteration one event kernel over the local shards, the
+    image sum, then the finish and the model update once per process.
+    Cross-slice noise needs no communication: its only source is the
+    per-slice window gate, decided on the host from the whole slice's bbox,
+    and each shard rebuilds its events' flags from the gate history (B3).  Every rank returns the
     whole recording's result (the shards' outputs are gathered before the
     first-slice-wins accumulation); ``stats['n_devices']`` is the number of
     shards.  Pass ``prepared`` from ``prepare_recording_sharded`` to reuse

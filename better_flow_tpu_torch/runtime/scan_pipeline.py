@@ -384,8 +384,8 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     (``parallel.mesh.EventGroup``) the staged chunks are this process's,
     its ``n_local`` shards as equal chunk ranges in order (every chunk, and
     so its time base, is the unsharded one): the activity rows run once
-    over them, the composed drive's event phase too (one B7a launch), the
-    megastep drive's event phase and final warp per shard."""
+    over them, and so does each drive's event phase (one B1 or B7a
+    launch); the megastep drive's final warp runs per shard."""
     dev = prepared["device"]
     plan = prepared["plan"]
     opt = cfg.optimizer

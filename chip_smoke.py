@@ -12,19 +12,22 @@ in phases that each raise on failure:
 2. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes (180x240 sensor, scale 3: 30 chunks of 2048 events,
    576x768 images, a gate history of 3), with the errors and the median
-   time of kernel and twin over 25 runs (CUDA events); the megastep (B5)
-   also at the live preset's scale-1 shapes (15 chunks, 192x256 images),
-   bitwise equal to its twin and to the B1 -> B2 kernel chain, with the
-   chain's time beside its own; the composed path's kernel (B6) on the
+   time of kernel and twin over 25 runs (CUDA events); B1 adds into its
+   caller's image pair and B2 (bitwise its twin on the card) reads it and
+   leaves it zero; the megastep (B5) also at the live preset's scale-1
+   shapes (15 chunks, 192x256 images), bitwise equal to its twin and to
+   the B1 -> B2 kernel chain, with the chain's time beside its own; the
+   composed path's kernel (B6) on the
    warp rows of an f32 and of an f64 carry, bitwise equal to its twin and
-   to the B7a -> B7b chain, with that chain's time beside its own; for B5,
-   B6 and B7b their band height R and resident grid, and each chain's
-   device operations one by one (``[kernels] breakdown`` lines,
-   torch.profiler, median of 20 calls: one kernel for B7a and one for B7b,
-   no memset); the event-parallel pair (B7a warp + splat added into an
+   to the B7a -> B7b chain, with that chain's time beside its own; for B2,
+   B5, B6, B7b and B12 their band height R and resident grid, and each
+   chain's device operations one by one (``[kernels] breakdown`` lines,
+   torch.profiler, median of 20 calls: one kernel each for B1, B2, B7a and
+   B7b, no memset); the event-parallel pair (B7a warp + splat added into an
    image pair, B7b finish to the seven sums, leaving the pair zero) against
    their twins on both rows, their chain bitwise B6, and four shards a B7a
-   launch each bitwise one launch over them all; beside each kernel's time the least time the card could take (``bound_ms``);
+   launch each bitwise one launch over them all; beside each kernel's time
+   the least time the card could take (``bound_ms``);
 3. the scan, ``compensate_recording_scan`` with ``OptimizerConfig.fast()``,
    on the 2,000,000-event bench stream of ``bench.py`` (one warm-up run,
    then a measured run), with every kernel's launch count in that run;
@@ -44,11 +47,12 @@ in phases that each raise on failure:
    f64 totals and with ``fast(use_megastep=False)``, each against the CPU
    twins;
 9. the event-parallel path: ``compensate_recording_scan_sharded`` on the 2M
-   events with 1 and 4 shards on the one card, under ``fast()`` (B1 per
-   shard, the image sum, B2) and with f64 totals (one B7a launch for all
-   shards, the seam, B7b), each bitwise the unsharded scan staged with the
-   same padding, with the launch counts (B3 once a slice) and the host ms
-   an iteration beside the unsharded run's; then
+   events with 1 and 4 shards on the one card, under ``fast()`` (one B1
+   launch for all shards, the seam, B2) and with f64 totals (one B7a launch
+   for all shards, the seam, B7b), each bitwise the unsharded scan staged
+   with the same padding, with the launch counts (B3 once a slice) and the
+   host ms an iteration beside the unsharded run's, and for 4 shards in
+   turns with it; then
    ``compensate_recording_multihost`` in one
    process over three slice ranges (chained carries, disjoint claims),
    bitwise the full scan;
@@ -76,7 +80,9 @@ in phases that each raise on failure:
     launches are those two calls, its only path;
 12. the merged megastep (B12, ``OptimizerConfig.megastep_merged``): the
     kernel against its twin and the B1 -> B2 -> B1 chain, its exit call
-    against B4, then the ``fast()`` scan with ``megastep_merged`` on the 2M
+    against B4 (the pair left zero), its first and later call each one
+    kernel (``[kernels] breakdown``), then the ``fast()`` scan with
+    ``megastep_merged`` on the 2M
     events, bitwise the B1-B4 scan, with its launches (no B4), its run time
     in turns with the B1-B4 scan and the calls of each that block the host;
 13. the XLA-composed branch (``scatter_mode="xla"``): the ``fast()`` scan
@@ -345,8 +351,13 @@ def phase_kernels(cfg, d, dev):
     pixels = H * W
 
     kw = dict(scale=opt.scale, H=H, W=W, time_lo=time_lo)
-    npr, at, ac = fm.warp_images_st_call(stat, act, pr, st, geo, **kw)
-    npr_p, at_p, ac_p = fm.warp_images_st_plain(stat, act, pr, st, geo, **kw)
+    # B1 adds into its caller's pair, B2 reads it and leaves it zero: each
+    # call gets its own pair, and the timed calls one that setup() puts
+    # back (zeroed for B1, B1's splat for B2).
+    pair = fm.image_pair(dev, H, W)
+    npr, at, ac = fm.warp_images_st_call(stat, act, pr, st, geo, *pair, **kw)
+    npr_p, at_p, ac_p = fm.warp_images_st_plain(
+        stat, act, pr, st, geo, *fm.image_pair(dev, H, W), **kw)
     assert_close("warp_images_st npr", npr, npr_p, rtol=1e-6)
     if not torch.equal(ac, ac_p):
         raise AssertionError("warp_images_st count image differs")
@@ -354,18 +365,25 @@ def phase_kernels(cfg, d, dev):
                  fm.time_image_f32(at_p), rtol=1e-5, atol=1e-6)
     if int(ac.sum()) < 10_000:
         raise AssertionError(f"only {int(ac.sum())} events splatted")
+    at0, ac0 = at.clone(), ac.clone()
+    zeroed = lambda: (pair[0].zero_(), pair[1].zero_())
+    filled = lambda: (pair[0].copy_(at0), pair[1].copy_(ac0))
     out["warp_images_st"] = dict(
         max_abs_err=max(max_err(npr, npr_p), max_err(at, at_p),
                         max_err(ac, ac_p)),
         ms=timed(lambda: fm.warp_images_st_call(stat, act, pr, st, geo,
-                                                **kw)),
+                                                *pair, **kw), setup=zeroed),
         plain_ms=timed(lambda: fm.warp_images_st_plain(stat, act, pr, st,
-                                                       geo, **kw)),
-        **bound(nbytes(stat, act, pr, st, geo, npr, at, ac),
-                slots * OPS_WARP + int(ac.sum()) * OPS_SPLAT))
+                                                       geo, *pair, **kw),
+                       setup=zeroed),
+        **bound(nbytes(stat, act, pr, st, geo, npr, at0, ac0),
+                slots * OPS_WARP + int(ac0.sum()) * OPS_SPLAT))
 
     kw2 = dict(scale=opt.scale, H=H, W=W, **statics)
-    st2 = fm.megastep_finish_call(at, ac, st, geo, **kw2)
+    filled()
+    st2 = fm.megastep_finish_call(*pair, st, geo, **kw2)
+    if pair[0].any() or pair[1].any():
+        raise AssertionError("megastep_finish: the pair is not zero")
     st2_p = fm.megastep_finish_plain(at_p, ac_p, st, geo, **kw2)
     exact = [ST_ITERS, ST_CONT]
     if not torch.equal(st2[0, exact], st2_p[0, exact]):
@@ -379,31 +397,44 @@ def phase_kernels(cfg, d, dev):
     tot_ulp = st2_p[0, 0:4].abs() * 2.0 ** -22
     if not bool(((st2[0, comp] - st2_p[0, comp]).abs() <= tot_ulp).all()):
         raise AssertionError("megastep_finish compensations differ")
+    # B2 against its twin on the card's copy of the same pair: bitwise.
+    filled()
+    st2_c = fm.megastep_finish_plain(*pair, st, geo, **kw2)
+    if not torch.equal(st2, st2_c):
+        raise AssertionError("megastep_finish differs from its twin on the "
+                             "card")
     out["megastep_finish"] = dict(
         max_abs_err=max_err(st2[0, other], st2_p[0, other]),
-        ms=timed(lambda: fm.megastep_finish_call(at, ac, st, geo, **kw2)),
-        plain_ms=timed(lambda: fm.megastep_finish_plain(at, ac, st, geo,
-                                                        **kw2)),
-        **bound(nbytes(at, ac, st, geo, st2),
-                ops_finish(pixels, opt.scale) + 300))
+        ms=timed(lambda: fm.megastep_finish_call(*pair, st, geo, **kw2),
+                 setup=filled),
+        plain_ms=timed(lambda: fm.megastep_finish_plain(*pair, st, geo,
+                                                        **kw2),
+                       setup=filled),
+        **bound(nbytes(at0, ac0, st, geo, st2),
+                ops_finish(pixels, opt.scale) + 300),
+        **dict(zip(("R", "grid"), fm.iteration_grid(
+            "megastep_finish", dev, H, W, opt.scale))),
+        redesigned=9)
 
     # The options the main path does not take: the hi+lo time pair, the
     # reference schedule and the predicted exit (correctness only).
     kw_lo = dict(kw, time_lo=True)
-    npr_l, at_l, ac_l = fm.warp_images_st_call(stat, act, pr, st, geo, **kw_lo)
-    npr_lp, at_lp, _ = fm.warp_images_st_plain(stat, act, pr, st, geo, **kw_lo)
+    npr_l, at_l, ac_l = fm.warp_images_st_call(
+        stat, act, pr, st, geo, *fm.image_pair(dev, H, W), **kw_lo)
+    npr_lp, at_lp, _ = fm.warp_images_st_plain(
+        stat, act, pr, st, geo, *fm.image_pair(dev, H, W), **kw_lo)
     assert_close("warp_images_st time_lo npr", npr_l, npr_lp, rtol=1e-6)
     if not torch.equal(at_l, at_lp):
         raise AssertionError("warp_images_st time_lo image differs")
     for variant in (dict(schedule="reference", exit_grad=0.0),
                     dict(exit_pred=4.0)):
         kv = dict(kw2, **variant)
-        a = fm.megastep_finish_call(at_l, ac_l, st, geo, **kv)
-        b = fm.megastep_finish_plain(at_l, ac_l, st, geo, **kv)
-        if not torch.equal(a[0, exact], b[0, exact]):
-            raise AssertionError(f"megastep_finish {variant}: ITERS/CONT")
-        assert_close(f"megastep_finish {variant}", a[0, other], b[0, other],
-                     rtol=1e-5)
+        a = fm.megastep_finish_call(at_l.clone(), ac_l.clone(), st, geo, **kv)
+        b = fm.megastep_finish_plain(at_l.clone(), ac_l.clone(), st, geo,
+                                     **kv)
+        if not torch.equal(a, b):
+            raise AssertionError(f"megastep_finish {variant}: differs from "
+                                 "its twin on the card")
     log("[kernels] time_lo, reference schedule and predicted exit agree")
 
     o, u = fm.warp_uv_call(stat, npr, act, st, 0.0)
@@ -692,13 +723,12 @@ def phase_sharded(d, dev):
                     raise AssertionError(f"sharded {name} x{shards}: {k} "
                                          "differs from the unsharded scan")
             total = int(rs["iters"].sum())
-            # B3 once a slice and, on the composed path, B7a once an
-            # iteration for all the resident shards; B1 and B4 per shard.
+            # B3 once a slice, the splat (B1 or B7a) once an iteration for
+            # all the resident shards, and B4 per shard.
             want = dict.fromkeys(lc, 0)
             want["act_rows"] = len(rs["iters"])
             if name == "fast":
-                want.update(warp_images_st=shards * total,
-                            megastep_finish=total,
+                want.update(warp_images_st=total, megastep_finish=total,
                             warp_uv=shards * int(rs["ran"].sum()))
             else:
                 want.update(fused_warp_splat_images=total,
@@ -716,6 +746,20 @@ def phase_sharded(d, dev):
                 f"(unsharded {1e3 * su['run_s'] / max(1, su['host_syncs']):.4f})"
                 f"  n_devices {st['n_devices']}")
             log(f"[sharded] {name} x{shards}: launches {json.dumps(lc)}")
+            if shards == 4:
+                # Host ms an iteration of the unsharded and the 4-shard
+                # scan, in turns.
+                runs = {"x1": lambda: compensate_recording_scan(
+                            None, None, None, cfg, prepared=prep),
+                        "x4": lambda: compensate_recording_scan_sharded(
+                            None, None, None, cfg, mesh, prepared=prep)}
+                turns = []
+                for tag in ("x1", "x4", "x4", "x1", "x1", "x4"):
+                    t_ = runs[tag]()["stats"]
+                    ms = 1e3 * t_["run_s"] / max(1, t_["host_syncs"])
+                    turns.append(f"{tag} {ms:.4f}")
+                log(f"[sharded] {name}: host ms an iteration in turns: "
+                    + ", ".join(turns))
             if name == "f64" and shards == 4:
                 keep = lc
                 full = ru
@@ -1157,16 +1201,19 @@ def phase_megastep(scan_inputs, d, dev):
         args = [inp[k] for k in ("stat", "act", "pr", "st", "geo")]
         kw = dict(scale=opt.scale, H=H, W=W, time_lo=True, **statics)
 
+        pair = fm.image_pair(dev, H, W)
+
         def chain():
-            npr, at, ac = fm.warp_images_st_call(*args, scale=opt.scale, H=H,
-                                                 W=W, time_lo=True)
+            npr, at, ac = fm.warp_images_st_call(*args, *pair,
+                                                 scale=opt.scale, H=H, W=W,
+                                                 time_lo=True)
             return npr, fm.megastep_finish_call(at, ac, args[3], args[4],
                                                 scale=opt.scale, H=H, W=W,
-                                                **statics), ac
+                                                **statics)
 
         npr, st = fm.megastep_call(*args, **kw)
         npr_p, st_p = fm.megastep_plain(*args, **kw)
-        npr_c, st_c, ac = chain()
+        npr_c, st_c = chain()
         err = max(max_err(npr, npr_p), max_err(st, st_p))
         if err != 0.0:
             raise AssertionError(f"megastep {name}: max abs error {err} "
@@ -1174,10 +1221,20 @@ def phase_megastep(scan_inputs, d, dev):
         if not (torch.equal(npr, npr_c) and torch.equal(st, st_c)):
             raise AssertionError(f"megastep {name}: differs from the "
                                  "B1 -> B2 chain")
+        if pair[0].any() or pair[1].any():
+            raise AssertionError(f"B1 -> B2 chain {name}: the pair is not "
+                                 "zero after B2")
+        ac = fm.warp_images_st_call(*args, *fm.image_pair(dev, H, W),
+                                    scale=opt.scale, H=H, W=W,
+                                    time_lo=True)[2]
         if int(ac.sum()) < 10_000:
             raise AssertionError(f"megastep {name}: only {int(ac.sum())} "
                                  "events splatted")
-        log_breakdown(f"B1 -> B2 chain {name}", chain)
+        ops = log_breakdown(f"B1 -> B2 chain {name}", chain)
+        if len(ops) != 2 or any(o.startswith("Memset") for o, _ in ops):
+            raise AssertionError(f"B1 -> B2 chain {name}: device operations "
+                                 f"{ops}, expected one kernel each and no "
+                                 "memset")
         log_breakdown(f"megastep {name}", lambda: fm.megastep_call(*args,
                                                                    **kw))
         R, grid = fm.iteration_grid("megastep", dev, H, W, opt.scale)
@@ -1329,8 +1386,9 @@ def phase_partials_kernels(scan_inputs, cfg, dev):
     H, W = static_image_shape(opt.scale, cfg.sensor)
     inp = scan_inputs
     npr, _, _ = fm.warp_images_st_call(inp["stat"], inp["act"], inp["pr"],
-                                       inp["st"], inp["geo"], scale=opt.scale,
-                                       H=H, W=W)
+                                       inp["st"], inp["geo"],
+                                       *fm.image_pair(dev, H, W),
+                                       scale=opt.scale, H=H, W=W)
     flat = lambda a: a.reshape(-1).contiguous()
     x, y, t = (flat(inp["stat"][:, k]) for k in range(3))
     band = dict(pr_x=flat(npr[:, 0]), pr_y=flat(npr[:, 1]), t_ns=t,
@@ -1409,9 +1467,7 @@ def phase_merged(scan_inputs, cfg, prep, r_split, dev):
         finish_statics, static_image_shape,
     )
     from better_flow_tpu_torch.ops import fused_model as fm
-    from better_flow_tpu_torch.ops.layout import (
-        ST_CONT, ST_HAS, padded_image_shape,
-    )
+    from better_flow_tpu_torch.ops.layout import ST_CONT, ST_HAS
     from better_flow_tpu_torch.runtime.scan_pipeline import (
         compensate_recording_scan,
     )
@@ -1419,7 +1475,6 @@ def phase_merged(scan_inputs, cfg, prep, r_split, dev):
     t_phase = time.perf_counter()
     opt = cfg.optimizer
     H, W = static_image_shape(opt.scale, cfg.sensor)
-    HP, WP = padded_image_shape(H, W)
     inp = scan_inputs
     stat, act, pr, geo = inp["stat"], inp["act"], inp["pr"], inp["geo"]
     st = inp["st"].clone()
@@ -1428,57 +1483,84 @@ def phase_merged(scan_inputs, cfg, prep, r_split, dev):
     kw = dict(scale=opt.scale, H=H, W=W, time_lo=time_lo,
               **finish_statics(opt))
     chain_kw = dict(scale=opt.scale, H=H, W=W)
-    z_t = torch.zeros((HP, WP), dtype=torch.int64, device=dev)
-    z_c = torch.zeros((HP, WP), dtype=torch.int32, device=dev)
+    fin_kw = {k: v for k, v in kw.items() if k != "time_lo"}
     pr4 = torch.cat([pr, torch.zeros_like(pr)], dim=1)
-    first = fm.megastep2_call(stat, act, pr4, st, z_t, z_c, geo, **kw)
-    second = fm.megastep2_call(stat, act, *first, geo, **kw)
+    # A call reads its pair, clears it and splats into it: every call and
+    # every twin gets a copy, so that each call's images stay to compare.
+    zero = fm.image_pair(dev, H, W)
+    copy = lambda p: tuple(t.clone() for t in p)
+    first = fm.megastep2_call(stat, act, pr4, st, *copy(zero), geo, **kw)
+    second = fm.megastep2_call(stat, act, first[0], first[1],
+                               *copy(first[2:]), geo, **kw)
     err = 0.0
-    for got, args in ((first, (pr4, st, z_t, z_c)), (second, first)):
-        want = fm.megastep2_plain(stat, act, *args, geo, **kw)
+    for got, args in ((first, (pr4, st, *zero)), (second, first)):
+        want = fm.megastep2_plain(stat, act, args[0], args[1],
+                                  *copy(args[2:4]), geo, **kw)
         err = max(err, *(max_err(g, w) for g, w in zip(got, want)))
     if err != 0.0:
         raise AssertionError(f"megastep2: max abs error {err} against its "
                              "twin")
     npr1, at1, ac1 = fm.warp_images_st_call(stat, act, pr, first[1], geo,
-                                            time_lo=time_lo, **chain_kw)
-    st2 = fm.megastep_finish_call(at1, ac1, first[1], geo,
-                                  **{k: v for k, v in kw.items()
-                                     if k != "time_lo"})
-    npr2, at2, ac2 = fm.warp_images_st_call(stat, act, npr1, st2, geo,
+                                            *fm.image_pair(dev, H, W),
                                             time_lo=time_lo, **chain_kw)
     same = (torch.equal(first[0][:, 0:2], npr1) and torch.equal(first[2], at1)
-            and torch.equal(second[1], st2))
+            and torch.equal(first[3], ac1))
+    st2 = fm.megastep_finish_call(*copy((at1, ac1)), first[1], geo, **fin_kw)
+    npr2, at2, ac2 = fm.warp_images_st_call(stat, act, npr1, st2, geo,
+                                            *fm.image_pair(dev, H, W),
+                                            time_lo=time_lo, **chain_kw)
+    same = same and torch.equal(second[1], st2)
     if float(st2[0, ST_CONT]) > 0:     # the loop goes on: the next B1
         same = same and torch.equal(second[0][:, 0:2], npr2) and \
             torch.equal(second[2], at2) and torch.equal(second[3], ac2)
     if not same:
         raise AssertionError("megastep2 differs from the B1 -> B2 -> B1 chain")
-    # A head that ends the loop: the call is B4's final warp.
+    # A head that ends the loop: the call is B4's final warp and leaves the
+    # pair zero.
     ended = dataclasses.replace(opt, max_iter=1)
     kw_end = dict(kw, **finish_statics(ended))
-    last = fm.megastep2_call(stat, act, *first, geo, **kw_end)
-    st_end = fm.megastep_finish_call(at1, ac1, first[1], geo,
+    last = fm.megastep2_call(stat, act, first[0], first[1], *copy(first[2:]),
+                             geo, **kw_end)
+    st_end = fm.megastep_finish_call(*copy((at1, ac1)), first[1], geo,
                                      **{k: v for k, v in kw_end.items()
                                         if k != "time_lo"})
     out4, _ = fm.warp_uv_call(stat, npr1, act, st_end)
     if float(last[1][0, ST_CONT]) != 0.0 or not torch.equal(last[0], out4) \
-            or int(last[3].sum()) != 0:
+            or last[2].any() or last[3].any():
         raise AssertionError("megastep2's exit call is not B4's final warp")
     slots = stat.shape[0] * stat.shape[2]
-    r = dict(max_abs_err=err,
-             ms=timed(lambda: fm.megastep2_call(stat, act, *first, geo, **kw)),
-             plain_ms=timed(lambda: fm.megastep2_plain(stat, act, *first, geo,
-                                                       **kw)),
+    # Timed on a pair that setup() puts back: the first call's splat for a
+    # later call, zero for a first call.  The breakdowns chain their calls
+    # on one pair, as the drive does.
+    pair = copy(first[2:])
+    filled = lambda: (pair[0].copy_(first[2]), pair[1].copy_(first[3]))
+    zeroed = lambda: (pair[0].zero_(), pair[1].zero_())
+    later = lambda: fm.megastep2_call(stat, act, first[0], first[1], *pair,
+                                      geo, **kw)
+    start = lambda: fm.megastep2_call(stat, act, pr4, st, *pair, geo, **kw)
+    for label, fn in (("first call", start), ("later call", later)):
+        zeroed()
+        ops = log_breakdown(f"megastep2 {label}", fn)
+        if len(ops) != 1:
+            raise AssertionError(f"megastep2 {label}: device operations "
+                                 f"{ops}, expected one kernel")
+    R, grid = fm.iteration_grid("megastep2", dev, H, W, opt.scale)
+    r = dict(max_abs_err=err, ms=timed(later, setup=filled),
+             first_ms=timed(start, setup=zeroed),
+             plain_ms=timed(lambda: fm.megastep2_plain(
+                 stat, act, first[0], first[1], *pair, geo, **kw),
+                 setup=filled),
              # pr's rows 0-1 are read; nx, ny (rows 2-3) only written.
              **bound(nbytes(stat, act, first[0][:, 0:2], first[1], first[2],
                             first[3], geo, *second),
                      slots * (OPS_WARP + OPS_UV) + int(ac2.sum()) * OPS_SPLAT
-                     + ops_finish(H * W, opt.scale) + 300))
+                     + ops_finish(H * W, opt.scale) + 300),
+             R=R, grid=grid, redesigned=9)
     log(f"[merged] megastep2: max_abs_err {err:.3g}, bitwise the B1 -> B2 -> "
-        f"B1 chain and, on its exit call, B4; kernel {r['ms']:.4f} ms  plain "
+        f"B1 chain and, on its exit call, B4, the pair zero after it; kernel "
+        f"{r['ms']:.4f} ms (first call {r['first_ms']:.4f} ms)  plain "
         f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
-        f"({r['bound_by']})")
+        f"({r['bound_by']})  R {R}  grid {grid}")
 
     merged_cfg = dataclasses.replace(
         cfg, optimizer=dataclasses.replace(opt, megastep_merged=True))

@@ -231,8 +231,9 @@ def test_b6_splats_the_time_pair_under_fast():
 
     def sums(time_lo):
         _, at, ac = tfm.warp_images_st_call(
-            t["stat"], t["act"], t["pr"], t["st"], t["geo"], scale=scale,
-            H=H, W=W, time_lo=time_lo)
+            t["stat"], t["act"], t["pr"], t["st"], t["geo"],
+            *tfm.image_pair("cpu", H, W), scale=scale, H=H, W=W,
+            time_lo=time_lo)
         return tfm.finish_values_plain(at, ac, scale=scale, H=H, W=W)
 
     assert torch.equal(vals[:7], sums(True))

@@ -93,13 +93,21 @@ def test_warp_images_st_kernel_matches_twin(cuda, time_lo):
     keys = ("stat", "act", "pr", "st", "geo")
     cpu, gpu = _both(slice_inputs(0), keys, cuda)
     kw = dict(scale=SCALE, H=H, W=W, time_lo=time_lo)
+    pair = tfm.image_pair(cuda, H, W)
     npr, at, ac = _launched("warp_images_st",
-                            lambda: tfm.warp_images_st_call(*gpu, **kw))
-    npr_p, at_p, ac_p = tfm.warp_images_st_call(*cpu, **kw)
+                            lambda: tfm.warp_images_st_call(*gpu, *pair,
+                                                            **kw))
+    assert at is pair[0] and ac is pair[1]
+    npr_p, at_p, ac_p = tfm.warp_images_st_call(
+        *cpu, *tfm.image_pair("cpu", H, W), **kw)
     _close(npr, npr_p, rtol=1e-6)
     assert torch.equal(ac.cpu(), ac_p) and int(ac_p.sum()) > 3000
     _close(tfm.time_image_f32(at), tfm.time_image_f32(at_p), rtol=1e-5,
            atol=1e-6)
+    # A second launch adds into the pair: no memset clears it.
+    _launched("warp_images_st",
+              lambda: tfm.warp_images_st_call(*gpu, *pair, **kw))
+    assert torch.equal(ac.cpu(), 2 * ac_p)
 
 
 @pytest.mark.parametrize("schedule,exit_grad,exit_pred,converged", [
@@ -113,13 +121,19 @@ def test_megastep_finish_kernel_matches_twin(cuda, schedule, exit_grad,
         d["st"][0, 24:28] *= 1e-3
         d["st"][0, 18:22] = [1e-6, 1e-6, 1e-6, -1e-6]
     cpu, _ = _both(d, ("stat", "act", "pr", "st", "geo"), cuda)
-    _, at, ac = tfm.warp_images_st_call(*cpu, scale=SCALE, H=H, W=W,
-                                        time_lo=False)
+    _, at, ac = tfm.warp_images_st_call(*cpu, *tfm.image_pair("cpu", H, W),
+                                        scale=SCALE, H=H, W=W, time_lo=False)
     kw = dict(scale=SCALE, H=H, W=W, **statics(schedule, exit_grad,
                                                exit_pred))
     st, geo = cpu[3], cpu[4]
+    pair = (at.to(cuda), ac.to(cuda))
+    st_g, geo_g = st.to(cuda), geo.to(cuda)
+    plain = tfm.megastep_finish_plain(pair[0].clone(), pair[1].clone(), st_g,
+                                      geo_g, **kw)
     got = _launched("megastep_finish", lambda: tfm.megastep_finish_call(
-        at.to(cuda), ac.to(cuda), st.to(cuda), geo.to(cuda), **kw))
+        *pair, st_g, geo_g, **kw))
+    assert torch.equal(got, plain)             # the twin on the card's copy
+    assert not pair[0].any() and not pair[1].any()   # left zero for B1
     got = got.cpu()[0]
     want = tfm.megastep_finish_call(at, ac, st, geo, **kw)[0]
     exact = [layout.ST_ITERS, layout.ST_CONT]
@@ -193,12 +207,14 @@ def test_megastep_kernel_is_twin_and_chain_bitwise(cuda, scale, schedule):
     npr, st = _launched("megastep", lambda: tfm.megastep_call(*gpu, **kw))
     npr_p, st_p = tfm.megastep_plain(*gpu, **kw)
     chain = {k: v for k, v in kw.items() if k != "time_lo"}
-    npr_c, at, ac = tfm.warp_images_st_call(*gpu, scale=scale, H=Hs, W=Ws,
-                                            time_lo=True)
+    npr_c, at, ac = tfm.warp_images_st_call(
+        *gpu, *tfm.image_pair(cuda, Hs, Ws), scale=scale, H=Hs, W=Ws,
+        time_lo=True)
+    assert int(ac.sum()) > 10_000
     st_c = tfm.megastep_finish_call(at, ac, gpu[3], gpu[4], **chain)
+    assert not at.any() and not ac.any()
     for got in ((npr_p, st_p), (npr_c, st_c)):
         assert torch.equal(npr, got[0]) and torch.equal(st, got[1])
-    assert int(ac.sum()) > 10_000
 
 
 def test_megastep_refused_launch_raises(cuda):
@@ -294,16 +310,17 @@ def test_fused_warp_splat_kernel_matches_twin(cuda, res, nch, carry):
 
 def test_image_pair_stays_zero_across_interleaved_kernels(cuda):
     """Three B5 calls on different states and images, interleaved on the
-    same device and image shape with B6, B2 and B7b calls: every output
-    bitwise its twin's, so the image pair that B5 and B6 splat into and
-    leave zero is zero at each call's start and no other kernel disturbs
-    it."""
+    same device and image shape with B6, B1 -> B2 and B7a -> B7b calls:
+    every output bitwise its twin's, so the image pair that B5 and B6 splat
+    into and leave zero is zero at each call's start and no other kernel
+    disturbs it; the pair that B1 and B2 share is zero after each B2."""
     res = (180, 240)
     Hs, Ws = image_shape(res, SCALE)
     kw = dict(scale=SCALE, H=Hs, W=Ws)
     kw5 = dict(kw, time_lo=True, **finish_statics(OptimizerConfig()))
     chain = {k: v for k, v in kw5.items() if k != "time_lo"}
     keys = ("stat", "act", "pr", "st", "geo")
+    pair12 = tfm.image_pair(cuda, Hs, Ws)
     for k, seed in enumerate((2, 5, 8)):
         d = slice_inputs(seed, res=res, nch=8)
         d["st"][0, 0:4] *= 1.0 + 0.25 * k
@@ -321,37 +338,65 @@ def test_image_pair_stays_zero_across_interleaved_kernels(cuda):
         npr6_p, vals_p = tfm.fused_warp_splat_plain(stat, act, pr, scal,
                                                     **kw)
         assert torch.equal(npr6, npr6_p) and torch.equal(vals, vals_p)
-        _, at, ac = tfm.warp_images_st_call(*gpu, **kw, time_lo=True)
+        _, at, ac = tfm.warp_images_st_call(*gpu, *pair12, **kw,
+                                            time_lo=True)
+        n_acc = int(ac.sum())
         st2 = _launched("megastep_finish",
                         lambda: tfm.megastep_finish_call(at, ac, st, geo,
                                                          **chain))
         assert torch.equal(st2, st5)
+        assert not pair12[0].any() and not pair12[1].any()
         _, at7, ac7, _ = tfm.fused_warp_splat_images_call(
             stat, act, pr, scal, *tfm.image_pair(cuda, Hs, Ws), **kw)
         vals7 = _launched("finish_partials",
                           lambda: tfm.finish_partials_call(at7, ac7, **kw))
         assert torch.equal(vals7, vals)
-        assert int(ac.sum()) > 10_000
+        assert n_acc > 10_000
 
 
 @pytest.mark.parametrize("kernel,res,scale", [
     ("megastep", (100, 1220), 3), ("fused_warp_splat", (100, 1220), 3),
-    ("megastep", (720, 1280), 1)])
+    ("megastep", (720, 1280), 1), ("megastep_finish", (100, 1220), 3),
+    ("megastep2", (100, 1220), 3), ("megastep2", (720, 1280), 1)])
 def test_iteration_kernels_at_other_band_heights(cuda, kernel, res, scale):
-    """B5 and B6 where a band holds one row (303x3663 images at scale 3:
-    two rows exceed the shared-memory budget) and B5 at 720x1280, scale 1
-    (three rows a band), bitwise their twins."""
+    """B5, B6, B2 and B12 where a band holds one row (303x3663 images at
+    scale 3: two rows exceed the shared-memory budget; 303 bands on a grid
+    of two blocks an SM, so the band loop strides) and B5 and B12 at
+    720x1280, scale 1 (three rows a band), bitwise their twins; B2's and
+    B12's pair zero after the finish."""
     Hs, Ws = image_shape(res, scale)
     R, _ = tfm.band_rows(Hs, Ws, scale)
     assert R == (1 if scale == 3 else 3) and -(-Hs // 2) >= 132
     keys = ("stat", "act", "pr", "st", "geo")
     _, gpu = _both(slice_inputs(2, res=res, scale=scale, nch=8), keys, cuda)
     stat, act, pr, st, geo = gpu
+    kw = dict(scale=scale, H=Hs, W=Ws, time_lo=True,
+              **finish_statics(OptimizerConfig()))
+    chain = {k: v for k, v in kw.items() if k != "time_lo"}
     if kernel == "megastep":
-        kw = dict(scale=scale, H=Hs, W=Ws, time_lo=True,
-                  **finish_statics(OptimizerConfig()))
         got = _launched("megastep", lambda: tfm.megastep_call(*gpu, **kw))
         want = tfm.megastep_plain(*gpu, **kw)
+    elif kernel == "megastep_finish":
+        npr, at, ac = tfm.warp_images_st_call(
+            *gpu, *tfm.image_pair(cuda, Hs, Ws), scale=scale, H=Hs, W=Ws)
+        st2 = _launched("megastep_finish", lambda: tfm.megastep_finish_call(
+            at, ac, st, geo, **chain))
+        assert not at.any() and not ac.any()
+        got, want = (npr, st2), tfm.megastep_plain(*gpu, **kw)
+    elif kernel == "megastep2":
+        # A later call: the head finishes the pair of B1's splat.
+        pr4 = torch.cat([pr, torch.zeros_like(pr)], dim=1)
+        st1 = st.clone()
+        st1[0, layout.ST_HAS] = 1.0
+        pair = tfm.image_pair(cuda, Hs, Ws)
+        tfm.warp_images_st_call(stat, act, pr, st1, geo, *pair, scale=scale,
+                                H=Hs, W=Ws)
+        copy = tuple(t.clone() for t in pair)
+        got = _launched("megastep2", lambda: tfm.megastep2_call(
+            stat, act, pr4, st1, *pair, geo, **kw))
+        want = tfm.megastep2_plain(stat, act, pr4, st1, *copy, geo, **kw)
+        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        got, want = got[0:2], want[0:2]
     else:
         scal = tfm.warp_scal_row(geo, _carry_models(st, cuda)["f64"])
         kw = dict(scale=scale, H=Hs, W=Ws)
@@ -499,15 +544,44 @@ def test_b7b_refused_launch_raises_and_leaves_the_pair(cuda, monkeypatch):
     assert torch.equal(got, want) and not at.any() and not ac.any()
 
 
+def test_megastep_finish_refused_launch_raises_and_leaves_the_pair(
+        cuda, monkeypatch):
+    """A B2 launch with too little shared memory for its band, a band
+    height of 0 or more than the budget raises, counts no launch and runs
+    nothing: the pair still holds B1's splat, which the next launch reads
+    and clears."""
+    keys = ("stat", "act", "pr", "st", "geo")
+    _, gpu = _both(slice_inputs(0), keys, cuda)
+    st, geo = gpu[3], gpu[4]
+    kw = dict(scale=SCALE, H=H, W=W, **statics("fast", 4.0))
+    _, at, ac = tfm.warp_images_st_call(*gpu, *tfm.image_pair(cuda, H, W),
+                                        scale=SCALE, H=H, W=W)
+    at0, ac0 = at.clone(), ac.clone()
+    want = tfm.megastep_finish_plain(at0.clone(), ac0.clone(), st, geo, **kw)
+    R, smem = tfm.band_rows(H, W, SCALE)
+    for bad in ((R, smem - 16), (0, smem), (R, tfm.BAND_SMEM_BUDGET + 16)):
+        monkeypatch.setattr(tfm, "_device_bands", lambda *a, bad=bad: bad)
+        before = dict(tfm.LAUNCHES)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            tfm.megastep_finish_call(at, ac, st, geo, **kw)
+        torch.cuda.synchronize()
+        assert tfm.LAUNCHES == before
+        assert torch.equal(at, at0) and torch.equal(ac, ac0), bad
+    monkeypatch.undo()
+    got = _launched("megastep_finish",
+                    lambda: tfm.megastep_finish_call(at, ac, st, geo, **kw))
+    assert torch.equal(got, want) and not at.any() and not ac.any()
+
+
 @pytest.mark.parametrize("case", ["fast", "reference", "f64",
                                   "fast_nomega"])
 def test_sharded_scan_on_card_is_unsharded_and_cpu_twins(cuda, case):
     """The event-parallel scan with 4 shards resident on the card: bitwise
     the unsharded card run on the same staging, equal to the CPU twins'
     4-shard run within the scan's gates, through B1 + B2 (megastep drives,
-    never B5) or B7a + B7b (composed drives): B1 once a shard an
-    iteration, B7a once an iteration for all four shards, one finish an
-    iteration and one B3 launch a slice."""
+    never B5) or B7a + B7b (composed drives): B1 or B7a once an iteration
+    for all four shards, one finish an iteration and one B3 launch a
+    slice."""
     d = synthetic_events(20000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
                          vy=-14.0, seed=4)
     cfg = {"fast": small_cfg(),
@@ -532,8 +606,7 @@ def test_sharded_scan_on_card_is_unsharded_and_cpu_twins(cuda, case):
     event, finish = (("warp_images_st", "megastep_finish")
                      if case in ("fast", "reference")
                      else ("fused_warp_splat_images", "finish_partials"))
-    assert lc[event] == (n if event == "warp_images_st" else 1) * total
-    assert lc[finish] == total
+    assert lc[event] == lc[finish] == total
     assert lc["megastep"] == 0 and lc["fused_warp_splat"] == 0
     assert lc["act_rows"] == len(rg["iters"])
 
@@ -670,22 +743,27 @@ def test_megastep2_kernel_is_twin_and_b1_b2_b4_chain(cuda, schedule, exits):
     z_t = torch.zeros((HP, WP), dtype=torch.int64, device=cuda)
     z_c = torch.zeros((HP, WP), dtype=torch.int32, device=cuda)
     pr4 = torch.cat([pr, torch.zeros_like(pr)], dim=1)
+    # Each call reads, clears and splats into the pair it is given: the
+    # calls and their twins get copies, so that each call's images stay.
     first = _launched("megastep2", lambda: tfm.megastep2_call(
-        stat, act, pr4, st, z_t, z_c, geo, **kw))
+        stat, act, pr4, st, z_t.clone(), z_c.clone(), geo, **kw))
     second = _launched("megastep2", lambda: tfm.megastep2_call(
-        stat, act, first[0], first[1], first[2], first[3], geo, **kw))
+        stat, act, first[0], first[1], first[2].clone(), first[3].clone(),
+        geo, **kw))
     for got, args in ((first, (pr4, st, z_t, z_c)),
                       (second, (first[0], first[1], first[2], first[3]))):
-        want = tfm.megastep2_plain(stat, act, args[0], args[1], args[2],
-                                   args[3], geo, **kw)
+        want = tfm.megastep2_plain(stat, act, args[0], args[1],
+                                   args[2].clone(), args[3].clone(), geo,
+                                   **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     # The chain: B1 from the first call's state, B2 on its images, then the
     # next B1 (or, when the head ends the loop, B4) from B2's state.
     st_a = first[1]
     assert float(st_a[0, layout.ST_CONT]) == 1.0
-    npr1, at1, ac1 = tfm.warp_images_st_call(stat, act, pr, st_a, geo,
-                                             scale=scale, H=Hs, W=Ws)
+    npr1, at1, ac1 = tfm.warp_images_st_call(
+        stat, act, pr, st_a, geo, *tfm.image_pair(cuda, Hs, Ws), scale=scale,
+        H=Hs, W=Ws)
     assert torch.equal(first[0][:, 0:2], npr1)
     assert torch.equal(first[2], at1) and torch.equal(first[3], ac1)
     st_2 = tfm.megastep_finish_call(at1, ac1, st_a, geo, **chain)
@@ -697,14 +775,16 @@ def test_megastep2_kernel_is_twin_and_b1_b2_b4_chain(cuda, schedule, exits):
     if cont == 0.0:
         assert int(second[3].abs().sum()) == 0
     else:
-        _, at2, ac2 = tfm.warp_images_st_call(stat, act, npr1, st_2, geo,
-                                              scale=scale, H=Hs, W=Ws)
+        _, at2, ac2 = tfm.warp_images_st_call(
+            stat, act, npr1, st_2, geo, *tfm.image_pair(cuda, Hs, Ws),
+            scale=scale, H=Hs, W=Ws)
         assert torch.equal(second[2], at2) and torch.equal(second[3], ac2)
 
 
 def test_megastep2_refused_launch_raises(cuda):
-    """A cooperative B12 launch the card cannot hold resident raises and
-    counts no launch."""
+    """A cooperative B12 launch the card cannot hold resident raises,
+    counts no launch and runs nothing: a pair that holds a splat for the
+    head stays as it was."""
     keys = ("stat", "act", "pr", "st", "geo")
     _, (stat, act, pr, st, geo) = _both(slice_inputs(0), keys, cuda)
     HP, WP = layout.padded_image_shape(H, W)
@@ -717,6 +797,16 @@ def test_megastep2_refused_launch_raises(cuda):
         tfm.megastep2_call(stat, act, pr4, st, z_t, z_c, geo,
                            grid_blocks=10_000_000, **kw)
     assert tfm.LAUNCHES == before
+    st1 = st.clone()
+    st1[0, layout.ST_HAS] = 1.0
+    tfm.warp_images_st_call(stat, act, pr, st1, geo, z_t, z_c, scale=SCALE,
+                            H=H, W=W)
+    at0, ac0 = z_t.clone(), z_c.clone()
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        tfm.megastep2_call(stat, act, pr4, st1, z_t, z_c, geo,
+                           grid_blocks=10_000_000, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(z_t, at0) and torch.equal(z_c, ac0)
 
 
 def test_xla_scan_on_card_matches_cpu_and_repeats(cuda):

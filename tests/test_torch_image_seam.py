@@ -1,19 +1,20 @@
-"""The image seam of the port's event-parallel composed drive.
+"""The image seam of the port's event-parallel drives.
 
 Under an event group the composed drive (``models.global_flow.
 run_fused_composed``) runs one B7a launch over all of a process's shards
 into an image pair it owns for the slice, sums that pair across the ranks in
 place (``ops.fused_model.sum_images``), and runs B7b, which reads the pair
-and leaves it zero for the next iteration.  Here a stand-in communicator of
-two ranks lives in one process: its rank 0 holds every event and the other
-rank's share of each sum is zero, so the drive must give the unsharded
-drive's bits (B6's twin) over every iteration, and B7b must get the very
-tensors that B7a filled.  A seam that reduces a copy (as the copying
-``all_reduce_sum`` does) leaves the drive's pair holding one iteration's
-counts in the next: the test of that seam fails both checks.  The plain
-twins hold the pair's contract as the kernels do (JAX-free: the JAX
-package's B7a and B7b are held against them in
-``test_torch_sharded_kernels.py``).
+and leaves it zero for the next iteration; the megastep drive
+(``run_fused_mega``) does the same with B1 and B2.  Here a stand-in
+communicator of two ranks lives in one process: its rank 0 holds every
+event and the other rank's share of each sum is zero, so each drive must
+give the unsharded drive's bits (B6's twin; B5's) over every iteration, and
+the finish must get the very tensors that the splat filled.  A seam that
+reduces a copy (as the copying ``all_reduce_sum`` does) leaves the drive's
+pair holding one iteration's counts in the next: the test of that seam
+fails both checks.  The plain twins hold the pair's contract as the kernels
+do (JAX-free: the JAX package's kernels are held against them in
+``test_torch_sharded_kernels.py`` and ``test_torch_kernels.py``).
 """
 
 import numpy as np
@@ -78,29 +79,34 @@ CFGS = {"reference": OptimizerConfig(scale=3, min_events=500,
                                      use_megastep=False),
         "fast": OptimizerConfig.fast(scale=3, min_events=500,
                                      use_megastep=False)}
+MEGA_CFGS = {"reference": OptimizerConfig(scale=3, min_events=500),
+             "fast": OptimizerConfig.fast(scale=3, min_events=500)}
+# The splat and the finish of each drive under a group.
+COMPOSED = ("fused_warp_splat_images_call", "finish_partials_call")
+MEGASTEP = ("warp_images_st_call", "megastep_finish_call")
 
 
-def _run(monkeypatch, cfg, seam=None, shards=2):
+def _run(monkeypatch, cfg, seam=None, shards=2, kernels=COMPOSED):
     """The slice through ``process_slice`` under a two-rank group of
-    ``shards`` local shards, with B7a's and B7b's image pairs recorded per
-    call."""
+    ``shards`` local shards, with the image pairs of the drive's splat
+    (B7a or B1: "b7a") and finish (B7b or B2: "b7b") recorded per call."""
     stat, act, bbox, n = _slice()
     calls = {"b7a": [], "b7b": []}
-    b7a, b7b = tgf.fused_warp_splat_images_call, tgf.finish_partials_call
+    splat, finish = (getattr(tgf, k) for k in kernels)
 
-    def rec_b7a(*a, **k):
-        out = b7a(*a, **k)
+    def rec_splat(*a, **k):
+        out = splat(*a, **k)
         calls["b7a"].append((out[1].data_ptr(), out[2].data_ptr()))
         return out
 
-    def rec_b7b(acc_t, acc_c, **k):
+    def rec_finish(acc_t, acc_c, *a, **k):
         calls["b7b"].append((acc_t.data_ptr(), acc_c.data_ptr()))
-        out = b7b(acc_t, acc_c, **k)
+        out = finish(acc_t, acc_c, *a, **k)
         assert not acc_t.any() and not acc_c.any()   # left zero
         return out
 
-    monkeypatch.setattr(tgf, "fused_warp_splat_images_call", rec_b7a)
-    monkeypatch.setattr(tgf, "finish_partials_call", rec_b7b)
+    monkeypatch.setattr(tgf, kernels[0], rec_splat)
+    monkeypatch.setattr(tgf, kernels[1], rec_finish)
     if seam is not None:
         monkeypatch.setattr(tgf, "sum_images", seam)
     group = EventGroup(comm=HalfComm(), n_local=shards, device=stat.device)
@@ -139,8 +145,8 @@ def test_one_range_or_one_tensor_per_shard_give_the_same_bits(monkeypatch):
     """The local shards' chunks as one range, or built one tensor per shard
     and joined by the caller (as ``process_slice_event_parallel`` does):
     the same calls and bits, whatever the number of local shards.  The
-    megastep drive, which launches B1 per shard, refuses a range that does
-    not divide into the local shards."""
+    megastep drive, whose final warp runs per shard, refuses a range that
+    does not divide into the local shards."""
     stat, act, bbox, n = _slice()
     cfg = CFGS["reference"]
     group = EventGroup(comm=HalfComm(), n_local=1, device=stat.device)
@@ -168,12 +174,44 @@ def test_a_seam_that_reduces_a_copy_is_caught(monkeypatch):
     one B7a filled; B7b clears the copy, the drive's pair keeps the first
     iteration's images, and the next iterations differ from the unsharded
     drive."""
-    def copying_seam(images, comm=None):
-        (acc_t, acc_c), = images
-        return tuple(comm.all_reduce_sum([acc_t, acc_c]))
-
     cfg = CFGS["reference"]
     want, _ = _unsharded(cfg)
-    got, _, calls = _run(monkeypatch, cfg, seam=copying_seam)
+    got, _, calls = _run(monkeypatch, cfg, seam=_copying_seam)
+    assert calls["b7b"][0] != calls["b7a"][0]
+    assert got.iters != want.iters or not torch.equal(got.u, want.u)
+
+
+def _copying_seam(acc_t, acc_c, comm=None):
+    return tuple(comm.all_reduce_sum([acc_t, acc_c]))
+
+
+@pytest.mark.parametrize("schedule", ["reference", "fast"])
+def test_megastep_group_drive_is_unsharded_with_one_b1_an_iteration(
+        monkeypatch, schedule):
+    """The megastep drive under the two-rank group, two local shards: over
+    every iteration one B1 call for both shards into the drive's pair, B2 on
+    that very pair, the pair zero after each B2, and the bits of the
+    unsharded drive (B5's twin under the reference schedule, the B1 + B2
+    twins under ``fast()``)."""
+    cfg = MEGA_CFGS[schedule]
+    want, uvn_w = _unsharded(cfg)
+    got, uvn, calls = _run(monkeypatch, cfg, kernels=MEGASTEP)
+    assert got.iters == want.iters >= 2
+    assert len(calls["b7a"]) == len(calls["b7b"]) == got.iters
+    assert calls["b7b"] == calls["b7a"]
+    assert len(set(calls["b7a"])) == 1       # one pair for the slice
+    for f in ("pr_x", "pr_y", "nx", "ny", "u", "v", "seed"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(uvn, uvn_w)
+
+
+def test_megastep_seam_that_reduces_a_copy_is_caught(monkeypatch):
+    """The megastep drive with a seam that sums a copy: B2 clears the copy,
+    the drive's pair keeps the first iteration's splat, the next B1 adds to
+    it, and the result leaves the unsharded drive's."""
+    cfg = MEGA_CFGS["reference"]
+    want, _ = _unsharded(cfg)
+    got, _, calls = _run(monkeypatch, cfg, seam=_copying_seam,
+                         kernels=MEGASTEP)
     assert calls["b7b"][0] != calls["b7a"][0]
     assert got.iters != want.iters or not torch.equal(got.u, want.u)

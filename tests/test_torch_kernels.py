@@ -62,8 +62,8 @@ def test_cuda_header_constants_match_layout():
     st_names = [n for n in dir(layout) if re.fullmatch(r"ST_[A-Z]+", n)]
     for name in st_names:
         assert found[name] == getattr(layout, name), name
-    # The kernel template of B5, B6, B7a and B7b: its block size and
-    # shared-memory budget, which ops/fused_model.band_rows mirrors.
+    # The kernel template of B2, B5, B6, B7a, B7b and B12: its block size
+    # and shared-memory budget, which ops/fused_model.band_rows mirrors.
     csrc = Path(tgf.__file__).parents[1] / "csrc"
     finish = (csrc / "finish.cuh").read_text()
     iteration = (csrc / "iteration.cuh").read_text()
@@ -80,10 +80,12 @@ def test_cuda_header_constants_match_layout():
     # CHUNK, which finish.cuh brings in.
     assert '#include "common.cuh"' in finish
     for entry in ("megastep.cu", "fused_warp_splat.cu",
-                  "warp_splat_images.cu", "finish_partials.cu"):
+                  "warp_splat_images.cu", "finish_partials.cu",
+                  "megastep_finish.cu", "megastep2.cu"):
         src = (csrc / entry).read_text()
         assert '#include "iteration.cuh"' in src
-        assert ("nch * bf::CHUNK" in src) != (entry == "finish_partials.cu")
+        assert ("nch * bf::CHUNK" in src) != (
+            entry in ("finish_partials.cu", "megastep_finish.cu"))
 
 
 # ----------------------------------------------------- small numpy ports
@@ -165,6 +167,7 @@ def test_warp_images_st_matches_pallas(time_lo):
         *(jnp.asarray(a) for a in args), scale=SCALE, H=H, W=W,
         time_lo=time_lo)
     npr, at, ac = tfm.warp_images_st_call(*(_t(a) for a in args),
+                                          *tfm.image_pair("cpu", H, W),
                                           scale=SCALE, H=H, W=W,
                                           time_lo=time_lo)
     assert at.dtype == torch.int64 and ac.dtype == torch.int32
@@ -183,7 +186,7 @@ def _finish_pair(d, statics):
     kernel gets as f32)."""
     _, at, ac = tfm.warp_images_st_call(
         *(_t(d[k]) for k in ("stat", "act", "pr", "st", "geo")),
-        scale=SCALE, H=H, W=W, time_lo=False)
+        *tfm.image_pair("cpu", H, W), scale=SCALE, H=H, W=W, time_lo=False)
     want = jfm.megastep_finish_call(
         jnp.asarray(tfm.time_image_f32(at).numpy()),
         jnp.asarray(ac.numpy().astype(np.float32)), jnp.asarray(d["st"]),
@@ -225,7 +228,7 @@ def test_finish_zero_padding_equals_circular_roll():
     d = _slice_inputs(4)
     _, at, ac = tfm.warp_images_st_call(
         *(_t(d[k]) for k in ("stat", "act", "pr", "st", "geo")),
-        scale=SCALE, H=H, W=W)
+        *tfm.image_pair("cpu", H, W), scale=SCALE, H=H, W=W)
     assert int(ac[0].sum()) == int(ac[:, 0].sum()) == 0
     assert int(ac[H:].sum()) == int(ac[:, W:].sum()) == 0
     roll = lambda a, d, axis: torch.roll(a, d, axis)
@@ -256,9 +259,10 @@ def test_wrappers_check_their_inputs():
     d = {k: _t(v) for k, v in _slice_inputs(0).items() if k != "valid"}
     with pytest.raises(TypeError, match="dtype"):
         tfm.warp_uv_call(d["stat"].double(), d["pr"], d["act"], d["st"])
+    pair = tfm.image_pair("cpu", H, W)
     with pytest.raises(ValueError, match="shape"):
         tfm.warp_images_st_call(d["stat"], d["act"], d["pr"][:2], d["st"],
-                                d["geo"], scale=SCALE, H=H, W=W)
+                                d["geo"], *pair, scale=SCALE, H=H, W=W)
     with pytest.raises(ValueError, match="contiguous"):
         tfm.warp_uv_call(d["stat"], d["pr"].transpose(0, 1).contiguous()
                          .transpose(0, 1), d["act"], d["st"])

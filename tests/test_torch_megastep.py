@@ -72,7 +72,9 @@ def test_megastep_twin_is_the_split_chain(geometry, schedule):
     npr, st = tfm.megastep_plain(*args, time_lo=time_lo, **kw)
     statics = {k: v for k, v in kw.items() if k not in ("scale", "H", "W")}
     geo_kw = dict(scale=kw["scale"], H=kw["H"], W=kw["W"])
-    npr2, at, ac = tfm.warp_images_st_call(*args, time_lo=time_lo, **geo_kw)
+    npr2, at, ac = tfm.warp_images_st_call(
+        *args, *tfm.image_pair("cpu", kw["H"], kw["W"]), time_lo=time_lo,
+        **geo_kw)
     st2 = tfm.megastep_finish_call(at, ac, args[3], args[4], **geo_kw,
                                    **statics)
     assert torch.equal(npr, npr2) and torch.equal(st, st2)

@@ -102,7 +102,10 @@ def test_megastep2_twin_matches_pallas(res, scale, nch, schedule):
     stat, act, geo = _t(d["stat"]), _t(d["act"]), _t(d["geo"])
     t1 = tfm.megastep2_call(stat, act, _t(pr4), _t(d["st"]), z_t, z_c, geo,
                             **kw)
-    t2 = tfm.megastep2_call(stat, act, t1[0], t1[1], t1[2], t1[3], geo, **kw)
+    # The second call reads the pair, clears it and splats into it: give it
+    # a copy, so that t1 keeps the first call's images.
+    t2 = tfm.megastep2_call(stat, act, t1[0], t1[1], t1[2].clone(),
+                            t1[3].clone(), geo, **kw)
     # The head of a first call: the state copied, CONT and HAS set.
     want = d["st"].copy()
     want[0, layout.ST_CONT] = want[0, layout.ST_HAS] = 1.0
@@ -146,15 +149,69 @@ def test_megastep2_twin_is_b1_b2_b4_chain(schedule):
                                 torch.zeros((HP, WP), dtype=torch.int64),
                                 torch.zeros((HP, WP), dtype=torch.int32),
                                 geo, **kw)
-    second = tfm.megastep2_plain(stat, act, *first, geo, **kw)
-    npr1, at1, ac1 = tfm.warp_images_st_call(stat, act, pr, first[1], geo,
-                                             **geo_kw)
+    second = tfm.megastep2_plain(stat, act, first[0], first[1],
+                                 first[2].clone(), first[3].clone(), geo,
+                                 **kw)
+    npr1, at1, ac1 = tfm.warp_images_st_call(
+        stat, act, pr, first[1], geo, *tfm.image_pair("cpu", kw["H"], kw["W"]),
+        **geo_kw)
     assert torch.equal(first[0][:, 0:2], npr1)
     assert torch.equal(first[2], at1) and torch.equal(first[3], ac1)
     st2 = tfm.megastep_finish_call(at1, ac1, first[1], geo, **chain)
     assert torch.equal(second[1], st2)
     out, _ = tfm.warp_uv_call(stat, npr1, act, st2)
     assert torch.equal(second[0], out)
+
+
+@pytest.mark.parametrize("twin", ["b1", "b2", "b12", "b12_exit"])
+def test_twins_hold_the_pair_contract(twin):
+    """The image pair's contract, which the kernels keep on the card and
+    the twins on the CPU: B1 adds its splat into the given pair; B2 reads
+    the pair and leaves it zero; B12 reads the pair, clears it and splats
+    into those very tensors, and leaves it zero on the call that clears
+    CONT."""
+    d = slice_inputs(1)
+    opt = SCHEDULES["fast"]
+    H, W = image_shape()
+    geo_kw = dict(scale=3, H=H, W=W)
+    chain = dict(geo_kw, **tgf.finish_statics(
+        dataclasses.replace(opt, max_iter=1) if twin == "b12_exit" else opt))
+    stat, act, pr, st, geo = (_t(d[k]) for k in KEYS)
+    _, at, ac = tfm.warp_images_st_call(stat, act, pr, st, geo,
+                                        *tfm.image_pair("cpu", H, W),
+                                        time_lo=True, **geo_kw)
+    assert int(ac.sum()) > 1000
+    pair = (at.clone(), ac.clone())          # holds one call's splat
+    if twin == "b1":
+        _, t, c = tfm.warp_images_st_call(stat, act, pr, st, geo, *pair,
+                                          time_lo=True, **geo_kw)
+        assert t is pair[0] and c is pair[1]
+        assert torch.equal(t, 2 * at) and torch.equal(c, 2 * ac)
+    elif twin == "b2":
+        st2 = tfm.megastep_finish_call(*pair, st, geo, **chain)
+        assert not pair[0].any() and not pair[1].any()
+        assert torch.equal(st2, tfm.megastep_plain(
+            stat, act, pr, st, geo, time_lo=True, **chain)[1])
+    else:
+        st[0, layout.ST_HAS] = 1.0       # a later call: the head runs
+        pr4 = torch.cat([pr, torch.zeros_like(pr)], dim=1)
+        npr, st_out, t, c = tfm.megastep2_call(stat, act, pr4, st, *pair, geo,
+                                               time_lo=True, **chain)
+        assert t is pair[0] and c is pair[1]
+        st2 = tfm.megastep_finish_call(at, ac, st, geo, **chain)
+        assert torch.equal(st_out, st2)
+        if twin == "b12_exit":
+            assert float(st_out[0, layout.ST_CONT]) == 0.0
+            assert not t.any() and not c.any()
+        else:
+            assert float(st_out[0, layout.ST_CONT]) == 1.0
+            _, at2, ac2 = tfm.warp_images_st_call(
+                stat, act, pr, st2, geo, *tfm.image_pair("cpu", H, W),
+                time_lo=True, **geo_kw)
+            assert torch.equal(t, at2) and torch.equal(c, ac2)
+            assert torch.equal(npr[:, 0:2], tfm.warp_images_st_call(
+                stat, act, pr, st2, geo, *tfm.image_pair("cpu", H, W),
+                time_lo=True, **geo_kw)[0])
 
 
 # --------------------------------------------------------- the drive

@@ -15,8 +15,8 @@ holds B1's (the JAX kernel sums in f32, the port exact fixed point).  The
 seven sums: within 1e-6 of the sum of each sum's terms' magnitudes (JAX sums
 in f32 in XLA's order, the port in f64; the gradient sums cancel, so an rtol
 on their own values fails).  The twin chain B7a -> B7b is bitwise B6's twin,
-and n shards cut on chunk boundaries, launched into one pair or summed from
-pairs of their own, give exactly the unsharded images.
+and n shards cut on chunk boundaries, launched one after another into one
+pair, give exactly the unsharded images (B7a's and B1's).
 """
 
 import numpy as np
@@ -157,6 +157,7 @@ def test_b7_twin_chain_is_bitwise_b6_twin(res, scale, nch):
     # those of the state-driven warp on the same scalars.
     st, geo = _t(d["st"]), _t(d["geo"])
     _, at1, ac1 = tfm.warp_images_st_call(args[0], args[1], args[2], st, geo,
+                                          *tfm.image_pair("cpu", H, W),
                                           time_lo=True, **kw)
     assert torch.equal(ac1, ac)
     np.testing.assert_allclose(tfm.time_image_f32(at1).numpy(),
@@ -169,8 +170,8 @@ def test_b7_twin_chain_is_bitwise_b6_twin(res, scale, nch):
 def test_summed_shard_images_are_the_unsharded_images(n_shards):
     """Shards cut on chunk boundaries keep every chunk and its time base;
     integer images add exactly in any order: launched one after another
-    into one pair, or each into a pair of its own and summed by the seam
-    (in place, into the first pair)."""
+    into one pair, B7a's and B1's are the unsharded launch's, and the seam
+    with no other rank hands back that very pair."""
     res, scale, nch = (24, 32), 3, 8
     H, W = image_shape(res, scale)
     d, _warp, _crl, row = _inputs(res, scale, nch, seed=13)
@@ -185,23 +186,25 @@ def test_summed_shard_images_are_the_unsharded_images(n_shards):
             stat[c], act[c], pr[c], scal, *pair, **kw)[0] for c in order}
         assert torch.equal(pair[0], at) and torch.equal(pair[1], ac)
         assert torch.equal(torch.cat([nprs[c.start] for c in cuts]), npr)
-        parts = [_b7a(stat[c], act[c], pr[c], scal, **kw) for c in order]
-        first = parts[0][1]
-        sum_t, sum_c = tfm.sum_images([(p[1], p[2]) for p in parts])
-        assert sum_t is first
-        assert torch.equal(sum_t, at) and torch.equal(sum_c, ac)
-    # B1's images add the same way (the sharded megastep's seam).
+        sum_t, sum_c = tfm.sum_images(*pair)
+        assert sum_t is pair[0] and sum_c is pair[1]
+    # B1's images add the same way (the sharded megastep's splat).
     st, geo = _t(d["st"]), _t(d["geo"])
-    _, at1, ac1 = tfm.warp_images_st_call(stat, act, pr, st, geo,
-                                          time_lo=False, **kw)
-    parts1 = [tfm.warp_images_st_call(stat[a:a + per], act[a:a + per],
-                                      pr[a:a + per], st, geo, time_lo=False,
-                                      **kw) for a in range(0, nch, per)]
-    sum_t, sum_c = tfm.sum_images([(p[1], p[2]) for p in parts1])
-    assert torch.equal(sum_t, at1) and torch.equal(sum_c, ac1)
+    npr1, at1, ac1 = tfm.warp_images_st_call(
+        stat, act, pr, st, geo, *tfm.image_pair("cpu", H, W), time_lo=False,
+        **kw)
+    for order in (cuts, cuts[::-1]):
+        pair = tfm.image_pair("cpu", H, W)
+        nprs = {c.start: tfm.warp_images_st_call(
+            stat[c], act[c], pr[c], st, geo, *pair, time_lo=False, **kw)[0]
+            for c in order}
+        assert torch.equal(pair[0], at1) and torch.equal(pair[1], ac1)
+        assert torch.equal(torch.cat([nprs[c.start] for c in cuts]), npr1)
 
 
 def test_b7_wrappers_check_their_tensors():
+    """B7a's and B7b's tensors; the image pair for every wrapper that
+    takes its caller's pair (B1, B2, B7a, B7b, B12)."""
     res, scale, nch = (24, 32), 3, 2
     H, W = image_shape(res, scale)
     d, _warp, _crl, row = _inputs(res, scale, nch)
@@ -222,11 +225,23 @@ def test_b7_wrappers_check_their_tensors():
            (ValueError, "acc_t", (at[:, :-4], ac)),
            (ValueError, "acc_c", (at, meta)),
            (ValueError, "acc_c", (at, ac.t().contiguous().t()))]
+    st, geo = _t(d["st"]), _t(d["geo"])
+    pr4 = torch.cat([pr, torch.zeros_like(pr)], dim=1)
+    statics = dict(schedule="fast", rot_tol=1e-3, div_tol=1e-3,
+                   dx_tol=1e-3, dy_tol=1e-3, xy_cap=1e6, rotdiv_cap=1e6,
+                   max_iter=10, hard_cap=100)
     for err, name, pair in bad:
         with pytest.raises(err, match=name):
             tfm.fused_warp_splat_images_call(stat, act, pr, scal, *pair, **kw)
         with pytest.raises(err, match=name):
             tfm.finish_partials_call(*pair, **kw)
+        with pytest.raises(err, match=name):
+            tfm.warp_images_st_call(stat, act, pr, st, geo, *pair, **kw)
+        with pytest.raises(err, match=name):
+            tfm.megastep_finish_call(*pair, st, geo, **kw, **statics)
+        with pytest.raises(err, match=name):
+            tfm.megastep2_call(stat, act, pr4, st, *pair, geo, **kw,
+                               **statics)
     _, at, ac, _ = tfm.fused_warp_splat_images_call(stat, act, pr, scal, at,
                                                     ac, **kw)
     assert ac.any()
