@@ -1,17 +1,13 @@
-// The finish of one optimizer iteration, shared by finish_local.cu (B9, a
-// batch of tiles with an ownership window) and iteration.cuh (B2, B5, B6,
-// B7b and B12, whose band pass repeats the per-row order on rows held in
-// shared memory): image -> gradient sums -> next state (B6, B7b and B9 stop
-// at the seven sums).
-//
+// The end of the finish of one optimizer iteration, shared by every kernel
+// of iteration.cuh (B2, B5, B6, B7b, B9 and B12), whose band pass computes
 // _finish_values of the TPU kernel (box filter, count normalisation, mask to
-// the logical H x W image, all-nine nonzero mask, Scharr, seven sums) as
-// per-row device functions, and _model_update_phase (gradient from the
-// sums, reference divider step or safeguarded secant step, Kahan totals,
-// divider doubling, exit test) as one thread's function.  Every kernel
-// calls these same functions, or repeats their order, with FINISH_THREADS
-// threads per block, so their sums are taken in the same order and their
-// states are bitwise equal.
+// the logical H x W image, all-nine nonzero mask, Scharr) and each row's
+// nine f64 sums: the sum of the rows into the seven sums (finish_sums) and
+// _model_update_phase (gradient from the sums, reference divider step or
+// safeguarded secant step, Kahan totals, divider doubling, exit test) as
+// one thread's function (B6, B7b and B9 stop at the seven sums).  Every
+// kernel runs them with FINISH_THREADS threads per block, so their sums are
+// taken in the same order and their states are bitwise equal.
 //
 // The TPU kernel rolls the padded image circularly and masks to H x W; here
 // a read outside the image is zero.  The two agree because no accepted
@@ -48,72 +44,6 @@ constexpr int NSUM = 9;
 
 using FinishShared = double[NSUM][FINISH_THREADS];
 
-__device__ inline float time_at(const long long* a, int i, int j, int HP,
-                                int WP) {
-  if (i < 0 || i >= HP || j < 0 || j >= WP) return 0.0f;
-  return static_cast<float>(static_cast<double>(a[static_cast<size_t>(i) * WP + j]) *
-                            (1.0 / FIXED_PER_SEC));
-}
-
-__device__ inline float count_at(const int* a, int i, int j, int HP, int WP) {
-  if (i < 0 || i >= HP || j < 0 || j >= WP) return 0.0f;
-  return static_cast<float>(a[static_cast<size_t>(i) * WP + j]);
-}
-
-// Box sums in the TPU kernel's order: rows first ((r + a[i+d]) + a[i-d]),
-// then columns of the row sums.
-__device__ inline float box_time(const long long* a, int i, int j, int half,
-                                 int HP, int WP) {
-  float out = 0.0f;
-  for (int dc = 0; dc <= half; ++dc) {
-    for (int sgn = 0; sgn < (dc == 0 ? 1 : 2); ++sgn) {
-      const int jj = dc == 0 ? j : (sgn == 0 ? j + dc : j - dc);
-      float r = time_at(a, i, jj, HP, WP);
-      for (int dr = 1; dr <= half; ++dr) {
-        r = r + time_at(a, i + dr, jj, HP, WP);
-        r = r + time_at(a, i - dr, jj, HP, WP);
-      }
-      out = dc == 0 ? r : out + r;
-    }
-  }
-  return out;
-}
-
-__device__ inline float box_count(const int* a, int i, int j, int half,
-                                  int HP, int WP) {
-  float out = 0.0f;
-  for (int dc = 0; dc <= half; ++dc) {
-    for (int sgn = 0; sgn < (dc == 0 ? 1 : 2); ++sgn) {
-      const int jj = dc == 0 ? j : (sgn == 0 ? j + dc : j - dc);
-      float r = count_at(a, i, jj, HP, WP);
-      for (int dr = 1; dr <= half; ++dr) {
-        r = r + count_at(a, i + dr, jj, HP, WP);
-        r = r + count_at(a, i - dr, jj, HP, WP);
-      }
-      out = dc == 0 ? r : out + r;
-    }
-  }
-  return out;
-}
-
-// Row i of the normalised image: per pixel the box-filtered time and count
-// and their quotient.  The fixed-point time image becomes f32 here.
-__device__ inline void image_row(const long long* acc_t, const int* acc_c,
-                                 float* img, int i, int HP, int WP, int W,
-                                 int half) {
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const float tb = box_time(acc_t, i, j, half, HP, WP);
-    const float cb = box_count(acc_c, i, j, half, HP, WP);
-    img[static_cast<size_t>(i) * W + j] = cb >= 1.0f ? tb / fmaxf(cb, 1.0f)
-                                                     : 0.0f;
-  }
-}
-
-__device__ inline float img_at(const float* img, int i, int j, int H, int W) {
-  if (i < 0 || i >= H || j < 0 || j >= W) return 0.0f;
-  return img[static_cast<size_t>(i) * W + j];
-}
-
 // Fixed-order tree sum of FINISH_THREADS values per quantity; result in
 // sh[q][0].
 __device__ inline void block_sum(FinishShared& sh) {
@@ -125,58 +55,6 @@ __device__ inline void block_sum(FinishShared& sh) {
     }
   }
   __syncthreads();
-}
-
-// Row i's nine f64 sums into partials[i]: per pixel the masks and the
-// Scharr pair, reduced in the block in a fixed order.  Every thread of the
-// block calls it.  Only the pixels of the ownership window [r0, r1) x
-// [c0, c1) are summed (finish_local.cu: a tile's owned region); the
-// stencils read the whole image, and the row and column weights are the
-// image's own indices.  A thread keeps its columns whatever the window, so
-// the whole-image window sums in iteration.cuh's band order.
-__device__ inline void gradient_row_window(const float* img, double* partials,
-                                           int i, int H, int W, int r0,
-                                           int r1, int c0, int c1,
-                                           FinishShared& sh) {
-  double acc[NSUM];
-  for (int q = 0; q < NSUM; ++q) acc[q] = 0.0;
-  const bool row_owned = i >= r0 && i < r1;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    if (!row_owned || j < c0 || j >= c1) continue;
-    float v[3][3];
-    bool all9 = true;
-    for (int a = 0; a < 3; ++a)
-      for (int b = 0; b < 3; ++b) {
-        v[a][b] = img_at(img, i + a - 1, j + b - 1, H, W);
-        all9 = all9 && v[a][b] > NONZERO_EPS;
-      }
-    const bool m = v[1][1] > NONZERO_EPS;
-    // Scharr, separable: gx = cs(i-1) - cs(i+1) with
-    // cs = 3*img[j-1] + 10*img[j] + 3*img[j+1]; gy likewise on columns.
-    // The smoothing is fused as XLA compiles it: fma(3, c, fma(3, a, 10 b)).
-    const float cs_up = fmaf(3.0f, v[0][2], fmaf(3.0f, v[0][0], 10.0f * v[0][1]));
-    const float cs_dn = fmaf(3.0f, v[2][2], fmaf(3.0f, v[2][0], 10.0f * v[2][1]));
-    const float rs_lf = fmaf(3.0f, v[2][0], fmaf(3.0f, v[0][0], 10.0f * v[1][0]));
-    const float rs_rt = fmaf(3.0f, v[2][2], fmaf(3.0f, v[0][2], 10.0f * v[1][2]));
-    const float gxm = all9 ? cs_up - cs_dn : 0.0f;
-    const float gym = all9 ? rs_lf - rs_rt : 0.0f;
-    const double md = m ? 1.0 : 0.0;
-    const double di = static_cast<double>(i), dj = static_cast<double>(j);
-    acc[0] += md;
-    acc[1] += md * di;
-    acc[2] += md * dj;
-    acc[3] += static_cast<double>(gxm);
-    acc[4] += static_cast<double>(gym);
-    acc[5] += static_cast<double>(gym) * di;
-    acc[6] += static_cast<double>(gxm) * dj;
-    acc[7] += static_cast<double>(gxm) * di;
-    acc[8] += static_cast<double>(gym) * dj;
-  }
-  __syncthreads();   // the previous row's result reads of sh are done
-  for (int q = 0; q < NSUM; ++q) sh[q][threadIdx.x] = acc[q];
-  block_sum(sh);
-  if (threadIdx.x < NSUM)
-    partials[static_cast<size_t>(i) * NSUM + threadIdx.x] = sh[threadIdx.x][0];
 }
 
 // _model_update_phase, one thread.  Op order follows the JAX source.

@@ -1,7 +1,7 @@
-// One optimizer iteration on the H100, as three phases that six kernels
+// One optimizer iteration on the H100, as three phases that seven kernels
 // compose: megastep.cu (B5), fused_warp_splat.cu (B6), warp_splat_images.cu
-// (B7a), finish_partials.cu (B7b), megastep_finish.cu (B2) and megastep2.cu
-// (B12).
+// (B7a), finish_partials.cu (B7b), megastep_finish.cu (B2), megastep2.cu
+// (B12) and finish_local.cu (B9, the tiled pipeline's finish).
 //
 // The phases:
 //   1. splat_phase: grid-stride warp + splat of every slot
@@ -10,37 +10,40 @@
 //      and B6 compute them once per block (block_warp, B5's f64 cos and
 //      sin among them), B7a in every thread from the row.
 //   2. band_phase, in place of an image pass and a gradient pass: blocks
-//      take bands of R image rows in a grid-stride loop.  A band stages the
+//      take bands of R image rows in a grid-stride loop (B9: over every
+//      tile's bands, each tile a pair of its own).  A band stages the
 //      integer rows it needs into shared memory with 16-byte loads,
 //      converting each value to f32 once; builds the normalised f32 rows
 //      [r0 - 1, r1 + 1) there (the f32 image never goes to device memory);
 //      and reduces its rows' nine f64 sums, each in finish.cuh's tree order,
-//      into partials[i].
-//   3. tail_phase: block 0 sums the rows with finish_sums and writes the
-//      output, while the other blocks zero the image pair it read: no
-//      zeroing phase and no memset.
+//      into partials[i] (B9: only the pixels of its ownership window).
+//   3. tail_phase: block 0 (B9: block k, tile k) sums the rows with
+//      finish_sums and writes the output, while the other blocks zero the
+//      image pair it read: no zeroing phase and no memset.
 //
 // The kernels:
 //   - iteration_kernel<kMegastep> (B5) and <kFused> (B6): one cooperative
 //     launch of all three phases, a grid.sync() between each two;
-//   - <kFinish> (B7b, and B10/B11 after their splat) and <kFinishState>
-//     (B2): one cooperative launch of phases 2 and 3 on a pair its caller
-//     filled, one grid.sync() between them; B7b writes the seven sums, B2
-//     the scalar update into the next state;
+//   - <kFinish> (B7b, and B10/B11 after their splat), <kFinishState> (B2)
+//     and <kFinishLocal> (B9): one cooperative launch of phases 2 and 3 on
+//     a pair its caller filled, one grid.sync() between them; B7b writes
+//     the seven sums, B2 the scalar update into the next state, B9 each
+//     tile's seven sums over its window;
 //   - <kMerged> (B12): phases 2 and 3 on the previous call's pair when the
 //     state's HAS flag is set (B2's), a grid.sync(), then merged_phase: the
 //     warp of every slot with B4's direction vectors and, while the new
 //     state's CONT is set, the splat into the same pair, which the tail
 //     left zero;
 //   - B7a's kernel (warp_splat_images.cu) and B1's (warp_images_st.cu):
-//     phase 1 alone, an ordinary launch with no barrier and no memset.
+//     phase 1 alone, an ordinary launch with no barrier and no memset; B8's
+//     (splat_local.cu) splats precomputed positions the same way.
 // So B7a -> B7b is B6 cut at the image seam, B1 -> B2 is B5 cut there, and
 // B12 is B2 -> B1 (or B2 -> B4 on the call that clears CONT).  Every kernel
 // runs the per-event function of common.cuh and the sums of finish.cuh in
 // their order, so B5 is bitwise the B1 -> B2 chain, B6 the B7a -> B7b
 // chain and B12 the B2 -> B1 chain with B4; the image pair is zero before
-// B1, B5, B6, B7a and a slice's first B12, and again after B2, B5, B6, B7b
-// and a B12 that clears CONT.
+// B1, B5, B6, B7a, B8 and a slice's first B12, and again after B2, B5, B6,
+// B7b, B9 and a B12 that clears CONT.
 //
 // Bound: the images (12 B a pixel, written by the splat, read by the band
 // pass, zeroed for the next call) and the slots (32 B read and written)
@@ -100,14 +103,19 @@ struct IterationArgs {
   float* npr;         // as pr
   unsigned long long* acc_t;  // the image pair (see the contract above)
   int* acc_c;
-  double* partials;            // (H, 9)
+  double* partials;            // (tiles, H, 9)
   float* out;                  // B2, B5, B12: the next state, never src;
-                               // B6, B7b: the (8,) sums
+                               // B6, B7b: the (8,) sums; B9: (tiles, 8)
   int n, HP, WP, H, W, scale, time_lo, rows;   // n: slots (B2, B7b: 0)
   UpdateParams p;
+  // B9 alone sets these: a batch of tiles, pair (tiles, HP, WP), and the
+  // ownership window [r0, r1) x [c0, c1) of every tile's sums.  The
+  // defaults are one image and the whole of it.
+  int tiles = 1;
+  int own_r0 = 0, own_r1 = 1 << 30, own_c0 = 0, own_c1 = 1 << 30;
 };
 
-// time_at's conversion of one fixed-point value.
+// One fixed-point time value (2^-32 s) as f32.
 __device__ inline float fixed_to_f32(long long v) {
   return static_cast<float>(static_cast<double>(v) * (1.0 / FIXED_PER_SEC));
 }
@@ -173,9 +181,9 @@ __device__ inline void stage_band(const long long* acc_t, const int* acc_c,
   }
 }
 
-// box_time's (and box_count's) sum at staged row s, column b: rows first
-// ((r + a[s+d]) + a[s-d]), then the columns of the row sums in the order
-// b, b+1, b-1, b+2, ...  HALF >= 0 fixes scale / 2 at compile time, so
+// The box filter's sum at staged row s, column b in the TPU kernel's
+// order: rows first ((r + a[s+d]) + a[s-d]), then the columns of the row
+// sums in the order b, b+1, b-1, b+2, ...  HALF >= 0 fixes scale / 2 at compile time, so
 // every load of the box is issued at once; HALF < 0 reads it from ``half``.
 template <int HALF>
 __device__ inline float box_sum(const float* a, int s, int b, int sw,
@@ -200,8 +208,8 @@ __device__ inline float box_sum(const float* a, int s, int b, int sw,
 }
 
 // The normalised f32 rows [r0 - 1, r1 + 1) at columns [-1, W + 1) into sI,
-// zero outside the logical H x W image: image_row's box sums and quotient
-// on the staged rows.
+// zero outside the logical H x W image: the box sums of the staged rows
+// and their quotient where the count's box is at least 1.
 template <int HALF>
 __device__ inline void band_image(int r0, int R, int H, int W,
                                   const BandLayout& L, const float* sT,
@@ -225,12 +233,15 @@ __device__ inline void band_image(int r0, int R, int H, int W,
 }
 
 // Band rows [r0, r1)'s nine f64 sums into partials: per row, each
-// thread's leaf is gradient_row_window's per-pixel terms over its columns
-// j = t, t + 256, ... in that order; then block_sum's tree over the 256
-// leaves of every row and sum at once (strides 128, 64 and 32 through
-// shared memory, 16 to 1 by shuffles), pairing the same elements in the
-// same order.
-__device__ inline void band_sums(int r0, int r1, int W, const BandLayout& L,
+// thread's leaf is the per-pixel terms over its columns j = t, t + 256, ...
+// in that order, the pixels outside the ownership window [own_r0, own_r1) x
+// [own_c0, own_c1) adding nothing (the stencils still read them; row and
+// column weights are the image's own indices); then block_sum's tree over
+// the 256 leaves of every row and sum at once (strides 128, 64 and 32
+// through shared memory, 16 to 1 by shuffles), pairing the same elements in
+// the same order.
+__device__ inline void band_sums(int r0, int r1, int W,
+                                 const IterationArgs& a, const BandLayout& L,
                                  const float* sI, double* leaf,
                                  double* partials) {
   const int t = threadIdx.x;
@@ -238,7 +249,9 @@ __device__ inline void band_sums(int r0, int r1, int W, const BandLayout& L,
     const int r = i - r0 + 1;   // the band's f32 row of image row i
     double acc[NSUM];
     for (int q = 0; q < NSUM; ++q) acc[q] = 0.0;
-    for (int j = t; j < W; j += blockDim.x) {
+    const int j1 = i >= a.own_r0 && i < a.own_r1 ? min(W, a.own_c1) : 0;
+    for (int j = t; j < j1; j += blockDim.x) {
+      if (j < a.own_c0) continue;
       float v[3][3];
       bool all9 = true;
       for (int a = 0; a < 3; ++a)
@@ -303,12 +316,13 @@ __device__ inline void band_sums(int r0, int r1, int W, const BandLayout& L,
   }
 }
 
-// Blocks [b0, gridDim.x) zero the image pair, each its share (16-byte
-// stores; HP * WP is a multiple of 4).
-__device__ inline void zero_pair(unsigned long long* acc_t, int* acc_c,
-                                 int HP, int WP, int b0) {
+// Blocks [b0, gridDim.x) zero the image pair of a.tiles images, each its
+// share (16-byte stores; HP * WP is a multiple of 4).
+__device__ inline void zero_pair(const IterationArgs& a, int b0) {
+  unsigned long long* acc_t = a.acc_t;
+  int* acc_c = a.acc_c;
   const size_t nthreads = static_cast<size_t>(gridDim.x - b0) * blockDim.x;
-  const size_t quads = static_cast<size_t>(HP) * WP / 4;
+  const size_t quads = static_cast<size_t>(a.tiles) * a.HP * a.WP / 4;
   for (size_t k = static_cast<size_t>(blockIdx.x - b0) * blockDim.x +
                   threadIdx.x;
        k < quads; k += nthreads) {
@@ -320,7 +334,8 @@ __device__ inline void zero_pair(unsigned long long* acc_t, int* acc_c,
 
 // The kernels of this template.
 enum IterationKind {
-  kMegastep = 0, kFused = 1, kFinish = 2, kFinishState = 3, kMerged = 4
+  kMegastep = 0, kFused = 1, kFinish = 2, kFinishState = 3, kMerged = 4,
+  kFinishLocal = 5
 };
 
 // The warp scalars, computed once per block by thread 0: from the state
@@ -346,7 +361,9 @@ __device__ inline void splat_phase(const IterationArgs& a, const Warp& w) {
                      a.npr, a.acc_t, a.acc_c, a.WP, a.scale, a.time_lo);
 }
 
-// Phase 2: the band pass over the image pair into a.partials.
+// Phase 2: the band pass over the image pair into a.partials: the bands of
+// tile 0, then of tile 1, ... in one grid-stride loop.  Each tile's
+// stencils stop at its own edges (rows outside [0, HP) read as zero).
 __device__ inline void band_phase(const IterationArgs& a,
                                   unsigned char* smem) {
   const BandLayout L(a.rows, a.W, a.scale);
@@ -354,13 +371,15 @@ __device__ inline void band_phase(const IterationArgs& a,
   float* sC = sT + L.ns * L.sw;
   double* leaf = reinterpret_cast<double*>(smem);
   float* sI = reinterpret_cast<float*>(smem + L.stage_bytes(a.rows));
-  const long long* acc_t = reinterpret_cast<const long long*>(a.acc_t);
   const int nbands = (a.H + a.rows - 1) / a.rows;
-  for (int band = blockIdx.x; band < nbands; band += gridDim.x) {
-    const int r0 = band * a.rows;
+  const size_t pixels = static_cast<size_t>(a.HP) * a.WP;
+  for (int b = blockIdx.x; b < a.tiles * nbands; b += gridDim.x) {
+    const int tile = b / nbands;
+    const int r0 = (b - tile * nbands) * a.rows;
     const int r1 = min(r0 + a.rows, a.H);
     __syncthreads();   // the previous band's reads are done
-    stage_band(acc_t, a.acc_c, r0, a.HP, a.WP, a.W, L, sT, sC);
+    stage_band(reinterpret_cast<const long long*>(a.acc_t) + tile * pixels,
+               a.acc_c + tile * pixels, r0, a.HP, a.WP, a.W, L, sT, sC);
     __syncthreads();
     if (L.half == 0)
       band_image<0>(r0, a.rows, a.H, a.W, L, sT, sC, sI);
@@ -369,33 +388,39 @@ __device__ inline void band_phase(const IterationArgs& a,
     else
       band_image<-1>(r0, a.rows, a.H, a.W, L, sT, sC, sI);
     __syncthreads();
-    band_sums(r0, r1, a.W, L, sI, leaf, a.partials);
+    band_sums(r0, r1, a.W, a, L, sI, leaf,
+              a.partials + static_cast<size_t>(tile) * a.H * NSUM);
   }
 }
 
-// Phase 3, after a grid barrier: block 0 sums the rows and writes the
-// output (kState: the scalar update into the next state; otherwise the
-// seven sums and a zero), the other blocks zero the image pair (block 0
-// too when it is alone).
+// Phase 3, after a grid barrier: block k sums tile k's rows and writes
+// its output (kState, one tile: the scalar update into the next state;
+// otherwise the tile's seven sums and a zero at out + 8 k), the blocks past
+// the last tile zero the image pair (all blocks, once their tiles are
+// done, when the grid has no block past them).
 template <bool kState>
 __device__ inline void tail_phase(const IterationArgs& a,
                                   unsigned char* smem) {
-  if (blockIdx.x != 0) {
-    zero_pair(a.acc_t, a.acc_c, a.HP, a.WP, 1);
+  if (blockIdx.x >= a.tiles) {
+    zero_pair(a, a.tiles);
     return;
   }
-  float vals[7];
-  finish_sums(a.partials, a.H, vals, *reinterpret_cast<FinishShared*>(smem));
-  if (threadIdx.x == 0) {
-    if (kState) {
-      model_update(vals, a.src, a.geo, a.out, static_cast<float>(a.scale),
-                   a.p);
-    } else {
-      for (int q = 0; q < 7; ++q) a.out[q] = vals[q];
-      a.out[7] = 0.0f;
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    float vals[7];
+    finish_sums(a.partials + static_cast<size_t>(tile) * a.H * NSUM, a.H,
+                vals, *reinterpret_cast<FinishShared*>(smem));
+    if (threadIdx.x == 0) {
+      if (kState) {
+        model_update(vals, a.src, a.geo, a.out, static_cast<float>(a.scale),
+                     a.p);
+      } else {
+        float* out = a.out + 8 * tile;
+        for (int q = 0; q < 7; ++q) out[q] = vals[q];
+        out[7] = 0.0f;
+      }
     }
   }
-  if (gridDim.x == 1) zero_pair(a.acc_t, a.acc_c, a.HP, a.WP, 0);
+  if (gridDim.x <= a.tiles) zero_pair(a, 0);
 }
 
 // B12 after its head: every slot warped with the new state ``w`` (B4's
@@ -429,9 +454,15 @@ __device__ inline void merged_phase(const IterationArgs& a, const Warp& w) {
 // kKind: kMegastep (B5: warp from the state, scalar update into the next
 // state), kFused (B6: warp from the row, the seven sums and a zero),
 // kFinish (B7b: no splat; the seven sums of the caller's pair),
-// kFinishState (B2: no splat; the scalar update) or kMerged (B12).
+// kFinishState (B2: no splat; the scalar update), kMerged (B12) or
+// kFinishLocal (B9: no splat; each tile's seven sums over its window).
+// Two blocks an SM, B9 three: its batch has several bands for every block
+// (656 at 4x2), and a third block an SM took its 4x2 device time from 35.5
+// to 31.4 us on an H100 (80 registers, 12 bytes spilled; PERF.md); B5 and
+// B6, with fewer bands than blocks, were no faster with three.
 template <int kKind>
-__global__ void __launch_bounds__(BAND_THREADS, 2)
+__global__ void __launch_bounds__(BAND_THREADS,
+                                  kKind == kFinishLocal ? 3 : 2)
 iteration_kernel(IterationArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -457,7 +488,7 @@ iteration_kernel(IterationArgs a) {
   } else {
     band_phase(a, smem);
     grid.sync();
-    tail_phase<kKind != kFused && kKind != kFinish>(a, smem);
+    tail_phase<kKind == kMegastep || kKind == kFinishState>(a, smem);
   }
 }
 
@@ -492,7 +523,8 @@ inline int iteration_resident_blocks(int dev, int smem) {
 template <int kKind>
 inline int launch_iteration(IterationArgs& a, int smem, int blocks,
                             void* stream) {
-  if (a.rows < 1 || smem < BandLayout(a.rows, a.W, a.scale).bytes(a.rows) ||
+  if (a.rows < 1 || a.tiles < 1 ||
+      smem < BandLayout(a.rows, a.W, a.scale).bytes(a.rows) ||
       smem > BAND_SMEM_BUDGET)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, coop = 0;

@@ -140,17 +140,18 @@ def library() -> ctypes.CDLL:
         lib.bf_fused_warp_splat.argtypes = [P] * 9 + [I] * 8 + [P]
         lib.bf_warp_splat_images.argtypes = [P] * 7 + [I] * 4 + [P]
         lib.bf_finish_partials.argtypes = [P] * 4 + [I] * 7 + [P]
-        lib.bf_splat_local.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-        lib.bf_finish_local.argtypes = [P, P, P, P, P,
-                                        I, I, I, I, I, I, I, I, I, I, P]
+        lib.bf_splat_local.argtypes = [P] * 5 + [I] * 7 + [P]
+        lib.bf_finish_local.argtypes = [P] * 4 + [I] * 12 + [P]
         lib.bf_fused_model_partials.argtypes = [P] * 9 + [I] * 8 + [P]
         lib.bf_fused_model_partials_windowed.argtypes = \
             lib.bf_fused_model_partials.argtypes
         grids = [getattr(lib, f"bf_{k}_grid") for k in (
             "megastep", "fused_warp_splat", "finish_partials",
-            "megastep_finish", "megastep2")]
+            "megastep_finish", "megastep2", "finish_local")]
         for fn in grids:
             fn.argtypes = [I]
+        lib.bf_splat_local_grid.argtypes = [I, I]
+        grids.append(lib.bf_splat_local_grid)
         for fn in [lib.bf_act_rows, lib.bf_warp_images_st,
                    lib.bf_megastep_finish, lib.bf_warp_uv, lib.bf_megastep,
                    lib.bf_fused_warp_splat, lib.bf_warp_splat_images,

@@ -25,10 +25,11 @@ across ranks in place, and ``megastep_finish_call`` (B2) and
 ``finish_partials_call`` (B7b) read it and leave it zero;
 ``megastep2_call`` (B12) reads it, leaves it zero and splats into it.  An
 integer sum is exact whatever the order and the number of launches, shards
-and ranks.  The plain twins keep the same contract on the CPU.
-``splat_local_call`` returns them for a batch of tiles (the tiled
-pipeline's halo fold-in and escape lane add into them exactly), and
-``finish_local_call`` reads such a batch.
+and ranks.  The plain twins keep the same contract on the CPU.  The tiled
+pipeline holds a batch of such pairs, one a tile (``image_pair(...,
+n_tiles=)``), for a whole run: ``splat_local_call`` (B8) adds into it (and
+the halo fold-in and escape lane, exactly), ``finish_local_call`` (B9)
+reads it and leaves it zero.
 """
 
 from __future__ import annotations
@@ -87,20 +88,26 @@ def _on_cpu(device: torch.device) -> bool:
     raise ValueError(f"no kernel for device {device}")
 
 
-def _check_pair(acc_t, acc_c, H: int, W: int, device) -> None:
+def _pair_shape(H: int, W: int, n_tiles=None):
     HP, WP = padded_image_shape(H, W)
-    _check("acc_t", acc_t, torch.int64, (HP, WP), device)
-    _check("acc_c", acc_c, torch.int32, (HP, WP), device)
+    return (HP, WP) if n_tiles is None else (n_tiles, HP, WP)
 
 
-def image_pair(device, H: int, W: int):
+def _check_pair(acc_t, acc_c, H: int, W: int, device, n_tiles=None) -> None:
+    shape = _pair_shape(H, W, n_tiles)
+    _check("acc_t", acc_t, torch.int64, shape, device)
+    _check("acc_c", acc_c, torch.int32, shape, device)
+
+
+def image_pair(device, H: int, W: int, n_tiles=None):
     """A zero image pair for ``H`` x ``W`` images on ``device``: the (HP,
     WP) int64 fixed-point time image and int32 count image that B1 and B7a
     add into, B2 and B7b read and leave zero, and B12 reads, leaves zero and
-    splats into."""
-    HP, WP = padded_image_shape(H, W)
-    return (torch.zeros((HP, WP), dtype=torch.int64, device=device),
-            torch.zeros((HP, WP), dtype=torch.int32, device=device))
+    splats into.  With ``n_tiles``, (n_tiles, HP, WP): one pair a tile, which
+    B8 adds into and B9 reads and leaves zero."""
+    shape = _pair_shape(H, W, n_tiles)
+    return (torch.zeros(shape, dtype=torch.int64, device=device),
+            torch.zeros(shape, dtype=torch.int32, device=device))
 
 
 def _launch(name: str, rc: int) -> None:
@@ -415,18 +422,19 @@ def band_smem_bytes(R: int, W: int, scale: int) -> int:
     return max(8 * ns * sw, R * _BAND_LEAF_BYTES) + 4 * (R + 2) * iw
 
 
-def band_rows(H: int, W: int, scale: int, sms: int = H100_SMS):
-    """(R, dynamic shared bytes) of the band pass of B2, B5, B6, B7b and
-    B12: the
-    largest R up to ``BAND_MAX_ROWS`` that still gives at least one band per
-    SM and fits the shared-memory budget, else 1.  Raises when one row does
-    not fit."""
+def band_rows(H: int, W: int, scale: int, sms: int = H100_SMS,
+              n_tiles: int = 1):
+    """(R, dynamic shared bytes) of the band pass of B2, B5, B6, B7b, B9
+    and B12 over ``n_tiles`` images of ``H`` rows (B9's batch; the bands
+    of one tile never hold another's rows): the largest R up to
+    ``BAND_MAX_ROWS`` that still gives at least one band per SM and fits the
+    shared-memory budget, else 1.  Raises when one row does not fit."""
     if band_smem_bytes(1, W, scale) > BAND_SMEM_BUDGET:
         raise ValueError(f"a band of one row of width {W} at scale {scale} "
                          f"needs {band_smem_bytes(1, W, scale)} bytes of "
                          f"shared memory, over {BAND_SMEM_BUDGET}")
     R = 1
-    while (R < BAND_MAX_ROWS and -(-H // (R + 1)) >= sms
+    while (R < BAND_MAX_ROWS and n_tiles * -(-H // (R + 1)) >= sms
            and band_smem_bytes(R + 1, W, scale) <= BAND_SMEM_BUDGET):
         R += 1
     return R, band_smem_bytes(R, W, scale)
@@ -435,12 +443,13 @@ def band_rows(H: int, W: int, scale: int, sms: int = H100_SMS):
 _SMS: dict = {}
 
 
-def _device_bands(dev: torch.device, H: int, W: int, scale: int):
+def _device_bands(dev: torch.device, H: int, W: int, scale: int,
+                  n_tiles: int = 1):
     """``band_rows`` with the device's SM count."""
     if dev not in _SMS:
         props = torch.cuda.get_device_properties(dev)
         _SMS[dev] = props.multi_processor_count
-    return band_rows(H, W, scale, _SMS[dev])
+    return band_rows(H, W, scale, _SMS[dev], n_tiles)
 
 
 _IMAGES: dict = {}
@@ -459,14 +468,14 @@ def _images(dev: torch.device, H: int, W: int):
 
 
 def iteration_grid(kernel: str, dev: torch.device, H: int, W: int,
-                   scale: int):
+                   scale: int, n_tiles: int = 1):
     """(R, resident grid) of B2 (``"megastep_finish"``), B5
     (``"megastep"``), B6 (``"fused_warp_splat"``), B7b
-    (``"finish_partials"``) or B12 (``"megastep2"``) at this image shape on
-    ``dev``."""
+    (``"finish_partials"``), B9 (``"finish_local"``, over ``n_tiles``) or
+    B12 (``"megastep2"``) at this image shape on ``dev``."""
     from better_flow_tpu_torch.ops._build import library
 
-    R, smem = _device_bands(dev, H, W, scale)
+    R, smem = _device_bands(dev, H, W, scale, n_tiles)
     with torch.cuda.device(dev):
         return R, getattr(library(), f"bf_{kernel}_grid")(smem)
 
@@ -861,10 +870,13 @@ def _chunk_padded(a: torch.Tensor, fill: float) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, n_pad - n), value=fill)
 
 
-def splat_local_plain(lx, ly, t_sec, *, H: int, W: int,
+def splat_local_plain(lx, ly, t_sec, acc_t, acc_c, *, H: int, W: int,
                       time_lo: bool = True):
-    """The twin of B8 on chunk-padded (n_tiles, n_pad) slots."""
+    """The twin of B8 on chunk-padded (n_tiles, n_pad) slots: the events'
+    fixed-point time weights and counts added into the pair (acc_t, acc_c)
+    (n_tiles, HP, WP) in place.  Returns the pair."""
     n_tiles, n_pad = lx.shape
+    HP, WP = acc_t.shape[1:]
     ix = lx.to(torch.int32).to(torch.int64)   # toward zero
     iy = ly.to(torch.int32).to(torch.int64)
     ok = (lx >= 0) & (ly >= 0) & (ix < H) & (iy < W)
@@ -875,29 +887,28 @@ def splat_local_plain(lx, ly, t_sec, *, H: int, W: int,
     if time_lo:
         fixed = fixed + to_fixed(_bf16(tr - w_hi))
     tile = torch.arange(n_tiles, device=lx.device)[:, None]
-    # Rejected slots add into a dump slot past the images.
-    lin = torch.where(ok, (tile * H + ix) * W + iy,
-                      n_tiles * H * W).reshape(-1)
-    acc_t = torch.zeros(n_tiles * H * W + 1, dtype=torch.int64,
-                        device=lx.device)
-    acc_c = torch.zeros(n_tiles * H * W + 1, dtype=torch.int32,
-                        device=lx.device)
-    acc_t.index_add_(0, lin, fixed.reshape(-1))
-    acc_c.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
-    return (acc_t[:-1].reshape(n_tiles, H, W),
-            acc_c[:-1].reshape(n_tiles, H, W))
+    # A rejected slot adds zero to pixel 0.
+    lin = torch.where(ok, (tile * HP + ix) * WP + iy, 0).reshape(-1)
+    acc_t.view(-1).index_add_(0, lin, torch.where(
+        ok, fixed.reshape(n_tiles, n_pad), 0).reshape(-1))
+    acc_c.view(-1).index_add_(0, lin, ok.to(torch.int32).reshape(-1))
+    return acc_t, acc_c
 
 
-def splat_local_call(lx, ly, t_sec, *, H: int, W: int, time_lo: bool = True):
+def splat_local_call(lx, ly, t_sec, acc_t, acc_c, *, H: int, W: int,
+                     time_lo: bool = True):
     """The splat of a batch of tiles from precomputed local positions:
     ``lx``, ``ly`` (n_tiles, n) f32 integer positions in each tile's H x W
     frame, negative in a rejected or padding slot, ``t_sec`` (n_tiles, n)
-    f32 timestamps in seconds.  Each tile's slots are padded to whole chunks
-    of CHUNK (position -1, time 0) unless they already are; an event's time
-    weight is relative to its chunk's slot 0, in bf16 hi and (``time_lo``) lo
-    parts.  Returns (acc_t (n_tiles, H, W) int64 fixed point, acc_c
-    (n_tiles, H, W) int32), allocated per call.  One launch whatever the
-    number of tiles."""
+    f32 timestamps in seconds, added into the caller's pair ``acc_t``
+    (n_tiles, HP, WP) int64 fixed point, ``acc_c`` (n_tiles, HP, WP) int32
+    (``image_pair(..., n_tiles=)``: the logical H x W image in each tile's
+    top-left corner), which is zero at an iteration's start.  Each tile's
+    slots are padded to whole chunks of CHUNK (position -1, time 0) unless
+    they already are; an event's time weight is relative to its chunk's
+    slot 0, in bf16 hi and (``time_lo``) lo parts.  Returns (acc_t, acc_c),
+    the caller's own tensors.  One launch whatever the number of tiles; no
+    memset and no allocation on the card."""
     dev = lx.device
     if lx.dim() != 2:
         raise ValueError(f"lx: shape {tuple(lx.shape)}, expected "
@@ -906,47 +917,62 @@ def splat_local_call(lx, ly, t_sec, *, H: int, W: int, time_lo: bool = True):
     _check("lx", lx, torch.float32, shape, dev)
     _check("ly", ly, torch.float32, shape, dev)
     _check("t_sec", t_sec, torch.float32, shape, dev)
+    _check_pair(acc_t, acc_c, H, W, dev, n_tiles=shape[0])
     lx, ly = _chunk_padded(lx, -1.0), _chunk_padded(ly, -1.0)
     t_sec = _chunk_padded(t_sec, 0.0)
     if _on_cpu(dev):
-        return splat_local_plain(lx, ly, t_sec, H=H, W=W, time_lo=time_lo)
+        return splat_local_plain(lx, ly, t_sec, acc_t, acc_c, H=H, W=W,
+                                 time_lo=time_lo)
     from better_flow_tpu_torch.ops._build import library
 
     n_tiles, n_pad = lx.shape
-    acc_t = torch.empty((n_tiles, H, W), dtype=torch.int64, device=dev)
-    acc_c = torch.empty((n_tiles, H, W), dtype=torch.int32, device=dev)
+    HP, WP = padded_image_shape(H, W)
     rc = library().bf_splat_local(_ptr(lx), _ptr(ly), _ptr(t_sec),
                                   _ptr(acc_t), _ptr(acc_c), n_tiles, n_pad,
-                                  H, W, int(time_lo), _stream(dev))
+                                  HP, WP, H, W, int(time_lo), _stream(dev))
     _launch("splat_local", rc)
     return acc_t, acc_c
 
 
+def splat_local_grid(n_tiles: int, n: int) -> int:
+    """The blocks B8 launches over ``n_tiles`` x ``n`` slots (``n`` padded
+    to whole chunks, as ``splat_local_call`` does)."""
+    from better_flow_tpu_torch.ops._build import library
+
+    n_pad = -(-max(n, CHUNK) // CHUNK) * CHUNK
+    return library().bf_splat_local_grid(n_tiles, n_pad)
+
+
 def finish_local_plain(acc_t, acc_c, *, scale: int, H: int, W: int, own):
     """The twin of B9: ``finish_values_plain`` with the ownership window,
-    tile by tile, with a zero eighth slot."""
+    tile by tile, with a zero eighth slot; then the pair is cleared, as the
+    kernel leaves it."""
     rows = [finish_values_plain(t, c, scale=scale, H=H, W=W, own=own)
             for t, c in zip(acc_t, acc_c)]
+    acc_t.zero_()
+    acc_c.zero_()
     return torch.cat([torch.stack(rows),
                       acc_t.new_zeros((len(rows), 1), dtype=torch.float32)],
                      dim=1)
 
 
 def finish_local_call(acc_t, acc_c, *, scale: int, H: int, W: int, own):
-    """The finish of a batch of tiles' local images (n_tiles, HP, WP), the
-    logical H x W image in the top-left corner: box filter, normalise,
-    mask, Scharr over the whole local image, and the seven sums over the
-    window ``own`` = (r0, r1, c0, c1), the same for every tile, with local
-    row and column weights.  Returns (n_tiles, 8) f32 [cnt, s_row, s_col,
-    s_gx, s_gy, s_rg, s_dg, 0]; with the whole image as the window, bitwise
-    ``finish_partials_call``'s.  One call whatever the number of tiles."""
+    """The finish of a batch of tiles' local images, the pair (n_tiles, HP,
+    WP) that B8 filled (``image_pair(..., n_tiles=)``): box filter,
+    normalise, mask, Scharr over the whole local image, and the seven sums
+    over the window ``own`` = (r0, r1, c0, c1), the same for every tile,
+    with local row and column weights, in one cooperative launch that
+    leaves the pair zero for the next iteration.  Returns (n_tiles, 8) f32
+    [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0]; with the whole image as
+    the window, bitwise ``finish_partials_call``'s tile by tile.  One call
+    whatever the number of tiles.  A launch the card refuses raises and
+    leaves the pair as it was."""
     dev = acc_t.device
-    if acc_t.dim() != 3 or acc_t.shape[1] < H or acc_t.shape[2] < W:
+    if acc_t.dim() != 3:
         raise ValueError(f"acc_t: shape {tuple(acc_t.shape)}, expected "
-                         f"(n_tiles, >= {H}, >= {W})")
-    n_tiles, HP, WP = acc_t.shape
-    _check("acc_t", acc_t, torch.int64, (n_tiles, HP, WP), dev)
-    _check("acc_c", acc_c, torch.int32, (n_tiles, HP, WP), dev)
+                         "(n_tiles, HP, WP)")
+    n_tiles = acc_t.shape[0]
+    _check_pair(acc_t, acc_c, H, W, dev, n_tiles=n_tiles)
     r0, r1, c0, c1 = (int(v) for v in own)
     if not (0 <= r0 <= r1 <= H and 0 <= c0 <= c1 <= W):
         raise ValueError(f"own = {tuple(own)} outside the {H} x {W} image")
@@ -955,18 +981,17 @@ def finish_local_call(acc_t, acc_c, *, scale: int, H: int, W: int, own):
                                   own=(r0, r1, c0, c1))
     from better_flow_tpu_torch.ops._build import library
 
+    HP, WP = padded_image_shape(H, W)
+    R, smem = _device_bands(dev, H, W, scale, n_tiles)
     out = torch.empty((n_tiles, 8), dtype=torch.float32, device=dev)
     key = (dev, n_tiles, H, W)
-    if key not in _WORKSPACE:
-        _WORKSPACE[key] = dict(
-            img=torch.empty((n_tiles, H, W), dtype=torch.float32, device=dev),
-            partials=torch.empty((n_tiles, H, 9), dtype=torch.float64,
-                                 device=dev))
-    ws = _WORKSPACE[key]
+    if key not in _WORKSPACE:     # B9's (n_tiles, H, 9) f64 row sums
+        _WORKSPACE[key] = dict(partials=torch.empty(
+            (n_tiles, H, 9), dtype=torch.float64, device=dev))
     rc = library().bf_finish_local(
-        _ptr(acc_t), _ptr(acc_c), _ptr(out), _ptr(ws["img"]),
-        _ptr(ws["partials"]), n_tiles, HP, WP, H, W, scale, r0, r1, c0, c1,
-        _stream(dev))
+        _ptr(acc_t), _ptr(acc_c), _ptr(out),
+        _ptr(_WORKSPACE[key]["partials"]), n_tiles, HP, WP, H, W, scale, r0,
+        r1, c0, c1, R, smem, _stream(dev))
     _launch("finish_local", rc)
     return out
 

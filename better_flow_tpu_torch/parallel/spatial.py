@@ -9,8 +9,9 @@ iteration:
 1. every tile's events are scaled, truncated and accepted (plain tensor
    operations; the model is the same everywhere, so the warp that produced
    the positions needed no communication) and splatted into the tile's
-   (tile + 2 halo)^2 time and count images (B8, ``splat_local_call``); a
-   warped event may land in the halo, in a neighbour's territory;
+   (tile + 2 halo)^2 time and count images (B8, ``splat_local_call``),
+   which are zero at the iteration's start; a warped event may land in the
+   halo, in a neighbour's territory;
 2. fold-in: halo strips are added into the neighbours that own those pixels,
    x then y, so that corners ride through;
 3. the escape lane: events accepted but beyond the halo ring are compacted
@@ -22,13 +23,18 @@ iteration:
    into the neighbours' halos, so the box filter and the Scharr ring read
    true values across the seams;
 5. the finish per tile with the sums restricted to the owned window (B9,
-   ``finish_local_call``), the shift of the row- and column-weighted sums
-   to global coordinates, the sum over tiles, the model update and the
-   re-warp of every tile's events.
+   ``finish_local_call``, which leaves the images zero for the next
+   iteration), the shift of the row- and column-weighted sums to global
+   coordinates, the sum over tiles, the model update and the re-warp of
+   every tile's events.
 
 All tiles a process holds go through every step together: events are
-(n_local, slots) tensors, images (n_local, H, W), and B8 and B9 take the
-batch in one call, so the number of launches does not grow with the tiles.
+(n_local, slots) tensors, and B8 and B9 take the batch in one call, so the
+number of launches does not grow with the tiles.  The images are one pair
+for the run (``_Tiling``), (n_local, HP, WP) with HP x WP the padded shape
+of the H x W local image (``ops.layout.padded_image_shape``; the padding
+stays zero): B8 adds into it, the seams work on its H x W view, B9 reads
+it and leaves it zero.
 A strip exchange between two tiles of one process is a tensor copy; between
 ranks it is ``comm.permute``; the escape lane and the tile sum use
 ``all_gather``, the final union ``all_reduce_sum``.  The images are the
@@ -56,9 +62,9 @@ from better_flow_tpu_torch.models.global_flow import (
     adaptive_loop, check_supported, drive_loop, geometry_from_bbox,
 )
 from better_flow_tpu_torch.ops.fused_model import (
-    LAUNCHES, finish_local_call, splat_local_call, to_fixed,
+    LAUNCHES, finish_local_call, image_pair, splat_local_call, to_fixed,
 )
-from better_flow_tpu_torch.ops.layout import CHUNK
+from better_flow_tpu_torch.ops.layout import CHUNK, padded_image_shape
 from better_flow_tpu_torch.ops.reductions import model_from_partials
 from better_flow_tpu_torch.ops.warp import (
     compute_uv, mul_recip, project_4param_reinit, recip,
@@ -107,8 +113,9 @@ class TiledFlowState(NamedTuple):
 
 class _Tiling:
     """The constants of one run: the tile geometry of a sensor over a tile
-    group, and this process's tiles' offsets and edge masks on the
-    device."""
+    group, this process's tiles' offsets and edge masks on the device, and
+    the run's image pair (``acc_t``, ``acc_c``: (n_local, HP, WP), zero
+    between iterations)."""
 
     def __init__(self, sensor: SensorConfig, scale: int, mesh: TileGroup,
                  halo: int):
@@ -130,7 +137,10 @@ class _Tiling:
         self.H = self.tile_h + 2 * halo
         self.W = self.tile_w + 2 * halo
         self.own = (halo, halo + self.tile_h, halo, halo + self.tile_w)
+        self.HP, self.WP = padded_image_shape(self.H, self.W)
         dev = mesh.device
+        self.acc_t, self.acc_c = image_pair(dev, self.H, self.W,
+                                            n_tiles=mesh.n_local)
         ids = np.arange(mesh.first_tile, mesh.first_tile + mesh.n_local)
         tx, ty = ids // self.n_ty, ids % self.n_ty
         i32 = lambda a: torch.from_numpy(
@@ -181,7 +191,7 @@ class _Tiling:
 
     def fold_in(self, img: torch.Tensor, axis: int) -> None:
         """Add every tile's halo strips along ``axis`` into the neighbours
-        that own those pixels, in place."""
+        that own those pixels, in place; ``img`` is (n_local, H, W)."""
         if self.mesh.shape[axis] == 1:
             return
         h, dim = self.halo, axis + 1
@@ -194,7 +204,7 @@ class _Tiling:
     def broadcast_back(self, img: torch.Tensor, axis: int) -> None:
         """Copy every tile's completed edge strips of width 1 + scale // 2
         along ``axis`` into the neighbours' halos, in place; a halo beyond
-        the sensor is zeroed."""
+        the sensor is zeroed.  ``img`` is (n_local, H, W)."""
         if self.mesh.shape[axis] == 1:
             return
         h, dim, g = self.halo, axis + 1, 1 + self.scale // 2
@@ -238,9 +248,10 @@ def _escape_lane(gx, gy, t_sec, escaped, esc_cap: int, tl: _Tiling,
                  acc_t, acc_c):
     """Compact every local tile's escaped events into its (esc_cap,) buffer
     by prefix-sum rank (no sort), gather every tile's buffer, and add the
-    gathered events whose pixel a local tile owns into that tile's images,
-    in place.  Returns the number of events dropped for want of capacity,
-    over all tiles (a 0-d int64 tensor)."""
+    gathered events whose pixel a local tile owns into that tile's images
+    (the run's (n_local, HP, WP) pair), in place.  Returns the number of
+    events dropped for want of capacity, over all tiles (a 0-d int64
+    tensor)."""
     mesh = tl.mesh
     n_local = gx.shape[0]
     rank = torch.cumsum(escaped, dim=1) - 1
@@ -266,7 +277,7 @@ def _escape_lane(gx, gy, t_sec, escaped, esc_cap: int, tl: _Tiling,
     local = tx * tl.n_ty + ty - mesh.first_tile
     own = ((eg_x >= 0) & (eg_y >= 0) & (tx < tl.n_tx) & (ty < tl.n_ty)
            & (local >= 0) & (local < n_local))
-    lin = ((local * tl.H + (eg_x - tx * tl.tile_h + tl.halo)) * tl.W
+    lin = ((local * tl.HP + (eg_x - tx * tl.tile_h + tl.halo)) * tl.WP
            + (eg_y - ty * tl.tile_w + tl.halo))
     # A slot that is empty or another process's adds zero, each to a pixel
     # of its own (one shared dump pixel would serialise the card's atomics).
@@ -327,9 +338,12 @@ def _tiled_iteration(s: TiledFlowState, ev: _TileEvents, tl: _Tiling,
     step under the fast schedule) and re-warp every event."""
     mesh, scale = tl.mesh, tl.scale
     lx, ly, gx, gy, escaped = _local_positions(s.pr_x, s.pr_y, ev, tl)
-    acc_t, acc_c = splat_local_call(lx, ly, ev.t_sec, H=tl.H, W=tl.W)
+    acc_t, acc_c = splat_local_call(lx, ly, ev.t_sec, tl.acc_t, tl.acc_c,
+                                    H=tl.H, W=tl.W)
+    # The seams work on the logical images, the (n_local, H, W) views.
+    images = [a[:, :tl.H, :tl.W] for a in (acc_t, acc_c)]
 
-    for img in (acc_t, acc_c):
+    for img in images:
         tl.fold_in(img, 0)
         tl.fold_in(img, 1)
 
@@ -344,7 +358,7 @@ def _tiled_iteration(s: TiledFlowState, ev: _TileEvents, tl: _Tiling,
         esc = torch.maximum(esc, _escape_lane(gx, gy, ev.t_sec, escaped,
                                               esc_cap, tl, acc_t, acc_c))
 
-    for img in (acc_t, acc_c):
+    for img in images:
         tl.broadcast_back(img, 0)
         tl.broadcast_back(img, 1)
 

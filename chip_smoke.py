@@ -64,7 +64,10 @@ in phases that each raise on failure:
     (``finish_local``) against their twins at the 1x1 tile's shapes (one
     785x1345 image pair, 30 chunks) and at the 4x2 batch (eight 245x705
     tiles), sorted and unsorted slots, an owned window and the whole image
-    (bitwise B7b).  Then ``compensate_recording_tiled`` on 1x1 and 4x2 tiles
+    (bitwise B7b): B8 adds into a padded pair (n_tiles, HP, WP) and leaves
+    its padding zero, B9 reads it and leaves it zero; B9's band height R
+    and grid, and the device operations of one B8 -> B9 (one kernel each,
+    no memset).  Then ``compensate_recording_tiled`` on 1x1 and 4x2 tiles
     under the reference schedule and on 4x2 under ``fast``: no event dropped
     from the escape lane, B8 and B9 launched once per iteration, 4x2 against
     1x1 and against the untiled scan under the gates of
@@ -829,7 +832,6 @@ def phase_tiled_kernels(d, dev):
 
     from better_flow_tpu_torch.models.global_flow import geometry_from_bbox
     from better_flow_tpu_torch.ops import fused_model as fm
-    from better_flow_tpu_torch.ops.layout import padded_image_shape
     from better_flow_tpu_torch.parallel import spatial as sp
     from better_flow_tpu_torch.parallel.mesh import make_tiled_mesh
 
@@ -856,53 +858,75 @@ def phase_tiled_kernels(d, dev):
         cases = {"sorted": (lx, ly, ev.t_sec),
                  "unsorted": tuple(a.gather(1, perm)
                                    for a in (lx, ly, ev.t_sec))}
+        n_tiles = lx.shape[0]
+        new_pair = lambda: fm.image_pair(dev, tl.H, tl.W, n_tiles=n_tiles)
+        # B8 adds into its caller's pair and B9 reads it and leaves it
+        # zero: each call gets its own pair, and the timed calls one that
+        # setup() puts back (zeroed for B8, B8's splat for B9).
         res8 = {}
         for order, args in cases.items():
-            at, ac = fm.splat_local_call(*args, **kw)
-            at_p, ac_p = fm.splat_local_plain(*args, **kw)
+            pair = new_pair()
+            at, ac = fm.splat_local_call(*args, *pair, **kw)
+            at_p, ac_p = fm.splat_local_plain(*args, *new_pair(), **kw)
             err = max(max_err(at, at_p), max_err(ac, ac_p))
             if err != 0.0:
                 raise AssertionError(f"splat_local {name} {order}: max abs "
                                      f"error {err} against its twin")
+            if at[:, tl.H:].any() or at[:, :, tl.W:].any() or \
+                    ac[:, tl.H:].any() or ac[:, :, tl.W:].any():
+                raise AssertionError(f"splat_local {name} {order}: a pixel "
+                                     "outside the H x W image is not zero")
             n_acc = int(ac.sum())
             # (On 4x2 tiles the window's shift moves most events off their
             # home tiles, beyond the halo: those go by the escape lane.)
             if n_acc < 20_000:
                 raise AssertionError(f"splat_local {name} {order}: only "
                                      f"{n_acc} events splatted")
+            zeroed = lambda pair=pair: (pair[0].zero_(), pair[1].zero_())
+            # The bound counts the slots read once and each pixel the
+            # events hit written once.
+            hit = int((ac > 0).sum())
             res8[order] = dict(
                 max_abs_err=err,
-                ms=timed(lambda: fm.splat_local_call(*args, **kw)),
-                plain_ms=timed(lambda: fm.splat_local_plain(*args, **kw)),
-                **bound(nbytes(*args, at, ac),
-                        args[0].numel() * 4 + n_acc * OPS_SPLAT))
-        at, ac = fm.splat_local_call(*cases["sorted"], **kw)
-        if not torch.equal(fm.splat_local_call(*cases["unsorted"], **kw)[1],
-                           ac):
+                ms=timed(lambda: fm.splat_local_call(*args, *pair, **kw),
+                         setup=zeroed),
+                plain_ms=timed(lambda: fm.splat_local_plain(*args, *pair,
+                                                            **kw),
+                               setup=zeroed),
+                **bound(nbytes(*args) + 12 * hit,
+                        args[0].numel() * 4 + n_acc * OPS_SPLAT),
+                grid=fm.splat_local_grid(*args[0].shape), redesigned=10)
+        pair = new_pair()
+        at, ac = fm.splat_local_call(*cases["sorted"], *pair, **kw)
+        at0, ac0 = at.clone(), ac.clone()
+        if not torch.equal(fm.splat_local_call(*cases["unsorted"],
+                                               *new_pair(), **kw)[1], ac0):
             raise AssertionError(f"splat_local {name}: the count image "
                                  "depends on the slots' order")
         # A yardstick, not the same function: one index_add_ of precomputed
         # weights at precomputed pixels gives one of the two images.
         ok = lx >= 0
-        tile = torch.arange(lx.shape[0], device=dev)[:, None]
+        tile = torch.arange(n_tiles, device=dev)[:, None]
         lin = torch.where(ok, (tile * tl.H + lx.long()) * tl.W + ly.long(),
                           0).reshape(-1)
         w = torch.where(ok, fm.to_fixed(ev.t_sec), 0).reshape(-1)
-        ia_ms = timed(lambda: torch.zeros(at.numel(), dtype=torch.int64,
+        ia_ms = timed(lambda: torch.zeros(n_tiles * tl.H * tl.W,
+                                          dtype=torch.int64,
                                           device=dev).index_add_(0, lin, w))
 
         own = tl.own
         kw9 = dict(scale=opt.scale, **kw)
-        vals = fm.finish_local_call(at, ac, own=own, **kw9)
-        err9 = max_err(vals, fm.finish_local_plain(at, ac, own=own, **kw9))
-        HP, WP = padded_image_shape(tl.H, tl.W)
-        pad = lambda a: torch.nn.functional.pad(a, (0, WP - tl.W, 0,
-                                                    HP - tl.H))
-        atp, acp = pad(at), pad(ac)
-        whole = fm.finish_local_call(atp, acp, own=(0, tl.H, 0, tl.W), **kw9)
+        filled = lambda: (pair[0].copy_(at0), pair[1].copy_(ac0))
+        vals = fm.finish_local_call(*pair, own=own, **kw9)
+        if pair[0].any() or pair[1].any():
+            raise AssertionError(f"finish_local {name}: the pair is not "
+                                 "zero")
+        err9 = max_err(vals, fm.finish_local_plain(at0.clone(), ac0.clone(),
+                                                   own=own, **kw9))
+        whole = fm.finish_local_call(at0.clone(), ac0.clone(),
+                                     own=(0, tl.H, 0, tl.W), **kw9)
         b7b = torch.stack([fm.finish_partials_call(
-            atp[k].contiguous(), acp[k].contiguous(), **kw9)
-            for k in range(at.shape[0])])
+            at0[k].clone(), ac0[k].clone(), **kw9) for k in range(n_tiles)])
         if err9 != 0.0 or not torch.equal(whole, b7b):
             raise AssertionError(
                 f"finish_local {name}: max abs error {err9} against its "
@@ -910,25 +934,43 @@ def phase_tiled_kernels(d, dev):
         if float(vals[:, 0].sum()) < 0.2 * n_acc or \
                 float(vals[:, 7].abs().max()) != 0.0:
             raise AssertionError(f"finish_local {name}: sums {vals.tolist()}")
+        # The bound counts the tiles' H x W images read once and the sums
+        # written (neither the pair's padding nor the zeroing that leaves
+        # the pair clear is the function's work).
         res9 = dict(
             max_abs_err=err9,
-            ms=timed(lambda: fm.finish_local_call(at, ac, own=own, **kw9)),
-            plain_ms=timed(lambda: fm.finish_local_plain(at, ac, own=own,
-                                                         **kw9)),
-            **bound(nbytes(at, ac, vals), ops_finish(at.numel(), opt.scale)))
+            ms=timed(lambda: fm.finish_local_call(*pair, own=own, **kw9),
+                     setup=filled),
+            plain_ms=timed(lambda: fm.finish_local_plain(*pair, own=own,
+                                                         **kw9),
+                           setup=filled),
+            **bound(nbytes(at0[:, :tl.H, :tl.W], ac0[:, :tl.H, :tl.W],
+                           vals),
+                    ops_finish(n_tiles * tl.H * tl.W, opt.scale)),
+            **dict(zip(("R", "grid"), fm.iteration_grid(
+                "finish_local", dev, tl.H, tl.W, opt.scale, n_tiles))),
+            redesigned=10)
+        chain = lambda: fm.finish_local_call(*fm.splat_local_call(
+            *cases["sorted"], *pair, **kw), own=own, **kw9)
+        ops = log_breakdown(f"B8 -> B9 {name} ({n_tiles} x {tl.H}x{tl.W})",
+                            chain)
+        if len(ops) != 2 or any(o.startswith("Memset") for o, _ in ops):
+            raise AssertionError(f"B8 -> B9 {name}: device operations {ops}, "
+                                 "expected one kernel each and no memset")
         for k, r in (("splat_local sorted", res8["sorted"]),
                      ("splat_local unsorted", res8["unsorted"]),
                      ("finish_local", res9)):
             log(f"[kernels] {k} {name} ({lx.shape[0]} x {lx.shape[1]} slots, "
-                f"{at.shape[0]} x {tl.H}x{tl.W} images): max_abs_err "
+                f"{n_tiles} x {tl.H}x{tl.W} images): max_abs_err "
                 f"{r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
-                f"({r['bound_by']})")
+                f"({r['bound_by']})" + (f"  R {r['R']}" if "R" in r else "")
+                + f"  grid {r['grid']}")
         log(f"[kernels] {name}: finish_local on the whole image bitwise "
-            f"finish_partials; index_add_ of one image {ia_ms:.4f} ms; "
-            f"{int(ac.sum())} of the slice's {int(prep['nval'][s])} events "
-            "land inside their home tile's halo ring (the others go by the "
-            "escape lane)")
+            f"finish_partials, the pair zero after finish_local; index_add_ "
+            f"of one image {ia_ms:.4f} ms; {int(ac0.sum())} of the slice's "
+            f"{int(prep['nval'][s])} events land inside their home tile's "
+            "halo ring (the others go by the escape lane)")
         out = dict(splat_local=res8["sorted"], finish_local=res9)
     return out
 

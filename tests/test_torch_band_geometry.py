@@ -77,3 +77,26 @@ def test_band_height_is_capped_and_follows_the_sm_count():
     assert fm.band_rows(H, W, 3, 66)[0] == fm.BAND_MAX_ROWS == 3
     assert fm.band_rows(H, W, 3, 200)[0] == 2
     assert fm.band_rows(H, W, 3, 1000)[0] == 1
+
+
+@pytest.mark.parametrize("tiles,H,W,n_tiles,want_R,want_bytes", [
+    ("1x1", 785, 1345, 1, 3, 82_256), ("4x2 one tile", 245, 705, 1, 1, None),
+    ("4x2 batch", 245, 705, 8, 3, 69_456)])
+def test_band_rows_counts_the_bands_of_every_tile(tiles, H, W, n_tiles,
+                                                  want_R, want_bytes):
+    """B9's batch at the tiled path's shapes (720x1280, scale 1, halo 32):
+    the bands of all the tiles count toward one band per SM, each tile's
+    rows apart (never ``H * n_tiles`` rows).  One 4x2 tile alone has 123
+    two-row bands, fewer than the SMs; the batch of eight 656 three-row
+    bands: 3 * 9 * 256 * 8 bytes of leaves and 5 f32 rows of 708."""
+    R, smem = fm.band_rows(H, W, 1, SMS, n_tiles)
+    assert R == want_R
+    assert smem == fm.band_smem_bytes(R, W, 1)
+    if want_bytes is not None:
+        assert smem == want_bytes
+    if n_tiles == 8:
+        assert 8 * -(-H // 3) == 656 >= SMS
+        assert smem == 3 * 9 * 256 * 8 + 4 * 5 * 708
+    else:
+        assert -(-H // (R + 1)) < SMS or R == fm.BAND_MAX_ROWS
+    assert fm.band_rows(H, W, 1, SMS) == fm.band_rows(H, W, 1, SMS, 1)

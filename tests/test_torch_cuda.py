@@ -616,46 +616,110 @@ def test_sharded_scan_on_card_is_unsharded_and_cpu_twins(cuda, case):
 def test_splat_local_kernel_matches_twin(cuda, sort, time_lo):
     """B8 on three tiles against its twin, bitwise: sorted and unsorted
     slots, the hi+lo pair and hi only, a chunk whose slot 0 is rejected, a
-    ragged slot count (the wrapper pads to whole chunks)."""
+    ragged slot count (the wrapper pads to whole chunks); it adds into the
+    caller's padded pair (a second launch doubles it) and leaves the
+    padding zero."""
     Hs, Ws = 250, 300
+    HP, WP = layout.padded_image_shape(Hs, Ws)
     cpu = [torch.from_numpy(a) for a in local_splat_inputs(
         seed=3, n_tiles=3, H=Hs, W=Ws, sort=sort)]
     gpu = [a.to(cuda) for a in cpu]
+    kw = dict(H=Hs, W=Ws, time_lo=time_lo)
+    pair = tfm.image_pair(cuda, Hs, Ws, n_tiles=3)
     at, ac = _launched("splat_local", lambda: tfm.splat_local_call(
-        *gpu, H=Hs, W=Ws, time_lo=time_lo))
+        *gpu, *pair, **kw))
+    assert at is pair[0] and ac is pair[1]
     at_p, ac_p = tfm.splat_local_plain(
         *(tfm._chunk_padded(a, v) for a, v in zip(gpu, (-1.0, -1.0, 0.0))),
-        H=Hs, W=Ws, time_lo=time_lo)
-    at_c, ac_c = tfm.splat_local_call(*cpu, H=Hs, W=Ws, time_lo=time_lo)
-    assert tuple(at.shape) == (3, Hs, Ws) and int(ac.sum()) > 12000
+        *tfm.image_pair(cuda, Hs, Ws, n_tiles=3), **kw)
+    at_c, ac_c = tfm.splat_local_call(
+        *cpu, *tfm.image_pair("cpu", Hs, Ws, n_tiles=3), **kw)
+    assert tuple(at.shape) == (3, HP, WP) and int(ac.sum()) > 12000
     for a, b, c in ((at, at_p, at_c), (ac, ac_p, ac_c)):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+        assert not a[:, Hs:].any() and not a[:, :, Ws:].any()
+    at0, ac0 = at.clone(), ac.clone()
+    _launched("splat_local", lambda: tfm.splat_local_call(*gpu, *pair, **kw))
+    assert torch.equal(pair[0], 2 * at0) and torch.equal(pair[1], 2 * ac0)
 
 
 @pytest.mark.parametrize("scale", [1, 3])
 def test_finish_local_kernel_matches_twin_and_whole_image_is_b7b(cuda, scale):
     """B9 on three tiles against its twin, bitwise, with a window strictly
-    inside the image; with the whole image as the window, in B7b's padded
-    layout, bitwise B7b tile by tile."""
+    inside the image, each call on its own copy of B8's pair, which it
+    leaves zero; with the whole image as the window, bitwise B7b tile by
+    tile."""
     Hs, Ws, own = 250, 300, (16, 230, 24, 270)
     lx, ly, t = (torch.from_numpy(a).to(cuda) for a in local_splat_inputs(
         seed=9, n_tiles=3, n=12000, H=Hs, W=Ws))
-    at, ac = tfm.splat_local_call(lx, ly, t, H=Hs, W=Ws)
+    at, ac = tfm.splat_local_call(lx, ly, t, *tfm.image_pair(
+        cuda, Hs, Ws, n_tiles=3), H=Hs, W=Ws)
     kw = dict(scale=scale, H=Hs, W=Ws)
+    pair = (at.clone(), ac.clone())
     got = _launched("finish_local", lambda: tfm.finish_local_call(
-        at, ac, own=own, **kw))
-    assert torch.equal(got, tfm.finish_local_plain(at, ac, own=own, **kw))
+        *pair, own=own, **kw))
+    assert not pair[0].any() and not pair[1].any()
+    assert torch.equal(got, tfm.finish_local_plain(at.clone(), ac.clone(),
+                                                   own=own, **kw))
     assert torch.equal(got.cpu(), tfm.finish_local_call(
         at.cpu(), ac.cpu(), own=own, **kw))
     assert float(got[:, 0].min()) > 1000 and float(got[:, 7].abs().max()) == 0
-    HP, WP = layout.padded_image_shape(Hs, Ws)
-    pad = lambda a: torch.nn.functional.pad(a, (0, WP - Ws, 0, HP - Hs))
-    atp, acp = pad(at), pad(ac)
-    whole = tfm.finish_local_call(atp, acp, own=(0, Hs, 0, Ws), **kw)
+    whole = tfm.finish_local_call(at.clone(), ac.clone(), own=(0, Hs, 0, Ws),
+                                  **kw)
     for k in range(3):
         assert torch.equal(whole[k], tfm.finish_partials_call(
-            atp[k].contiguous(), acp[k].contiguous(), **kw))
+            at[k].clone(), ac[k].clone(), **kw))
     assert not torch.equal(whole, got)
+
+
+def test_finish_local_on_more_tiles_than_blocks(cuda):
+    """B9 on 450 small tiles, more than the resident grid (three blocks an
+    SM): blocks take several tiles' bands and, in the tail, several tiles'
+    sums, and every block zeroes its share of the pair afterwards; bitwise
+    its twin, the pair zero."""
+    Hs, Ws, n_tiles = 40, 40, 450
+    assert tfm.iteration_grid("finish_local", cuda, Hs, Ws, 3,
+                              n_tiles)[1] < n_tiles
+    lx, ly, t = (torch.from_numpy(a).to(cuda) for a in local_splat_inputs(
+        seed=4, n_tiles=n_tiles, n=2 * CH, H=Hs, W=Ws))
+    at, ac = tfm.splat_local_call(lx, ly, t, *tfm.image_pair(
+        cuda, Hs, Ws, n_tiles=n_tiles), H=Hs, W=Ws)
+    kw = dict(scale=3, H=Hs, W=Ws, own=(4, 36, 2, 38))
+    want = tfm.finish_local_plain(at.clone(), ac.clone(), **kw)
+    got = _launched("finish_local",
+                    lambda: tfm.finish_local_call(at, ac, **kw))
+    assert torch.equal(got, want) and float(got[:, 0].min()) > 50
+    assert not at.any() and not ac.any()
+
+
+def test_finish_local_refused_launch_raises_and_leaves_the_pair(
+        cuda, monkeypatch):
+    """A B9 launch with too little shared memory for its band, a band
+    height of 0 or more than the budget raises, counts no launch and runs
+    nothing: the pair still holds B8's splat, which the next launch reads
+    and clears."""
+    Hs, Ws, own = 245, 705, (32, 213, 32, 673)
+    lx, ly, t = (torch.from_numpy(a).to(cuda) for a in local_splat_inputs(
+        seed=2, n_tiles=8, n=12000, H=Hs, W=Ws))
+    at, ac = tfm.splat_local_call(lx, ly, t, *tfm.image_pair(
+        cuda, Hs, Ws, n_tiles=8), H=Hs, W=Ws)
+    at0, ac0 = at.clone(), ac.clone()
+    kw = dict(scale=1, H=Hs, W=Ws, own=own)
+    want = tfm.finish_local_plain(at0.clone(), ac0.clone(), **kw)
+    R, smem = tfm.band_rows(Hs, Ws, 1, 132, 8)
+    assert R == 3
+    for bad in ((R, smem - 16), (0, smem), (R, tfm.BAND_SMEM_BUDGET + 16)):
+        monkeypatch.setattr(tfm, "_device_bands", lambda *a, bad=bad: bad)
+        before = dict(tfm.LAUNCHES)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            tfm.finish_local_call(at, ac, **kw)
+        torch.cuda.synchronize()
+        assert tfm.LAUNCHES == before
+        assert torch.equal(at, at0) and torch.equal(ac, ac0), bad
+    monkeypatch.undo()
+    got = _launched("finish_local",
+                    lambda: tfm.finish_local_call(at, ac, **kw))
+    assert torch.equal(got, want) and not at.any() and not ac.any()
 
 
 @pytest.mark.parametrize("schedule", ["reference", "fast"])

@@ -81,11 +81,12 @@ def test_cuda_header_constants_match_layout():
     assert '#include "common.cuh"' in finish
     for entry in ("megastep.cu", "fused_warp_splat.cu",
                   "warp_splat_images.cu", "finish_partials.cu",
-                  "megastep_finish.cu", "megastep2.cu"):
+                  "megastep_finish.cu", "megastep2.cu", "finish_local.cu"):
         src = (csrc / entry).read_text()
         assert '#include "iteration.cuh"' in src
         assert ("nch * bf::CHUNK" in src) != (
-            entry in ("finish_partials.cu", "megastep_finish.cu"))
+            entry in ("finish_partials.cu", "megastep_finish.cu",
+                      "finish_local.cu"))
 
 
 # ----------------------------------------------------- small numpy ports

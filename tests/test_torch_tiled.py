@@ -251,21 +251,24 @@ def test_jax_loop_fed_the_twins_is_bitwise(monkeypatch, scale):
 
     def splat(lx, ly, t_sec, Hl, Wl, time_lo=True):
         def host(lx, ly, t):
-            at, ac = tfm.splat_local_call(t_(lx)[None], t_(ly)[None],
-                                          t_(t)[None], H=Hl, W=Wl,
-                                          time_lo=time_lo)
-            return (tfm.time_image_f32(at[0]).numpy(),
-                    ac[0].to(torch.float32).numpy())
+            at, ac = tfm.splat_local_call(
+                t_(lx)[None], t_(ly)[None], t_(t)[None],
+                *tfm.image_pair("cpu", Hl, Wl, n_tiles=1), H=Hl, W=Wl,
+                time_lo=time_lo)
+            at, ac = at[0, :Hl, :Wl].contiguous(), ac[0, :Hl, :Wl]
+            return (tfm.time_image_f32(at).numpy(),
+                    ac.to(torch.float32).numpy())
         shape = jax.ShapeDtypeStruct((Hl, Wl), jnp.float32)
         return jax.pure_callback(host, (shape, shape), lx, ly, t_sec)
 
     def finish(tsum, cnt, sc, Hl, Wl, r0, r1, c0, c1):
         def host(tsum, cnt):
             # The f32 image's fixed-point value converts back to itself.
-            return tfm.finish_local_call(
-                tfm.to_fixed(t_(tsum))[None],
-                t_(cnt).to(torch.int32)[None], scale=sc, H=Hl, W=Wl,
-                own=(r0, r1, c0, c1))[0].numpy()
+            at, ac = tfm.image_pair("cpu", Hl, Wl, n_tiles=1)
+            at[0, :Hl, :Wl] = tfm.to_fixed(t_(tsum))
+            ac[0, :Hl, :Wl] = t_(cnt).to(torch.int32)
+            return tfm.finish_local_call(at, ac, scale=sc, H=Hl, W=Wl,
+                                         own=(r0, r1, c0, c1))[0].numpy()
         out = jax.pure_callback(host, jax.ShapeDtypeStruct((8,), jnp.float32),
                                 tsum, cnt)
         return dict(zip(("cnt", "s_row", "s_col", "s_gx", "s_gy", "s_rg",
@@ -343,6 +346,59 @@ def test_beyond_halo_escape_lane_matches_jax():
     assert st_.escaped_dropped == int(sj.escaped_dropped) > 0
     # Without the lane's events the starved run is a different result.
     assert float(st_.model.total_dx) != float(rt.model.total_dx)
+
+
+def test_2x2_pair_and_escape_lane_match_jax(monkeypatch):
+    """2x2 tiles, an 8-pixel halo and a fast scene, so that the escape lane
+    adds events into the run's padded pair, against the JAX package: every
+    iteration's B9 gets the run's one pair, whose padding B8, the seams and
+    the lane left zero, and leaves all of it zero."""
+    from better_flow_tpu_torch.ops.layout import padded_image_shape
+
+    pairs, lanes = [], []
+    finish, lane = tsp.finish_local_call, tsp._escape_lane
+
+    def checked_finish(acc_t, acc_c, *, H, W, **kw):
+        pairs.append((acc_t.data_ptr(), acc_c.data_ptr()))
+        for a in (acc_t, acc_c):
+            assert tuple(a.shape[1:]) == padded_image_shape(H, W)
+            assert not a[:, H:].any() and not a[:, :, W:].any()
+        out = finish(acc_t, acc_c, H=H, W=W, **kw)
+        assert not acc_t.any() and not acc_c.any()
+        return out
+
+    def counted_lane(*a, **k):
+        lanes.append(1)
+        return lane(*a, **k)
+
+    monkeypatch.setattr(tsp, "finish_local_call", checked_finish)
+    monkeypatch.setattr(tsp, "_escape_lane", counted_lane)
+    d, t = _slice_stream(vx=80.0, vy=-50.0, seed=3)
+    rj, rt, ok = _run_both((2, 2), d, t, 3, halo=8, n_iters=16, max_iter=16)
+    assert rt.escaped_dropped == int(rj.escaped_dropped) == 0
+    _assert_slices_agree(rj, rt, ok)
+    assert len(pairs) == rt.iters == 16 and len(set(pairs)) == 1
+    assert len(lanes) > 0
+
+
+def test_a_tiled_iteration_on_a_dirty_pair_is_caught(monkeypatch):
+    """A finish that reads a copy of the run's pair clears the copy; the
+    run's pair keeps one iteration's images into the next, B8 adds to them,
+    and the slice leaves the clean run's result."""
+    d, t = _slice_stream()
+    args = tsp.bucket_events_2d(d["x"], d["y"], t, *SENSOR, 3, 2, 2, None)
+    run = lambda: tsp.process_slice_tiled(
+        *args, MotionModel.zero(), OptimizerConfig(scale=3, min_events=100),
+        SensorConfig(*SENSOR), _cpu_mesh(2, 2), halo=16, n_iters=4)
+    want = run()
+    finish = tsp.finish_local_call
+    monkeypatch.setattr(tsp, "finish_local_call",
+                        lambda at, ac, **kw: finish(at.clone(), ac.clone(),
+                                                    **kw))
+    got = run()
+    assert got.iters == want.iters == 4
+    assert float(got.model.cnt) > float(want.model.cnt) > 300
+    assert not torch.equal(got.pr_x, want.pr_x)
 
 
 def test_tiled_entry_points_raise(monkeypatch):
