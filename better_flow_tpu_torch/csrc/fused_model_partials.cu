@@ -6,82 +6,72 @@
 //   bf_fused_model_partials_windowed (B11) replaces _kernel_windowed /
 //     fused_model_partials_windowed, the splat of the pallas branch of the
 //     XLA-composed iteration step, for events sorted by sort_key_blocks.
-// Inputs are (nch, CHUNK) f32 rows of positions, times in seconds and
-// activity, padded with inactive slots, and the (1, 8) geometry row
-// [x_sh, y_sh, w_dyn, h_dyn, ...].  One thread a slot: each slot is scaled,
-// truncated, accepted inside the dynamic window and splatted with the TPU
-// kernel's time weight (bf::splat_position, bf::time_weight: relative to its
-// chunk's slot 0, bf16 hi + lo parts) into the int64 fixed-point time image
-// and the int32 count image of the caller's pair, which is zero on entry;
-// then finish_partials.cu (B7b) on that pair: iteration.cuh's band pass and
-// tail in one cooperative launch, which writes the (8,) f32 [cnt, s_row,
-// s_col, s_gx, s_gy, s_rg, s_dg, 0] and leaves the pair zero for the next
-// call, so no memset runs.  The sums are bitwise B7b's of the same images.
+// Inputs are the caller's flat (n,) f32 positions and times in nanoseconds,
+// the (n,) torch.bool activity read as bytes, and the (1, 8) geometry row
+// [x_sh, y_sh, w_dyn, h_dyn, ...].
+//
+// Design: one cooperative launch of iteration.cuh's kernel<kPartials>.
+// Phase 1 (positions_phase) splats every slot i < n: scaled, truncated,
+// accepted inside the dynamic window and added with the TPU kernel's time
+// weight (bf::splat_position, bf::time_weight: relative to its chunk's slot
+// 0, bf16 hi + lo parts) into the int64 fixed-point time image and the int32
+// count image of the workspace pair, which is zero on entry.  Then one
+// grid.sync() and B7b's band pass and tail (finish_partials.cu), which write
+// the (8,) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0] and leave the
+// pair zero for the next call.  The TPU wrapper's padded (nch, CHUNK) rows
+// are never built: a slot past n is inactive, and every chunk's slot 0 is a
+// real event, so the images, and the sums, are bitwise those of the padded
+// rows.  The call is one device operation: no row copy, no elementwise
+// kernel, no memset; a launch the card refuses runs nothing and leaves the
+// pair zero.
 //
 // The TPU kernel of B11 splats a sorted chunk into an (RH, WC) window of its
 // image, with a full-image fallback: a way to scatter into VMEM.  The card
 // has no such window, and integer sums are exact in any order, so B11 runs
-// B10's splat and is bitwise B10 on sorted and unsorted input alike.
+// B10's launch and is bitwise B10 on sorted and unsorted input alike.
 //
-// Bound: bytes (16 B a slot read, the two images written once and read by
-// the finish, 12 B a pixel) and, on a converged slice, the atomics on the few
-// pixels the events pile onto; then B7b's latency.
-#include "common.cuh"
+// Bound: operations (the finish's per-pixel work over the logical image and
+// a slot's acceptance test and time weight), then latency: the splat's
+// atomics, the grid barriers and the one-block tail.  The images never
+// leave the launch, so no image byte is counted.
+#include "iteration.cuh"
 
-extern "C" int bf_finish_partials(long long* acc_t, int* acc_c, float* out,
-                                  double* partials, int HP, int WP, int H,
-                                  int W, int scale, int rows, int smem,
-                                  void* stream);
-
-namespace {
-
-constexpr int SPLAT_THREADS = 256;
-
-__global__ void splat_positions_kernel(const float* __restrict__ geo,
-                                       const float* __restrict__ prx,
-                                       const float* __restrict__ pry,
-                                       const float* __restrict__ t_sec,
-                                       const float* __restrict__ act,
-                                       unsigned long long* __restrict__ acc_t,
-                                       int* __restrict__ acc_c, int n, int WP,
-                                       int scale) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int c0 = i - i % bf::CHUNK;
-  bf::splat_position(prx[i], pry[i], act[i] > 0.0f, t_sec[i], t_sec[c0], geo,
-                     acc_t, acc_c, WP, scale, /*time_lo=*/1);
-}
-
-}  // namespace
-
-// rows and smem: B7b's band height and dynamic shared bytes
-// (ops/fused_model.band_rows).  A finish the card refuses returns its error
-// with the splat in the pair; the caller clears it.
+// rows and smem: the band height and the dynamic shared bytes
+// (ops/fused_model.band_rows).  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int bf_fused_model_partials(const float* geo, const float* prx,
-                                       const float* pry, const float* t_sec,
-                                       const float* act, float* out,
-                                       long long* acc_t, int* acc_c,
-                                       double* partials, int nch, int HP,
-                                       int WP, int H, int W, int scale,
-                                       int rows, int smem, void* stream) {
-  const int n = nch * bf::CHUNK;
-  splat_positions_kernel<<<(n + SPLAT_THREADS - 1) / SPLAT_THREADS,
-                           SPLAT_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      geo, prx, pry, t_sec, act, reinterpret_cast<unsigned long long*>(acc_t),
-      acc_c, n, WP, scale);
-  const int e = static_cast<int>(cudaGetLastError());
-  if (e != 0) return e;
-  return bf_finish_partials(acc_t, acc_c, out, partials, HP, WP, H, W, scale,
-                            rows, smem, stream);
+                                       const float* pry, const float* t_ns,
+                                       const unsigned char* active,
+                                       float* out, long long* acc_t,
+                                       int* acc_c, double* partials, int n,
+                                       int HP, int WP, int H, int W,
+                                       int scale, int rows, int smem,
+                                       void* stream) {
+  bf::IterationArgs a{geo, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      reinterpret_cast<unsigned long long*>(acc_t), acc_c,
+                      partials, out, n, HP, WP, H, W, scale,
+                      /*time_lo=*/1, rows, bf::UpdateParams{}};
+  a.prx = prx;
+  a.pry = pry;
+  a.t_ns = t_ns;
+  a.active = active;
+  return bf::launch_iteration<bf::kPartials>(a, smem, 0, stream);
 }
 
 extern "C" int bf_fused_model_partials_windowed(
-    const float* geo, const float* prx, const float* pry, const float* t_sec,
-    const float* act, float* out, long long* acc_t, int* acc_c,
-    double* partials, int nch, int HP, int WP, int H, int W, int scale,
+    const float* geo, const float* prx, const float* pry, const float* t_ns,
+    const unsigned char* active, float* out, long long* acc_t, int* acc_c,
+    double* partials, int n, int HP, int WP, int H, int W, int scale,
     int rows, int smem, void* stream) {
-  return bf_fused_model_partials(geo, prx, pry, t_sec, act, out, acc_t, acc_c,
-                                 partials, nch, HP, WP, H, W, scale, rows,
-                                 smem, stream);
+  return bf_fused_model_partials(geo, prx, pry, t_ns, active, out, acc_t,
+                                 acc_c, partials, n, HP, WP, H, W, scale,
+                                 rows, smem, stream);
+}
+
+// The grid bf_fused_model_partials launches at ``smem`` dynamic bytes (0 on
+// error).
+extern "C" int bf_fused_model_partials_grid(int smem) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  return bf::iteration_resident_blocks<bf::kPartials>(dev, smem);
 }

@@ -1,14 +1,18 @@
-// One optimizer iteration on the H100, as three phases that seven kernels
+// One optimizer iteration on the H100, as three phases that nine kernels
 // compose: megastep.cu (B5), fused_warp_splat.cu (B6), warp_splat_images.cu
-// (B7a), finish_partials.cu (B7b), megastep_finish.cu (B2), megastep2.cu
-// (B12) and finish_local.cu (B9, the tiled pipeline's finish).
+// (B7a), warp_images_st.cu (B1), finish_partials.cu (B7b),
+// megastep_finish.cu (B2), megastep2.cu (B12), finish_local.cu (B9, the
+// tiled pipeline's finish) and fused_model_partials.cu (B10 and B11).
 //
 // The phases:
 //   1. splat_phase: grid-stride warp + splat of every slot
 //      (warp_splat_event, integer atomics) into the caller's image pair,
 //      which is zero on entry, with the warp scalars its caller gives: B5
 //      and B6 compute them once per block (block_warp, B5's f64 cos and
-//      sin among them), B7a in every thread from the row.
+//      sin among them), B7a in every thread from the row; B1 runs the same
+//      per-event functions with block_warp_start / block_warp_wait around
+//      its slot's loads.
+//      B10/B11's positions_phase splats precomputed positions instead.
 //   2. band_phase, in place of an image pass and a gradient pass: blocks
 //      take bands of R image rows in a grid-stride loop (B9: over every
 //      tile's bands, each tile a pair of its own).  A band stages the
@@ -24,26 +28,30 @@
 // The kernels:
 //   - iteration_kernel<kMegastep> (B5) and <kFused> (B6): one cooperative
 //     launch of all three phases, a grid.sync() between each two;
-//   - <kFinish> (B7b, and B10/B11 after their splat), <kFinishState> (B2)
-//     and <kFinishLocal> (B9): one cooperative launch of phases 2 and 3 on
-//     a pair its caller filled, one grid.sync() between them; B7b writes
-//     the seven sums, B2 the scalar update into the next state, B9 each
-//     tile's seven sums over its window;
+//   - <kPartials> (B10 and B11): the same with positions_phase first: the
+//     splat of the caller's flat positions into a workspace pair, then B7b's
+//     phases 2 and 3;
+//   - <kFinish> (B7b), <kFinishState> (B2) and <kFinishLocal> (B9): one
+//     cooperative launch of phases 2 and 3 on a pair its caller filled, one
+//     grid.sync() between them; B7b writes the seven sums, B2 the scalar
+//     update into the next state, B9 each tile's seven sums over its
+//     window;
 //   - <kMerged> (B12): phases 2 and 3 on the previous call's pair when the
 //     state's HAS flag is set (B2's), a grid.sync(), then merged_phase: the
 //     warp of every slot with B4's direction vectors and, while the new
 //     state's CONT is set, the splat into the same pair, which the tail
 //     left zero;
 //   - B7a's kernel (warp_splat_images.cu) and B1's (warp_images_st.cu):
-//     phase 1 alone, an ordinary launch with no barrier and no memset; B8's
-//     (splat_local.cu) splats precomputed positions the same way.
+//     phase 1 alone, an ordinary launch with no grid barrier and no memset
+//     (B1 with block_warp's block barrier); B8's (splat_local.cu) splats
+//     precomputed positions the same way.
 // So B7a -> B7b is B6 cut at the image seam, B1 -> B2 is B5 cut there, and
 // B12 is B2 -> B1 (or B2 -> B4 on the call that clears CONT).  Every kernel
 // runs the per-event function of common.cuh and the sums of finish.cuh in
 // their order, so B5 is bitwise the B1 -> B2 chain, B6 the B7a -> B7b
 // chain and B12 the B2 -> B1 chain with B4; the image pair is zero before
-// B1, B5, B6, B7a, B8 and a slice's first B12, and again after B2, B5, B6,
-// B7b, B9 and a B12 that clears CONT.
+// B1, B5, B6, B7a, B8, B10, B11 and a slice's first B12, and again after
+// B2, B5, B6, B7b, B9, B10, B11 and a B12 that clears CONT.
 //
 // Bound: the images (12 B a pixel, written by the splat, read by the band
 // pass, zeroed for the next call) and the slots (32 B read and written)
@@ -113,6 +121,12 @@ struct IterationArgs {
   // defaults are one image and the whole of it.
   int tiles = 1;
   int own_r0 = 0, own_r1 = 1 << 30, own_c0 = 0, own_c1 = 1 << 30;
+  // B10 and B11 alone set these: the caller's flat (n,) positions, times in
+  // nanoseconds and torch.bool activity (one byte a slot).
+  const float* prx = nullptr;
+  const float* pry = nullptr;
+  const float* t_ns = nullptr;
+  const unsigned char* active = nullptr;
 };
 
 // One fixed-point time value (2^-32 s) as f32.
@@ -335,21 +349,52 @@ __device__ inline void zero_pair(const IterationArgs& a, int b0) {
 // The kernels of this template.
 enum IterationKind {
   kMegastep = 0, kFused = 1, kFinish = 2, kFinishState = 3, kMerged = 4,
-  kFinishLocal = 5
+  kFinishLocal = 5, kPartials = 6
 };
 
-// The warp scalars, computed once per block by thread 0: from the state
-// (kState: B5, and B12 from the new state) or from the caller's row (B6).
-// B7a reads the row in every thread instead: its one-slot-a-thread blocks
-// would wait on this barrier before their first load (0.15-0.2 us more
-// device time on an H100).
+// The block's copy of its warp scalars.
+__device__ inline Warp& block_warp_shared() {
+  __shared__ Warp sw;
+  return sw;
+}
+
+// The warp scalars, computed once per block into block_warp_shared(): from
+// the state (kState: B1, B5, and B12 from the new state) by two threads at
+// once, thread 0 all but the sine and thread 32 the sine (each an f64 chain
+// that waits on its own coefficient loads), or from the caller's row (B6)
+// by thread 0.  block_warp_wait() returns them once the block has reached
+// it; a caller may issue its slots' loads between the two (B1).  B7a reads
+// the row in every thread instead: its one-slot-a-thread blocks would wait
+// on the barrier before their first load (0.15-0.2 us more device time on
+// an H100).  Needs blocks of more than 32 threads.
+template <bool kState>
+__device__ inline void block_warp_start(const float* src) {
+  Warp& sw = block_warp_shared();
+  if (kState && threadIdx.x == 32) {
+    sw.sinv = state_sin(src);
+  } else if (threadIdx.x == 0) {
+    if (kState) {
+      sw.dnx = -src[ST_TDX];
+      sw.dny = -src[ST_TDY];
+      sw.divp = src[ST_TDIV];
+      sw.cx = src[ST_CX];
+      sw.cy = src[ST_CY];
+      sw.cosv = state_cos(src);
+    } else {
+      sw = warp_from_row(src);
+    }
+  }
+}
+
+__device__ inline Warp block_warp_wait() {
+  __syncthreads();
+  return block_warp_shared();
+}
+
 template <bool kState>
 __device__ inline Warp block_warp(const float* src) {
-  __shared__ Warp sw;
-  if (threadIdx.x == 0)
-    sw = kState ? warp_from_state(src) : warp_from_row(src);
-  __syncthreads();
-  return sw;
+  block_warp_start<kState>(src);
+  return block_warp_wait();
 }
 
 // Phase 1: warp + splat of slots [0, a.n) in a grid-stride loop.
@@ -359,6 +404,22 @@ __device__ inline void splat_phase(const IterationArgs& a, const Warp& w) {
        i < static_cast<size_t>(a.n); i += nthreads)
     warp_splat_event(static_cast<int>(i), a.geo, w, a.stat, a.act, a.pr,
                      a.npr, a.acc_t, a.acc_c, a.WP, a.scale, a.time_lo);
+}
+
+// B10/B11's phase 1: the splat of precomputed positions, slots [0, a.n) of
+// the caller's flat rows, in a grid-stride loop.  Slot i's time base is
+// that of its chunk's slot 0, t_ns[i - i % CHUNK], which is a real event
+// (the TPU kernel's rows pad the last chunk only), so the images are
+// bitwise those of the rows padded to whole chunks with inactive slots.
+__device__ inline void positions_phase(const IterationArgs& a) {
+  const size_t nthreads = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < static_cast<size_t>(a.n); i += nthreads) {
+    const size_t c0 = i - i % CHUNK;
+    splat_position(a.prx[i], a.pry[i], a.active[i] != 0,
+                   a.t_ns[i] * INV_NS_PER_SEC, a.t_ns[c0] * INV_NS_PER_SEC,
+                   a.geo, a.acc_t, a.acc_c, a.WP, a.scale, a.time_lo);
+  }
 }
 
 // Phase 2: the band pass over the image pair into a.partials: the bands of
@@ -454,8 +515,9 @@ __device__ inline void merged_phase(const IterationArgs& a, const Warp& w) {
 // kKind: kMegastep (B5: warp from the state, scalar update into the next
 // state), kFused (B6: warp from the row, the seven sums and a zero),
 // kFinish (B7b: no splat; the seven sums of the caller's pair),
-// kFinishState (B2: no splat; the scalar update), kMerged (B12) or
-// kFinishLocal (B9: no splat; each tile's seven sums over its window).
+// kFinishState (B2: no splat; the scalar update), kMerged (B12),
+// kFinishLocal (B9: no splat; each tile's seven sums over its window) or
+// kPartials (B10, B11: the splat of precomputed positions, then B7b's).
 // Two blocks an SM, B9 three: its batch has several bands for every block
 // (656 at 4x2), and a third block an SM took its 4x2 device time from 35.5
 // to 31.4 us on an H100 (80 registers, 12 bytes spilled; PERF.md); B5 and
@@ -468,6 +530,10 @@ iteration_kernel(IterationArgs a) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   if constexpr (kKind == kMegastep || kKind == kFused) {
     splat_phase(a, block_warp<kKind == kMegastep>(a.src));
+    grid.sync();
+  }
+  if constexpr (kKind == kPartials) {
+    positions_phase(a);
     grid.sync();
   }
   if constexpr (kKind == kMerged) {

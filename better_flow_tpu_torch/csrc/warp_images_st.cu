@@ -2,10 +2,11 @@
 // images of the caller's pair.
 //
 // Replaces _kernel_warp_images_st / warp_images_st_call (better_flow_tpu/
-// ops/pallas/fused_model.py).  Per event (bf::warp_splat_event in
-// common.cuh, which megastep.cu shares): re-warp from the state vector's
-// totals, scale, truncate to a pixel, accept inside the dynamic window, and
-// add the event's time weight and a count of one to its pixel.
+// ops/pallas/fused_model.py).  Per event (common.cuh's warp_event and
+// splat_position, the functions of warp_splat_event that megastep.cu
+// shares): re-warp from the state vector's totals, scale, truncate to a
+// pixel, accept inside the dynamic window, and add the event's time weight
+// and a count of one to its pixel.
 //
 // The time weight is that of the TPU kernel: t0 + bf16(t - t0) (+ the bf16
 // low part when time_lo), with t = t_ns * f32(1e-9) and t0 the time of slot 0 of
@@ -26,26 +27,66 @@
 // process's event-parallel shards (contiguous chunk ranges of one slice):
 // the integer sum is that of a launch a shard.
 //
-// Bound: on a spread slice, bytes (36 B read and 8 B written per event plus
-// the two images, 12 B a pixel, written once); on a converged slice, where
-// events pile onto a few pixels, atomic contention on those pixels.  The
-// grid runs over events, not chunks (30 chunks would fill 30 of 132 SMs);
-// the window, the row-band fallbacks and the one-hot matmul of the TPU
-// kernel are devices of the TPU and have no counterpart here.
-#include "common.cuh"
+// Design: B5's splat phase (iteration.cuh) as an ordinary launch, one
+// slot a thread.  The warp scalars are computed once a block
+// (block_warp_start: thread 0 all but the sine, thread 32 the sine, two f64
+// chains at once), not in every thread; every thread issues its slot's
+// loads before it waits for them (block_warp_wait), so their latency
+// overlaps the chains.  The new positions and the images are bitwise those
+// of the warp in every thread (the same functions of the same values).  On
+// an H100 this is faster than the warp in every thread, and than cos and
+// sin on one thread; two or four slots a thread (16-byte loads, fewer
+// blocks) were slower than one (PERF.md, section 6).
+//
+// Bound: on a spread slice, bytes (36 B read and 8 B written per event, and
+// 12 B for each pixel the events hit, added by atomics); on a converged
+// slice, where events pile onto a few pixels, atomic contention on those
+// pixels; at the main path's 61k slots, latency: one wave of blocks, whose
+// critical path is the state's load, the cos/sin chain, the block's
+// barrier and the atomics.  The window, the row-band fallbacks and the
+// one-hot matmul of the TPU kernel are devices of the TPU and have no
+// counterpart here.
+#include "iteration.cuh"
 
 namespace {
 
-__global__ void warp_images_st_kernel(
-    const float* __restrict__ geo, const float* __restrict__ st,
-    const float* __restrict__ stat, const float* __restrict__ act,
-    const float* __restrict__ pr, float* __restrict__ npr,
-    unsigned long long* __restrict__ acc_t, int* __restrict__ acc_c, int n,
-    int WP, int scale, int time_lo) {
+__global__ void __launch_bounds__(bf::BAND_THREADS)
+warp_images_st_kernel(const float* __restrict__ geo,
+                      const float* __restrict__ st,
+                      const float* __restrict__ stat,
+                      const float* __restrict__ act,
+                      const float* __restrict__ pr, float* __restrict__ npr,
+                      unsigned long long* __restrict__ acc_t,
+                      int* __restrict__ acc_c, int n, int WP, int scale,
+                      int time_lo) {
+  using bf::CHUNK;
+  bf::block_warp_start<true>(st);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = i / CHUNK;
+  const int k = i - c * CHUNK;
+  const float* s = stat + static_cast<size_t>(c) * 3 * CHUNK;
+  const float* p = pr + static_cast<size_t>(c) * 2 * CHUNK;
+  float fx = 0.0f, fy = 0.0f, t_ns = 0.0f, px = 0.0f, py = 0.0f, a = 0.0f;
+  float t0 = 0.0f;
+  if (i < n) {
+    fx = s[k];
+    fy = s[CHUNK + k];
+    t_ns = s[2 * CHUNK + k];
+    px = p[k];
+    py = p[CHUNK + k];
+    a = act[static_cast<size_t>(c) * CHUNK + k];
+    t0 = s[2 * CHUNK];
+  }
+  const bf::Warp w = bf::block_warp_wait();
   if (i >= n) return;
-  bf::warp_splat_event(i, geo, bf::warp_from_state(st), stat, act, pr, npr,
-                       acc_t, acc_c, WP, scale, time_lo);
+  float ox, oy, nx, ny;
+  bf::warp_event(w, fx, fy, t_ns, px, py, &ox, &oy, &nx, &ny);
+  float* q = npr + static_cast<size_t>(c) * 2 * CHUNK;
+  q[k] = ox;
+  q[CHUNK + k] = oy;
+  bf::splat_position(ox, oy, a > 0.0f, t_ns * bf::INV_NS_PER_SEC,
+                     t0 * bf::INV_NS_PER_SEC, geo, acc_t, acc_c, WP, scale,
+                     time_lo);
 }
 
 }  // namespace
@@ -57,8 +98,8 @@ extern "C" int bf_warp_images_st(const float* geo, const float* st,
                                  int WP, int scale, int time_lo,
                                  void* stream) {
   const int n = nch * bf::CHUNK;
-  const int threads = 256;
-  warp_images_st_kernel<<<(n + threads - 1) / threads, threads, 0,
+  const int blocks = (n + bf::BAND_THREADS - 1) / bf::BAND_THREADS;
+  warp_images_st_kernel<<<blocks, bf::BAND_THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       geo, st, stat, act, pr, npr,
       reinterpret_cast<unsigned long long*>(acc_t), acc_c, n, WP, scale,

@@ -28,9 +28,9 @@ BUILD_DIR = PKG / "_build"
 # --fmad=false: the warp and the Kahan model update must round after every
 # multiply and add, as the f32 reference does.  No fast-math: IEEE division
 # and the accurate cos/sin.  The grid-wide barrier of iteration.cuh (B2,
-# B5, B6, B7b, B12: cooperative_groups grid.sync()) needs no -rdc=true
-# since CUDA 11; it needs only the cooperative launch that their entry
-# points make.
+# B5, B6, B7b, B9, B10/B11, B12: cooperative_groups grid.sync()) needs no
+# -rdc=true since CUDA 11; it needs only the cooperative launch that their
+# entry points make.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC",
@@ -147,7 +147,8 @@ def library() -> ctypes.CDLL:
             lib.bf_fused_model_partials.argtypes
         grids = [getattr(lib, f"bf_{k}_grid") for k in (
             "megastep", "fused_warp_splat", "finish_partials",
-            "megastep_finish", "megastep2", "finish_local")]
+            "megastep_finish", "megastep2", "finish_local",
+            "fused_model_partials")]
         for fn in grids:
             fn.argtypes = [I]
         lib.bf_splat_local_grid.argtypes = [I, I]

@@ -23,9 +23,11 @@ zero when a splat starts: ``warp_images_st_call`` (B1) and
 ``fused_warp_splat_images_call`` (B7a) add into it, ``sum_images`` sums it
 across ranks in place, and ``megastep_finish_call`` (B2) and
 ``finish_partials_call`` (B7b) read it and leave it zero;
-``megastep2_call`` (B12) reads it, leaves it zero and splats into it.  An
-integer sum is exact whatever the order and the number of launches, shards
-and ranks.  The plain twins keep the same contract on the CPU.  The tiled
+``megastep2_call`` (B12) reads it, leaves it zero and splats into it.
+B10 and B11 splat into a workspace pair of their own and leave it zero in
+the same launch (a launch the card refuses runs nothing).  An integer sum
+is exact whatever the order and the number of launches, shards and ranks.
+The plain twins keep the same contract on the CPU.  The tiled
 pipeline holds a batch of such pairs, one a tile (``image_pair(...,
 n_tiles=)``), for a whole run: ``splat_local_call`` (B8) adds into it (and
 the halo fold-in and escape lane, exactly), ``finish_local_call`` (B9)
@@ -242,7 +244,8 @@ def warp_images_st_call(stat, act, pr, st, geo, acc_t, acc_c, *, scale: int,
     int32 (``image_pair``), which is zero at an iteration's first launch;
     one launch may cover all of a process's shards.  Returns (new_pr (nch,
     2, CHUNK) f32, acc_t, acc_c), the pair being the caller's own
-    tensors."""
+    tensors.  On the card one ordinary launch, one slot a thread, the warp
+    scalars computed once a block (B5's splat phase)."""
     dev = stat.device
     nch = stat.shape[0]
     _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
@@ -379,11 +382,11 @@ _WORKSPACE: dict = {}
 def _workspace(dev: torch.device, H: int, W: int) -> dict:
     """Scratch of the finish passes, one set per device and image shape,
     allocated at first use: the (H, 9) f64 row sums and the image pair of
-    B10 and B11, made zero (their finish, B7b's, leaves it zero; a launch
-    that fails clears it).  The kernels run in stream order and no scratch
-    is returned to a caller, so one set serves every call (B5 and B6 splat
-    into their own pair, ``_images``; B1, B2, B7a, B7b and B12 work on the
-    pair their caller owns)."""
+    B10 and B11, made zero (their launch leaves it zero, and a launch the
+    card refuses runs nothing).  The kernels run in stream order and no
+    scratch is returned to a caller, so one set serves every call (B5 and
+    B6 splat into their own pair, ``_images``; B1, B2, B7a, B7b and B12
+    work on the pair their caller owns)."""
     key = (dev, H, W)
     if key not in _WORKSPACE:
         acc_t, acc_c = image_pair(dev, H, W)
@@ -471,8 +474,9 @@ def iteration_grid(kernel: str, dev: torch.device, H: int, W: int,
                    scale: int, n_tiles: int = 1):
     """(R, resident grid) of B2 (``"megastep_finish"``), B5
     (``"megastep"``), B6 (``"fused_warp_splat"``), B7b
-    (``"finish_partials"``), B9 (``"finish_local"``, over ``n_tiles``) or
-    B12 (``"megastep2"``) at this image shape on ``dev``."""
+    (``"finish_partials"``), B9 (``"finish_local"``, over ``n_tiles``),
+    B10/B11 (``"fused_model_partials"``) or B12 (``"megastep2"``) at this
+    image shape on ``dev``."""
     from better_flow_tpu_torch.ops._build import library
 
     R, smem = _device_bands(dev, H, W, scale, n_tiles)
@@ -1003,7 +1007,9 @@ def partials_rows(pr_x, pr_y, t_ns, active):
     """The flat (n,) inputs of B10 and B11 as (nch, CHUNK) f32 rows, padded
     to whole chunks (at least one) with inactive slots: positions, times in
     seconds (``t_ns / 1e9`` as a multiplication by the f32 reciprocal, as
-    XLA compiles the JAX wrapper) and activity."""
+    XLA compiles the JAX wrapper) and activity: the twins' layout, which
+    is the TPU kernel's.  The card's kernel reads the flat tensors as they
+    are."""
     rows = lambda a: _chunk_padded(a.to(torch.float32)[None], 0.0).reshape(
         -1, CHUNK)
     return (rows(pr_x), rows(pr_y), rows(mul_recip(t_ns.to(torch.float32),
@@ -1036,13 +1042,11 @@ def _partials_call(name, plain, pr_x, pr_y, t_ns, active, geo, scale, H, W):
     _check("pr_x", pr_x, torch.float32, (n,), dev)
     _check("pr_y", pr_y, torch.float32, (n,), dev)
     _check("t_ns", t_ns, torch.float32, (n,), dev)
-    if active.shape != (n,) or active.device != dev:
-        raise ValueError(f"active: shape {tuple(active.shape)} on "
-                         f"{active.device}, expected ({n},) on {dev}")
+    _check("active", active, torch.bool, (n,), dev)
     _check("geo", geo, torch.float32, (1, 8), dev)
-    prx, pry, t_sec, act = partials_rows(pr_x, pr_y, t_ns, active)
     if _on_cpu(dev):
-        return plain(prx, pry, t_sec, act, geo, scale=scale, H=H, W=W)
+        return plain(*partials_rows(pr_x, pr_y, t_ns, active), geo,
+                     scale=scale, H=H, W=W)
     from better_flow_tpu_torch.ops._build import library
 
     HP, WP = padded_image_shape(H, W)
@@ -1050,12 +1054,9 @@ def _partials_call(name, plain, pr_x, pr_y, t_ns, active, geo, scale, H, W):
     out = torch.empty(8, dtype=torch.float32, device=dev)
     ws = _workspace(dev, H, W)
     rc = getattr(library(), "bf_" + name)(
-        _ptr(geo), _ptr(prx), _ptr(pry), _ptr(t_sec), _ptr(act), _ptr(out),
-        _ptr(ws["acc_t"]), _ptr(ws["acc_c"]), _ptr(ws["partials"]),
-        prx.shape[0], HP, WP, H, W, scale, R, smem, _stream(dev))
-    if rc != 0:          # a refused finish leaves the splat in the pair
-        ws["acc_t"].zero_()
-        ws["acc_c"].zero_()
+        _ptr(geo), _ptr(pr_x), _ptr(pr_y), _ptr(t_ns), _ptr(active),
+        _ptr(out), _ptr(ws["acc_t"]), _ptr(ws["acc_c"]),
+        _ptr(ws["partials"]), n, HP, WP, H, W, scale, R, smem, _stream(dev))
     _launch(name, rc)
     return out
 
@@ -1063,10 +1064,11 @@ def _partials_call(name, plain, pr_x, pr_y, t_ns, active, geo, scale, H, W):
 def fused_model_partials_call(pr_x, pr_y, t_ns, active, geo, *, scale: int,
                               H: int, W: int):
     """The seven sums of the time image of already-warped events: flat (n,)
-    f32 ``pr_x``, ``pr_y``, ``t_ns`` and bool ``active``, padded to whole
-    chunks with inactive slots; accepted inside the dynamic window of the
-    (1, 8) geometry row ``geo``; each chunk's time base its slot 0.
-    Returns (8,) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0]."""
+    contiguous f32 ``pr_x``, ``pr_y``, ``t_ns`` and ``torch.bool``
+    ``active``, accepted inside the dynamic window of the (1, 8) geometry
+    row ``geo``, each CHUNK slots' time base their first slot.  Returns
+    (8,) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg, 0].  On the card
+    the call is one cooperative launch and no other device operation."""
     return _partials_call("fused_model_partials", fused_model_partials_plain,
                           pr_x, pr_y, t_ns, active, geo, scale, H, W)
 

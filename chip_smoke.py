@@ -13,8 +13,8 @@ in phases that each raise on failure:
    path's shapes (180x240 sensor, scale 3: 30 chunks of 2048 events,
    576x768 images, a gate history of 3), with the errors and the median
    time of kernel and twin over 25 runs (CUDA events); B1 adds into its
-   caller's image pair and B2 (bitwise its twin on the card) reads it and
-   leaves it zero; the megastep (B5) also at the live preset's scale-1
+   caller's image pair and B2 reads it and leaves it zero, each bitwise
+   its twin on the card; the megastep (B5) also at the live preset's scale-1
    shapes (15 chunks, 192x256 images), bitwise equal to its twin and to
    the B1 -> B2 kernel chain, with the chain's time beside its own; the
    composed path's kernel (B6) on the
@@ -23,14 +23,17 @@ in phases that each raise on failure:
    B5, B6, B7b and B12 their band height R and resident grid, and each
    chain's device operations one by one (``[kernels] breakdown`` lines,
    torch.profiler, median of 20 calls: one kernel each for B1, B2, B7a and
-   B7b, no memset); the event-parallel pair (B7a warp + splat added into an
-   image pair, B7b finish to the seven sums, leaving the pair zero) against
-   their twins on both rows, their chain bitwise B6, and four shards a B7a
-   launch each bitwise one launch over them all; beside each kernel's time
-   the least time the card could take (``bound_ms``);
+   B7b, no memset; B1's alone beside a one-element PyTorch kernel's, the
+   fixed cost of a launch); the event-parallel pair (B7a warp + splat
+   added into an image pair, B7b finish to the seven sums, leaving the pair
+   zero) against their twins on both rows, their chain bitwise B6, and four
+   shards a B7a launch each bitwise one launch over them all; beside each
+   kernel's time the least time the card could take (``bound_ms``, the
+   pair's bytes by one rule, ``pair_bytes``);
 3. the scan, ``compensate_recording_scan`` with ``OptimizerConfig.fast()``,
    on the 2,000,000-event bench stream of ``bench.py`` (one warm-up run,
-   then a measured run), with every kernel's launch count in that run;
+   then a measured run), with every kernel's launch count in that run and
+   a digest of its output (``scan_digest``, to compare two trees);
 4. determinism: a second measured run gives bitwise the same output;
 5. the card against the CPU twins on the stream's first 200,000 events;
 6. the streaming path, ``runtime.offline.compensate_recording``, on the
@@ -79,8 +82,9 @@ in phases that each raise on failure:
 11. B10 and B11 (``fused_model_partials``, ``fused_model_partials_windowed``:
     the seven sums of already-warped events) against their twins at the
     main path's shapes (a 30-chunk slice's B1 positions, in the staged band
-    order and sorted by ``sort_key_blocks``), B11 bitwise B10; B10's
-    launches are those two calls, its only path;
+    order and sorted by ``sort_key_blocks``), B11 bitwise B10, each call
+    one device operation (``[kernels] breakdown``); B10's launches are
+    those two calls, its only path;
 12. the merged megastep (B12, ``OptimizerConfig.megastep_merged``): the
     kernel against its twin and the B1 -> B2 -> B1 chain, its exit call
     against B4 (the pair left zero), its first and later call each one
@@ -277,6 +281,26 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def pair_bytes(role, acc_c=None, H=None, W=None):
+    """An image pair's bytes in a bound (int64 time and int32 count
+    images, 12 B a pixel), by one rule for every kernel: a finish that
+    reads the pair (``role`` "finish") counts each logical H x W pixel of
+    every image of ``acc_c`` ((HP, WP) or (tiles, HP, WP)), not the
+    padding; a splat that adds into it by atomics ("splat") counts each
+    pixel it hits once, from the count image ``acc_c`` after the splat; an
+    image that never leaves the launch ("internal": B5, B6, B10, B11)
+    counts nothing.  The zeroing that leaves a pair clear for the next
+    call is counted nowhere."""
+    if role == "finish":
+        tiles = acc_c.numel() // (acc_c.shape[-2] * acc_c.shape[-1])
+        return 12 * tiles * H * W
+    if role == "splat":
+        return 12 * int((acc_c > 0).sum())
+    if role == "internal":
+        return 0
+    raise ValueError(f"pair_bytes: unknown role {role!r}")
+
+
 def bound(n_bytes, n_ops):
     """The least time the card could take: every input byte read once and
     every output byte written once at the memory rate, or the operations at
@@ -286,6 +310,19 @@ def bound(n_bytes, n_ops):
     return dict(bound_ms=1e3 * max(t_b, t_o),
                 bound_by="bytes" if t_b >= t_o else "operations",
                 library_ms=None)
+
+
+def scan_digest(r):
+    """SHA-256 of a scan's u, v, noise and iterations: two trees' runs of
+    the same stream agree bit for bit when their digests do."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in ("u", "v", "noise", "iters"):
+        h.update(np.ascontiguousarray(r[k]).tobytes())
+    return h.hexdigest()
 
 
 def max_err(a, b):
@@ -369,18 +406,35 @@ def phase_kernels(cfg, d, dev):
     if int(ac.sum()) < 10_000:
         raise AssertionError(f"only {int(ac.sum())} events splatted")
     at0, ac0 = at.clone(), ac.clone()
+    err1 = max(max_err(npr, npr_p), max_err(at, at_p), max_err(ac, ac_p))
+    if err1 != 0.0:
+        raise AssertionError(f"warp_images_st: max abs error {err1} against "
+                             "its twin on the card")
     zeroed = lambda: (pair[0].zero_(), pair[1].zero_())
     filled = lambda: (pair[0].copy_(at0), pair[1].copy_(ac0))
+    b1 = lambda: fm.warp_images_st_call(stat, act, pr, st, geo, *pair, **kw)
+    ops = log_breakdown("warp_images_st", b1)
+    if len(ops) != 1 or ops[0][0].startswith("Memset"):
+        raise AssertionError(f"warp_images_st: device operations {ops}, "
+                             "expected one kernel")
+    # The fixed cost of any launch between two CUDA events: one PyTorch
+    # kernel on one element, beside B1's.
+    one = torch.zeros(1, device=dev)
+    floor_ops = log_breakdown("one-element add_", lambda: one.add_(1.0))
     out["warp_images_st"] = dict(
-        max_abs_err=max(max_err(npr, npr_p), max_err(at, at_p),
-                        max_err(ac, ac_p)),
-        ms=timed(lambda: fm.warp_images_st_call(stat, act, pr, st, geo,
-                                                *pair, **kw), setup=zeroed),
+        max_abs_err=err1, ms=timed(b1, setup=zeroed), device_us=ops[0][1],
         plain_ms=timed(lambda: fm.warp_images_st_plain(stat, act, pr, st,
                                                        geo, *pair, **kw),
                        setup=zeroed),
-        **bound(nbytes(stat, act, pr, st, geo, npr, at0, ac0),
-                slots * OPS_WARP + int(ac0.sum()) * OPS_SPLAT))
+        **bound(nbytes(stat, act, pr, st, geo, npr)
+                + pair_bytes("splat", ac0),
+                slots * OPS_WARP + int(ac0.sum()) * OPS_SPLAT),
+        redesigned=11)
+    floor_us = 1e3 * timed(lambda: one.add_(1.0))
+    log(f"[kernels] launch floor: a one-element add_ {floor_us:.2f} us "
+        f"between CUDA events, device {floor_ops[0][1]:.2f} us; B1 "
+        f"{out['warp_images_st']['ms'] * 1e3:.2f} us, device "
+        f"{ops[0][1]:.2f} us")
 
     kw2 = dict(scale=opt.scale, H=H, W=W, **statics)
     filled()
@@ -413,7 +467,7 @@ def phase_kernels(cfg, d, dev):
         plain_ms=timed(lambda: fm.megastep_finish_plain(*pair, st, geo,
                                                         **kw2),
                        setup=filled),
-        **bound(nbytes(at0, ac0, st, geo, st2),
+        **bound(nbytes(st, geo, st2) + pair_bytes("finish", ac0, H, W),
                 ops_finish(pixels, opt.scale) + 300),
         **dict(zip(("R", "grid"), fm.iteration_grid(
             "megastep_finish", dev, H, W, opt.scale))),
@@ -455,8 +509,11 @@ def phase_kernels(cfg, d, dev):
     out.update(check_b6_b7(stat, act, pr, st, geo, opt.scale, H, W, dev))
     for name, r in out.items():
         log(f"[kernels] {name}: max_abs_err {r['max_abs_err']:.3g}  kernel "
-            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"{r['ms']:.4f} ms"
+            + (f" (device {r['device_us']:.2f} us)" if "device_us" in r
+               else "")
+            + f"  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
     return out, dict(stat=stat, act=act, pr=pr, st=st, geo=geo)
 
 
@@ -562,27 +619,27 @@ def check_b6_b7(stat, act, pr, st, geo, scale, H, W, dev):
                 chain_ms=timed(chain),
                 plain_ms=timed(lambda: fm.fused_warp_splat_plain(
                     stat, act, pr, scal, **kw)),
-                **bound(nbytes(scal, stat, act, pr, npr, vals),
+                **bound(nbytes(scal, stat, act, pr, npr, vals)
+                        + pair_bytes("internal"),
                         slots * OPS_WARP + n_acc * OPS_SPLAT
                         + ops_finish(pixels, scale)),
                 **dict(zip(("R", "grid"), fm.iteration_grid(
                     "fused_warp_splat", dev, H, W, scale))),
                 redesigned=7),
-            # The bounds count the function's own work: B7a's slots and the
-            # pair written once, B7b's pair read once (the zeroing that
-            # leaves the pair clear for the next call is in neither).
             "fused_warp_splat_images": dict(
                 max_abs_err=err_a,
                 ms=timed(b7a, setup=zeroed),
                 plain_ms=timed(b7a_plain, setup=zeroed),
-                **bound(nbytes(scal, stat, act, pr, npr7, at0, ac0),
+                **bound(nbytes(scal, stat, act, pr, npr7)
+                        + pair_bytes("splat", ac0),
                         slots * OPS_WARP + n_acc * OPS_SPLAT),
                 grid=one_per_slot, redesigned=8),
             "finish_partials": dict(
                 max_abs_err=err_b,
                 ms=timed(b7b, setup=filled),
                 plain_ms=timed(b7b_plain, setup=filled),
-                **bound(nbytes(at0, ac0, vals7), ops_finish(pixels, scale)),
+                **bound(nbytes(vals7) + pair_bytes("finish", ac0, H, W),
+                        ops_finish(pixels, scale)),
                 **dict(zip(("R", "grid"), fm.iteration_grid(
                     "finish_partials", dev, H, W, scale))),
                 redesigned=8),
@@ -883,9 +940,7 @@ def phase_tiled_kernels(d, dev):
                 raise AssertionError(f"splat_local {name} {order}: only "
                                      f"{n_acc} events splatted")
             zeroed = lambda pair=pair: (pair[0].zero_(), pair[1].zero_())
-            # The bound counts the slots read once and each pixel the
-            # events hit written once.
-            hit = int((ac > 0).sum())
+            splat_bytes = pair_bytes("splat", ac)
             res8[order] = dict(
                 max_abs_err=err,
                 ms=timed(lambda: fm.splat_local_call(*args, *pair, **kw),
@@ -893,7 +948,7 @@ def phase_tiled_kernels(d, dev):
                 plain_ms=timed(lambda: fm.splat_local_plain(*args, *pair,
                                                             **kw),
                                setup=zeroed),
-                **bound(nbytes(*args) + 12 * hit,
+                **bound(nbytes(*args) + splat_bytes,
                         args[0].numel() * 4 + n_acc * OPS_SPLAT),
                 grid=fm.splat_local_grid(*args[0].shape), redesigned=10)
         pair = new_pair()
@@ -934,9 +989,6 @@ def phase_tiled_kernels(d, dev):
         if float(vals[:, 0].sum()) < 0.2 * n_acc or \
                 float(vals[:, 7].abs().max()) != 0.0:
             raise AssertionError(f"finish_local {name}: sums {vals.tolist()}")
-        # The bound counts the tiles' H x W images read once and the sums
-        # written (neither the pair's padding nor the zeroing that leaves
-        # the pair clear is the function's work).
         res9 = dict(
             max_abs_err=err9,
             ms=timed(lambda: fm.finish_local_call(*pair, own=own, **kw9),
@@ -944,8 +996,7 @@ def phase_tiled_kernels(d, dev):
             plain_ms=timed(lambda: fm.finish_local_plain(*pair, own=own,
                                                          **kw9),
                            setup=filled),
-            **bound(nbytes(at0[:, :tl.H, :tl.W], ac0[:, :tl.H, :tl.W],
-                           vals),
+            **bound(nbytes(vals) + pair_bytes("finish", ac0, tl.H, tl.W),
                     ops_finish(n_tiles * tl.H * tl.W, opt.scale)),
             **dict(zip(("R", "grid"), fm.iteration_grid(
                 "finish_local", dev, tl.H, tl.W, opt.scale, n_tiles))),
@@ -1284,7 +1335,7 @@ def phase_megastep(scan_inputs, d, dev):
                  ms=timed(lambda: fm.megastep_call(*args, **kw)),
                  chain_ms=timed(chain),
                  plain_ms=timed(lambda: fm.megastep_plain(*args, **kw)),
-                 **bound(nbytes(*args, npr, st),
+                 **bound(nbytes(*args, npr, st) + pair_bytes("internal"),
                          args[0].shape[0] * args[0].shape[2] * OPS_WARP
                          + int(ac.sum()) * OPS_SPLAT
                          + ops_finish(H * W, opt.scale) + 300),
@@ -1415,8 +1466,8 @@ def phase_partials_kernels(scan_inputs, cfg, dev):
     order and sorted by ``sort_key_blocks``.  First B10 on both orders with
     every count set to 0 just before: B10's path, since the JAX package
     calls it from its tests only.  Then each kernel bitwise its twin, B11
-    bitwise B10, with the median device times of the calls (their
-    wrappers' chunk padding included) and of the twins.  Returns (the
+    bitwise B10, with the median times of the calls and of the twins, and
+    a call's device operations (one kernel, no memset).  Returns (the
     results, B10's launches)."""
     import torch
 
@@ -1473,18 +1524,30 @@ def phase_partials_kernels(scan_inputs, cfg, dev):
         slots = band["pr_x"].numel()
         accepted = int(band["active"].sum())
         main = "sorted" if name.endswith("windowed") else "band"
+        e = orders[0][1] if main == "band" else orders[1][1]
+        ops = log_breakdown(name, lambda: call(
+            e["pr_x"], e["pr_y"], e["t_ns"], e["active"], geo, **kw))
+        if len(ops) != 1 or ops[0][0].startswith("Memset"):
+            raise AssertionError(f"{name}: device operations {ops}, expected "
+                                 "one kernel")
         out[name] = dict(
             max_abs_err=max(r["err"] for r in res.values()),
-            ms=res[main]["ms"], plain_ms=res[main]["plain_ms"],
-            **bound(nbytes(*(band[k] for k in ("pr_x", "pr_y", "t_ns")),
-                           geo) + slots + 32,
+            ms=res[main]["ms"], device_us=ops[0][1],
+            plain_ms=res[main]["plain_ms"],
+            **bound(nbytes(*(band[k] for k in ("pr_x", "pr_y", "t_ns",
+                                                "active")), geo)
+                    + 32 + pair_bytes("internal"),
                     slots * OPS_ACCEPT + accepted * OPS_SPLAT
-                    + ops_finish(H * W, opt.scale)))
+                    + ops_finish(H * W, opt.scale)),
+            **dict(zip(("R", "grid"), fm.iteration_grid(
+                "fused_model_partials", dev, H, W, opt.scale))),
+            redesigned=11)
         log(f"[kernels] {name}: bitwise its twin and B10 on band-ordered and "
             f"sorted events; kernel {res['band']['ms']:.4f} ms (band order) "
-            f"{res['sorted']['ms']:.4f} ms (sorted)  plain "
-            f"{out[name]['plain_ms']:.4f} ms  bound "
-            f"{out[name]['bound_ms']:.5f} ms ({out[name]['bound_by']})")
+            f"{res['sorted']['ms']:.4f} ms (sorted), device "
+            f"{ops[0][1]:.2f} us  plain {out[name]['plain_ms']:.4f} ms  bound "
+            f"{out[name]['bound_ms']:.5f} ms ({out[name]['bound_by']})  R "
+            f"{out[name]['R']}  grid {out[name]['grid']}")
     log(f"[kernels] fused_model_partials: {b10_launches} launches on its "
         "path (the slice in band order and sorted)")
     return out, b10_launches
@@ -1592,9 +1655,12 @@ def phase_merged(scan_inputs, cfg, prep, r_split, dev):
              plain_ms=timed(lambda: fm.megastep2_plain(
                  stat, act, first[0], first[1], *pair, geo, **kw),
                  setup=filled),
-             # pr's rows 0-1 are read; nx, ny (rows 2-3) only written.
-             **bound(nbytes(stat, act, first[0][:, 0:2], first[1], first[2],
-                            first[3], geo, *second),
+             # pr's rows 0-1 are read; nx, ny (rows 2-3) only written; the
+             # head reads the first call's pair, the splat adds into it.
+             **bound(nbytes(stat, act, first[0][:, 0:2], first[1], geo,
+                            *second[:2])
+                     + pair_bytes("finish", first[3], H, W)
+                     + pair_bytes("splat", second[3]),
                      slots * (OPS_WARP + OPS_UV) + int(ac2.sum()) * OPS_SPLAT
                      + ops_finish(H * W, opt.scale) + 300),
              R=R, grid=grid, redesigned=9)
@@ -1989,6 +2055,7 @@ def main():
         f"{st['mean_iters']:.4f}  host_syncs {st['host_syncs']}")
     log(f"[main] plan_breakdown {json.dumps(prep['plan_breakdown'])}")
     log(f"[main] launches {json.dumps(launches)}")
+    log(f"[main] output digest {scan_digest(r1)}")
     for name in ("act_rows", "warp_images_st", "megastep_finish", "warp_uv"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")

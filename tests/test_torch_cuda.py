@@ -74,6 +74,29 @@ def _close(got, want, rtol, atol=0.0):
                                atol=atol)
 
 
+def _device_ops(fn, calls=10, traces=3):
+    """The names of the device operations of ``calls`` calls of ``fn``
+    (torch.profiler's device trace), traced again, up to ``traces`` times,
+    while the count does not divide into the calls (the profiler can drop
+    a record)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+        if ops and len(ops) % calls == 0:
+            return ops
+    raise AssertionError(f"{len(ops)} device operations in {calls} calls")
+
+
 def test_act_rows_kernel_matches_twin(cuda):
     rng = np.random.default_rng(1)
     n = NCH * CH
@@ -104,6 +127,10 @@ def test_warp_images_st_kernel_matches_twin(cuda, time_lo):
     assert torch.equal(ac.cpu(), ac_p) and int(ac_p.sum()) > 3000
     _close(tfm.time_image_f32(at), tfm.time_image_f32(at_p), rtol=1e-5,
            atol=1e-6)
+    # The twin on the card's tensors (the function of one slot a thread with
+    # the warp in every thread): bitwise.
+    twin = tfm.warp_images_st_plain(*gpu, *tfm.image_pair(cuda, H, W), **kw)
+    assert all(torch.equal(a, b) for a, b in zip((npr, at, ac), twin))
     # A second launch adds into the pair: no memset clears it.
     _launched("warp_images_st",
               lambda: tfm.warp_images_st_call(*gpu, *pair, **kw))
@@ -759,14 +786,18 @@ def test_tiled_recording_on_card_is_1x1_and_cpu_twins(cuda, schedule):
 
 @pytest.mark.parametrize("spread", ["wide", "tight"])
 @pytest.mark.parametrize("sort", [True, False])
-@pytest.mark.parametrize("res", [(24, 32), (180, 240)])
-def test_partials_kernels_match_twin_and_each_other(cuda, res, sort, spread):
+@pytest.mark.parametrize("res,n", [((24, 32), 2 * CH + 700),
+                                   ((180, 240), 30 * CH - 333),
+                                   ((24, 32), 0), ((24, 32), 1),
+                                   ((180, 240), CH)])
+def test_partials_kernels_match_twin_and_each_other(cuda, res, n, sort,
+                                                    spread):
     """B10 and B11 on sorted and unsorted events, spread wide or piled up
-    (many events on few pixels): each bitwise its twin, and B11 bitwise
-    B10."""
+    (many events on few pixels), a ragged last chunk, no event, one event
+    and one whole chunk: each bitwise its twin on the padded rows, and B11
+    bitwise B10."""
     scale = SCALE
     Hs, Ws = image_shape(res, scale)
-    n = 2 * CH + 700 if res == (24, 32) else 30 * CH - 333
     d = partials_inputs(5, res=res, scale=scale, n=n, spread=spread,
                         sort=sort)
     keys = ("pr_x", "pr_y", "t_ns", "active", "geo")
@@ -780,7 +811,55 @@ def test_partials_kernels_match_twin_and_each_other(cuda, res, sort, spread):
     want = tfm.fused_model_partials_plain(*tfm.partials_rows(*cpu[:4]),
                                           cpu[4], **kw)
     assert torch.equal(b10.cpu(), want) and torch.equal(b11.cpu(), want)
-    assert float(want[0]) > 100 and float(want[7]) == 0.0
+    assert float(want[7]) == 0.0
+    if n == 0:
+        assert not want.any()
+    elif n > CH:
+        assert float(want[0]) > 100
+
+
+@pytest.mark.parametrize("name", ["fused_model_partials",
+                                  "fused_model_partials_windowed"])
+def test_partials_call_is_one_device_operation(cuda, name):
+    """A B10 or B11 call on the card is one cooperative launch of
+    ``iteration_kernel`` and nothing else: no elementwise kernel, pad or
+    memset in front of it, and the workspace pair zero after it."""
+    res, n = (180, 240), 30 * CH - 333
+    Hs, Ws = image_shape(res, SCALE)
+    _, gpu = _both(partials_inputs(6, res=res, n=n),
+                   ("pr_x", "pr_y", "t_ns", "active", "geo"), cuda)
+    call = getattr(tfm, name + "_call")
+    ops = _device_ops(lambda: call(*gpu, scale=SCALE, H=Hs, W=Ws))
+    assert all("iteration_kernel" in o for o in ops), set(ops)
+    ws = tfm._workspace(gpu[0].device, Hs, Ws)
+    assert not ws["acc_t"].any() and not ws["acc_c"].any()
+
+
+def test_partials_refused_launch_raises_and_leaves_the_pair_zero(
+        cuda, monkeypatch):
+    """A B10 launch with too little shared memory for its band, a band
+    height of 0 or more than the budget raises, counts no launch and runs
+    nothing: the workspace pair stays zero, and the next call is its
+    twin's."""
+    res, n = (180, 240), 30 * CH - 333
+    Hs, Ws = image_shape(res, SCALE)
+    cpu, gpu = _both(partials_inputs(6, res=res, n=n),
+                     ("pr_x", "pr_y", "t_ns", "active", "geo"), cuda)
+    kw = dict(scale=SCALE, H=Hs, W=Ws)
+    ws = tfm._workspace(gpu[0].device, Hs, Ws)
+    R, smem = tfm.band_rows(Hs, Ws, SCALE)
+    for bad in ((R, smem - 16), (0, smem), (R, tfm.BAND_SMEM_BUDGET + 16)):
+        monkeypatch.setattr(tfm, "_device_bands", lambda *a, bad=bad: bad)
+        before = dict(tfm.LAUNCHES)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            tfm.fused_model_partials_call(*gpu, **kw)
+        torch.cuda.synchronize()
+        assert tfm.LAUNCHES == before
+        assert not ws["acc_t"].any() and not ws["acc_c"].any(), bad
+    monkeypatch.undo()
+    got = _launched("fused_model_partials",
+                    lambda: tfm.fused_model_partials_call(*gpu, **kw))
+    assert torch.equal(got.cpu(), tfm.fused_model_partials_call(*cpu, **kw))
 
 
 @pytest.mark.parametrize("exits", [False, True])

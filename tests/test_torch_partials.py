@@ -15,6 +15,11 @@ integer images in f64 (the gradient sums cancel, so their own values can
 be ~1e-5 apart relatively).  B11's twin is bitwise B10's on sorted and on
 unsorted input: the windows of the TPU kernel are a way to scatter, and
 the port's integer sums do not depend on it.
+
+The card's kernel reads the flat (n,) inputs as they are, with no padded
+copy: ``flat_partials`` repeats its indexing on the CPU (slot i < n, the
+chunk's time base at slot ``i - i % CHUNK``) and is held bitwise against
+the twin on the padded rows, and against the Pallas kernels.
 """
 
 import numpy as np
@@ -26,6 +31,8 @@ jax = pytest.importorskip("jax")
 from better_flow_tpu.ops.pallas import fused_model as jfm  # noqa: E402
 from better_flow_tpu_torch.ops import fused_model as tfm  # noqa: E402
 from better_flow_tpu_torch.ops.layout import CHUNK  # noqa: E402
+from better_flow_tpu_torch.ops.layout import padded_image_shape  # noqa: E402
+from better_flow_tpu_torch.ops.warp import fma, mul_recip  # noqa: E402
 from torch_inputs import SCALE, image_shape, partials_inputs  # noqa: E402
 
 KEYS = ("pr_x", "pr_y", "t_ns", "active", "geo")
@@ -44,6 +51,41 @@ def _one_torch_thread():
 
 def _torch(d):
     return [torch.from_numpy(np.ascontiguousarray(d[k])) for k in KEYS]
+
+
+def flat_partials(pr_x, pr_y, t_ns, active, geo, *, scale, H, W):
+    """The card kernel's indexing (csrc/iteration.cuh, positions_phase) in
+    plain PyTorch: the splat of slots [0, n) of the flat inputs, slot i's
+    time base ``t_ns[i - i % CHUNK] * f32(1e-9)``, no padded copy; then
+    B7b's twin.  Tests only."""
+    HP, WP = padded_image_shape(H, W)
+    n = pr_x.shape[0]
+    i = torch.arange(n)
+    t_sec = mul_recip(t_ns, 1e9)
+    t0 = t_sec[i - i % CHUNK]
+    x_sh, y_sh, wd, hd = geo[0, 0], geo[0, 1], geo[0, 2], geo[0, 3]
+    half = scale // 2
+    fscale = torch.full((), float(scale))
+    ix = fma(pr_x, fscale, x_sh).to(torch.int32)
+    iy = fma(pr_y, fscale, y_sh).to(torch.int32)
+    ok = (active & (ix >= half) & (ix.to(torch.float32) < wd + half)
+          & (iy >= half) & (iy.to(torch.float32) < hd + half))
+    tr = t_sec - t0
+    w_hi = tfm._bf16(tr)
+    fixed = (tfm.to_fixed(t0) + tfm.to_fixed(w_hi)
+             + tfm.to_fixed(tfm._bf16(tr - w_hi)))
+    lin = (ix.to(torch.int64) * WP + iy)[ok]
+    acc_t = torch.zeros(HP * WP, dtype=torch.int64)
+    acc_c = torch.zeros(HP * WP, dtype=torch.int32)
+    acc_t.index_add_(0, lin, fixed[ok])
+    acc_c.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
+    return tfm.finish_partials_plain(acc_t.reshape(HP, WP),
+                                     acc_c.reshape(HP, WP), scale=scale,
+                                     H=H, W=W)
+
+
+def _b10(*args, scale, H, W):
+    return tfm.fused_model_partials_call(*args, scale=scale, H=H, W=W)
 
 
 def _jax_partials(fn, d, H, W):
@@ -80,14 +122,17 @@ def _assert_close(got, want, mag):
     assert got[7] == 0.0
 
 
+@pytest.mark.parametrize("port", [_b10, flat_partials],
+                         ids=["twin", "flat"])
 @pytest.mark.parametrize("sort", [True, False])
 @pytest.mark.parametrize("res,n", CASES)
-def test_fused_model_partials_twin_matches_pallas(res, n, sort):
-    """B10's twin against ``fused_model_partials`` (interpret mode)."""
+def test_fused_model_partials_twin_matches_pallas(res, n, sort, port):
+    """B10's twin, and the card kernel's flat indexing, against
+    ``fused_model_partials`` (interpret mode)."""
     H, W = image_shape(res, SCALE)
     d = partials_inputs(7, res=res, n=n, sort=sort)
     args = _torch(d)
-    got = tfm.fused_model_partials_call(*args, scale=SCALE, H=H, W=W)
+    got = port(*args, scale=SCALE, H=H, W=W)
     want = _jax_partials(jfm.fused_model_partials, d, H, W)
     _assert_close(got, want, _magnitudes(args, H, W))
 
@@ -145,3 +190,48 @@ def test_partials_rows_pad_to_inactive_chunks():
     np.testing.assert_array_equal(flat[:CHUNK + 5], d["t_ns"] * recip)
     assert not act.reshape(-1)[CHUNK + 5:].any()
     assert not flat[CHUNK + 5:].any()
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("n", [0, 1, 700, CHUNK, 2 * CHUNK + 700,
+                               3 * CHUNK - 333])
+def test_flat_indexing_is_the_padded_rows_bitwise(n, sort):
+    """The card kernel's flat indexing gives bitwise the sums of the twin
+    on the rows padded to whole chunks (at least one) with inactive slots:
+    a slot past n adds nothing, and every chunk's slot 0 is a real event.
+    n = 0 gives the eight zeros of one padded chunk."""
+    res = CASES[1][0]
+    H, W = image_shape(res, SCALE)
+    args = _torch(partials_inputs(12, res=res, n=n, sort=sort))
+    rows = tfm.partials_rows(*args[:4])
+    want = tfm.fused_model_partials_plain(*rows, args[4], scale=SCALE, H=H,
+                                          W=W)
+    got = flat_partials(*args, scale=SCALE, H=H, W=W)
+    assert torch.equal(got, want)
+    assert torch.equal(tfm.fused_model_partials_call(*args, scale=SCALE,
+                                                     H=H, W=W), want)
+    if n == 0:
+        assert not want.any()
+    if n >= 700:
+        assert float(want[0]) > 100
+
+
+@pytest.mark.parametrize("bad", ["float active", "strided active",
+                                 "strided t_ns"])
+def test_partials_refuse_inputs_the_kernel_does_not_read(bad):
+    """The kernel reads ``active`` as one byte a slot and every input as a
+    flat contiguous row: a non-bool or strided ``active`` and a strided
+    time row are refused, on the CPU as on the card."""
+    res, n = CASES[0]
+    H, W = image_shape(res, SCALE)
+    args = _torch(partials_inputs(13, res=res, n=n))
+    if bad == "float active":
+        args[3] = args[3].to(torch.float32)
+    elif bad == "strided active":
+        args[3] = torch.stack([args[3], args[3]], dim=1)[:, 0]
+    else:
+        args[2] = torch.stack([args[2], args[2]], dim=1)[:, 0]
+    for fn in (tfm.fused_model_partials_call,
+               tfm.fused_model_partials_windowed_call):
+        with pytest.raises((TypeError, ValueError)):
+            fn(*args, scale=SCALE, H=H, W=W)
