@@ -352,51 +352,6 @@ enum IterationKind {
   kFinishLocal = 5, kPartials = 6
 };
 
-// The block's copy of its warp scalars.
-__device__ inline Warp& block_warp_shared() {
-  __shared__ Warp sw;
-  return sw;
-}
-
-// The warp scalars, computed once per block into block_warp_shared(): from
-// the state (kState: B1, B5, and B12 from the new state) by two threads at
-// once, thread 0 all but the sine and thread 32 the sine (each an f64 chain
-// that waits on its own coefficient loads), or from the caller's row (B6)
-// by thread 0.  block_warp_wait() returns them once the block has reached
-// it; a caller may issue its slots' loads between the two (B1).  B7a reads
-// the row in every thread instead: its one-slot-a-thread blocks would wait
-// on the barrier before their first load (0.15-0.2 us more device time on
-// an H100).  Needs blocks of more than 32 threads.
-template <bool kState>
-__device__ inline void block_warp_start(const float* src) {
-  Warp& sw = block_warp_shared();
-  if (kState && threadIdx.x == 32) {
-    sw.sinv = state_sin(src);
-  } else if (threadIdx.x == 0) {
-    if (kState) {
-      sw.dnx = -src[ST_TDX];
-      sw.dny = -src[ST_TDY];
-      sw.divp = src[ST_TDIV];
-      sw.cx = src[ST_CX];
-      sw.cy = src[ST_CY];
-      sw.cosv = state_cos(src);
-    } else {
-      sw = warp_from_row(src);
-    }
-  }
-}
-
-__device__ inline Warp block_warp_wait() {
-  __syncthreads();
-  return block_warp_shared();
-}
-
-template <bool kState>
-__device__ inline Warp block_warp(const float* src) {
-  block_warp_start<kState>(src);
-  return block_warp_wait();
-}
-
 // Phase 1: warp + splat of slots [0, a.n) in a grid-stride loop.
 __device__ inline void splat_phase(const IterationArgs& a, const Warp& w) {
   const size_t nthreads = static_cast<size_t>(gridDim.x) * blockDim.x;

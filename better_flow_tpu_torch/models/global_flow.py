@@ -235,25 +235,17 @@ def model_from_state(st: torch.Tensor) -> MotionModel:
         comp_div=s[ST_CDIV])
 
 
-def _as_shards(x: torch.Tensor, group) -> list:
-    """A drive's ``stat`` or ``act`` argument (under an event group the
-    local shards' chunks in order) cut into ``group.n_local`` equal chunk
-    ranges; without a group the one tensor."""
-    if group is None:
-        return [x]
-    if x.shape[0] % group.n_local != 0:
-        raise ValueError(f"{x.shape[0]} chunks do not divide into "
+def _check_shards(nch: int, group) -> None:
+    """Under an event group a drive's ``stat`` and ``act`` hold the local
+    shards' chunks in order: ``group.n_local`` equal chunk ranges."""
+    if group is not None and nch % group.n_local != 0:
+        raise ValueError(f"{nch} chunks do not divide into "
                          f"{group.n_local} local shards")
-    return list(x.chunk(group.n_local))
-
-
-def _cat(parts) -> torch.Tensor:
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def run_fused_mega(stat, act, geo, model0: MotionModel,
                    cfg: OptimizerConfig, scale: int, H: int, W: int,
-                   seed=None, group=None):
+                   seed=None, group=None, uvn_out=None):
     """The megastep drive: one unconditional iteration, then iterations
     while the state's CONT flag is set, then the final-warp epilogue.  An
     iteration is one B5 launch, or the B1 + B2 pair under
@@ -261,19 +253,21 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     call, which B2 reads and leaves zero); under an event ``group``
     (``stat`` and ``act`` the local shards' chunks in order) one B1 launch
     over all the local shards, the in-place sum of the pair across ranks
-    (``sum_images``), then B2; the final warp (B4) runs per shard.  The host
-    reads the CONT flag once per iteration.  On one device
-    ``cfg.megastep_merged`` takes the merged drive (``run_fused_mega2``);
-    under a group it is ignored, as in the JAX package.  Returns (model,
-    out (nch, 4, CHUNK), uvn, iters, seed_out); under a group ``out`` and
-    ``uvn`` hold the local shards' chunks in order."""
+    (``sum_images``), then B2; the final warp is one B4 launch over all
+    the local shards too, into ``uvn_out`` when given (``warp_uv_call``).
+    The host reads the CONT flag once per iteration.  On one device
+    ``cfg.megastep_merged`` takes the merged drive (``run_fused_mega2``,
+    which returns its own ``uvn``: ``process_slice`` copies it into
+    ``uvn_out``); under a group it is ignored, as in the JAX package.
+    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out); under a
+    group ``out`` and ``uvn`` hold the local shards' chunks in order."""
     if group is None and cfg.megastep_merged:
         return run_fused_mega2(stat, act, geo, model0, cfg, scale, H, W,
                                seed=seed)
+    _check_shards(stat.shape[0], group)
     statics = finish_statics(cfg)
     time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
     st = initial_state(model0, cfg, seed)
-    stats, acts = _as_shards(stat, group), _as_shards(act, group)
     pr = stat[:, 0:2].contiguous()
     split = group is not None or cfg.megastep_split
     pair = image_pair(stat.device, H, W) if split else None
@@ -294,10 +288,8 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
         if not st[0, ST_CONT].item() > 0:
             break
     seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
-    ends = [warp_uv_call(s, p, a, st, 0.0) for s, p, a in
-            zip(stats, _as_shards(pr, group), acts)]
-    return (model_from_state(st), _cat([o for o, _ in ends]),
-            _cat([u for _, u in ends]), iters, seed_out)
+    out, uvn = warp_uv_call(stat, pr, act, st, 0.0, uvn_out)
+    return model_from_state(st), out, uvn, iters, seed_out
 
 
 def run_fused_mega2(stat, act, geo, model0: MotionModel,
@@ -703,7 +695,8 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
                   sensor: SensorConfig, bbox, n_valid: int,
                   warm_start: bool = True, seed=None,
                   geo: Optional[torch.Tensor] = None,
-                  ev: Optional[EventSlice] = None, group=None):
+                  ev: Optional[EventSlice] = None, group=None,
+                  uvn_out: Optional[torch.Tensor] = None):
     """Process one spatially pre-sorted slice.
 
     With ``cfg.scatter_mode`` "xla" the XLA branch runs on the flat slice
@@ -725,15 +718,19 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     the local shards' slots in order.
 
     Returns (SliceResult, uvn) where uvn is the (nch, 3, CHUNK)
-    [u, v, noise] pack."""
+    [u, v, noise] pack: ``uvn_out`` itself when given (a contiguous f32
+    tensor of that shape, such as the scan's output at the slice), which
+    the megastep drive's B4 writes and every other branch copies into."""
     check_supported(cfg, last_model.totals_dtype == torch.float64,
                     sharded=group is not None)
     if cfg.scatter_mode == "xla":
         if ev is None:
             raise ValueError("scatter_mode='xla' runs on the flat slice: "
                              "pass ev")
-        return process_slice_xla(ev, last_model, cfg, sensor, bbox, n_valid,
-                                 warm_start=warm_start, seed=seed)
+        res, uvn = process_slice_xla(ev, last_model, cfg, sensor, bbox,
+                                     n_valid, warm_start=warm_start,
+                                     seed=seed)
+        return res, _into(uvn, uvn_out)
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
     geom = geometry_from_bbox(*bbox, scale, sensor, cfg.min_window_fraction)
@@ -745,7 +742,8 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     if ran:
         if geo is None:
             geo = torch.from_numpy(geo_row(geom)).to(dev)
-        drive = run_fused_mega if uses_megastep(cfg, model.totals_dtype) \
+        drive = functools.partial(run_fused_mega, uvn_out=uvn_out) \
+            if uses_megastep(cfg, model.totals_dtype) \
             else functools.partial(run_fused_composed, geom=geom)
         model_out, out, uvn, iters, seed_out = drive(
             stat, act, geo, model0=model, cfg=cfg, scale=scale, H=H, W=W,
@@ -773,7 +771,22 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
                       u=u, v=v, iters=iters, ran=ran,
                       window_small=geom.window_small, seed=seed_out,
                       noise=noise)
-    return res, uvn
+    return res, _into(uvn, uvn_out)
+
+
+def _into(uvn: torch.Tensor, uvn_out: Optional[torch.Tensor]):
+    """``uvn_out`` holding ``uvn`` (unless it is that tensor already);
+    ``uvn`` without one.  Refuses an ``uvn_out`` of another shape, dtype,
+    device or layout."""
+    if uvn_out is None or uvn is uvn_out:
+        return uvn
+    if (uvn_out.shape != uvn.shape or uvn_out.dtype != uvn.dtype
+            or uvn_out.device != uvn.device
+            or not uvn_out.is_contiguous()):
+        raise ValueError(f"uvn_out: {uvn_out.dtype} {tuple(uvn_out.shape)} "
+                         f"on {uvn_out.device}, expected a contiguous "
+                         f"{uvn.dtype} {tuple(uvn.shape)} on {uvn.device}")
+    return uvn_out.copy_(uvn)
 
 
 def process_slice_xla(ev: EventSlice, last_model: MotionModel,

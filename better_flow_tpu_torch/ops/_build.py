@@ -129,7 +129,7 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.bf_act_rows.argtypes = [P, P, I, I, P, P]
+        lib.bf_act_rows.argtypes = [P, P, I, I, I, P, P]
         lib.bf_warp_images_st.argtypes = [P] * 8 + [I] * 4 + [P]
         lib.bf_megastep_finish.argtypes = [P] * 6 + [I] * 7 + [
             ctypes.POINTER(UpdateParams), P]

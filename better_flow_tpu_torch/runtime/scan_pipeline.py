@@ -7,15 +7,16 @@ Counterpart of ``better_flow_tpu/runtime/scan_pipeline.py`` (the path
    into band-padded compact slabs (``io.native``), copied
    to the device from pinned memory without blocking, batch by batch, so a
    batch's copy overlaps the next batch's sort.
-2. Device: a Python loop over the slices.  Per slice the activity rows are
-   built from the window-gate history (B3) and the optimizer runs through
-   the kernels: the megastep drive (B5, or B1 + B2) with B4, the merged
-   drive (B12) under ``megastep_merged``, or, for f64 totals
-   (``PipelineConfig.f64_totals``) or ``use_megastep=False``, the composed
-   loop on B6.  With ``scatter_mode="xla"`` the slice runs as a flat
-   ``EventSlice`` (valid slots and the history's noise flags, built in
-   plain tensor code, ``slice_events``) through the XLA branch, whose
-   [u, v, noise] pack goes to the accumulation as the kernels' does.  The
+2. Device: the activity rows of every slice from its window-gate history,
+   in one launch (B3), then a Python loop over the slices, in which the
+   optimizer runs through the kernels: the megastep drive (B5, or B1 +
+   B2) with B4, the merged drive (B12) under ``megastep_merged``, or, for
+   f64 totals (``PipelineConfig.f64_totals``) or ``use_megastep=False``,
+   the composed loop on B6.  With ``scatter_mode="xla"`` the slice runs
+   as a flat ``EventSlice`` (valid slots and the history's noise flags,
+   built in plain tensor code, ``slice_events``) through the XLA branch,
+   whose [u, v, noise] pack goes to the accumulation as the kernels'
+   does.  The
    gates, the history and the geometry are host values known after
    staging, so the loop reads the device only for the optimizer's continue
    flag.
@@ -365,6 +366,14 @@ def _histories(ws_h, st_h, en_h, plan: SlicePlan, small):
     return hist, (h[0].astype(bool), h[1].copy(), h[2].copy())
 
 
+def staged_histories(prepared: dict, carry0):
+    """The (S, 3, K) int32 gate histories that the staged slices read,
+    from the carry's history on (host numpy), and the history after the
+    last slice."""
+    small = [g.window_small for g in prepared["geoms"]]
+    return _histories(*carry0[2:], prepared["plan"], small)
+
+
 def slice_events(stat_s: torch.Tensor, sidx_s: torch.Tensor,
                  hist_s: torch.Tensor) -> EventSlice:
     """The flat ``EventSlice`` of one staged slice for the XLA branch
@@ -383,20 +392,22 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     iters [S], ran [S], host_syncs).  Under an event ``group``
     (``parallel.mesh.EventGroup``) the staged chunks are this process's,
     its ``n_local`` shards as equal chunk ranges in order (every chunk, and
-    so its time base, is the unsharded one): the activity rows run once
-    over them, and so does each drive's event phase (one B1 or B7a
-    launch); the megastep drive's final warp runs per shard."""
+    so its time base, is the unsharded one), and each drive's event phase
+    (one B1 or B7a launch) and the megastep drive's final warp (one B4
+    launch) run once over them.  On the kernel branch the activity rows of
+    every staged slice come from one B3 launch before the loop (every
+    slice's gate history is a host value); each slice writes its [u, v,
+    noise] rows straight into ``uvn[s]`` (B4 on the megastep drive)."""
     dev = prepared["device"]
     plan = prepared["plan"]
     opt = cfg.optimizer
     S = len(plan.ends)
     stat, sidx, geo = prepared["stat"], prepared["sidx"], prepared["geo"]
-    model, sd, ws_h, st_h, en_h = carry0
+    model, sd, ws_h = carry0[:3]
     if len(ws_h) != prepared["hist_k"]:
         raise ValueError(f"carry history depth {len(ws_h)} != the "
                          f"recording's {prepared['hist_k']}")
-    small = [g.window_small for g in prepared["geoms"]]
-    hist_np, hist_end = _histories(ws_h, st_h, en_h, plan, small)
+    hist_np, hist_end = staged_histories(prepared, carry0)
     hist = torch.from_numpy(hist_np).to(dev)
     uvn = torch.empty((S, stat.shape[1], 3, CHUNK), dtype=torch.float32,
                       device=dev)
@@ -408,21 +419,20 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
         raise ValueError(f"{nch} staged chunks do not divide into "
                          f"{group.n_local} local shards")
     xla = opt.scatter_mode == "xla"
+    act_all = None if xla else act_rows_call(sidx, hist)
     for s in range(S):
         ev = None
         if xla:
             ev = slice_events(stat[s], sidx[s], hist[s])
             stat_s = act = None
         else:
-            stat_s = stat[s]
-            act = act_rows_call(sidx[s], hist[s])
+            stat_s, act = stat[s], act_all[s]
         cur_tot = model.totals4().to(torch.float32)   # the seed row is f32
-        res, uvn_s = process_slice(
+        res, _ = process_slice(
             stat_s, act, model, opt, cfg.sensor,
             prepared["bbox"][s], int(prepared["nval"][s]),
             warm_start=not cfg.stm_disable, seed=sd[:8], geo=geo[s], ev=ev,
-            group=group)
-        uvn[s] = uvn_s
+            group=group, uvn_out=uvn[s])
         model = res.model
         sd = torch.cat([res.seed, cur_tot])
         iters[s] = res.iters

@@ -27,13 +27,18 @@ in phases that each raise on failure:
    fixed cost of a launch); the event-parallel pair (B7a warp + splat
    added into an image pair, B7b finish to the seven sums, leaving the pair
    zero) against their twins on both rows, their chain bitwise B6, and four
-   shards a B7a launch each bitwise one launch over them all; beside each
+   shards a B7a launch each bitwise one launch over them all; B3 on one
+   slice and over the main path's whole staged range in one launch
+   (bitwise its twin and the one-slice calls), B4 into its own rows and
+   into the caller's (bitwise its twin on the card), each with its device
+   time; beside each
    kernel's time the least time the card could take (``bound_ms``, the
    pair's bytes by one rule, ``pair_bytes``);
 3. the scan, ``compensate_recording_scan`` with ``OptimizerConfig.fast()``,
    on the 2,000,000-event bench stream of ``bench.py`` (one warm-up run,
-   then a measured run), with every kernel's launch count in that run and
-   a digest of its output (``scan_digest``, to compare two trees);
+   then a measured run), with every kernel's launch count in that run (B3
+   once, B4 once a slice that ran) and a digest of its output
+   (``scan_digest``, to compare two trees);
 4. determinism: a second measured run gives bitwise the same output;
 5. the card against the CPU twins on the stream's first 200,000 events;
 6. the streaming path, ``runtime.offline.compensate_recording``, on the
@@ -53,7 +58,8 @@ in phases that each raise on failure:
    events with 1 and 4 shards on the one card, under ``fast()`` (one B1
    launch for all shards, the seam, B2) and with f64 totals (one B7a launch
    for all shards, the seam, B7b), each bitwise the unsharded scan staged
-   with the same padding, with the launch counts (B3 once a slice) and the
+   with the same padding, with the launch counts (B3 once for the staged
+   range, B4 once a slice that ran, whatever the shards) and the
    host ms an iteration beside the unsharded run's, and for 4 shards in
    turns with it; then
    ``compensate_recording_multihost`` in one
@@ -229,13 +235,27 @@ def _op_name(name):
     return name.split("(")[0].split("<")[0].split("::")[-1].strip() or name
 
 
-def breakdown(fn, runs=20, traces=3):
+def _launch_records(events):
+    """The correlation ids of a trace's host-side CUDA calls that put an
+    operation on the card (a kernel launch, a memset, a copy)."""
+    from torch.autograd import DeviceType
+
+    return [e.correlation_id() for e in events
+            if e.device_type() == DeviceType.CPU and e.correlation_id()
+            and any(k in e.name() for k in ("Launch", "Memset", "Memcpy"))]
+
+
+def breakdown(fn, runs=20, traces=8):
     """The device operations of one ``fn()`` in launch order, each with its
     median time in microseconds over ``runs`` calls, from torch.profiler's
-    device trace.  A trace whose operations do not divide into the calls
-    (the profiler dropped a record: 119 operations in 20 calls of six once)
-    is taken again, up to ``traces`` times; raises if none does or a trace
-    holds no device operation."""
+    device trace.  A trace counts only when its device operations are
+    exactly its host-side launch records, matched by correlation id, and
+    there is at least one.  The profiler drops device records (119
+    operations in 20 calls of six once, every one of a trace's once, cause
+    unknown), so a trace that does not count is taken again, up to
+    ``traces`` times, and then it raises: an empty trace is retaken rather
+    than failed at once, since a whole trace has come back empty while the
+    same calls' other traces held their kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -248,19 +268,21 @@ def breakdown(fn, runs=20, traces=3):
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        ops = sorted((e.start_ns(), _op_name(e.name()),
-                      (e.end_ns() - e.start_ns()) * 1e-3)
-                     for e in prof.profiler.kineto_results.events()
-                     if e.device_type() == DeviceType.CUDA)
-        if not ops:
-            raise AssertionError("breakdown: no device operation traced")
-        if len(ops) % runs == 0:
+        events = prof.profiler.kineto_results.events()
+        launched = _launch_records(events)
+        dev = [e for e in events if e.device_type() == DeviceType.CUDA]
+        if (launched and len(dev) % runs == 0
+                and sorted(e.correlation_id() for e in dev)
+                == sorted(launched)):
             break
-        log(f"[kernels] breakdown: {len(ops)} device operations in {runs} "
-            "calls; tracing again")
+        log(f"[kernels] breakdown: {len(dev)} device operations for "
+            f"{len(launched)} launches in {runs} calls; tracing again")
     else:
-        raise AssertionError(f"breakdown: {len(ops)} device operations in "
-                             f"{runs} calls, {traces} traces")
+        raise AssertionError(f"breakdown: {len(dev)} device operations for "
+                             f"{len(launched)} launches in {runs} calls, "
+                             f"{traces} traces")
+    ops = sorted((e.start_ns(), _op_name(e.name()),
+                  (e.end_ns() - e.start_ns()) * 1e-3) for e in dev)
     per = len(ops) // runs
     return [(ops[k][1], statistics.median(ops[r * per + k][2]
                                           for r in range(runs)))
@@ -337,26 +359,22 @@ def assert_close(name, got, want, rtol, atol=0.0):
                              f"beyond rtol {rtol}, atol {atol}")
 
 
-def phase_kernels(cfg, d, dev):
-    """Each kernel against its twin on the card at the main path's shapes."""
+def kernel_slice(cfg, d, dev):
+    """The kernels' inputs at the main path's shapes: slice 2 (full,
+    interior) of the stream's first 120,000 events staged under ``cfg``,
+    a gate history of three with gated ranges in it, a mid-optimization
+    state and warped positions near the pixels, made from seed 7."""
     import numpy as np
     import torch
 
-    from better_flow_tpu_torch.models.global_flow import (
-        finish_statics, static_image_shape,
-    )
-    from better_flow_tpu_torch.ops import fused_model as fm
     from better_flow_tpu_torch.ops.layout import ST_CONT, ST_ITERS
     from better_flow_tpu_torch.runtime.scan_pipeline import prepare_recording
 
-    opt = cfg.optimizer
-    H, W = static_image_shape(opt.scale, cfg.sensor)
     prep = prepare_recording(d["x"][:120_000], d["y"][:120_000],
                              d["t_ns"][:120_000], cfg, device=dev)
     s = 2                                    # a full, interior slice
     stat, sidx, geo = prep["stat"][s], prep["sidx"][s], prep["geo"][s]
     rng = np.random.default_rng(7)
-    K = 3
     starts, ends = prep["plan"].starts, prep["plan"].ends
     hist = torch.from_numpy(np.array(
         [[1, 0, 1], [starts[0], starts[1], starts[1] + 5000],
@@ -374,17 +392,40 @@ def phase_kernels(cfg, d, dev):
     pr = (stat[:, 0:2] + torch.from_numpy(rng.normal(
         0, 0.2, (stat.shape[0], 2, stat.shape[2])).astype(np.float32)
     ).to(dev)).contiguous()
+    return dict(stat=stat, sidx=sidx, geo=geo, hist=hist, st=st, pr=pr)
+
+
+def phase_kernels(cfg, d, dev):
+    """Each kernel against its twin on the card at the main path's shapes
+    (B3 on one slice; over a staged range in ``act_rows_range``)."""
+    import torch
+
+    from better_flow_tpu_torch.models.global_flow import (
+        finish_statics, static_image_shape,
+    )
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.layout import ST_CONT, ST_ITERS
+
+    opt = cfg.optimizer
+    H, W = static_image_shape(opt.scale, cfg.sensor)
+    ks = kernel_slice(cfg, d, dev)
+    stat, sidx, geo, hist, st, pr = (ks[k] for k in (
+        "stat", "sidx", "geo", "hist", "st", "pr"))
+    K = hist.shape[1]
     statics = finish_statics(opt)
     time_lo = opt.splat_time_lo
     out = {}
 
+    # B3 on one slice; over the main path's whole staged range in
+    # act_rows_range.
     act = fm.act_rows_call(sidx, hist)
     act_p = fm.act_rows_plain(sidx, hist)
     if not torch.equal(act, act_p):
         raise AssertionError("act_rows differs from its twin")
+    b3 = lambda: fm.act_rows_call(sidx, hist)
+    ops = log_breakdown("act_rows one slice", b3)
     out["act_rows"] = dict(
-        max_abs_err=max_err(act, act_p),
-        ms=timed(lambda: fm.act_rows_call(sidx, hist)),
+        max_abs_err=max_err(act, act_p), ms=timed(b3), device_us=ops[0][1],
         plain_ms=timed(lambda: fm.act_rows_plain(sidx, hist)),
         **bound(nbytes(sidx, hist, act), sidx.numel() * (4 * K + 2)))
     slots = stat.shape[0] * stat.shape[2]
@@ -494,18 +535,28 @@ def phase_kernels(cfg, d, dev):
                                  "its twin on the card")
     log("[kernels] time_lo, reference schedule and predicted exit agree")
 
+    # B4 bitwise its twin on the card's tensors, into its own rows and
+    # into the caller's.
     o, u = fm.warp_uv_call(stat, npr, act, st, 0.0)
     o_p, u_p = fm.warp_uv_plain(stat, npr, act, st, 0.0)
-    assert_close("warp_uv out", o, o_p, rtol=1e-6)
-    assert_close("warp_uv u/v", u[:, 0:2], u_p[:, 0:2], rtol=1e-6)
-    if not torch.equal(u[:, 2], u_p[:, 2]):
-        raise AssertionError("warp_uv noise row differs")
+    err4 = max(max_err(o, o_p), max_err(u, u_p))
+    rows = torch.empty_like(u)
+    o_r, u_r = fm.warp_uv_call(stat, npr, act, st, 0.0, rows)
+    if not (torch.equal(o, o_p) and torch.equal(u, u_p)) or u_r is not rows \
+            or not (torch.equal(o_r, o) and torch.equal(rows, u)):
+        raise AssertionError(f"warp_uv: max abs error {err4} against its "
+                             "twin on the card, or not in the given rows")
+    b4 = lambda: fm.warp_uv_call(stat, npr, act, st, 0.0)
+    ops = log_breakdown("warp_uv", b4)
+    if len(ops) != 1:
+        raise AssertionError(f"warp_uv: device operations {ops}, expected "
+                             "one kernel")
     out["warp_uv"] = dict(
-        max_abs_err=max(max_err(o, o_p), max_err(u, u_p)),
-        ms=timed(lambda: fm.warp_uv_call(stat, npr, act, st, 0.0)),
+        max_abs_err=err4, ms=timed(b4), device_us=ops[0][1],
         plain_ms=timed(lambda: fm.warp_uv_plain(stat, npr, act, st, 0.0)),
         **bound(nbytes(stat, npr, act, st, o, u),
-                slots * (OPS_WARP + OPS_UV)))
+                slots * (OPS_WARP + OPS_UV)),
+        redesigned=12)
     out.update(check_b6_b7(stat, act, pr, st, geo, opt.scale, H, W, dev))
     for name, r in out.items():
         log(f"[kernels] {name}: max_abs_err {r['max_abs_err']:.3g}  kernel "
@@ -515,6 +566,48 @@ def phase_kernels(cfg, d, dev):
             + f"  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})")
     return out, dict(stat=stat, act=act, pr=pr, st=st, geo=geo)
+
+
+def act_rows_range(cfg, prep, dev, one_slice):
+    """B3 over ``prep``, the main path's staged range, in one launch (as
+    run_slices calls it): bitwise its twin and the one-slice calls, with
+    its time, device time and bound; ``one_slice``, phase_kernels' B3
+    result, rides along."""
+    import torch
+
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        initial_carry, staged_histories,
+    )
+
+    sidx = prep["sidx"]
+    hist = torch.from_numpy(staged_histories(
+        prep, initial_carry(prep, cfg))[0]).to(dev)
+    act = fm.act_rows_call(sidx, hist)
+    act_p = fm.act_rows_plain(sidx, hist)
+    if not torch.equal(act, act_p):
+        raise AssertionError("act_rows over the staged range differs from "
+                             "its twin")
+    if not all(torch.equal(act[k], fm.act_rows_call(sidx[k], hist[k]))
+               for k in range(len(sidx))):
+        raise AssertionError("act_rows over the staged range differs from "
+                             "its one-slice calls")
+    b3 = lambda: fm.act_rows_call(sidx, hist)
+    ops = log_breakdown(f"act_rows {len(sidx)} slices", b3)
+    if len(ops) != 1:
+        raise AssertionError(f"act_rows: device operations {ops}, expected "
+                             "one kernel")
+    r = dict(max_abs_err=max_err(act, act_p), ms=timed(b3),
+             device_us=ops[0][1],
+             plain_ms=timed(lambda: fm.act_rows_plain(sidx, hist)),
+             **bound(nbytes(sidx, hist, act),
+                     sidx.numel() * (4 * hist.shape[-1] + 2)),
+             slices=len(sidx), one_slice=one_slice, redesigned=12)
+    log(f"[kernels] act_rows over {len(sidx)} slices: kernel "
+        f"{r['ms']:.4f} ms (device {r['device_us']:.2f} us)  plain "
+        f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+        f"({r['bound_by']})")
+    return r
 
 
 def check_b6_b7(stat, act, pr, st, geo, scale, H, W, dev):
@@ -687,6 +780,9 @@ def phase_composed(d, dev):
     for k in ("fused_warp_splat", "act_rows"):
         if launches[k] <= 0:
             raise AssertionError(f"composed scan: {k} was not launched")
+    if launches["act_rows"] != 1:
+        raise AssertionError(f"composed scan: act_rows launched "
+                             f"{launches['act_rows']} times, expected 1")
     for k in ("megastep", "warp_images_st", "megastep_finish"):
         if launches[k] != 0:
             raise AssertionError(f"composed scan: {k} launched {launches[k]} "
@@ -783,13 +879,14 @@ def phase_sharded(d, dev):
                     raise AssertionError(f"sharded {name} x{shards}: {k} "
                                          "differs from the unsharded scan")
             total = int(rs["iters"].sum())
-            # B3 once a slice, the splat (B1 or B7a) once an iteration for
-            # all the resident shards, and B4 per shard.
+            # B3 once for the staged range, the splat (B1 or B7a) once an
+            # iteration and B4 once a slice that ran, each for all the
+            # resident shards.
             want = dict.fromkeys(lc, 0)
-            want["act_rows"] = len(rs["iters"])
+            want["act_rows"] = 1
             if name == "fast":
                 want.update(warp_images_st=total, megastep_finish=total,
-                            warp_uv=shards * int(rs["ran"].sum()))
+                            warp_uv=int(rs["ran"].sum()))
             else:
                 want.update(fused_warp_splat_images=total,
                             finish_partials=total)
@@ -846,6 +943,9 @@ def phase_sharded(d, dev):
         if not np.array_equal(rm[k], full[k]):
             raise AssertionError(f"multihost, three ranges: {k} differs from "
                                  "the full scan")
+    if fm.LAUNCHES["act_rows"] != 3:
+        raise AssertionError(f"multihost, three ranges: act_rows launched "
+                             f"{fm.LAUNCHES['act_rows']} times, expected 3")
     st = rm["stats"]
     log(f"[sharded] multihost, one process, 3 chained ranges x 2 shards "
         f"(f64): bitwise the full scan; events/s {st['events_per_s']:.1f}  "
@@ -1683,7 +1783,7 @@ def phase_merged(scan_inputs, cfg, prep, r_split, dev):
                                  f"in {k}")
     iters, ran = int(rm["iters"].sum()), int(rm["ran"].sum())
     want = dict(megastep2=iters + ran, warp_images_st=0, megastep_finish=0,
-                warp_uv=0, megastep=0)
+                warp_uv=0, megastep=0, act_rows=1)
     for k, v in want.items():
         if lc[k] != v:
             raise AssertionError(f"merged scan: {k} launched {lc[k]} times, "
@@ -2044,6 +2144,8 @@ def main():
     prep = prepare_recording(d["x"], d["y"], d["t_ns"], cfg, device=dev)
     log(f"[main] {n} events, {len(prep['plan'].ends)} slices staged in "
         f"{time.perf_counter() - t0:.2f} s")
+    # B3 as the main path launches it: once over the staged range.
+    results["act_rows"] = act_rows_range(cfg, prep, dev, results["act_rows"])
     compensate_recording_scan(None, None, None, cfg, prepared=prep)  # warm-up
     fm.reset_launches()
     r1 = compensate_recording_scan(None, None, None, cfg, prepared=prep)
@@ -2059,6 +2161,13 @@ def main():
     for name in ("act_rows", "warp_images_st", "megastep_finish", "warp_uv"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
+    # B3 once for the staged range, B4 once a slice that ran.
+    if launches["act_rows"] != 1 or \
+            launches["warp_uv"] != int(r1["ran"].sum()):
+        raise AssertionError(f"main path: act_rows launched "
+                             f"{launches['act_rows']} times (expected 1), "
+                             f"warp_uv {launches['warp_uv']} (expected "
+                             f"{int(r1['ran'].sum())})")
 
     r2 = compensate_recording_scan(None, None, None, cfg, prepared=prep)
     for k in ("u", "v", "noise", "iters"):

@@ -111,6 +111,35 @@ def test_act_rows_kernel_matches_twin(cuda):
     assert 0 < float(want.sum()) < float((s_c >= 0).sum())
 
 
+@pytest.mark.parametrize("K", [1, 3])
+def test_batched_act_rows_kernel_is_twin_and_one_slice_calls(cuda, K):
+    """B3 over five slices of their own histories (one never fired) in one
+    launch: bitwise its twin and the one-slice launches; a slab that is not
+    16-byte aligned is refused."""
+    rng = np.random.default_rng(K)
+    S, n = 5, NCH * CH
+    sidx = np.stack([np.where(rng.uniform(size=n) < 0.9,
+                              rng.permutation(n) + 1000 * s, -1)
+                     for s in range(S)]).astype(np.int32)
+    st_h = rng.integers(0, n, (S, K)) + 1000 * np.arange(S)[:, None]
+    hist = np.stack([rng.uniform(size=(S, K)) < 0.7, st_h,
+                     st_h + rng.integers(100, 2000, (S, K))], axis=1)
+    hist[:, 0, 0] = 1
+    hist[1, 0] = 0
+    (s_c, h_c), (s_g, h_g) = _both(dict(sidx=sidx, hist=hist.astype(
+        np.int32)), ("sidx", "hist"), cuda)
+    got = _launched("act_rows", lambda: tfm.act_rows_call(s_g, h_g))
+    assert got.shape == (S, NCH, 1, CH)
+    assert torch.equal(got, tfm.act_rows_plain(s_g, h_g))
+    assert torch.equal(got.cpu(), tfm.act_rows_call(s_c, h_c))
+    for k in range(S):
+        assert torch.equal(got[k], tfm.act_rows_call(s_g[k], h_g[k]))
+    before = dict(tfm.LAUNCHES)
+    with pytest.raises(ValueError, match="aligned"):
+        tfm.act_rows_call(s_g.reshape(-1)[1:1 + n], h_g[0])
+    assert tfm.LAUNCHES == before
+
+
 @pytest.mark.parametrize("time_lo", [False, True])
 def test_warp_images_st_kernel_matches_twin(cuda, time_lo):
     keys = ("stat", "act", "pr", "st", "geo")
@@ -185,6 +214,32 @@ def test_warp_uv_kernel_matches_twin(cuda, window_small):
     _close(out, out_p, rtol=1e-6)
     _close(uvn[:, 0:2], uvn_p[:, 0:2], rtol=1e-6)
     assert torch.equal(uvn[:, 2].cpu(), uvn_p[:, 2])
+    # The twin on the card's tensors (the warp in every thread): bitwise.
+    twin = tfm.warp_uv_plain(*gpu, window_small)
+    assert torch.equal(out, twin[0]) and torch.equal(uvn, twin[1])
+
+
+@pytest.mark.parametrize("window_small", [0.0, 0.5])
+def test_warp_uv_kernel_writes_the_given_rows_bitwise(cuda, window_small):
+    """B4 into the caller's rows (a slice of a run's output): bitwise its
+    twin on the card's tensors and its own rows, the rows around the
+    caller's left alone; rows that are not contiguous are refused."""
+    _, gpu = _both(slice_inputs(6, nch=8), ("stat", "pr", "act", "st"),
+                   cuda)
+    run = torch.zeros((3, 8, 3, CH), device=cuda)
+    out, uvn = _launched("warp_uv", lambda: tfm.warp_uv_call(
+        *gpu, window_small, run[1]))
+    assert uvn.data_ptr() == run[1].data_ptr()
+    twin = tfm.warp_uv_plain(*gpu, window_small)
+    own = tfm.warp_uv_call(*gpu, window_small)
+    for got in (own, (out, uvn)):
+        assert torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
+    assert not run[0].any() and not run[2].any()
+    before = dict(tfm.LAUNCHES)
+    with pytest.raises(ValueError, match="not contiguous"):
+        tfm.warp_uv_call(*gpu, window_small, torch.zeros(
+            (3, 8, CH), device=cuda).transpose(0, 1))
+    assert tfm.LAUNCHES == before
 
 
 def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
@@ -205,6 +260,9 @@ def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
               "megastep2"):
         # not the composed, the tiled, the XLA or the merged loop
         assert launches.pop(k) == 0
+    # B3 once for the staged range, B4 once a slice that ran.
+    assert launches["act_rows"] == 1
+    assert launches["warp_uv"] == int(rg["ran"].sum())
     assert all(v > 0 for v in launches.values())
     np.testing.assert_array_equal(rg["noise"], rc["noise"])
     np.testing.assert_array_equal(rg["ran"], rc["ran"])
@@ -635,7 +693,11 @@ def test_sharded_scan_on_card_is_unsharded_and_cpu_twins(cuda, case):
                      else ("fused_warp_splat_images", "finish_partials"))
     assert lc[event] == lc[finish] == total
     assert lc["megastep"] == 0 and lc["fused_warp_splat"] == 0
-    assert lc["act_rows"] == len(rg["iters"])
+    # B3 once for the staged range; B4 (megastep drives) once a slice that
+    # ran, for all four shards.
+    assert lc["act_rows"] == 1
+    assert lc["warp_uv"] == (int(rg["ran"].sum())
+                             if case in ("fast", "reference") else 0)
 
 
 @pytest.mark.parametrize("time_lo", [True, False])
@@ -984,6 +1046,7 @@ def test_merged_scan_on_card_is_the_split_scan(cuda):
     lm = rm["stats"]["launches"]
     assert lm["megastep2"] == int(rm["iters"].sum()) + int(rm["ran"].sum())
     assert lm["warp_uv"] == lm["warp_images_st"] == lm["megastep"] == 0
+    assert lm["act_rows"] == 1
 
 
 @pytest.mark.parametrize("order", ["sorted", "staged"])

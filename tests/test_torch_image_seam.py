@@ -26,6 +26,7 @@ from better_flow_tpu_torch.config import OptimizerConfig  # noqa: E402
 from better_flow_tpu_torch.core.model import MotionModel  # noqa: E402
 from better_flow_tpu_torch.io.synthetic import synthetic_events  # noqa: E402
 from better_flow_tpu_torch.models import global_flow as tgf  # noqa: E402
+from better_flow_tpu_torch.ops import fused_model as tfm  # noqa: E402
 from better_flow_tpu_torch.ops import layout  # noqa: E402
 from better_flow_tpu_torch.ops.layout import (  # noqa: E402
     pack_act, prepare_chunk_layouts,
@@ -145,8 +146,8 @@ def test_one_range_or_one_tensor_per_shard_give_the_same_bits(monkeypatch):
     """The local shards' chunks as one range, or built one tensor per shard
     and joined by the caller (as ``process_slice_event_parallel`` does):
     the same calls and bits, whatever the number of local shards.  The
-    megastep drive, whose final warp runs per shard, refuses a range that
-    does not divide into the local shards."""
+    megastep drive refuses a range that does not divide into the local
+    shards."""
     stat, act, bbox, n = _slice()
     cfg = CFGS["reference"]
     group = EventGroup(comm=HalfComm(), n_local=1, device=stat.device)
@@ -215,3 +216,36 @@ def test_megastep_seam_that_reduces_a_copy_is_caught(monkeypatch):
                          kernels=MEGASTEP)
     assert calls["b7b"][0] != calls["b7a"][0]
     assert got.iters != want.iters or not torch.equal(got.u, want.u)
+
+
+@pytest.mark.parametrize("schedule", ["reference", "fast"])
+def test_megastep_group_drive_warps_every_shard_in_one_b4_call(monkeypatch,
+                                                               schedule):
+    """The megastep drive under the two-rank group, two local shards: one
+    B4 call over both shards' chunks, into the caller's rows, and its
+    ``out`` and ``uvn`` bitwise the concatenation of one call a shard (the
+    warp is slot-wise, under the one state that the image sum gives every
+    shard)."""
+    stat, act, bbox, n = _slice()
+    calls = []
+
+    def rec(*a, **k):
+        calls.append((a, tfm.warp_uv_call(*a, **k)))
+        return calls[-1][1]
+
+    monkeypatch.setattr(tgf, "warp_uv_call", rec)
+    rows = torch.zeros((stat.shape[0], 3, layout.CHUNK))
+    group = EventGroup(comm=HalfComm(), n_local=2, device=stat.device)
+    res, uvn = tgf.process_slice(stat, act, MotionModel.zero(),
+                                 MEGA_CFGS[schedule], SENSOR, bbox, n,
+                                 group=group, uvn_out=rows)
+    monkeypatch.undo()
+    assert res.iters >= 2 and len(calls) == 1
+    (stat_b4, pr, act_b4, st, ws, rows_b4), (out, uvn_b4) = calls[0]
+    assert stat_b4 is stat and act_b4 is act and rows_b4 is rows
+    assert uvn is rows and uvn_b4 is rows
+    shards = [tfm.warp_uv_call(*parts, st, ws) for parts in zip(
+        stat.chunk(2), pr.chunk(2), act.chunk(2))]
+    assert torch.equal(out, torch.cat([o for o, _ in shards]))
+    assert torch.equal(uvn, torch.cat([u for _, u in shards]))
+    assert torch.equal(res.pr_x, out[:, 0].reshape(-1))
