@@ -8,10 +8,10 @@ reference binary, bf_motion_compensator.cpp:36-130; ``build_parser`` and
 ``config_from_args`` here are the port's own copies), plus ``--device``
 (default ``cuda``; it fails where no CUDA device is present rather than run
 on the CPU).  Ported: the default streaming path, ``--bufferize-file``,
-``--scan``, ``--schedule``, ``--stm-disable``, ``--quiet`` and ``-o``.
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-``--cold`` and ``--checkpoint``/``--resume`` (the cold path), ``-i`` (the
-manual mode) and ``--img``/``--video`` (the HUD frames).
+``--scan``, ``--cold`` with ``--checkpoint``/``--resume``, ``--schedule``,
+``--stm-disable``, ``--quiet`` and ``-o``.  Not ported yet, each raising
+NotImplementedError with its ROADMAP item: ``-i`` (the manual mode) and
+``--img``/``--video`` (the HUD frames).
 """
 
 from __future__ import annotations
@@ -27,9 +27,6 @@ from better_flow_tpu_torch.config import (
 )
 
 _NOT_PORTED = (   # flag attribute, flag, ROADMAP item
-    ("cold", "--cold", "A6 (the cold path)"),
-    ("checkpoint", "--checkpoint", "A6 (the cold path's checkpoints)"),
-    ("resume", "--resume", "A6 (the cold path's checkpoints)"),
     ("interactive", "-i/--interactive", "A8 (cli/manual_mode.py)"),
     ("img", "--img", "A8 (the HUD frames of viz/video.py)"),
     ("video", "--video", "A8 (the HUD frames of viz/video.py)"),
@@ -162,7 +159,23 @@ def main(argv=None) -> int:
         print(f"Read {len(rec['x'])} events, finished")
     out_path = sys.stdout if args.outfile == "-" else args.outfile
 
-    if args.scan:
+    if args.cold:
+        from better_flow_tpu_torch.runtime.scan_pipeline import (
+            compensate_recording_cold,
+        )
+
+        out = compensate_recording_cold(
+            rec["x"], rec["y"], rec["t_ns"], cfg,
+            checkpoint_path=args.checkpoint, resume=args.resume, device=dev)
+        st = out["stats"]
+        if not args.quiet:
+            resumed = (f" (resumed after batch {st['resumed_batches']})"
+                       if st["resumed_batches"] else "")
+            print(f"{st['n_slices']} slices in {st['n_batches']} batches"
+                  f"{resumed}, {st['total_s']:.3f} s end to end, "
+                  f"{st['events_per_s']:.0f} events/s, "
+                  f"mean iters {st['mean_iters']:.1f}")
+    elif args.scan:
         from better_flow_tpu_torch.runtime.scan_pipeline import (
             compensate_recording_scan,
         )
@@ -174,6 +187,7 @@ def main(argv=None) -> int:
             print(f"{st['n_slices']} slices, {st['run_s']:.3f} s, "
                   f"{st['events_per_s']:.0f} events/s, mean iters "
                   f"{st['mean_iters']:.1f}")
+    if args.cold or args.scan:
         if args.outfile:
             write_events_uv(out_path, rec["x"], rec["y"], rec["t_ns"],
                             out["u"], out["v"])

@@ -39,22 +39,40 @@ this process's chunks of every slice on the device.  ``scan_prepared``
 under an ``EventGroup`` runs each slice's shards through the optimizer's
 image-sum seam (``models.global_flow``).
 
-Recordings the JAX package routes to its cold path and the numpy staging
-fallback are not ported.
+The cold path.  ``compensate_recording_cold`` runs the recording as
+``n_batch`` contiguous slice ranges chained by their carry: a worker thread
+stages batch k+1 on its own CUDA stream while the main thread drives batch
+k's slice loop, and each batch's claimed events (a contiguous range of
+original indices) are accumulated into a compact buffer
+(``accumulate_device_range``), optionally packed (``pack_results``), and
+copied to pinned host memory on a third stream, which the worker waits for
+and decodes while the next batch runs; the checkpoint
+(``save_offline_checkpoint``) is written one batch behind.  A batch's
+slabs and outputs are dropped as
+soon as its accumulation is dispatched, so the device holds about two
+batches whatever the recording's length.  ``compensate_recording_scan``
+routes a recording there by itself when ``estimate_scan_device_bytes``
+exceeds ``BF_SCAN_DEVICE_BUDGET_GB``.
+
+The numpy staging fallback is not ported.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from better_flow_tpu_torch.config import PipelineConfig
+from better_flow_tpu_torch.convert import carry_from_jax, carry_to_jax
 from better_flow_tpu_torch.io import native
 from better_flow_tpu_torch.core.events import EventSlice
-from better_flow_tpu_torch.core.model import MotionModel
+from better_flow_tpu_torch.core.model import FIELDS, TOTAL_FIELDS, MotionModel
 from better_flow_tpu_torch.models.global_flow import (
     check_supported, geo_row, geometry_from_bbox, process_slice,
 )
@@ -143,6 +161,13 @@ def padded_capacity(cfg: PipelineConfig) -> int:
     return -(-(cap + row_bands(cfg) * (CHUNK - 1)) // CHUNK) * CHUNK
 
 
+def staged_capacity(cfg: PipelineConfig, pad_quantum: int = 0) -> int:
+    """Slots per staged slice: ``padded_capacity`` rounded up to a multiple
+    of ``pad_quantum`` when it is given."""
+    capp = padded_capacity(cfg)
+    return -(-capp // pad_quantum) * pad_quantum if pad_quantum else capp
+
+
 def default_device() -> torch.device:
     """The card.  An entry point runs on the CPU (the plain twins) only when
     its caller asks for it; with no card and no ``device="cpu"`` it raises."""
@@ -221,9 +246,7 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
     plan = plan_full if slice_range is None else SlicePlan(
         *(a[lo:hi] for a in plan_full))
     S = len(plan.ends)
-    capp = padded_capacity(cfg)
-    if pad_quantum:
-        capp = -(-capp // pad_quantum) * pad_quantum
+    capp = staged_capacity(cfg, pad_quantum)
     c0, c1 = (0, capp // CHUNK) if chunk_range is None else chunk_range
     if not 0 <= c0 < c1 <= capp // CHUNK:
         raise ValueError(f"chunk_range {chunk_range} outside the "
@@ -301,7 +324,10 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
         np.stack([geo_row(g) for g in geoms]) if S
         else np.zeros((0, 1, 8), np.float32)).to(dev)
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)   # plan_s includes the copies
+        # plan_s includes the copies.  Only the current stream is waited
+        # on: the cold path stages on a stream of its own while its main
+        # thread runs the previous batch.
+        torch.cuda.current_stream(dev).synchronize()
     _mark("device_wait")
     return {
         "plan": plan, "n": len(t_ns), "hist_k": hist_k, "device": dev,
@@ -442,29 +468,78 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     return (model, sd) + hist_end, uvn, iters, ran, syncs
 
 
-def accumulate_device(uvn: torch.Tensor, sidx: torch.Tensor, n: int,
-                      claim_from: int = 0):
-    """First-slice-wins accumulation: scatter each slice's [u, v, noise]
-    to its events' original indices, in REVERSE slice order so that the
-    first slice holding an event writes last.  Indices are unique within a
-    slice; padding slots, and events before ``claim_from`` (a range run
-    claims only the events whose first slice is in the range, those after
-    the previous range's last trigger, so consecutive ranges' claims are
-    disjoint), go to a dump slot at ``n``.  One slice per scatter: several
-    slices in one call would hold duplicate indices, whose winner is
-    undefined on the card."""
+def _first_wins(uvn: torch.Tensor, sidx: torch.Tensor, lo: int, hi: int,
+                base: int, size: int):
+    """Scatter each slice's [u, v, noise] of the events whose original
+    index lies in [lo, hi) to ``index - base`` of (size,) buffers, in
+    REVERSE slice order so that the first slice holding an event writes
+    last; padding slots (index -1) and the other events go to a dump slot
+    at ``size``.  One slice per scatter: indices are unique within a slice,
+    and several slices in one call would hold duplicate indices, whose
+    winner is undefined on the card."""
     dev = uvn.device
-    au = torch.zeros(n + 1, dtype=torch.float32, device=dev)
-    av = torch.zeros(n + 1, dtype=torch.float32, device=dev)
-    an = torch.zeros(n + 1, dtype=torch.float32, device=dev)
-    dump = torch.full_like(sidx[0], n) if len(sidx) else None
+    au = torch.zeros(size + 1, dtype=torch.float32, device=dev)
+    av = torch.zeros(size + 1, dtype=torch.float32, device=dev)
+    an = torch.zeros(size + 1, dtype=torch.float32, device=dev)
+    dump = torch.full_like(sidx[0], size) if len(sidx) else None
     for s in reversed(range(uvn.shape[0])):
         idx = sidx[s]
-        tgt = torch.where(idx >= claim_from, idx, dump).to(torch.int64)
+        tgt = torch.where((idx >= lo) & (idx < hi), idx - base,
+                          dump).to(torch.int64)
         au.index_copy_(0, tgt, uvn[s, :, 0, :].reshape(-1))
         av.index_copy_(0, tgt, uvn[s, :, 1, :].reshape(-1))
         an.index_copy_(0, tgt, uvn[s, :, 2, :].reshape(-1))
-    return au[:n], av[:n], an[:n] != 0
+    return au[:size], av[:size], an[:size] != 0
+
+
+def accumulate_device(uvn: torch.Tensor, sidx: torch.Tensor, n: int,
+                      claim_from: int = 0):
+    """First-slice-wins accumulation into per-event (n,) u, v and noise
+    at the events' original indices.  Events before ``claim_from`` are
+    left out: a range run claims only the events whose first slice is in
+    the range, those after the previous range's last trigger, so
+    consecutive ranges' claims are disjoint."""
+    return _first_wins(uvn, sidx, claim_from, n, 0, n)
+
+
+def accumulate_device_range(uvn: torch.Tensor, sidx: torch.Tensor,
+                            claim_from: int, claim_to: int, claim_cap: int):
+    """``accumulate_device`` narrowed to the events whose original index
+    lies in [claim_from, claim_to), into compact (claim_cap,) buffers at
+    ``index - claim_from``.  A cold batch's claims are such a contiguous
+    range (from the previous batch's last trigger + 1), so the batches'
+    buffers put end to end are the whole recording's result."""
+    return _first_wins(uvn, sidx, claim_from, claim_to, claim_from,
+                       claim_cap)
+
+
+def pack_results(au: torch.Tensor, av: torch.Tensor, an: torch.Tensor):
+    """The compact wire format of a batch's results, on their device: one
+    uint8 tensor of 4 m + ceil(m / 8) bytes, f16 u then f16 v byte-planar
+    (all low bytes, then all high bytes) and the noise flags bit-packed
+    little-endian, byte for byte the JAX package's ``_pack_results``.
+    f16 rounds u and v by up to 2^-11 of their value; noise is exact.
+    ``unpack_results`` decodes it."""
+    m = au.shape[0]
+    f16 = torch.stack([au.to(torch.float16), av.to(torch.float16)])
+    planes = f16.view(torch.uint8).reshape(2, m, 2).transpose(1, 2)
+    flags = torch.zeros(-(-m // 8) * 8, dtype=torch.uint8, device=au.device)
+    flags[:m] = an.to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.int32, device=au.device)
+    bits = (flags.view(-1, 8).to(torch.int32) << shifts).sum(1)
+    return torch.cat([planes.reshape(4 * m), bits.to(torch.uint8)])
+
+
+def unpack_results(buf, m: int):
+    """Host-side decode of ``pack_results`` (numpy): u, v (f32) and noise
+    (bool) of length ``m``."""
+    buf = np.asarray(buf)
+    head = buf[: 4 * m].reshape(2, 2, m)
+    f16 = np.ascontiguousarray(np.moveaxis(head, 1, 2)).view(np.float16)
+    u = f16[0, :, 0].astype(np.float32)
+    v = f16[1, :, 0].astype(np.float32)
+    bits = np.unpackbits(buf[4 * m:], bitorder="little")[:m]
+    return u, v, bits.astype(bool)
 
 
 def gather_shards(uvn: torch.Tensor, sidx: torch.Tensor, group):
@@ -540,11 +615,386 @@ def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
     warm-start chain.  When ``prepared`` was staged with a ``slice_range``
     the run starts from the range's gate history and claims only the
     range's own events (zeros elsewhere), so the outputs of consecutive
-    ranges are disjoint and their union is the full run's."""
+    ranges are disjoint and their union is the full run's.
+
+    Given none of ``prepared``, ``carry_in`` and ``init_model``, a
+    recording whose ``estimate_scan_device_bytes`` exceeds
+    ``BF_SCAN_DEVICE_BUDGET_GB`` (default 5.0) runs through
+    ``compensate_recording_cold`` instead, with ``n_batch = max(4,
+    ceil(2 * estimate / budget))``: bitwise the same u, v, noise and
+    iters, the cold path's keys (no ``ran``, no ``plan``), and
+    ``routed_cold``, ``est_device_gb``, ``plan_s`` 0 and ``run_s`` the
+    whole time in ``stats``."""
     cfg = cfg or PipelineConfig()
     check_supported(cfg.optimizer, cfg.f64_totals)
+    if prepared is None and carry_in is None and init_model is None:
+        # Bounded memory: a recording whose resident tensors would exceed
+        # the budget runs through the cold path, whose peak is about two
+        # batches, with bitwise the same outputs.  A caller that staged
+        # (``prepared``) or continues a chain (``carry_in``,
+        # ``init_model``) has chosen the one-program scan.
+        budget = float(os.environ.get("BF_SCAN_DEVICE_BUDGET_GB", 5.0)) * 1e9
+        est = estimate_scan_device_bytes(t_ns, cfg)
+        if est > budget:
+            out = compensate_recording_cold(
+                x, y, t_ns, cfg, n_batch=max(4, math.ceil(est / budget * 2)),
+                device=device)
+            out["stats"].update(plan_s=0.0, run_s=out["stats"]["total_s"],
+                                routed_cold=True,
+                                est_device_gb=round(est / 1e9, 2))
+            return out
     if prepared is None:
         prepared = prepare_recording(x, y, t_ns, cfg, device=device)
     carry0 = carry_in if carry_in is not None \
         else initial_carry(prepared, cfg, init_model)
     return scan_prepared(prepared, cfg, carry0)
+
+
+def estimate_scan_device_bytes(t_ns, cfg: PipelineConfig,
+                               pad_quantum: int = 0) -> float:
+    """Bytes the one-program scan keeps resident on the device: per slot
+    of the S x capp staged slices (``staged_capacity``), ``stat`` (12 B),
+    ``sidx`` (4 B), B3's rows (4 B) and ``uvn`` (12 B), 32 B; per event
+    the three f32 (n + 1) accumulators and the noise flags, 13 B.
+    Resident tensors only: while ``prepare_recording`` runs, its int16
+    parts and ``torch.cat`` add about 10 B a slot for a while.  The trigger
+    plan is cheap to compute on its own."""
+    plan = plan_slices(np.ascontiguousarray(t_ns, np.int64), cfg)
+    return (float(len(plan.ends)) * staged_capacity(cfg, pad_quantum) * 32
+            + len(t_ns) * 13.0)
+
+
+_CKPT_VERSION = 2
+
+
+def config_digest(cfg: PipelineConfig) -> str:
+    """The configuration's repr, which names every field of the frozen
+    dataclasses, so that any change (tolerances, schedule, exit factors,
+    slicing, f64_totals) changes it.  The port's configuration has the JAX
+    package's classes, fields and defaults, so equal configurations give
+    equal digests in both packages."""
+    return repr(cfg)
+
+
+def save_offline_checkpoint(path, *, n, S, n_batch, done, carry,
+                            batch_results, cfg: PipelineConfig = None):
+    """The cold path's state at a batch boundary, in the JAX package's
+    ``.npz`` layout (version 2), so either package resumes the other's:
+    the carry after batch ``done - 1`` (each model field in its own dtype,
+    the seed and the gate history) and every completed batch's claimed
+    (u, v, noise, iters).  Written to a temporary file and moved into
+    place, so a reader finds the old checkpoint or the new one."""
+    vals, seed, ws_h, st_h, en_h = carry_to_jax(carry)
+    state = {
+        "version": np.int64(_CKPT_VERSION), "n": np.int64(n),
+        "S": np.int64(S), "n_batch": np.int64(n_batch),
+        "done_batches": np.int64(done),
+        "carry_seed": seed, "carry_ws": ws_h, "carry_st": st_h,
+        "carry_en": en_h,
+    }
+    if cfg is not None:
+        state["config_digest"] = np.asarray(config_digest(cfg))
+    for f, v in zip(FIELDS, vals):
+        state[f"carry_model_{f}"] = v
+    for b, (au, av, an, iters) in enumerate(batch_results):
+        state[f"acc_u_{b}"] = au
+        state[f"acc_v_{b}"] = av
+        state[f"acc_n_{b}"] = an
+        state[f"iters_{b}"] = iters
+    tmp = str(path) + ".tmp.npz"
+    np.savez(tmp, **state)
+    os.replace(tmp, str(path))
+
+
+def load_offline_checkpoint(path, *, n, S, n_batch, hist_k,
+                            cfg: PipelineConfig = None, claims=None,
+                            device="cpu"):
+    """Load and check a cold-path checkpoint.  Returns (done_batches,
+    carry, batch_results), the carry's model and seed on ``device``, or
+    None when there is no file.  Raises when the checkpoint belongs to
+    another recording or batch split (n, S, n_batch), another
+    configuration (``config_digest``), holds f32 totals for an
+    ``f64_totals`` run, or is truncated (gate history shorter than
+    ``hist_k``, a batch's results not the length of its claim)."""
+    if not os.path.exists(str(path)):
+        return None
+    with np.load(str(path), allow_pickle=False) as z:
+        if int(z["version"]) != _CKPT_VERSION:
+            raise ValueError(
+                f"unsupported checkpoint version {int(z['version'])}")
+        for key, want in (("n", n), ("S", S), ("n_batch", n_batch)):
+            if int(z[key]) != want:
+                raise ValueError(
+                    f"checkpoint mismatch: {key}={int(z[key])} but this run "
+                    f"has {want} -- wrong recording, config, or n_batch")
+        if cfg is not None and "config_digest" in z:
+            have, want_d = str(z["config_digest"]), config_digest(cfg)
+            if have != want_d:
+                raise ValueError(
+                    "checkpoint config mismatch: the checkpoint was written "
+                    f"under a different PipelineConfig.\n  checkpoint: "
+                    f"{have}\n  this run:  {want_d}\nResuming would stitch "
+                    "batches computed under two different configs.")
+        model = tuple(z[f"carry_model_{f}"] for f in FIELDS)
+        if cfg is not None and cfg.f64_totals and any(
+                model[FIELDS.index(f)].dtype != np.float64
+                for f in TOTAL_FIELDS):
+            raise ValueError(
+                "cfg.f64_totals: the checkpoint's carry totals are not f64; "
+                "resuming would continue the f64 chain from f32 totals")
+        ws_h, st_h, en_h = z["carry_ws"], z["carry_st"], z["carry_en"]
+        if len(ws_h) != hist_k:
+            raise ValueError("checkpoint hist_k mismatch")
+        if len(st_h) != hist_k or len(en_h) != hist_k:
+            raise ValueError(
+                f"checkpoint carry history truncated: st/en lengths "
+                f"{len(st_h)}/{len(en_h)} != hist_k {hist_k}")
+        carry = carry_from_jax((model, z["carry_seed"], ws_h, st_h, en_h),
+                               device=device)
+        done = int(z["done_batches"])
+        batch_results = []
+        for b in range(done):
+            row = (z[f"acc_u_{b}"], z[f"acc_v_{b}"], z[f"acc_n_{b}"],
+                   z[f"iters_{b}"])
+            if claims is not None:
+                want_len = claims[b][1] - claims[b][0]
+                for name, a in zip(("acc_u", "acc_v", "acc_n"), row[:3]):
+                    if len(a) != want_len:
+                        raise ValueError(
+                            f"checkpoint batch {b} {name} length {len(a)} "
+                            f"!= claim range {want_len} -- truncated or "
+                            "edited checkpoint")
+            batch_results.append(row)
+    return done, carry, batch_results
+
+
+def _stage_batch(x, y, t_ns, cfg: PipelineConfig, dev, lo: int, hi: int,
+                 stream):
+    """The cold path's staging of slices [lo, hi), on its worker thread:
+    ``prepare_recording`` under ``stream`` on a card (it then waits for
+    that stream alone), with an event recorded behind it for the main
+    stream to wait on.  Returns (prepared, event or None, seconds)."""
+    t0 = time.perf_counter()
+    if stream is None:
+        return (prepare_recording(x, y, t_ns, cfg, device=dev,
+                                  slice_range=(lo, hi)), None,
+                time.perf_counter() - t0)
+    with torch.cuda.stream(stream):
+        prep = prepare_recording(x, y, t_ns, cfg, device=dev,
+                                 slice_range=(lo, hi))
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return prep, ready, time.perf_counter() - t0
+
+
+class _Fetch:
+    """One batch's accumulated buffers on their way to the host.  On a
+    card they are copied into pinned host memory on ``stream`` once the
+    main stream's work so far (the accumulation) is done, without blocking
+    the host, and kept from the caching allocator until the copies are
+    done; ``result`` waits for them.  On the CPU the buffers are the
+    result."""
+
+    def __init__(self, bufs, stream, start):
+        self.start, self.stream = start, stream
+        if stream is None:
+            self.host, self.end = bufs, time.perf_counter()
+            return
+        stream.wait_stream(torch.cuda.current_stream(bufs[0].device))
+        with torch.cuda.stream(stream):
+            self.host = tuple(torch.empty(b.shape, dtype=b.dtype,
+                                          pin_memory=True) for b in bufs)
+            for h, b in zip(self.host, bufs):
+                h.copy_(b, non_blocking=True)
+                b.record_stream(stream)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.end.record(stream)
+
+    def result(self, m: int, claim_cap: int):
+        """(u, v, noise) of the batch's ``m`` claimed events, numpy (views
+        of the host buffers, decoded when packed), and the seconds from
+        the accumulation's start to the copy's end."""
+        if self.stream is None:
+            secs = self.end - self.start
+        else:
+            self.end.synchronize()
+            secs = self.start.elapsed_time(self.end) / 1e3
+        host = [h.numpy() for h in self.host]
+        if len(host) == 1:
+            host = unpack_results(host[0], claim_cap)
+        return tuple(a[:m] for a in host), secs
+
+
+def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
+                              n_batch: int = 4, checkpoint_path=None,
+                              resume: bool = False,
+                              compact_results: bool = False,
+                              device=None) -> dict:
+    """Process a recording once, with staging, the device's work and the
+    results' fetch overlapped; bitwise the result of
+    ``compensate_recording_scan`` (with ``compact_results``, u and v
+    rounded to f16).
+
+    The trigger plan's S slices are split into ``n_batch`` contiguous
+    ranges of ceil(S / n_batch) slices (fewer when S is small).  A worker
+    thread stages batch k+1 (``prepare_recording(slice_range=...)``; the
+    native sort releases the interpreter lock) on a CUDA stream of its own
+    while the main thread drives batch k's slice loop (``run_slices``,
+    B3 once, then B1 and B2 every iteration and B4 once a slice that ran)
+    from the previous batch's carry.  Batch k claims the events whose first
+    slice is in it, a contiguous range of original indices, known from the
+    whole plan; as soon as its loop returns, their first-slice-wins
+    accumulation (``accumulate_device_range``), packed with
+    ``compact_results`` (``pack_results``: f16 u and v and bit-packed
+    noise, 4.125 B an event instead of 9), is dispatched and copied into
+    pinned host memory on a third stream, and the batch's slabs and
+    outputs are dropped, so the device holds about two batches whatever
+    the recording's length.  The worker waits for that copy and decodes
+    the batch into the result arrays while batch k+1 runs; the main thread
+    waits for it only when it writes the checkpoint one batch behind, and
+    at the end.  An exception on the worker reaches the caller as it was
+    raised, after the worker has stopped.  On the CPU the same threads
+    run, without streams.
+
+    ``checkpoint_path`` saves (carry, completed batches' results) at
+    every batch boundary (``save_offline_checkpoint``); with ``resume``
+    a matching checkpoint restarts after its last completed batch, and the
+    output is bitwise an uninterrupted run's (the compact path stores the
+    decoded values).
+
+    Returns ``u``, ``v``, ``noise`` (numpy, original event order), the
+    final ``model`` and ``carry`` (None for an empty recording), per-slice
+    ``iters`` and ``stats``: n_events, n_slices, n_batches,
+    resumed_batches, total_s, events_per_s, mean_iters, host_syncs,
+    launches and ``batches``, one entry a batch run here with its
+    ``stage_s`` (host time of its staging, copies included), ``run_s``
+    (host time of its slice loop) and ``fetch_s`` (its accumulation, pack
+    and copy, device time on a card, plus the host time of its decode into
+    the result arrays)."""
+    cfg = cfg or PipelineConfig()
+    check_supported(cfg.optimizer, cfg.f64_totals)
+    dev = torch.device(device) if device is not None else default_device()
+    t0 = time.perf_counter()
+    t_ns = np.ascontiguousarray(t_ns, np.int64)
+    plan = plan_slices(t_ns, cfg)
+    S, n = len(plan.ends), len(t_ns)
+    n_batch = max(1, min(n_batch, S))
+    per = -(-S // n_batch)
+    bounds = [(b * per, min((b + 1) * per, S))
+              for b in range(n_batch) if b * per < S]
+    # Batch b claims the original indices after the previous batch's last
+    # trigger, up to its own: contiguous, disjoint, known from the plan.
+    claims = [(int(plan.ends[lo - 1]) + 1 if lo > 0 else 0,
+               int(plan.ends[hi - 1]) + 1 if hi < S else n)
+              for lo, hi in bounds]
+    claim_cap = max([cto - cfrom for cfrom, cto in claims] + [1])
+
+    done, carry, results = 0, None, []
+    if resume and checkpoint_path is not None:
+        loaded = load_offline_checkpoint(
+            checkpoint_path, n=n, S=S, n_batch=n_batch,
+            hist_k=history_depth(plan), cfg=cfg, claims=claims, device=dev)
+        if loaded is not None:
+            done, carry, results = loaded
+    u = np.zeros(n, np.float32)
+    v = np.zeros(n, np.float32)
+    noise = np.zeros(n, bool)
+    for b, (au, av, an, _) in enumerate(results):
+        cfrom, cto = claims[b]
+        u[cfrom:cto], v[cfrom:cto], noise[cfrom:cto] = au, av, an
+    results = list(results) + [None] * (len(bounds) - done)
+
+    cuda = dev.type == "cuda"
+    stage_stream = torch.cuda.Stream(dev) if cuda else None
+    fetch_stream = torch.cuda.Stream(dev) if cuda else None
+    collected, iters_run, timing = {}, {}, {}
+    launches0 = dict(LAUNCHES)
+    syncs = 0
+
+    def collect(b, fetch):
+        """On the worker: wait for batch b's copy, decode its claimed
+        events into the result arrays and keep them with its iters."""
+        cfrom, cto = claims[b]
+        t = time.perf_counter()
+        uvn_b, fetch_s = fetch.result(cto - cfrom, claim_cap)
+        u[cfrom:cto], v[cfrom:cto], noise[cfrom:cto] = uvn_b
+        results[b] = (u[cfrom:cto], v[cfrom:cto], noise[cfrom:cto],
+                      iters_run[b])
+        timing[b]["fetch_s"] = fetch_s + time.perf_counter() - t
+
+    def checkpoint(b, carry_b):
+        collected.pop(b).result()
+        save_offline_checkpoint(
+            checkpoint_path, n=n, S=S, n_batch=n_batch, done=b + 1,
+            carry=carry_b, batch_results=results[:b + 1], cfg=cfg)
+
+    with ThreadPoolExecutor(max_workers=1,
+                            thread_name_prefix="bf-stage") as pool:
+        def stage(b):
+            return pool.submit(_stage_batch, x, y, t_ns, cfg, dev,
+                               *bounds[b], stage_stream) \
+                if b < len(bounds) else None
+
+        # The worker's queue: stage k+1 while batch k runs, then decode
+        # batch k while batch k+1 runs.
+        staging = stage(done)
+        pending = None   # (batch, carry after it), not yet checkpointed
+        for b in range(done, len(bounds)):
+            prep, ready, stage_s = staging.result()
+            staging = stage(b + 1)
+            t_run = time.perf_counter()
+            if cuda:
+                main = torch.cuda.current_stream(dev)
+                main.wait_event(ready)
+                for t in (prep["stat"], prep["sidx"], prep["geo"]):
+                    t.record_stream(main)
+            if carry is None:
+                carry = initial_carry(prep, cfg)
+            carry, uvn, iters_run[b], _, n_sync = run_slices(prep, cfg, carry)
+            syncs += n_sync
+            timing[b] = {"stage_s": stage_s,
+                         "run_s": time.perf_counter() - t_run}
+            start = time.perf_counter()
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(main)
+            acc = accumulate_device_range(uvn, prep["sidx"], *claims[b],
+                                          claim_cap)
+            if compact_results:
+                acc = (pack_results(*acc),)
+            collected[b] = pool.submit(collect, b,
+                                       _Fetch(acc, fetch_stream, start))
+            # Nothing reads this batch's slabs, rows or outputs again:
+            # dropping them now bounds the device's memory to ~2 batches.
+            prep = uvn = acc = None
+            # The previous batch's checkpoint waits only on work already
+            # done, so writing it one batch behind keeps the overlap.
+            if checkpoint_path is not None and pending is not None:
+                checkpoint(*pending)
+            pending = (b, carry)
+        if checkpoint_path is not None and pending is not None:
+            checkpoint(*pending)
+        for future in collected.values():
+            future.result()
+
+    iters = np.concatenate([np.asarray(r[3], np.int32) for r in results]) \
+        if results else np.zeros(0, np.int32)
+    total_s = time.perf_counter() - t0
+    return {
+        "u": u, "v": v, "noise": noise,
+        "model": carry[0] if carry is not None else initial_model(cfg, dev),
+        "carry": carry,
+        "iters": iters,
+        "stats": {
+            "n_events": n,
+            "n_slices": S,
+            "n_batches": len(bounds),
+            "resumed_batches": done,
+            "total_s": total_s,
+            "events_per_s": n / total_s if total_s > 0 else 0.0,
+            "mean_iters": float(iters.mean()) if S else 0.0,
+            "host_syncs": syncs,
+            "launches": {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES},
+            "batches": [timing[b] for b in sorted(timing)],
+        },
+    }

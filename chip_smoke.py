@@ -40,6 +40,16 @@ in phases that each raise on failure:
    once, B4 once a slice that ran) and a digest of its output
    (``scan_digest``, to compare two trees);
 4. determinism: a second measured run gives bitwise the same output;
+   then the cold path (``[cold]``, ``phase_cold``):
+   ``compensate_recording_cold`` on the same 2M events in four batches,
+   bitwise the scan, B3 launched once a batch and B4 once a slice that
+   ran; with ``compact_results`` within f16 rounding (its packed bytes
+   those of the exact run); killed while staging its third batch and
+   resumed from its checkpoint, bitwise, exact and compact; the scan
+   routed to it under a tiny ``BF_SCAN_DEVICE_BUDGET_GB``, bitwise; and
+   bench.py's cold protocol on 12M events (``compact_results``, a warm-up
+   call, then the measured one): events/s, each batch's staging, run and
+   fetch time, their overlap, and peak device memory against the scan's;
 5. the card against the CPU twins on the stream's first 200,000 events;
 6. the streaming path, ``runtime.offline.compensate_recording``, on the
    same 2M events under the reference schedule (B5 + B4) and under
@@ -150,6 +160,7 @@ N_TILED = 600_000
 N_TILED_COMPARE = 150_000
 N_XLA_COMPARE = 100_000
 N_PARTIALS_SLICES = 20
+N_COLD = 12_000_000
 TILED_HALO, TILED_ESC_CAP = 32, 32768
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
@@ -1952,6 +1963,162 @@ def compare_runs(a, b, d, n):
                 median_dv=dv, speed=speed, aee=(aee(a), aee(b)))
 
 
+def same_outputs(label, a, b, keys=("u", "v", "noise", "iters")):
+    import numpy as np
+
+    for k in keys:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def within_f16(label, comp, exact):
+    """``comp``'s u and v within f16 rounding of ``exact``'s, noise
+    identical."""
+    import numpy as np
+
+    same_outputs(label, comp, exact, keys=("noise", "iters"))
+    for k in ("u", "v"):
+        err = np.abs(comp[k] - exact[k]) - (2.0 ** -11 * np.abs(exact[k])
+                                            + 2.0 ** -25)
+        if not (err <= 0).all():
+            raise AssertionError(f"{label}: {k} beyond f16 rounding by "
+                                 f"{float(err.max())}")
+
+
+def phase_cold(d, cfg, r1, dev, n_cold=N_COLD):
+    """The cold path, ``compensate_recording_cold``, on the stream of
+    ``[main]``: four batches bitwise the scan ``r1`` with B3 launched once a
+    batch and B4 once a slice that ran; ``compact_results`` within f16
+    rounding and its bytes those of ``pack_results`` of the exact run; a
+    run killed while staging its third batch and resumed from its
+    checkpoint, bitwise the uninterrupted one, exact and compact; the
+    scan routed to the cold path under a tiny ``BF_SCAN_DEVICE_BUDGET_GB``,
+    bitwise ``r1``.  Then bench.py's cold protocol on ``n_cold`` events
+    (a warm-up call, then the measured one, both compact): events/s, each
+    batch's staging, run and fetch time, their overlap, and the peak
+    device memory of the cold run and of the scan of the same events."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.runtime import scan_pipeline as sp
+
+    t_phase = time.perf_counter()
+    n = len(d["x"])
+
+    def cold(dd, **kw):
+        return sp.compensate_recording_cold(dd["x"], dd["y"], dd["t_ns"], cfg,
+                                            device=dev, **kw)
+
+    fm.reset_launches()
+    exact = cold(d, n_batch=4)
+    launches = dict(fm.LAUNCHES)
+    same_outputs("cold", exact, r1)
+    ran = int(r1["ran"].sum())
+    if launches["act_rows"] != 4 or launches["warp_uv"] != ran or \
+            launches["warp_images_st"] <= 0 or \
+            launches["megastep_finish"] <= 0 or \
+            launches != exact["stats"]["launches"]:
+        raise AssertionError(f"cold launches {launches} (act_rows 4, "
+                             f"warp_uv {ran} expected)")
+    log(f"[cold] {n} events, 4 batches: bitwise the scan; launches "
+        f"{json.dumps(launches)}; total_s {exact['stats']['total_s']:.4f}")
+
+    comp = cold(d, n_batch=4, compact_results=True)
+    within_f16("cold compact", comp, exact)
+    put = lambda r: [torch.from_numpy(r[k]).to(dev)
+                     for k in ("u", "v", "noise")]
+    if not torch.equal(sp.pack_results(*put(comp)),
+                       sp.pack_results(*put(exact))):
+        raise AssertionError("cold compact: packed bytes differ")
+    log("[cold] compact: noise identical, u and v within f16 rounding, "
+        "packed bytes equal")
+
+    orig = sp.prepare_recording
+    calls = []
+
+    def dying_prepare(*a, **k):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("simulated kill")
+        return orig(*a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for compact, clean in ((False, exact), (True, comp)):
+            ckpt = os.path.join(tmp, f"cold{int(compact)}.npz")
+            calls.clear()
+            sp.prepare_recording = dying_prepare
+            try:
+                cold(d, n_batch=4, checkpoint_path=ckpt,
+                     compact_results=compact)
+                raise AssertionError("the killed run did not raise")
+            except RuntimeError as e:
+                if str(e) != "simulated kill":
+                    raise
+            finally:
+                sp.prepare_recording = orig
+            resumed = cold(d, n_batch=4, checkpoint_path=ckpt, resume=True,
+                           compact_results=compact)
+            if resumed["stats"]["resumed_batches"] != 1:
+                raise AssertionError(f"resumed after "
+                                     f"{resumed['stats']['resumed_batches']}"
+                                     " batches, expected 1")
+            same_outputs(f"cold resume (compact={compact})", resumed, clean)
+    log("[cold] killed while staging batch 3, resumed after batch 1: "
+        "bitwise, exact and compact")
+
+    old = os.environ.get("BF_SCAN_DEVICE_BUDGET_GB")
+    os.environ["BF_SCAN_DEVICE_BUDGET_GB"] = "0.001"
+    try:
+        routed = sp.compensate_recording_scan(d["x"], d["y"], d["t_ns"], cfg,
+                                              device=dev)
+    finally:
+        if old is None:
+            del os.environ["BF_SCAN_DEVICE_BUDGET_GB"]
+        else:
+            os.environ["BF_SCAN_DEVICE_BUDGET_GB"] = old
+    if routed["stats"].get("routed_cold") is not True:
+        raise AssertionError("the scan was not routed to the cold path")
+    same_outputs("routed scan", routed, r1)
+    log(f"[cold] routed scan: {routed['stats']['n_batches']} batches, "
+        f"est_device_gb {routed['stats']['est_device_gb']}, bitwise the scan")
+
+    dc = bench_stream(n_cold)
+    cold(dc, compact_results=True)   # warm-up
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rc = cold(dc, compact_results=True)
+    peak_cold = torch.cuda.max_memory_allocated(dev) - base
+    st = rc["stats"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    rs = sp.compensate_recording_scan(dc["x"], dc["y"], dc["t_ns"], cfg,
+                                      device=dev)
+    peak_scan = torch.cuda.max_memory_allocated(dev) - base
+    check_outputs(rs, len(dc["x"]))
+    within_f16("cold 12M compact", rc, rs)
+    phases = sum(b["stage_s"] + b["run_s"] + b["fetch_s"]
+                 for b in st["batches"])
+    log(f"[cold] bench protocol, {len(dc['x'])} events, compact: "
+        f"total_s {st['total_s']:.4f}  events/s {st['events_per_s']:.1f}  "
+        f"n_slices {st['n_slices']}  n_batches {st['n_batches']}  "
+        f"mean_iters {st['mean_iters']:.4f}  host_syncs {st['host_syncs']}")
+    for b, ph in enumerate(st["batches"]):
+        log(f"[cold] batch {b}: stage_s {ph['stage_s']:.4f}  run_s "
+            f"{ph['run_s']:.4f}  fetch_s {ph['fetch_s']:.4f}")
+    log(f"[cold] overlap (phases {phases:.4f} s - total_s) / phases = "
+        f"{(phases - st['total_s']) / phases:.4f}")
+    log(f"[cold] peak device memory over {base} B resident: cold "
+        f"{peak_cold} B, scan {peak_scan} B ({peak_cold / peak_scan:.4f}); "
+        f"scan run_s {rs['stats']['run_s']:.4f} plan_s "
+        f"{rs['stats']['plan_s']:.4f}")
+    if not peak_cold < peak_scan:
+        raise AssertionError(f"cold peak {peak_cold} B not below the scan's "
+                             f"{peak_scan} B")
+    log(f"[cold] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def stream_view(r):
     """The per-event and per-slice outputs of a streaming run."""
     import numpy as np
@@ -2175,6 +2342,7 @@ def main():
             raise AssertionError(f"repeated run differs in {k}")
     log(f"[determinism] second run bitwise identical; events/s "
         f"{r2['stats']['events_per_s']:.1f}")
+    phase_cold(d, cfg, r1, dev)
 
     m = N_COMPARE
     part = {k: d[k][:m] for k in ("x", "y", "t_ns")}

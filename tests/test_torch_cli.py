@@ -1,8 +1,8 @@
 """The port's CLI, ``python -m better_flow_tpu_torch.cli.motion_compensator``,
 on the CPU (``--device cpu``): its output file is ``write_events_uv`` of
-the library call it stands for, its flags reach the configuration, the
-flags it does not run yet raise, and ``--device cuda`` fails where there is
-no card."""
+the library call it stands for (``--cold`` the ``--scan`` file), its flags
+reach the configuration, the flags it does not run yet raise, and
+``--device cuda`` fails where there is no card."""
 
 import os
 import subprocess
@@ -101,12 +101,38 @@ def test_bufferize_prints_per_slice_lines(rec_file, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--cold"], "A6"), (["--checkpoint", "c.npz"], "A6"),
-    (["--resume"], "A6"), (["-i"], "A8"), (["--img"], "A8"),
-    (["--video"], "A8")])
+    (["-i"], "A8"), (["--img"], "A8"), (["--video"], "A8")])
 def test_unported_flags_raise(rec_file, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main([rec_file, "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--schedule", "fast"], ["--checkpoint", "CKPT"],
+    ["--checkpoint", "CKPT", "--resume"]])
+def test_cold_writes_the_scans_file(rec_file, tmp_path, capsys, extra):
+    """``--cold -o`` writes what ``--scan -o`` writes (the cold path is
+    bitwise the scan), with and without a checkpoint; ``--resume`` on the
+    checkpoint of a complete run runs no batch again."""
+    ckpt = str(tmp_path / "cold.npz")
+    extra = [ckpt if f == "CKPT" else f for f in extra]
+    flags = [f for f in SMALL if f != "--quiet"]
+    out = str(tmp_path / "cold.txt")
+    if "--resume" in extra:   # the same flags (the digest), no --resume
+        assert cli.main([rec_file, "--cold", "-o", out, "--checkpoint",
+                         ckpt] + flags) == 0
+        capsys.readouterr()
+    assert cli.main([rec_file, "--cold", "-o", out] + flags + extra) == 0
+    text = capsys.readouterr().out
+    assert " batches" in text and "s end to end" in text
+    assert ("(resumed after batch " in text) == ("--resume" in extra)
+    assert os.path.exists(ckpt) == ("--checkpoint" in extra)
+    with open(out) as f:
+        got = f.read()
+    scan_extra = [f for f in extra if f in ("--schedule", "fast")]
+    want = _library_file(rec_file, SMALL + scan_extra,
+                         str(tmp_path / "lib.txt"), scan=True)
+    assert got == want
 
 
 def test_cuda_without_a_card_fails(rec_file):
