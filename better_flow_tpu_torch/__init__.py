@@ -3,10 +3,13 @@ CUDA kernels for NVIDIA Hopper.
 
 A port of ``better_flow_tpu``'s scanned path (``compensate_recording_scan``),
 its streaming entry point (``DVSFlow``, ``offline.compensate_recording``,
-the streaming checkpoint, the live frontend and the CLI) and its scale-out
-by events and by slice ranges (``parallel``).  It imports PyTorch, never
-JAX, and nothing of the JAX package: ``config``, ``io``, ``viz`` and the
-CLI's argument parser are its own numpy-only copies.  Module names mirror
+the streaming checkpoint, the live frontend and the CLI), its scale-out
+by events and by slice ranges (``parallel``), and its other optimizers and
+views (the dense local flow field, the score search, clustering, the debug
+views).  It imports PyTorch, never
+JAX, and nothing of the JAX package: ``config``, ``io``, ``viz``,
+``eval``, ``core.pixel_map``, ``profiling`` and the CLI's argument parser
+are its own numpy-only copies.  Module names mirror
 the JAX package:
 
 * ``config``   — constants, the frozen config dataclasses, the presets;
@@ -15,9 +18,12 @@ the JAX package:
                  wrappers with their plain twins), ``_build`` (nvcc build
                  of ``csrc/``);
 * ``core``     — ``model`` (the 4-parameter motion model), ``events``
-                 (``EventSlice``, ``bounding_box``);
+                 (``EventSlice``, ``bounding_box``), ``pixel_map`` (the
+                 per-pixel event store, numpy);
 * ``models``   — ``global_flow`` (one slice through the optimizer, with
-                 the event-parallel image-sum seam);
+                 the event-parallel image-sum seam), ``local_flow`` (the
+                 dense per-pixel flow field, BASELINE configuration 3),
+                 ``score_search`` (the candidate sweep), ``clustering``;
 * ``runtime``  — ``scan_pipeline`` (staging of recordings, ranges and
                  shards, the slice loop, accumulation,
                  ``compensate_recording_scan``), ``dvs_flow`` (the
@@ -26,11 +32,17 @@ the JAX package:
 * ``parallel`` — ``comm`` (collectives over ``torch.distributed``),
                  ``mesh`` (shard groups), ``event_parallel``,
                  ``distributed``, ``multihost``, ``temporal``;
-* ``io``       — event files, the synthetic stream, the native staging
-                 library's loader, the socket transport;
-* ``viz``      — the image products of the live frontend;
+* ``io``       — event files, the synthetic stream, the sensor-realistic
+                 simulator (``dvs_sim``), the native staging library's
+                 loader, the socket transport;
+* ``viz``      — the image products of the live frontend, and
+                 ``debug_images`` (the optimizer's debug views);
+* ``eval``     — ``metrics`` (flow errors, AEE, PSNR, sharpness; numpy);
+* ``profiling`` — span timers, the realtime factor, a ``torch.profiler``
+                 trace context;
 * ``cli``      — ``motion_compensator``;
-* ``convert``  — the scan carry to and from the JAX package's numpy form.
+* ``convert``  — the scan carry to and from the JAX package's numpy form,
+                 and its gathered local-flow windows.
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run
 the plain PyTorch twins, which is how the CPU tests run the port.  An entry

@@ -11,6 +11,10 @@ with the carry, so a range run of one package (``prepare_recording(
 slice_range=...)``, ``parallel.multihost``) can start from the carry the
 other package's previous range ended with: ``carry_from_jax`` and
 ``carry_to_jax`` take and give the JAX package's own tuple layout.
+
+The local flow field's state is its gathered windows: ``windows_from_numpy``
+turns the JAX package's ``LocalWindow`` fields, fetched to numpy, into this
+package's, so that a descent can start from the other package's gather.
 """
 
 from __future__ import annotations
@@ -93,3 +97,24 @@ def carry_to_jax(carry):
     return (vals, seed.cpu().numpy().astype(np.float32),
             np.asarray(ws_h, bool).copy(), np.asarray(st_h, np.int32).copy(),
             np.asarray(en_h, np.int32).copy())
+
+
+def windows_from_numpy(fields: Union[Mapping, Sequence], device="cpu"):
+    """The JAX package's ``LocalWindow`` fields as numpy, by name or in
+    field order (x, y, t, valid, cx, cy: (G, K) f32 and bool, (G,) f32),
+    as this package's ``LocalWindow`` on ``device``."""
+    # Imported here: the scan pipeline, which the model imports, imports
+    # this module.
+    from better_flow_tpu_torch.models.local_flow import LocalWindow
+
+    names = LocalWindow._fields
+    if isinstance(fields, Mapping):
+        vals = [fields[f] for f in names]
+    else:
+        vals = list(fields)
+        if len(vals) != len(names):
+            raise ValueError(f"expected {len(names)} window fields, got "
+                             f"{len(vals)}")
+    return LocalWindow(*(
+        torch.tensor(np.asarray(v, bool if f == "valid" else np.float32),
+                     device=device) for f, v in zip(names, vals)))

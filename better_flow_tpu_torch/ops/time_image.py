@@ -45,27 +45,46 @@ def _check_mode(scatter_mode: str) -> None:
             "with exact integer sums ('xla')")
 
 
-def _shifted(padded: torch.Tensor, dr: int, dc: int, pad: int, H: int,
-             W: int) -> torch.Tensor:
-    """View of a zero-padded image moved by (dr, dc)."""
-    return padded[pad + dr:pad + dr + H, pad + dc:pad + dc + W]
-
-
 def box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
-    """Sum over a size x size window, zero padding, stride 1 (size odd):
-    ``out[p]`` is the sum of ``img`` over the window centred at ``p``, added
-    in row-major window order as XLA's ``reduce_window`` adds it."""
+    """Sum over a size x size window of the last two dims, zero padding,
+    stride 1 (size odd), over any leading batch dims: ``out[..., p]`` is
+    the sum of ``img[...]`` over the window centred at ``p``, added in
+    row-major window order as XLA's ``reduce_window`` adds it."""
     if size == 1:
         return img
     half = size // 2
-    H, W = img.shape
+    H, W = img.shape[-2:]
     p = torch.nn.functional.pad(img, (half, half, half, half))
     out = None
-    for dr in range(-half, half + 1):
-        for dc in range(-half, half + 1):
-            v = _shifted(p, dr, dc, half, H, W)
+    for dr in range(size):
+        for dc in range(size):
+            v = p[..., dr:dr + H, dc:dc + W]
             out = v if out is None else out + v
     return out
+
+
+def _window_sum(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    """Sums of ``size`` consecutive entries along ``dim`` centred on each
+    entry, zero padding: differences of an inclusive prefix sum in ``x``'s
+    dtype."""
+    half = size // 2
+    x = x.movedim(dim, -1)
+    c = torch.nn.functional.pad(x, (half + 1, half)).cumsum(-1,
+                                                           dtype=x.dtype)
+    return (c[..., size:] - c[..., :-size]).movedim(-1, dim)
+
+
+def box_sum_int(img: torch.Tensor, size: int) -> torch.Tensor:
+    """``box_filter`` of an image of integer values (counts), as a row
+    pass and then a column pass of int32 prefix-sum differences: exact
+    while a row's or a column's prefix sums stay below 2^31, so equal to
+    ``reduce_window``'s f32 sum wherever that sum's partial sums stay below
+    2^24 (a 25 x 25 window of counts <= 255 reaches 159,375).  Returns
+    ``img``'s dtype; O(1) operations a pixel whatever the window."""
+    if size == 1:
+        return img
+    x = img.to(torch.int32)
+    return _window_sum(_window_sum(x, size, -1), size, -2).to(img.dtype)
 
 
 def splat_indices(pr_x, pr_y, mask, scale: int, x_sh, y_sh, w_dyn, h_dyn,

@@ -26,6 +26,7 @@ from better_flow_tpu_torch.config import NZ, UV_FACTOR, WARP_TIME_DIV
 # rounds once, as the f32 product does.
 UV_F = float(np.float32(UV_FACTOR) / np.float32(NZ))   # compute_uv's factor
 UV_K = float(np.float32(UV_FACTOR / NZ))   # the kernels' packed-output factor
+N_F = float(np.float32(NZ) / np.float32(UV_FACTOR))   # n_from_u's factor
 
 
 def recip(c: float) -> float:
@@ -62,6 +63,21 @@ def apply_project(fr_x, fr_y, t, nx, ny):
     return fma(-kx, ts, fr_x), fma(-ky, ts, fr_y)
 
 
+# (1 / NZ) * (1 / WARP_TIME_DIV), the two f32 reciprocals' f32 product.
+K_NT = float(np.float32(np.float32(recip(float(NZ)))
+                        * np.float32(recip(WARP_TIME_DIV))))
+
+
+def apply_project_per_n(fr_x, fr_y, t, nx, ny):
+    """``apply_project`` as XLA compiles it where (nx, ny) are constant
+    over the events of a loop body (one window of the local field, one
+    candidate of the score search): the two constant reciprocals fold into
+    one, ``K_NT``, that multiplies n once, ``pr = fma(-t, n * K_NT, fr)``
+    (read from the compiled HLO and measured bit for bit on the CPU).  It
+    differs from ``apply_project`` in the last bit of ~3% of positions."""
+    return (fma(-t, nx * K_NT, fr_x), fma(-t, ny * K_NT, fr_y))
+
+
 def project_4param_reinit(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
                           div, crl, sin_fma: bool = False):
     """Rotate/diverge the current ``pr`` about (cx, cy), overwrite n with
@@ -78,6 +94,21 @@ def project_4param_reinit(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
                                     cx, cy, div, c, s, sin_fma=sin_fma)
 
 
+def _divcrl_dn(pr_x, pr_y, cx, cy, div, c, s, sin_fma: bool = False):
+    """The rotation and divergence delta about (cx, cy) (event.h:78-86):
+    ``r = pr - c``, ``r' = R(crl) r``, ``dn = -r' * div + (r' - r)``,
+    with the f32 cosine ``c`` and sine ``s`` of the angle."""
+    rx = pr_x - cx
+    ry = pr_y - cy
+    if sin_fma:
+        rpx = fma(-s, ry, c * rx)
+        rpy = fma(c, ry, s * rx)
+    else:
+        rpx = fma(c, rx, -(s * ry))
+        rpy = fma(s, rx, c * ry)
+    return fma(-rpx, div, rpx - rx), fma(-rpy, div, rpy - ry)
+
+
 def project_4param_reinit_cs(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
                              div, c, s, sin_fma: bool = False):
     """``project_4param_reinit`` with the f32 cosine ``c`` and sine ``s``
@@ -87,19 +118,53 @@ def project_4param_reinit_cs(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
     the kernels; ``sin_fma`` fuses the other product (``rpx = fma(-s, ry,
     c*rx)``, ``rpy = fma(c, ry, s*rx)``), as XLA compiles the composed
     loop's epilogue (measured on the CPU, see ROADMAP C)."""
-    rx = pr_x - cx
-    ry = pr_y - cy
-    if sin_fma:
-        rpx = fma(-s, ry, c * rx)
-        rpy = fma(c, ry, s * rx)
-    else:
-        rpx = fma(c, rx, -(s * ry))
-        rpy = fma(s, rx, c * ry)
-    nx = fma(-rpx, div, rpx - rx) + dnx_
-    ny = fma(-rpy, div, rpy - ry) + dny_
+    dnx, dny = _divcrl_dn(pr_x, pr_y, cx, cy, div, c, s, sin_fma=sin_fma)
+    nx = dnx + dnx_
+    ny = dny + dny_
+    return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
+
+
+def _f32(*a):
+    return (torch.as_tensor(v).to(torch.float32) for v in a)
+
+
+def project_dn(fr_x, fr_y, t, nx, ny, dnx, dny):
+    """Event::project_dn (event.h:72-76): ``n += dn``, then re-project
+    from the original pixel.  Returns (pr_x, pr_y, nx, ny)."""
+    nx = nx + dnx
+    ny = ny + dny
+    return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
+
+
+def project_divcrl(fr_x, fr_y, t, pr_x, pr_y, nx, ny, cx, cy, div, crl):
+    """Event::project_divcrl (event.h:78-86): ``n`` plus the rotation and
+    divergence delta of the current ``pr``, then re-project.  Returns
+    (pr_x, pr_y, nx, ny)."""
+    cx, cy, div, crl = _f32(cx, cy, div, crl)
+    dnx, dny = _divcrl_dn(pr_x, pr_y, cx, cy, div, *cos_sin_f32(crl))
+    nx = nx + dnx
+    ny = ny + dny
+    return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
+
+
+def project_4param(fr_x, fr_y, t, pr_x, pr_y, nx, ny, dnx_, dny_, cx, cy,
+                   div, crl):
+    """Event::project_4param (event.h:88-96): ``n += dn + (dnx_, dny_)``
+    (added in that order), then re-project.  Returns (pr_x, pr_y, nx,
+    ny)."""
+    dnx_, dny_, cx, cy, div, crl = _f32(dnx_, dny_, cx, cy, div, crl)
+    dnx, dny = _divcrl_dn(pr_x, pr_y, cx, cy, div, *cos_sin_f32(crl))
+    nx = nx + dnx + dnx_
+    ny = ny + dny + dny_
     return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
 
 
 def compute_uv(nx, ny):
     """Direction vector -> optical flow in px/s (u = nx * UV_FACTOR/NZ)."""
     return nx * UV_F, ny * UV_F
+
+
+def n_from_u(vel):
+    """Flow in px/s -> direction vector (Event::n_from_u, event.h:131-133):
+    ``vel * f32(NZ / UV_FACTOR)``."""
+    return vel * N_F

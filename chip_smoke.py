@@ -113,7 +113,24 @@ in phases that each raise on failure:
     operations and blocking calls an iteration, the card against the CPU
     run on the first 100,000 events; then ``run_optimizer`` with "pallas"
     as a warm-start chain over the first 20 slices, sorted (B11), with its
-    host time an iteration.
+    host time an iteration;
+14. the dense local flow field (``models.local_flow``, BASELINE
+    configuration 3, plain PyTorch, ``[local]``): the config-3 test scene
+    (two objects on 346x260, 30,000 events, step 32, k 3072, dense)
+    bitwise the CPU run and under the test's AEE gates; at full width
+    (2 x 100,000 events, ``flow_field_grid``'s defaults: 300 windows) the
+    time a call (median of 5 after a warm-up), the rounds a scale, the
+    blocking reads a call and the card's busy share, and the first 64
+    windows' chained scales bitwise the CPU's;
+15. the score search (``models.score_search``, ``[search]``): the first
+    50,000 bench events through ``compute_flow_bruteforce``'s reference
+    sweep (14,400 candidates, scale 5, wsize 25), its time beside the
+    bound of the bytes counted a candidate, and the first 256 candidates
+    bitwise the CPU's;
+16. clustering, the four debug views and the sampled model terms
+    (``[views]``) on the first production slice's warp and final time
+    image (``process_slice``, 180x240, scale 3), equal on the card and
+    the CPU.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -298,6 +315,40 @@ def breakdown(fn, runs=20, traces=8):
     return [(ops[k][1], statistics.median(ops[r * per + k][2]
                                           for r in range(runs)))
             for k in range(per)]
+
+
+def wall_times(fn, runs):
+    """Host seconds of each of ``runs`` calls of ``fn()``, each from a
+    synchronized card to a synchronized card."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def device_time(fn):
+    """One ``fn()`` under torch.profiler: (the sum of its device
+    operations' times in ms, their count).  Divided by the call's untraced
+    time it gives the card's busy share (its operations run on one stream,
+    one at a time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    return sum(e.end_ns() - e.start_ns() for e in dev) * 1e-6, len(dev)
 
 
 def log_breakdown(label, fn):
@@ -2256,6 +2307,305 @@ def phase_cli(d, dev):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def two_object_scene(n_per_obj, seed=0, duration_s=0.1):
+    """The two-object DAVIS 346x260 scene of
+    ``tests/test_config3_local_field.py``: object A (left) at (+80, +30)
+    px/s, object B (right) at (-80, -30), ``n_per_obj`` events each."""
+    import numpy as np
+
+    from better_flow_tpu_torch.io.synthetic import synthetic_events
+
+    va, vb = (80.0, 30.0), (-80.0, -30.0)
+    a = synthetic_events(n_per_obj, duration_s=duration_s, res_x=150,
+                         res_y=220, vx=va[0], vy=va[1], n_points=150,
+                         seed=seed, margin=0.2)
+    b = synthetic_events(n_per_obj, duration_s=duration_s, res_x=150,
+                         res_y=220, vx=vb[0], vy=vb[1], n_points=150,
+                         seed=seed + 1, margin=0.2)
+    x = np.concatenate([a["x"] + 10, b["x"] + 186])
+    y = np.concatenate([a["y"] + 20, b["y"] + 20])
+    t = np.concatenate([a["t_ns"], b["t_ns"]])
+    order = np.argsort(t, kind="stable")
+    return x[order], y[order], t[order], va, vb
+
+
+def same_arrays(label, a, b, keys=None):
+    """Bitwise equality of two dicts (or tuples) of arrays or tensors."""
+    import numpy as np
+
+    pairs = ([(k, a[k], b[k]) for k in (keys or a)] if isinstance(a, dict)
+             else list(zip(keys, a, b)))
+    for k, u, w in pairs:
+        u = u.cpu().numpy() if hasattr(u, "cpu") else np.asarray(u)
+        w = w.cpu().numpy() if hasattr(w, "cpu") else np.asarray(w)
+        if u.shape != w.shape or u.dtype != w.dtype or \
+                not np.array_equal(u, w):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def config3_gates(out, va, vb):
+    """The AEE gates of ``tests/test_config3_local_field.py``; returns the
+    two objects' median AEE."""
+    import numpy as np
+
+    gx, gy = out["grid_x"], out["grid_y"]
+    u, v, n_ev = out["u"], out["v"], out["n_events"]
+    in_a = (gx > 40) & (gx < 130) & (gy > 70) & (gy < 210) & (n_ev >= 200)
+    in_b = (gx > 216) & (gx < 306) & (gy > 70) & (gy < 210) & (n_ev >= 200)
+    speed = float(np.hypot(*va))
+    aee_a = float(np.median(np.hypot(u[in_a] - va[0], v[in_a] - va[1])))
+    aee_b = float(np.median(np.hypot(u[in_b] - vb[0], v[in_b] - vb[1])))
+    if in_a.sum() < 3 or in_b.sum() < 3 or aee_a >= 0.25 * speed or \
+            aee_b >= 0.25 * speed or not (np.median(u[in_a]) > 40
+                                          and np.median(u[in_b]) < -40) \
+            or not (out["u_dense"][85, 130] > 40
+                    and out["u_dense"][261, 130] < -40):
+        raise AssertionError(f"config-3 gates: AEE {aee_a}, {aee_b} px/s "
+                             f"(limit {0.25 * speed}), windows "
+                             f"{int(in_a.sum())}, {int(in_b.sum())}")
+    return aee_a, aee_b
+
+
+def phase_local(dev):
+    """The dense local flow field (``models.local_flow``, BASELINE
+    configuration 3, plain PyTorch): the config-3 test scene on the card
+    bitwise the CPU run, under the test's AEE gates; then the full width,
+    2 x 100,000 events on 346x260 with ``flow_field_grid``'s defaults (300
+    windows): the time a call, rounds a scale and blocking reads a call,
+    and the first 64 windows' three chained scales bitwise the CPU's."""
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.models import local_flow as lf
+
+    t_phase = time.perf_counter()
+    x, y, t, va, vb = two_object_scene(15_000)
+    kw = dict(step=32, wsz=31, k=3072, dense=True)
+    g = lf.flow_field_grid(x, y, t, 346, 260, device=dev, **kw)
+    same_arrays("[local] config-3 card vs CPU", g,
+                lf.flow_field_grid(x, y, t, 346, 260, device="cpu", **kw))
+    aee = config3_gates(g, va, vb)
+    log(f"[local] config-3 scene ({len(x)} events, {g['u'].size} windows): "
+        f"bitwise the CPU run; AEE A {aee[0]:.4f}, B {aee[1]:.4f} px/s")
+
+    x, y, t, va, vb = two_object_scene(100_000)
+    lf.flow_field_grid(x, y, t, 346, 260, device=dev)   # warm-up
+    stats = []
+
+    def call():
+        stats.append({})
+        return lf.flow_field_grid(x, y, t, 346, 260, device=dev,
+                                  stats=stats[-1])
+
+    times = wall_times(call, 5)
+    out = call()
+    G = out["u"].size
+    if G != 300 or not (np.isfinite(out["u"]).all()
+                        and np.isfinite(out["v"]).all()):
+        raise AssertionError(f"[local] full width: {G} windows or "
+                             "non-finite flow")
+    cx, cy = (c.ravel()[:64].astype(np.float32)
+              for c in (out["grid_x"], out["grid_y"]))
+    f32 = lambda a: np.asarray(a, np.float32)
+    chain = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        w = lf.gather_windows(f32(x), f32(y), f32(t), np.ones(len(x), bool),
+                              cx, cy, 31, 1024, device=where)
+        seed, res = (None, None), []
+        for scale, dn0 in zip((1, 3, 3), (0.04, 0.02, 0.01)):
+            r = lf.local_flow_field(w, scale, 31, init_nx=seed[0],
+                                    init_ny=seed[1], dn0=dn0)
+            seed = r[4], r[5]
+            res.append(r)
+        chain[str(where)] = (w, res, time.perf_counter() - t0)
+    (wg, rg, _), (wc, rc, cpu_s) = chain[str(dev)], chain["cpu"]
+    same_arrays("[local] 64 windows' gather", wg, wc, lf.LocalWindow._fields)
+    names = ("u", "v", "n_events", "iters", "nx", "ny")
+    for i, (a, b) in enumerate(zip(rg, rc)):
+        same_arrays(f"[local] 64 windows, scale {i}", a, b, names)
+    same_arrays("[local] 64 windows against the 300-window call",
+                (rg[-1][0].cpu().numpy(), rg[-1][1].cpu().numpy()),
+                (out["u"].ravel()[:64], out["v"].ravel()[:64]), ("u", "v"))
+    ms = 1e3 * statistics.median(times)
+    dev_ms, n_ops = device_time(
+        lambda: lf.flow_field_grid(x, y, t, 346, 260, device=dev))
+    log(f"[local] full width ({len(x)} events, {G} windows, k 1024, scales "
+        f"(1, 3, 3)): {ms:.2f} ms a call (median of 5; "
+        f"{', '.join(f'{1e3 * v:.2f}' for v in times)}), rounds a scale "
+        f"{stats[0]['rounds']}, blocking reads a call "
+        f"{sum(stats[0]['reads'])} ({stats[0]['reads']}); device time "
+        f"{dev_ms:.2f} ms in {n_ops} operations (torch.profiler), busy share "
+        f"{dev_ms / ms:.4f}; first 64 windows bitwise the CPU's "
+        f"({cpu_s:.1f} s on the CPU); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(ms=ms, rounds=stats[0]["rounds"], reads=stats[0]["reads"],
+                device_ms=dev_ms)
+
+
+def phase_search(d, dev, n=50_000, n_compare=256):
+    """The score search (``models.score_search``, plain PyTorch) on the
+    first 50,000 events of the bench stream with
+    ``compute_flow_bruteforce``'s reference defaults (14,400 candidates,
+    scale 5, wsize 25): the full sweep's time on the card beside the bound
+    of the bytes counted a candidate (one int32 count image written by the
+    splat and read once, and the events' 13 bytes read once), and the
+    first ``n_compare`` candidates bitwise the CPU's."""
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.models import score_search as ss
+
+    t_phase = time.perf_counter()
+    x, y, t = (np.asarray(d[k][:n], np.float32) for k in ("x", "y", "t_ns"))
+    cnx, cny = np.meshgrid(np.arange(-0.09, 0.09, 0.001),
+                           np.arange(-0.04, 0.04, 0.001), indexing="ij")
+    cnx, cny = cnx.ravel().astype(np.float32), cny.ravel().astype(np.float32)
+    scale, wsize = 5, 25
+    x_min, y_min = float(np.floor(x.min())), float(np.floor(y.min()))
+    w_img = int((x.max() - x_min + 1) * scale) + scale
+    h_img = int((y.max() - y_min + 1) * scale) + scale
+    geo = (x_min, y_min, w_img, h_img)
+    pixels = (w_img + wsize) * (h_img + wsize)
+    per_cand = 8 * pixels + 13 * n
+    bound_ms = 1e3 * len(cnx) * per_cand / HBM_BYTES_PER_S
+
+    ss.compute_flow_bruteforce(x[:1000], y[:1000], t[:1000], device=dev,
+                               x_range=(-0.09, -0.05))   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ss.compute_flow_bruteforce(x, y, t, device=dev)
+    sweep_s = time.perf_counter() - t0
+    ok = r["score"] > 0
+    if len(cnx) != 14_400 or ok.mean() < 0.5 or not (
+            np.isfinite(r["u"]).all() and np.isfinite(r["v"]).all()):
+        raise AssertionError(f"[search] {len(cnx)} candidates, "
+                             f"{ok.mean():.3f} of events scored")
+
+    best = {}
+    for where in (dev, "cpu"):
+        f = lambda a: torch.from_numpy(a).to(where)
+        ev = (f(x), f(y), f(t), torch.ones(n, dtype=torch.bool, device=where))
+        t0 = time.perf_counter()
+        b = ss.sweep_candidates(*ev, f(cnx[:n_compare]), f(cny[:n_compare]),
+                                scale, wsize, *geo)
+        best[str(where)] = (b, time.perf_counter() - t0)
+    # The card's busy share over ten chunks, untraced against traced.
+    f = lambda a: torch.from_numpy(a).to(dev)
+    ev = (f(x), f(y), f(t), torch.ones(n, dtype=torch.bool, device=dev))
+    part = (f(cnx[:10 * ss.CHUNK]), f(cny[:10 * ss.CHUNK]))
+    run = lambda: ss.sweep_candidates(*ev, *part, scale, wsize, *geo)
+    part_ms = 1e3 * statistics.median(wall_times(run, 3))
+    part_dev_ms, _ = device_time(run)
+    same_arrays(f"[search] first {n_compare} candidates card vs CPU",
+                best[str(dev)][0], best["cpu"][0], ss.BestFlow._fields)
+    log(f"[search] {n} events, {len(cnx)} candidates, scale {scale}, wsize "
+        f"{wsize}, chunk C {ss.CHUNK}, images {w_img + wsize}x"
+        f"{h_img + wsize}: full sweep {sweep_s:.4f} s on the card "
+        f"({1e6 * sweep_s / len(cnx):.2f} us a candidate; over "
+        f"{10 * ss.CHUNK} candidates {part_ms:.2f} ms, device "
+        f"{part_dev_ms:.2f} ms, busy share {part_dev_ms / part_ms:.4f}); "
+        f"bytes counted a "
+        f"candidate {per_cand} (count image 8 B a pixel, events 13 B), "
+        f"bound {bound_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s "
+        f"({bound_ms / (1e3 * sweep_s):.4f} of it); {ok.mean():.4f} of events "
+        f"scored, median u {np.median(r['u'][ok]):.2f}, v "
+        f"{np.median(r['v'][ok]):.2f} px/s; first {n_compare} candidates "
+        f"bitwise the CPU's ({best['cpu'][1]:.1f} s on the CPU); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(sweep_s=sweep_s, bound_ms=bound_ms, per_cand=per_cand)
+
+
+def phase_views(d, dev, n=50_000):
+    """Clustering, the debug views and the sampled model terms on the bench
+    stream's first production slice (180x240, scale 3) through the port's
+    ``process_slice`` (the XLA branch, ``fast()``): its warped positions,
+    flow and final time image, copied to the host, give the same inputs
+    to the card and the CPU, whose outputs must be equal."""
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
+    from better_flow_tpu_torch.core.events import make_slice
+    from better_flow_tpu_torch.core.model import MotionModel
+    from better_flow_tpu_torch.models import clustering
+    from better_flow_tpu_torch.models import global_flow as gf
+    from better_flow_tpu_torch.ops import reductions as red
+    from better_flow_tpu_torch.ops import time_image as ti
+    from better_flow_tpu_torch.viz import debug_images as di
+
+    t_phase = time.perf_counter()
+    sensor, scale = SensorConfig(), 3
+    x, y = d["x"][:n], d["y"][:n]
+    t = (d["t_ns"][:n] - d["t_ns"][0]).astype(np.float32)
+    ev = make_slice(x, y, t, device=dev)
+    bbox = (int(x.min()), int(x.max()), int(y.min()), int(y.max()))
+    res, _ = gf.process_slice(None, None, MotionModel.zero(dev),
+                              OptimizerConfig.fast(scatter_mode="xla"),
+                              sensor, bbox, n, ev=ev)
+    img = gf.final_time_image(ev, res, scale, sensor)
+    geom = gf.slice_geometry(ev, scale, sensor)
+    H, W = gf.static_image_shape(scale, sensor)
+    keep = ev.valid & ~res.noise
+    pr_img = ti.count_image(res.pr_x, res.pr_y, keep, scale, geom.x_shift,
+                            geom.y_shift, geom.w_dyn, geom.h_dyn, H, W)
+    h = {k: v.cpu().numpy() for k, v in dict(
+        pr_x=res.pr_x, pr_y=res.pr_y, u=res.u, v=res.v, keep=keep, img=img,
+        pr_img=pr_img).items()}
+    if not res.ran or int((h["img"] > 0).sum()) < 1000:
+        raise AssertionError("[views] the slice did not run")
+    cx, cy, _ = red.center_of_mass(torch.from_numpy(h["img"]))
+    idx = np.random.default_rng(0).integers(0, n, n // 10)
+    xs, ys = float(geom.x_shift), float(geom.y_shift)
+
+    views, times = {}, {}
+    for where in (dev, "cpu"):
+        out, dt = {}, {}
+
+        def run(name, fn):
+            if str(where) != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn()
+            if str(where) != "cpu":
+                torch.cuda.synchronize()
+            dt[name] = time.perf_counter() - t0
+
+        f = lambda a: torch.from_numpy(a).to(where)
+        cl = {}
+        run("cluster_events", lambda: cl.update(clustering.cluster_events(
+            h["pr_x"], h["pr_y"], h["u"], h["v"], h["keep"], scale,
+            sensor.res_x, sensor.res_y, device=where)))
+        for k in ("cluster_id", "sizes", "mean_u", "mean_v", "label_img"):
+            out[f"cluster_{k}"] = cl[k]
+        out["n_clusters"] = np.int64(cl["n_clusters"])
+        run("gradient_img", lambda: di.gradient_img(
+            h["img"], h["pr_img"], wsize=9, device=where))
+        run("gradient_img_color", lambda: di.gradient_img_color(
+            h["img"], device=where))
+        run("lr_gradient_img_color", lambda: di.lr_gradient_img_color(
+            h["img"], wsize=9, device=where))
+        run("misalignment_img", lambda: di.misalignment_img(
+            h["img"], device=where))
+        run("model_compute_sampled", lambda: torch.stack(list(
+            red.model_compute_sampled_at(
+                f(h["img"]), f(h["pr_x"]), f(h["pr_y"]),
+                f(np.ones(n, bool)), cx.to(where), cy.to(where), scale, xs,
+                ys, f(idx)))))
+        views[str(where)], times[str(where)] = out, dt
+    same_arrays("[views] card vs CPU", views[str(dev)], views["cpu"])
+    if views["cpu"]["n_clusters"] < 1 or views["cpu"]["gradient_img"].max() \
+            == 0 or views["cpu"]["misalignment_img"].max() != 255:
+        raise AssertionError("[views] empty views")
+    log(f"[views] first slice ({n} events, {res.iters} iterations, "
+        f"{int(views['cpu']['n_clusters'])} clusters, {H}x{W} images): card "
+        f"equal to the CPU in clusters, the four views (wsize 9) and the "
+        f"sampled terms ({len(idx)} samples); card s "
+        + json.dumps({k: round(v, 4) for k, v in times[str(dev)].items()})
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return times[str(dev)]
+
+
 def main():
     import torch
 
@@ -2392,6 +2742,13 @@ def main():
         launches[k] = tiled[k]
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched by the tiled run")
+
+    # The other optimizers and views: plain PyTorch, no kernel.
+    t_phase = time.perf_counter()
+    phase_local(dev)
+    phase_search(d, dev)
+    phase_views(d, dev)
+    log(f"[local+search+views] phases {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

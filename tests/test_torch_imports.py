@@ -34,7 +34,15 @@ def test_port_and_smoke_script_import_nothing_of_jax_or_the_jax_package():
             "better_flow_tpu_torch.parallel.multihost",
             "better_flow_tpu_torch.parallel.spatial",
             "better_flow_tpu_torch.parallel.temporal",
-            "better_flow_tpu_torch.cli.motion_compensator"} <= set(modules)
+            "better_flow_tpu_torch.cli.motion_compensator",
+            "better_flow_tpu_torch.models.local_flow",
+            "better_flow_tpu_torch.models.score_search",
+            "better_flow_tpu_torch.models.clustering",
+            "better_flow_tpu_torch.viz.debug_images",
+            "better_flow_tpu_torch.eval.metrics",
+            "better_flow_tpu_torch.io.dvs_sim",
+            "better_flow_tpu_torch.core.pixel_map",
+            "better_flow_tpu_torch.profiling"} <= set(modules)
     code = (
         "import sys, importlib\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -153,3 +161,44 @@ def test_no_card_and_no_device_raises(monkeypatch):
         compensate_recording_multihost(d["x"], d["y"], d["t_ns"], cfg)
     assert tscan.prepare_recording(d["x"], d["y"], d["t_ns"], cfg,
                                    device="cpu")["device"].type == "cpu"
+
+
+def test_the_other_optimizers_and_views_raise_without_a_card(monkeypatch):
+    """``flow_field_grid``, ``local_flow_field``'s gather,
+    ``compute_flow_bruteforce``, ``cluster_events`` and the four debug
+    views run on the card by default: with no card and no
+    ``device="cpu"`` they raise, and none moves to the CPU unasked."""
+    import numpy as np
+
+    from better_flow_tpu_torch.models import clustering, local_flow
+    from better_flow_tpu_torch.models import score_search
+    from better_flow_tpu_torch.viz import debug_images
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = synthetic_events(2000, duration_s=0.1, res_x=48, res_y=48, seed=1)
+    ev = (d["x"], d["y"], d["t_ns"])
+    img = np.zeros((20, 24), np.float32)
+    img[5:15, 4:20] = np.linspace(0.1, 0.9, 16, dtype=np.float32)
+    mask = np.ones(len(d["x"]), bool)
+    calls = [
+        lambda: local_flow.flow_field_grid(*ev, 48, 48, step=16, wsz=15,
+                                           scales=(3,), k=256),
+        lambda: local_flow.gather_windows(*ev, mask, [24.0], [24.0], 15,
+                                          64),
+        lambda: score_search.compute_flow_bruteforce(
+            *ev, res_x=48, res_y=48, x_range=(-0.01, 0.011),
+            y_range=(0.0, 0.001), step=0.01, scale=1, wsize=3),
+        lambda: clustering.cluster_events(d["x"], d["y"], d["u"], d["v"],
+                                          mask, 1, 48, 48),
+        lambda: debug_images.gradient_img(img, img, wsize=5),
+        lambda: debug_images.gradient_img_color(img),
+        lambda: debug_images.lr_gradient_img_color(img, wsize=5),
+        lambda: debug_images.misalignment_img(img),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    out = local_flow.flow_field_grid(*ev, 48, 48, step=16, wsz=15,
+                                     scales=(3,), k=256, device="cpu")
+    assert out["u"].shape == out["grid_x"].shape
+    assert debug_images.misalignment_img(img, device="cpu").max() == 255
