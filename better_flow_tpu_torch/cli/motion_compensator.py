@@ -7,11 +7,13 @@ The flags are those of the JAX package's CLI
 reference binary, bf_motion_compensator.cpp:36-130; ``build_parser`` and
 ``config_from_args`` here are the port's own copies), plus ``--device``
 (default ``cuda``; it fails where no CUDA device is present rather than run
-on the CPU).  Ported: the default streaming path, ``--bufferize-file``,
-``--scan``, ``--cold`` with ``--checkpoint``/``--resume``, ``--schedule``,
-``--stm-disable``, ``--quiet`` and ``-o``.  Not ported yet, each raising
-NotImplementedError with its ROADMAP item: ``-i`` (the manual mode) and
-``--img``/``--video`` (the HUD frames).
+on the CPU).  Every flag runs: the default streaming path,
+``--bufferize-file``, ``--scan``, ``--cold`` with ``--checkpoint``/
+``--resume``, ``--schedule``, ``--stm-disable``, ``--quiet``, ``-o``,
+``--img``/``--video`` (a HUD frame a slice of the stream, ``viz.video``)
+and ``-i`` (the manual mode on the first slice window,
+``cli.manual_mode``).  Without a display ``-i`` says so and carries on
+with the batch run; any other error of the manual mode reaches the caller.
 """
 
 from __future__ import annotations
@@ -25,13 +27,6 @@ from better_flow_tpu_torch import __version__
 from better_flow_tpu_torch.config import (
     OptimizerConfig, PipelineConfig, SensorConfig, SliceConfig, from_sec,
 )
-
-_NOT_PORTED = (   # flag attribute, flag, ROADMAP item
-    ("interactive", "-i/--interactive", "A8 (cli/manual_mode.py)"),
-    ("img", "--img", "A8 (the HUD frames of viz/video.py)"),
-    ("video", "--video", "A8 (the HUD frames of viz/video.py)"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -142,10 +137,6 @@ def main(argv=None) -> int:
     if args.file is None:
         build_parser().print_help()
         return 1
-    for attr, flag, item in _NOT_PORTED:
-        if getattr(args, attr):
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP "
-                                      f"{item}")
     dev = resolve_device(args.device)
 
     from better_flow_tpu_torch.io.event_file import read_events, write_events_uv
@@ -159,52 +150,101 @@ def main(argv=None) -> int:
         print(f"Read {len(rec['x'])} events, finished")
     out_path = sys.stdout if args.outfile == "-" else args.outfile
 
-    if args.cold:
+    if args.interactive:
+        # OptimizerRolling::manual on the first slice window
+        # (optimizer_rolling.h:128-233).
+        from better_flow_tpu_torch.cli.manual_mode import NoDisplay, run_manual
+
+        k = min(len(rec["x"]), cfg.slice.max_events)
+        try:
+            run_manual(rec["x"][:k], rec["y"][:k],
+                       rec["t_ns"][:k] - rec["t_ns"][0], cfg.sensor,
+                       scale=cfg.optimizer.scale, device=dev)
+            return 0
+        except NoDisplay as e:
+            print(f"interactive mode unavailable ({e}); continuing batch run",
+                  file=sys.stderr)
+
+    if args.img or args.video:
+        acc = _stream_with_frames(rec, cfg, args, dev)
+    elif args.cold or args.scan:
         from better_flow_tpu_torch.runtime.scan_pipeline import (
-            compensate_recording_cold,
+            compensate_recording_cold, compensate_recording_scan,
         )
 
-        out = compensate_recording_cold(
-            rec["x"], rec["y"], rec["t_ns"], cfg,
-            checkpoint_path=args.checkpoint, resume=args.resume, device=dev)
-        st = out["stats"]
-        if not args.quiet:
-            resumed = (f" (resumed after batch {st['resumed_batches']})"
-                       if st["resumed_batches"] else "")
-            print(f"{st['n_slices']} slices in {st['n_batches']} batches"
-                  f"{resumed}, {st['total_s']:.3f} s end to end, "
-                  f"{st['events_per_s']:.0f} events/s, "
-                  f"mean iters {st['mean_iters']:.1f}")
-    elif args.scan:
-        from better_flow_tpu_torch.runtime.scan_pipeline import (
-            compensate_recording_scan,
-        )
-
-        out = compensate_recording_scan(rec["x"], rec["y"], rec["t_ns"], cfg,
-                                        device=dev)
-        st = out["stats"]
-        if not args.quiet:
-            print(f"{st['n_slices']} slices, {st['run_s']:.3f} s, "
-                  f"{st['events_per_s']:.0f} events/s, mean iters "
-                  f"{st['mean_iters']:.1f}")
-    if args.cold or args.scan:
+        if args.cold:
+            out = compensate_recording_cold(
+                rec["x"], rec["y"], rec["t_ns"], cfg,
+                checkpoint_path=args.checkpoint, resume=args.resume,
+                device=dev)
+            st = out["stats"]
+            if not args.quiet:
+                resumed = (f" (resumed after batch {st['resumed_batches']})"
+                           if st["resumed_batches"] else "")
+                print(f"{st['n_slices']} slices in {st['n_batches']} "
+                      f"batches{resumed}, {st['total_s']:.3f} s end to end, "
+                      f"{st['events_per_s']:.0f} events/s, "
+                      f"mean iters {st['mean_iters']:.1f}")
+        else:
+            out = compensate_recording_scan(rec["x"], rec["y"], rec["t_ns"],
+                                            cfg, device=dev)
+            st = out["stats"]
+            if not args.quiet:
+                print(f"{st['n_slices']} slices, {st['run_s']:.3f} s, "
+                      f"{st['events_per_s']:.0f} events/s, mean iters "
+                      f"{st['mean_iters']:.1f}")
         if args.outfile:
             write_events_uv(out_path, rec["x"], rec["y"], rec["t_ns"],
                             out["u"], out["v"])
         return 0
+    else:
+        from better_flow_tpu_torch.runtime.offline import compensate_recording
 
-    from better_flow_tpu_torch.runtime.offline import compensate_recording
-
-    out = compensate_recording(rec["x"], rec["y"], rec["t_ns"], cfg,
-                               verbose=args.bufferize_file and not args.quiet,
-                               device=dev)
-    acc = out["accumulated"]
+        acc = compensate_recording(
+            rec["x"], rec["y"], rec["t_ns"], cfg,
+            verbose=args.bufferize_file and not args.quiet,
+            device=dev)["accumulated"]
     if args.outfile:
         write_events_uv(out_path, acc["x"], acc["y"], acc["timestamp"],
                         acc["u"], acc["v"])
         if not args.quiet:
             print(f"Written {len(acc['x'])} events, finished")
     return 0
+
+
+def _stream_with_frames(rec, cfg: PipelineConfig, args, dev):
+    """The stream (``DVSFlow``) with one HUD frame a slice, written as
+    ``<img-prefix>/frame_<k>.jpg`` under ``--img`` and into the video under
+    ``--video`` (dvs_flow.h:255-335).  Returns the accumulated events."""
+    import cv2
+
+    from better_flow_tpu_torch.runtime.dvs_flow import DVSFlow
+    from better_flow_tpu_torch.viz.video import VideoSink, hud_frame
+
+    cfg = cfg.replace(accumulate=True)
+    engine = DVSFlow(cfg, device=dev)
+    sink = VideoSink(args.video_name, args.video_fps, cfg.sensor.res_x,
+                     cfg.sensor.res_y) if args.video else None
+    frames = [0]
+
+    def on_slice(r):
+        frame = hud_frame(r, engine.last_model, cfg.sensor.res_x,
+                          cfg.sensor.res_y, engine.time_diff,
+                          cfg.slice.refresh_time_ns, engine.get_buf_size(),
+                          r.n_events)
+        if args.img:
+            cv2.imwrite(f"{args.img_prefix}/frame_{frames[0]}.jpg", frame)
+            frames[0] += 1
+        if sink is not None:
+            sink.write(frame)
+
+    engine.on_slice = on_slice
+    engine.add_events(rec["x"], rec["y"], rec["t_ns"])
+    if len(engine.buffer):
+        engine.recompute()
+    if sink is not None:
+        sink.close()
+    return engine.get_accumulated()
 
 
 if __name__ == "__main__":

@@ -3,10 +3,15 @@
 Counterpart of ``better_flow_tpu/runtime/scan_pipeline.py`` (the path
 ``bench.py`` measures):
 
-1. Host: the trigger plan (``plan_slices``) and the native counting sort
-   into band-padded compact slabs (``io.native``), copied
-   to the device from pinned memory without blocking, batch by batch, so a
-   batch's copy overlaps the next batch's sort.
+1. Host: the trigger plan (``plan_slices``) and a sort of every slice
+   into band-padded slabs, copied to the device from pinned memory without
+   blocking, batch by batch, so a batch's copy overlaps the next batch's
+   sort.  The sort is the native counting sort into compact u16 slabs
+   (``io.native``) when every coordinate is an integer in [0, 65535) and a
+   slice holds at most 65,535 events; otherwise (sub-pixel coordinates,
+   larger slices, no native library) it is the numpy staging
+   (``materialize_slices``) into f32 and int32 slabs.  Both routes give
+   the device the same tensors, so everything after staging is shared.
 2. Device: the activity rows of every slice from its window-gate history,
    in one launch (B3), then a Python loop over the slices, in which the
    optimizer runs through the kernels: the megastep drive (B5, or B1 +
@@ -52,9 +57,10 @@ slabs and outputs are dropped as
 soon as its accumulation is dispatched, so the device holds about two
 batches whatever the recording's length.  ``compensate_recording_scan``
 routes a recording there by itself when ``estimate_scan_device_bytes``
-exceeds ``BF_SCAN_DEVICE_BUDGET_GB``.
-
-The numpy staging fallback is not ported.
+exceeds ``BF_SCAN_DEVICE_BUDGET_GB``.  A batch that is not compact
+(``prepare_recording``: sub-pixel coordinates, or slices past 65,535
+events) is not packed, even under ``compact_results``, and cannot be
+checkpointed, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -141,6 +147,83 @@ def host_bbox(x, y, plan: SlicePlan):
     return bbox, (plan.ends - plan.starts + 1).astype(np.int32)
 
 
+def materialize_slices(x, y, t_ns, plan: SlicePlan, cap: int,
+                       spatial_sort: bool = True, band_rows: int = BAND_ROWS,
+                       band_pad: bool = False, res_x: int = 0,
+                       indices_only: bool = False):
+    """(S, cap) slabs of the slices' x, y (f32), slice-local t (f32 of the
+    int64 ns difference) and original index (int32, -1 on padding), and
+    the (S,) lengths: the numpy staging, element for element the JAX
+    package's ``materialize_slices``.
+
+    ``spatial_sort`` orders each slice by a stable sort on (row band of
+    the f32 x, truncated; truncated y), padding last.  ``band_pad`` also
+    pads every row band to a CHUNK boundary, so that no chunk spans two
+    bands; the capacity grows to ``padded_capacity``'s and padding is then
+    interleaved inside a slice: mask on ``idx >= 0``, never on a prefix.
+    ``indices_only`` builds ``idx`` alone (xs, ys, ts None).
+    ``prepare_recording`` uses only ``band_pad=True`` with the default
+    ``band_rows``; the other settings are kept for parity with the JAX
+    function, which the tests hold this one against."""
+    S = len(plan.ends)
+    lens = (plan.ends - plan.starts + 1).astype(np.int32)
+    offsets = np.arange(cap, dtype=np.int64)[None, :]
+    gidx = plan.starts[:, None] + offsets
+    valid = offsets < lens[:, None]
+    safe = np.minimum(gidx, len(x) - 1)
+    xs = np.where(valid, x[safe], 0).astype(np.float32)
+    ys = np.where(valid, y[safe], 0).astype(np.float32)
+    ts = None if indices_only else np.where(
+        valid, t_ns[safe] - plan.slice_start_ns[:, None], 0
+    ).astype(np.float32)
+    idx = np.where(valid, gidx, -1).astype(np.int32)
+    if spatial_sort:
+        # The band key truncates the f32 coordinate, as the kernels see it.
+        band = xs.astype(np.int64) // band_rows
+        key = band * 4096 + ys.astype(np.int64)
+        key = np.where(valid, key, np.int64(1) << 40)
+        order = np.argsort(key, axis=1, kind="stable")
+        take = lambda a: np.take_along_axis(a, order, axis=1)
+        if indices_only:
+            xs, idx = take(xs), take(idx)
+        else:
+            xs, ys, ts, idx = take(xs), take(ys), take(ts), take(idx)
+        if band_pad:
+            n_bands = max(int(res_x) + band_rows - 1, band_rows) // band_rows
+            capp = -(-(cap + n_bands * (CHUNK - 1)) // CHUNK) * CHUNK
+            valid_s = idx >= 0
+            band_s = np.where(valid_s, xs.astype(np.int64) // band_rows,
+                              n_bands)
+            # Per (slice, band) counts give chunk-aligned band bases.
+            flat = (np.arange(S)[:, None] * (n_bands + 1) + band_s).ravel()
+            cnt = np.bincount(flat, minlength=S * (n_bands + 1)).reshape(
+                S, n_bands + 1)[:, :n_bands].astype(np.int64)
+            padded = -(-cnt // CHUNK) * CHUNK
+            base = np.concatenate(
+                [np.zeros((S, 1), np.int64), np.cumsum(padded, axis=1)],
+                axis=1)
+            first = np.concatenate(
+                [np.zeros((S, 1), np.int64), np.cumsum(cnt, axis=1)], axis=1)
+            j = np.arange(xs.shape[1], dtype=np.int64)[None, :]
+            bs = np.minimum(band_s, n_bands - 1)
+            rows_s = np.arange(S)[:, None]
+            pos = base[rows_s, bs] + (j - first[rows_s, bs])
+            rows = np.repeat(np.arange(S), xs.shape[1])[valid_s.ravel()]
+            cols = pos.ravel()[valid_s.ravel()]
+
+            def scatter(a, fill=0):
+                out = np.full((S, capp), fill, a.dtype)
+                out[rows, cols] = a[valid_s]
+                return out
+
+            idx = scatter(idx, fill=-1)
+            if not indices_only:
+                xs, ys, ts = scatter(xs), scatter(ys), scatter(ts)
+    if indices_only:
+        xs = ys = None
+    return xs, ys, ts, idx, lens
+
+
 def history_depth(plan: SlicePlan) -> int:
     """K, the number of earlier slices whose windows can overlap a slice's
     window: the depth of the window-gate history."""
@@ -168,6 +251,12 @@ def staged_capacity(cfg: PipelineConfig, pad_quantum: int = 0) -> int:
     return -(-capp // pad_quantum) * pad_quantum if pad_quantum else capp
 
 
+def _integral_u16(a: np.ndarray) -> bool:
+    """Every value an integer in [0, 65535)."""
+    return a.size == 0 or bool(
+        np.all(a == np.floor(a)) and a.min() >= 0 and a.max() < 0xFFFF)
+
+
 def default_device() -> torch.device:
     """The card.  An entry point runs on the CPU (the plain twins) only when
     its caller asks for it; with no card and no ``device="cpu"`` it raises."""
@@ -187,19 +276,20 @@ def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def _gate_history_before(lo: int, hist_k: int, plan: SlicePlan, x16, y16,
+def _gate_history_before(lo: int, hist_k: int, plan: SlicePlan, xa, ya,
                          cfg: PipelineConfig):
     """The window-gate history (fired, start, end; (K,) each) that slice
     ``lo`` of the plan reads: the gate is purely geometric (bbox and
     ``min_window_fraction``), so the outcomes of the ``hist_k`` slices
-    before a range are computed here from the recording itself."""
+    before a range are computed here from the recording itself, on the
+    staged coordinates (u16, or f32 whose bbox is truncated)."""
     ws_h = np.zeros(hist_k, bool)
     st_h = np.zeros(hist_k, np.int32)
     en_h = np.full(hist_k, -1, np.int32)
     opt = cfg.optimizer
     for j, s in enumerate(reversed(range(max(0, lo - hist_k), lo))):
         a, b = int(plan.starts[s]), int(plan.ends[s]) + 1
-        xw, yw = x16[a:b], y16[a:b]
+        xw, yw = xa[a:b], ya[a:b]
         g = geometry_from_bbox(xw.min(), xw.max(), yw.min(), yw.max(),
                                opt.scale, cfg.sensor, opt.min_window_fraction)
         k = hist_k - 1 - j
@@ -212,10 +302,21 @@ def _gate_history_before(lo: int, hist_k: int, plan: SlicePlan, x16, y16,
 def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
                       slice_range=None, pad_quantum: int = 0,
                       chunk_range=None) -> dict:
-    """Host staging: trigger plan, native sort into band-padded slabs,
-    and the device copies ``stat`` (S, nch, 3, CHUNK) f32 and ``sidx``
-    (S, capp) int32 (original index, -1 on padding).  Reusable across runs
-    of the same recording.
+    """Host staging: trigger plan, a sort of every slice into band-padded
+    slabs, and the device copies ``stat`` (S, nch, 3, CHUNK) f32 and
+    ``sidx`` (S, capp) int32 (original index, -1 on padding).  Reusable
+    across runs of the same recording.
+
+    The native route sorts u16 coordinates and in-slice offsets with
+    ``io.native``; it needs the library, every coordinate an integer in
+    [0, 65535) and ``max_events`` at most 65,535.  Otherwise the numpy
+    route (``materialize_slices``, ``plan_breakdown`` key
+    ``numpy_staging``) stages the f32 coordinates and int32 indices.  The
+    two give the same tensors on integer coordinates.  ``compact`` (the
+    cold path packs and checkpoints only compact batches) is True on the
+    native route, and on the numpy route, as in the JAX package, when the
+    f32 coordinates are integers in [0, 65535) and the padded capacity is
+    below 0xFFFF.
 
     ``slice_range=(lo, hi)`` stages only that range of the global plan;
     ``hist_k``, ``hist0`` (the gate history before the range) and
@@ -256,62 +357,76 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
     n_bands = row_bands(cfg)
     lens = (plan.ends - plan.starts + 1).astype(np.int32)
 
-    stat_parts, perm_parts, bbox_parts = [], [], []
+    parts, bbox_parts = [], []
     hist0 = (np.zeros(hist_k, bool), np.zeros(hist_k, np.int32),
              np.full(hist_k, -1, np.int32))
+    compact = False
     if S > 0:
         # The u16 slab holds each slot's offset into its slice's window
         # (below max_events; 0xFFFF marks padding), not the slot's position,
         # so the padded capacity itself may pass 0xFFFF, as it does when
         # the production capacity is rounded up for four or more shards.
-        if cfg.slice.max_events > PERM_SENTINEL:
-            raise NotImplementedError(
-                f"slice capacity {cfg.slice.max_events} exceeds the u16 "
-                "staging layout")
-        x16y16 = native.coords_u16(x, y)
-        if x16y16 is None:
-            raise RuntimeError(
-                "native staging unavailable (build native/bf_native.cpp "
-                "with python native/build.py) or coordinates that are not "
-                "integers in [0, 65535)")
-        _mark("coords_u16")
+        xa = None
+        if cfg.slice.max_events <= PERM_SENTINEL:
+            xa, ya = native.coords_u16(x, y) or (None, None)
+            _mark("coords_u16")
+        native_route = xa is not None
+        if not native_route:
+            xa = np.ascontiguousarray(x, np.float32)
+            ya = np.ascontiguousarray(y, np.float32)
+        compact = native_route or (
+            _integral_u16(xa) and _integral_u16(ya)
+            and padded_capacity(cfg) < 0xFFFF)
         n_batch = 4 if S >= 64 else 1
         bounds = np.linspace(0, S, n_batch + 1).astype(np.int64)
         for b in range(n_batch):
             b0, b1 = int(bounds[b]), int(bounds[b + 1])
-            out = native.materialize_bandpad_u16(
-                x16y16[0], x16y16[1], t_ns, plan.starts[b0:b1],
-                plan.ends[b0:b1], plan.slice_start_ns[b0:b1], capp,
-                BAND_ROWS, CHUNK, n_bands, cfg.sensor.res_y)
-            if out is None:
-                raise RuntimeError("native band-pad staging failed")
-            xs16, ys16, ts, perm, bbox = out
-            _mark("native_sort")
-            # u16 slabs travel as int16 bit patterns and are widened on
-            # the device (PyTorch has few uint16 operations).
-            host = (xs16.view(np.int16), ys16.view(np.int16), ts,
-                    perm.view(np.int16))
+            sub = SlicePlan(*(a[b0:b1] for a in plan))
+            if native_route:
+                out = native.materialize_bandpad_u16(
+                    xa, ya, t_ns, sub.starts, sub.ends, sub.slice_start_ns,
+                    capp, BAND_ROWS, CHUNK, n_bands, cfg.sensor.res_y)
+                if out is None:
+                    raise RuntimeError("native band-pad staging failed")
+                xs16, ys16, ts, perm, bbox = out
+                _mark("native_sort")
+                # u16 slabs travel as int16 bit patterns and are widened on
+                # the device (PyTorch has few uint16 operations).
+                host = (xs16.view(np.int16), ys16.view(np.int16), ts,
+                        perm.view(np.int16))
+            else:
+                xs, ys, ts, idx, _ = materialize_slices(
+                    xa, ya, t_ns, sub, cfg.slice.max_events, band_pad=True,
+                    res_x=cfg.sensor.res_x)
+                # pad_quantum's extra slots are padding at the tail, where
+                # the native sort leaves them too.
+                tail = ((0, 0), (0, capp - idx.shape[1]))
+                host = tuple(np.pad(a, tail, constant_values=fill)
+                             for a, fill in ((xs, 0), (ys, 0), (ts, 0),
+                                             (idx, -1)))
+                bbox = host_bbox(xa, ya, sub)[0]
+                _mark("numpy_staging")
             if chunk_range is not None:
                 host = tuple(np.ascontiguousarray(a[:, cols]) for a in host)
-            stat_parts.append(tuple(to_device(a, dev) for a in host[:3]))
-            perm_parts.append(to_device(host[3], dev))
+            parts.append(tuple(to_device(a, dev) for a in host))
             bbox_parts.append(bbox)
             _mark("device_put")
-        u16 = lambda a: a.to(torch.int32) & 0xFFFF
-        xs = torch.cat([u16(p[0]) for p in stat_parts]).to(torch.float32)
-        ys = torch.cat([u16(p[1]) for p in stat_parts]).to(torch.float32)
-        ts = torch.cat([p[2] for p in stat_parts])
-        perm = torch.cat([u16(p) for p in perm_parts])
-        starts_d = torch.from_numpy(plan.starts.astype(np.int32)).to(dev)
-        sidx = torch.where(perm != PERM_SENTINEL,
-                           starts_d[:, None] + perm,
-                           torch.full_like(perm, -1))
-        stat = torch.stack([xs, ys, ts], dim=1).reshape(
+        cat = lambda k: torch.cat([p[k] for p in parts])
+        if native_route:
+            u16 = lambda a: a.to(torch.int32) & 0xFFFF
+            xs, ys = (u16(cat(k)).to(torch.float32) for k in (0, 1))
+            perm = u16(cat(3))
+            starts_d = torch.from_numpy(plan.starts.astype(np.int32)).to(dev)
+            sidx = torch.where(perm != PERM_SENTINEL,
+                               starts_d[:, None] + perm,
+                               torch.full_like(perm, -1))
+        else:
+            xs, ys, sidx = cat(0), cat(1), cat(3)
+        stat = torch.stack([xs, ys, cat(2)], dim=1).reshape(
             S, 3, nch, CHUNK).transpose(1, 2).contiguous()
         bbox = np.concatenate(bbox_parts)
         if lo > 0:
-            hist0 = _gate_history_before(lo, hist_k, plan_full, x16y16[0],
-                                         x16y16[1], cfg)
+            hist0 = _gate_history_before(lo, hist_k, plan_full, xa, ya, cfg)
     else:
         stat = torch.zeros((0, nch, 3, CHUNK), dtype=torch.float32,
                            device=dev)
@@ -336,6 +451,7 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
         "prev_end": int(plan_full.ends[lo - 1]) if lo > 0 else -1,
         "chunks": (c0, c1),
         "chunks_total": capp // CHUNK,
+        "compact": compact,
         "plan_s": time.perf_counter() - t0, "plan_breakdown": phases,
     }
 
@@ -656,9 +772,11 @@ def estimate_scan_device_bytes(t_ns, cfg: PipelineConfig,
     of the S x capp staged slices (``staged_capacity``), ``stat`` (12 B),
     ``sidx`` (4 B), B3's rows (4 B) and ``uvn`` (12 B), 32 B; per event
     the three f32 (n + 1) accumulators and the noise flags, 13 B.
-    Resident tensors only: while ``prepare_recording`` runs, its int16
-    parts and ``torch.cat`` add about 10 B a slot for a while.  The trigger
-    plan is cheap to compute on its own."""
+    Both staging routes leave these same tensors.  Resident tensors only:
+    while ``prepare_recording`` runs, its parts and ``torch.cat`` add about
+    10 B a slot for a while on the native route (int16 and f32 slabs) and
+    16 B on the numpy route (f32 and int32 slabs).  The trigger plan is
+    cheap to compute on its own."""
     plan = plan_slices(np.ascontiguousarray(t_ns, np.int64), cfg)
     return (float(len(plan.ends)) * staged_capacity(cfg, pad_quantum) * 32
             + len(t_ns) * 13.0)
@@ -825,6 +943,10 @@ class _Fetch:
         return tuple(a[:m] for a in host), secs
 
 
+_CKPT_NOT_COMPACT = ("offline checkpointing requires the compact staging "
+                      "path (integral u16 coordinates)")
+
+
 def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
                               n_batch: int = 4, checkpoint_path=None,
                               resume: bool = False,
@@ -832,8 +954,8 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
                               device=None) -> dict:
     """Process a recording once, with staging, the device's work and the
     results' fetch overlapped; bitwise the result of
-    ``compensate_recording_scan`` (with ``compact_results``, u and v
-    rounded to f16).
+    ``compensate_recording_scan`` (with ``compact_results``, u and v of
+    the compact batches rounded to f16).
 
     The trigger plan's S slices are split into ``n_batch`` contiguous
     ranges of ceil(S / n_batch) slices (fewer when S is small).  A worker
@@ -846,7 +968,8 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
     whole plan; as soon as its loop returns, their first-slice-wins
     accumulation (``accumulate_device_range``), packed with
     ``compact_results`` (``pack_results``: f16 u and v and bit-packed
-    noise, 4.125 B an event instead of 9), is dispatched and copied into
+    noise, 4.125 B an event instead of 9; a batch that is not compact
+    stays f32, as in the JAX package), is dispatched and copied into
     pinned host memory on a third stream, and the batch's slabs and
     outputs are dropped, so the device holds about two batches whatever
     the recording's length.  The worker waits for that copy and decodes
@@ -860,7 +983,9 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
     every batch boundary (``save_offline_checkpoint``); with ``resume``
     a matching checkpoint restarts after its last completed batch, and the
     output is bitwise an uninterrupted run's (the compact path stores the
-    decoded values).
+    decoded values).  A recording that is not compact raises
+    ``ValueError`` under ``checkpoint_path``, with the JAX package's
+    message, before anything is staged: neither package checkpoints it.
 
     Returns ``u``, ``v``, ``noise`` (numpy, original event order), the
     final ``model`` and ``carry`` (None for an empty recording), per-slice
@@ -875,6 +1000,11 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
     check_supported(cfg.optimizer, cfg.f64_totals)
     dev = torch.device(device) if device is not None else default_device()
     t0 = time.perf_counter()
+    if checkpoint_path is not None and not (
+            cfg.slice.max_events <= PERM_SENTINEL
+            and _integral_u16(np.asarray(x, np.float32))
+            and _integral_u16(np.asarray(y, np.float32))):
+        raise ValueError(_CKPT_NOT_COMPACT)
     t_ns = np.ascontiguousarray(t_ns, np.int64)
     plan = plan_slices(t_ns, cfg)
     S, n = len(plan.ends), len(t_ns)
@@ -941,6 +1071,8 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
         pending = None   # (batch, carry after it), not yet checkpointed
         for b in range(done, len(bounds)):
             prep, ready, stage_s = staging.result()
+            if checkpoint_path is not None and not prep["compact"]:
+                raise ValueError(_CKPT_NOT_COMPACT)
             staging = stage(b + 1)
             t_run = time.perf_counter()
             if cuda:
@@ -960,7 +1092,7 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
                 start.record(main)
             acc = accumulate_device_range(uvn, prep["sidx"], *claims[b],
                                           claim_cap)
-            if compact_results:
+            if compact_results and prep["compact"]:
                 acc = (pack_results(*acc),)
             collected[b] = pool.submit(collect, b,
                                        _Fetch(acc, fetch_stream, start))

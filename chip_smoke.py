@@ -51,12 +51,25 @@ in phases that each raise on failure:
    call, then the measured one): events/s, each batch's staging, run and
    fetch time, their overlap, and peak device memory against the scan's;
 5. the card against the CPU twins on the stream's first 200,000 events;
+   then the numpy staging route (``[staging]``, ``phase_staging``): the
+   main path's staging asserted native; the scan of the 2M stream with
+   seeded sub-pixel offsets (B3, B1, B2, B4 counted, a repeat bitwise,
+   the CPU twins on the first 200,000 events under the scan gates,
+   ``plan_s`` by route), the integer stream at ``max_events`` 100,000
+   (54 chunks a slice) against its CPU twins on its first slices, the
+   cold path (4 batches, exact and ``compact_results``) and the 4-shard
+   scan on the sub-pixel stream bitwise its scan, and the CLI's ``--scan
+   -o`` on a sub-pixel text file;
 6. the streaming path, ``runtime.offline.compensate_recording``, on the
    same 2M events under the reference schedule (B5 + B4) and under
    ``fast()`` (B1 + B2 + B4), each run twice (bitwise equal), with the
    launch counts and host syncs, and against the CPU twins on the first
    200,000 events;
 7. the CLI, ``--bufferize-file -o`` on the card, against the library call;
+   ``--img`` and ``--video`` on the first 60,000 events (a frame a slice,
+   the first frame equal to the CPU run's, B5 and B4 counted); one
+   manual-mode tick, 'c' (B5, B4) and a tick on the first slice window,
+   equal to the CPU's;
 8. the composed path (one B6 launch per iteration, the scalar update
    between launches): the scan with f64 totals (``PipelineConfig(
    f64_totals=True)``, reference schedule) on the 2M events, run twice
@@ -178,6 +191,7 @@ N_TILED_COMPARE = 150_000
 N_XLA_COMPARE = 100_000
 N_PARTIALS_SLICES = 20
 N_COLD = 12_000_000
+N_FRAMES = 60_000
 TILED_HALO, TILED_ESC_CAP = 32, 32768
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
@@ -2170,6 +2184,177 @@ def phase_cold(d, cfg, r1, dev, n_cold=N_COLD):
     log(f"[cold] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def subpixel_stream(d, res=(180, 240), seed=7):
+    """``d`` with seeded uniform [0, 1) offsets on x and y, clipped inside
+    the sensor: a rectified stream's sub-pixel float64 coordinates."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = dict(d)
+    for k, r in zip(("x", "y"), res):
+        out[k] = np.clip(d[k] + rng.uniform(0, 1, len(d[k])), 0,
+                         np.nextafter(r, 0))
+    return out
+
+
+def scan_launches(label, r, lc):
+    """The scan's kernels on the megastep drive: B3 once for the staged
+    range, B1 and B2 once an iteration, B4 once a slice that ran."""
+    total, ran = int(r["iters"].sum()), int(r["ran"].sum())
+    want = dict.fromkeys(lc, 0)
+    want.update(act_rows=1, warp_images_st=total, megastep_finish=total,
+                warp_uv=ran)
+    if lc != want or total <= 0:
+        raise AssertionError(f"{label}: launches {lc}, expected {want}")
+
+
+def phase_staging(d, cfg, prep_native, dev):
+    """The numpy staging route (``materialize_slices``) on the card: the
+    ``fast()`` scan of the bench stream with sub-pixel coordinates (B3,
+    B1, B2, B4 launched and counted, a repeat bitwise, against the CPU
+    twins on the first N_COMPARE events under the scan gates, ``plan_s``
+    beside the native route's); the integer stream at ``max_events``
+    100,000 against its CPU twins on its first slices; then on the
+    sub-pixel stream the cold path in four batches (exact and
+    ``compact_results``) and the four-shard scan resident on the card, each
+    bitwise the scan, and the CLI's ``--scan -o`` on a sub-pixel text
+    file.  It also checks that the main path's staging ``prep_native``
+    took the native route."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from better_flow_tpu_torch.cli.motion_compensator import (
+        build_parser, config_from_args,
+    )
+    from better_flow_tpu_torch.io.event_file import (
+        read_events, write_events_uv,
+    )
+    from better_flow_tpu_torch.ops import _build, fused_model as fm
+    from better_flow_tpu_torch.parallel.event_parallel import (
+        compensate_recording_scan_sharded,
+    )
+    from better_flow_tpu_torch.parallel.mesh import make_event_mesh
+    from better_flow_tpu_torch.runtime import scan_pipeline as sp
+
+    t_phase = time.perf_counter()
+    bd = prep_native["plan_breakdown"]
+    if not prep_native["compact"] or "native_sort" not in bd or \
+            "numpy_staging" in bd:
+        raise AssertionError(f"the main path's staging left the native "
+                             f"route: {json.dumps(bd)}")
+    ds = subpixel_stream(d)
+    n = len(ds["x"])
+    prep = sp.prepare_recording(ds["x"], ds["y"], ds["t_ns"], cfg,
+                                device=dev)
+    if prep["compact"] or "numpy_staging" not in prep["plan_breakdown"]:
+        raise AssertionError("sub-pixel staging: not the numpy route: "
+                             + json.dumps(prep["plan_breakdown"]))
+    log(f"[staging] plan_s by route, {n} events: numpy (sub-pixel) "
+        f"{prep['plan_s']:.4f} {json.dumps(prep['plan_breakdown'])}; native "
+        f"(integer, [main]) {prep_native['plan_s']:.4f} {json.dumps(bd)}")
+    fm.reset_launches()
+    rs = sp.compensate_recording_scan(None, None, None, cfg, prepared=prep)
+    lc = dict(fm.LAUNCHES)
+    check_outputs(rs, n)
+    scan_launches("sub-pixel scan", rs, lc)
+    st = rs["stats"]
+    log(f"[staging] sub-pixel scan: events/s {st['events_per_s']:.1f}  "
+        f"run_s {st['run_s']:.4f}  n_slices {st['n_slices']}  mean_iters "
+        f"{st['mean_iters']:.4f}; launches {json.dumps(lc)}")
+    same_outputs("sub-pixel scan repeat", sp.compensate_recording_scan(
+        None, None, None, cfg, prepared=prep), rs)
+    m = N_COMPARE
+    part = {k: ds[k][:m] for k in ("x", "y", "t_ns")}
+    rg = sp.compensate_recording_scan(part["x"], part["y"], part["t_ns"],
+                                      cfg, device=dev)
+    rc = sp.compensate_recording_scan(part["x"], part["y"], part["t_ns"],
+                                      cfg, device="cpu")
+    log(f"[staging] sub-pixel scan repeat bitwise; card vs CPU twins on {m} "
+        f"events: {json.dumps(compare_runs(rg, rc, ds, m))}")
+
+    cfg_l = cfg.replace(slice=dataclasses.replace(cfg.slice,
+                                                  max_events=100_000))
+    prep_l = sp.prepare_recording(d["x"], d["y"], d["t_ns"], cfg_l,
+                                  device=dev)
+    if prep_l["compact"] or "numpy_staging" not in prep_l["plan_breakdown"]:
+        raise AssertionError("max_events 100,000: not the numpy route")
+    fm.reset_launches()
+    rl = sp.compensate_recording_scan(None, None, None, cfg_l,
+                                      prepared=prep_l)
+    lc = dict(fm.LAUNCHES)
+    check_outputs(rl, n)
+    scan_launches("max_events 100,000", rl, lc)
+    part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
+    rg = sp.compensate_recording_scan(part["x"], part["y"], part["t_ns"],
+                                      cfg_l, device=dev)
+    rc = sp.compensate_recording_scan(part["x"], part["y"], part["t_ns"],
+                                      cfg_l, device="cpu")
+    gates = compare_runs(rg, rc, d, m)
+    log(f"[staging] max_events 100,000 ({prep_l['stat'].shape[1]} chunks a "
+        f"slice): plan_s {prep_l['plan_s']:.4f}  run_s "
+        f"{rl['stats']['run_s']:.4f}  n_slices {rl['stats']['n_slices']}  "
+        f"mean_iters {rl['stats']['mean_iters']:.4f}; launches "
+        f"{json.dumps(lc)}; card vs CPU twins on {m} events ("
+        f"{len(rc['iters'])} slices): {json.dumps(gates)}")
+
+    for compact in (False, True):
+        fm.reset_launches()
+        rcold = sp.compensate_recording_cold(
+            ds["x"], ds["y"], ds["t_ns"], cfg, n_batch=4,
+            compact_results=compact, device=dev)
+        same_outputs(f"sub-pixel cold (compact_results={compact})", rcold, rs)
+        if fm.LAUNCHES["act_rows"] != rcold["stats"]["n_batches"] or \
+                fm.LAUNCHES["warp_uv"] != int(rs["ran"].sum()):
+            raise AssertionError(f"sub-pixel cold: launches {fm.LAUNCHES}")
+    log(f"[staging] sub-pixel cold, 4 batches, exact and compact_results: "
+        f"bitwise the scan (sub-pixel batches stay f32); total_s "
+        f"{rcold['stats']['total_s']:.4f}")
+    mesh = make_event_mesh(4, device=dev)
+    fm.reset_launches()
+    r4 = compensate_recording_scan_sharded(ds["x"], ds["y"], ds["t_ns"], cfg,
+                                           mesh)
+    same_outputs("sub-pixel 4-shard scan", r4, rs,
+                 keys=("u", "v", "noise", "iters", "ran"))
+    scan_launches("sub-pixel 4-shard scan", r4, dict(fm.LAUNCHES))
+    log(f"[staging] sub-pixel scan, 4 shards resident on the card: bitwise "
+        f"the scan; run_s {r4['stats']['run_s']:.4f}  plan_s "
+        f"{r4['stats']['plan_s']:.4f}")
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        rec = os.path.join(tmp, "rec.txt")
+        with open(rec, "w") as f:   # t y x p, the reader swaps x and y
+            f.writelines(f"{t:.9f} {y:.4f} {x:.4f} 1\n" for t, x, y in zip(
+                ds["t_ns"][:m] / 1e9, ds["x"][:m], ds["y"][:m]))
+        out_cli, out_lib = (os.path.join(tmp, f) for f in ("cli", "lib"))
+        argv = [rec, "--scan", "--schedule", "fast", "-o", out_cli,
+                "--device", dev.type]
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "better_flow_tpu_torch.cli.motion_compensator", *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI --scan on a sub-pixel file failed "
+                                 f"({proc.returncode}):\n{proc.stderr}")
+        r = read_events(rec)
+        if not (r["x"] != np.floor(r["x"])).any():
+            raise AssertionError("the sub-pixel file read back as integers")
+        lib = sp.compensate_recording_scan(
+            r["x"], r["y"], r["t_ns"],
+            config_from_args(build_parser().parse_args(argv)), device=dev)
+        write_events_uv(out_lib, r["x"], r["y"], r["t_ns"], lib["u"],
+                        lib["v"])
+        with open(out_cli, "rb") as a, open(out_lib, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("CLI --scan on a sub-pixel file differs "
+                                     "from write_events_uv of the scan")
+    log(f"[staging] CLI --scan --schedule fast -o on a {m}-event sub-pixel "
+        f"file: equal to the library call's; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def stream_view(r):
     """The per-event and per-slice outputs of a streaming run."""
     import numpy as np
@@ -2303,8 +2488,131 @@ def phase_cli(d, dev):
         lines = got.count(b"\n")
     tail = [ln for ln in proc.stdout.splitlines() if ln.strip()][-2:]
     log(f"[cli] --bufferize-file -o on the card: {lines} lines, equal to the "
-        f"library call's; {' | '.join(tail)}; phase "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"library call's; {' | '.join(tail)}")
+    cli_frames(d, dev)
+    cli_manual(d, dev)
+    log(f"[cli] phase {time.perf_counter() - t0:.1f} s")
+
+
+def frames_in(path):
+    """The frames of a video file, read back with OpenCV."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def cli_frames(d, dev, n=N_FRAMES):
+    """The CLI's ``--img`` and ``--video`` (the stream under the reference
+    schedule, B5 and B4, a HUD frame a slice) on the first ``n`` events, on
+    the card and on the CPU twins: one frame a slice in each, the card's
+    launches counted, the first frame equal to the CPU run's."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    from better_flow_tpu_torch.cli import motion_compensator as cli
+    from better_flow_tpu_torch.io.event_file import write_events
+    from better_flow_tpu_torch.ops import _build, fused_model as fm
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        rec = os.path.join(tmp, "rec.txt")
+        write_events(rec, d["x"][:n], d["y"][:n], d["t_ns"][:n])
+        runs = {}
+        for label, where in (("card", dev.type), ("cpu", "cpu")):
+            img = os.path.join(tmp, label)
+            os.makedirs(img)
+            video = os.path.join(tmp, f"{label}.mp4")
+            fm.reset_launches()
+            t = time.perf_counter()
+            rc = cli.main([rec, "--img", "--img-prefix", img, "--video",
+                           "--video-name", video, "--device", where,
+                           "--quiet"])
+            t = time.perf_counter() - t
+            names = sorted(os.listdir(img))
+            runs[label] = dict(rc=rc, lc=dict(fm.LAUNCHES), names=names,
+                               video=frames_in(video), s=t,
+                               first=cv2.imread(os.path.join(
+                                   img, "frame_0.jpg")))
+    g, c = runs["card"], runs["cpu"]
+    want = [f"frame_{k}.jpg" for k in range(len(g["names"]))]
+    if g["rc"] or c["rc"] or len(g["names"]) < 2 or \
+            sorted(want) != g["names"] or g["names"] != c["names"] or \
+            g["video"] != len(g["names"]) or c["video"] != len(c["names"]):
+        raise AssertionError(
+            f"--img/--video: rc {g['rc']}/{c['rc']}, frames "
+            f"{len(g['names'])}/{len(c['names'])}, video frames "
+            f"{g['video']}/{c['video']}")
+    if g["lc"]["megastep"] <= 0 or g["lc"]["warp_uv"] <= 0:
+        raise AssertionError(f"--img/--video on the card: launches {g['lc']}")
+    if not np.array_equal(g["first"], c["first"]):
+        raise AssertionError(
+            f"--img: the card's first frame differs from the CPU's in "
+            f"{int((g['first'] != c['first']).any(axis=2).sum())} pixels")
+    log(f"[cli] --img --video on {n} events: {len(g['names'])} slices, a "
+        f"frame each and a video of {g['video']} frames, card and CPU; the "
+        f"first frame equal to the CPU run's; card launches "
+        f"{json.dumps(g['lc'])}; s card {g['s']:.2f}, CPU {c['s']:.2f}")
+
+
+def cli_manual(d, dev):
+    """One manual-mode tick, then 'c' (``process_slice`` under the reference
+    schedule: B5 and B4), then a tick, on the CLI's first slice window of
+    the bench stream, on the card and on the CPU twins: the time images
+    and views of the ticks, the iterations and the warp of 'c' equal."""
+    import numpy as np
+
+    from better_flow_tpu_torch.cli.manual_mode import (
+        ManualSession, slider_deltas,
+    )
+    from better_flow_tpu_torch.config import SensorConfig
+    from better_flow_tpu_torch.ops import fused_model as fm
+
+    k = 50_000
+    runs = {}
+    for label, where in (("card", dev), ("cpu", "cpu")):
+        t = time.perf_counter()
+        sess = ManualSession(d["x"][:k], d["y"][:k],
+                             d["t_ns"][:k] - d["t_ns"][0], SensorConfig(),
+                             device=where)
+        tick1 = sess.tick(slider_deltas((140, 120, 200, 60, 3)))
+        views = sess.views()
+        fm.reset_launches()
+        res = sess.optimize()
+        lc = dict(fm.LAUNCHES)
+        warp = np.stack([sess.pr_x.cpu().numpy(), sess.pr_y.cpu().numpy()])
+        tick2 = sess.tick(slider_deltas((127, 127, 127, 127, 500)))
+        runs[label] = dict(
+            ticks=(tick1.cpu().numpy(), tick2.cpu().numpy()), views=views,
+            iters=res.iters, warp=warp, lc=lc, s=time.perf_counter() - t,
+            totals=[float(getattr(sess.model, f)) for f in
+                    ("total_dx", "total_dy", "total_rot", "total_div")])
+    g, c = runs["card"], runs["cpu"]
+    if g["lc"]["megastep"] != g["iters"] or g["lc"]["warp_uv"] != 1:
+        raise AssertionError(f"manual 'c' on the card: launches {g['lc']}, "
+                             f"{g['iters']} iterations")
+    if not np.array_equal(g["ticks"][0], c["ticks"][0]) or any(
+            not np.array_equal(a, b) for a, b in zip(g["views"],
+                                                     c["views"])):
+        raise AssertionError("manual tick: the card's time image or views "
+                             "differ from the CPU's")
+    if g["iters"] != c["iters"] or not np.array_equal(g["warp"], c["warp"]) \
+            or g["totals"] != c["totals"] \
+            or not np.array_equal(g["ticks"][1], c["ticks"][1]):
+        raise AssertionError(
+            f"manual 'c': card {g['iters']} iterations, totals "
+            f"{g['totals']}; CPU {c['iters']}, {c['totals']}; max |warp "
+            f"diff| {float(np.abs(g['warp'] - c['warp']).max())}")
+    log(f"[cli] manual mode on {k} events: tick, 'c' ({g['iters']} "
+        f"iterations; launches {json.dumps(g['lc'])}), tick: time images, "
+        f"views, warp and totals bitwise the CPU's; s card {g['s']:.2f}, "
+        f"CPU {c['s']:.2f}")
 
 
 def two_object_scene(n_per_obj, seed=0, duration_s=0.1):
@@ -2704,6 +3012,9 @@ def main():
     gates = compare_runs(rg, rc, d, m)
     log(f"[card-vs-cpu] {m} events, CPU twins {time.perf_counter() - t0:.1f}"
         f" s: {json.dumps(gates)}")
+    # The numpy staging route: sub-pixel coordinates, slices past 65,535
+    # events; its runs count their own launches.
+    phase_staging(d, cfg, prep, dev)
 
     t_phase = time.perf_counter()
     stream_launches = phase_stream(d, dev)

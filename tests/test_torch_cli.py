@@ -1,7 +1,8 @@
 """The port's CLI, ``python -m better_flow_tpu_torch.cli.motion_compensator``,
 on the CPU (``--device cpu``): its output file is ``write_events_uv`` of
 the library call it stands for (``--cold`` the ``--scan`` file), its flags
-reach the configuration, the flags it does not run yet raise, and
+reach the configuration, ``--img``/``--video`` write a frame a slice,
+``-i`` runs the manual mode or, with no display, the batch run, and
 ``--device cuda`` fails where there is no card."""
 
 import os
@@ -27,6 +28,16 @@ from better_flow_tpu_torch.runtime.offline import (  # noqa: E402
 from better_flow_tpu_torch.runtime.scan_pipeline import (  # noqa: E402
     compensate_recording_scan,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread keeps parallel test workers from oversubscribing
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--resolution", "24x32", "--max-events", "4000", "--time-width",
@@ -100,11 +111,117 @@ def test_bufferize_prints_per_slice_lines(rec_file, tmp_path, capsys):
     assert "slice_td" in text and "Written" in text
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["-i"], "A8"), (["--img"], "A8"), (["--video"], "A8")])
-def test_unported_flags_raise(rec_file, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main([rec_file, "--device", "cpu"] + flags)
+def _frames_in(path):
+    cv2 = pytest.importorskip("cv2")
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+@pytest.mark.parametrize("flags", [
+    ["--img"], ["--video"], ["--img", "--video", "--scan"]])
+def test_frame_flags_write_a_frame_a_slice(rec_file, tmp_path, flags):
+    """``--img`` writes one HUD frame a slice of the stream
+    (``frame_<k>.jpg``), ``--video`` a video of as many frames; ``-o``
+    writes the stream's file (also with ``--scan``: the frames come from
+    the stream)."""
+    cv2 = pytest.importorskip("cv2")
+    out, img_dir = str(tmp_path / "cli.txt"), tmp_path / "img"
+    img_dir.mkdir()
+    video = str(tmp_path / "out.mp4")
+    assert cli.main([rec_file, "-o", out, "--img-prefix", str(img_dir),
+                     "--video-name", video] + SMALL + flags) == 0
+    r = read_events(rec_file)
+    n_slices = compensate_recording(r["x"], r["y"], r["t_ns"],
+                                    _cfg(SMALL, rec_file, out),
+                                    device="cpu")["stats"]["n_slices"]
+    assert n_slices >= 5
+    frames = sorted(os.listdir(img_dir))
+    if "--img" in flags:
+        assert frames == sorted(f"frame_{k}.jpg" for k in range(n_slices))
+        img = cv2.imread(str(img_dir / frames[-1]))
+        assert img.shape == (2 * 24 * 3, 2 * 32 * 3, 3) and img.any()
+    else:
+        assert frames == []
+    assert os.path.exists(video) == ("--video" in flags)
+    if "--video" in flags:
+        assert _frames_in(video) == n_slices
+    with open(out) as f:
+        assert f.read() == _library_file(rec_file, SMALL,
+                                         str(tmp_path / "lib.txt"))
+
+
+@pytest.mark.parametrize("display", ["unset", "window_error"])
+def test_interactive_without_a_display_runs_the_batch(
+        rec_file, tmp_path, capsys, monkeypatch, display):
+    """``-i`` with no display (no DISPLAY, or OpenCV's window error) says
+    so and writes the batch run's file."""
+    cv2 = pytest.importorskip("cv2")
+    monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+    if display == "unset":
+        monkeypatch.delenv("DISPLAY", raising=False)
+    else:
+        monkeypatch.setenv("DISPLAY", ":99")
+
+        def refuse(*a, **k):
+            raise cv2.error("cannot open display")
+
+        monkeypatch.setattr(cv2, "namedWindow", refuse)
+    out = str(tmp_path / "cli.txt")
+    assert cli.main([rec_file, "-i", "-o", out] + SMALL) == 0
+    err = capsys.readouterr().err
+    assert "interactive mode unavailable" in err
+    assert "continuing batch run" in err
+    with open(out) as f:
+        assert f.read() == _library_file(rec_file, SMALL,
+                                         str(tmp_path / "lib.txt"))
+
+
+def _fake_display(monkeypatch, keys):
+    """OpenCV's window calls answered without a display: ``waitKey``
+    returns ``keys`` in turn, the trackbars their initial positions."""
+    from better_flow_tpu_torch.cli.manual_mode import SLIDERS
+
+    cv2 = pytest.importorskip("cv2")
+    monkeypatch.setenv("DISPLAY", ":99")
+    keys = list(keys)
+    pos = {name: init for name, init, _ in SLIDERS}
+    shown = []
+    for name in ("namedWindow", "createTrackbar", "setTrackbarPos",
+                 "destroyAllWindows"):
+        monkeypatch.setattr(cv2, name, lambda *a, **k: None)
+    monkeypatch.setattr(cv2, "waitKey", lambda ms: keys.pop(0))
+    monkeypatch.setattr(cv2, "getTrackbarPos", lambda name, win: pos[name])
+    monkeypatch.setattr(cv2, "imshow", lambda win, img: shown.append(win))
+    return shown
+
+
+def test_interactive_runs_the_manual_loop(rec_file, tmp_path, monkeypatch):
+    """With a display, ``-i`` runs the manual mode (a tick, 'c', ESC) and
+    no batch run."""
+    shown = _fake_display(monkeypatch, [ord("x"), ord("c"), 27])
+    out = str(tmp_path / "cli.txt")
+    assert cli.main([rec_file, "-i", "-o", out] + SMALL) == 0
+    assert len(shown) == 6 and not os.path.exists(out)
+
+
+def test_interactive_errors_reach_the_caller(rec_file, tmp_path,
+                                            monkeypatch):
+    """An error inside the manual mode (here the optimizer's) is not taken
+    for a missing display."""
+    from better_flow_tpu_torch.cli import manual_mode
+
+    _fake_display(monkeypatch, [ord("c"), 27])
+
+    def fail(self):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(manual_mode.ManualSession, "optimize", fail)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        cli.main([rec_file, "-i", "-o", str(tmp_path / "o.txt")] + SMALL)
 
 
 @pytest.mark.parametrize("extra", [

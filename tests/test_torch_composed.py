@@ -58,6 +58,16 @@ from torch_inputs import (  # noqa: E402
     SENSOR, bench_stream, flow_gates, image_shape, slice_inputs,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread keeps parallel test workers from oversubscribing
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 PARTS = ("cnt", "s_row", "s_col", "s_gx", "s_gy", "s_rg", "s_dg")
 SMALL_SLICES = SliceConfig(max_events=4000, span_ns=int(0.1e9),
                            refresh_events=1500, refresh_time_ns=int(0.04e9))

@@ -277,6 +277,46 @@ def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):
         np.testing.assert_array_equal(rg[k], rg2[k])
 
 
+@pytest.mark.parametrize("case", ["subpixel", "max_events_70000"])
+def test_numpy_staged_scan_on_card_matches_cpu_twins(cuda, case):
+    """The numpy staging route on the card: sub-pixel coordinates, and
+    slices past the u16 offsets (36 chunks a slice), against the CPU twins
+    under the scan gates, the fast path's kernels launched, a repeat
+    bitwise."""
+    rng = np.random.default_rng(7)
+    if case == "subpixel":
+        d = synthetic_events(30000, duration_s=0.5, res_x=24, res_y=32,
+                             vx=20.0, vy=-14.0, seed=2)
+        for k, r in (("x", 24), ("y", 32)):
+            d[k] = np.clip(d[k] + rng.uniform(0, 1, len(d[k])), 0,
+                           np.nextafter(r, 0))
+        cfg = small_cfg()
+    else:
+        d = synthetic_events(75000, duration_s=0.3, res_x=24, res_y=32,
+                             vx=20.0, vy=-14.0, seed=2)
+        cfg = small_cfg().replace(slice=dataclasses.replace(
+            small_cfg().slice, max_events=70_000, span_ns=int(0.5e9),
+            refresh_events=70_000, refresh_time_ns=int(1e9)))
+    prep = tscan.prepare_recording(d["x"], d["y"], d["t_ns"], cfg,
+                                   device=cuda)
+    assert not prep["compact"] and "numpy_staging" in prep["plan_breakdown"]
+    rg = tscan.compensate_recording_scan(None, None, None, cfg,
+                                         prepared=prep)
+    rg2 = tscan.compensate_recording_scan(None, None, None, cfg,
+                                          prepared=prep)
+    rc = tscan.compensate_recording_scan(d["x"], d["y"], d["t_ns"], cfg,
+                                         device="cpu")
+    launches = rg["stats"]["launches"]
+    assert launches["act_rows"] == 1
+    assert launches["warp_uv"] == int(rg["ran"].sum()) > 0
+    assert launches["warp_images_st"] == launches["megastep_finish"] \
+        == int(rg["iters"].sum()) > 0
+    flow_gates(rg, rc)
+    assert np.mean(rg["iters"] == rc["iters"]) >= 0.9
+    for k in ("u", "v", "noise", "iters"):
+        np.testing.assert_array_equal(rg[k], rg2[k])
+
+
 @pytest.mark.parametrize("schedule", ["reference", "fast"])
 @pytest.mark.parametrize("scale", [1, 3])
 def test_megastep_kernel_is_twin_and_chain_bitwise(cuda, scale, schedule):

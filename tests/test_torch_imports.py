@@ -35,6 +35,9 @@ def test_port_and_smoke_script_import_nothing_of_jax_or_the_jax_package():
             "better_flow_tpu_torch.parallel.spatial",
             "better_flow_tpu_torch.parallel.temporal",
             "better_flow_tpu_torch.cli.motion_compensator",
+            "better_flow_tpu_torch.cli.manual_mode",
+            "better_flow_tpu_torch.cli.viewer",
+            "better_flow_tpu_torch.viz.video",
             "better_flow_tpu_torch.models.local_flow",
             "better_flow_tpu_torch.models.score_search",
             "better_flow_tpu_torch.models.clustering",
@@ -165,11 +168,13 @@ def test_no_card_and_no_device_raises(monkeypatch):
 
 def test_the_other_optimizers_and_views_raise_without_a_card(monkeypatch):
     """``flow_field_grid``, ``local_flow_field``'s gather,
-    ``compute_flow_bruteforce``, ``cluster_events`` and the four debug
-    views run on the card by default: with no card and no
-    ``device="cpu"`` they raise, and none moves to the CPU unasked."""
+    ``compute_flow_bruteforce``, ``cluster_events``, the four debug views
+    and the manual mode's session run on the card by default: with no card
+    and no ``device="cpu"`` they raise, and none moves to the CPU
+    unasked."""
     import numpy as np
 
+    from better_flow_tpu_torch.cli.manual_mode import ManualSession
     from better_flow_tpu_torch.models import clustering, local_flow
     from better_flow_tpu_torch.models import score_search
     from better_flow_tpu_torch.viz import debug_images
@@ -194,6 +199,7 @@ def test_the_other_optimizers_and_views_raise_without_a_card(monkeypatch):
         lambda: debug_images.gradient_img_color(img),
         lambda: debug_images.lr_gradient_img_color(img, wsize=5),
         lambda: debug_images.misalignment_img(img),
+        lambda: ManualSession(*ev, tcfg.SensorConfig(48, 48)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):

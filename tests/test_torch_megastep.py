@@ -26,6 +26,16 @@ from torch_inputs import (  # noqa: E402
     assert_state_close, image_shape, slice_inputs,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread keeps parallel test workers from oversubscribing
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 KEYS = ("stat", "act", "pr", "st", "geo")
 GEOMETRIES = {            # name: (sensor, scale, chunks)
     "24x32_s3": ((24, 32), 3, 3),

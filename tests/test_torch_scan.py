@@ -38,6 +38,16 @@ from torch_inputs import flow_gates as _flow_gates  # noqa: E402
 from torch_inputs import gate_stream as _gate_stream  # noqa: E402
 from torch_inputs import small_cfg  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread keeps parallel test workers from oversubscribing
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -33,6 +33,16 @@ from better_flow_tpu_torch.runtime.scan_pipeline import (  # noqa: E402
 from torch_inputs import SENSOR, small_cfg  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread keeps parallel test workers from oversubscribing
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(**opt):
     return small_cfg(scatter_mode="pallas", **opt)
 

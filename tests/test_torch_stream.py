@@ -45,6 +45,16 @@ from better_flow_tpu_torch.runtime import slice_buffer as tbuf  # noqa: E402
 from torch_inputs import SENSOR, bench_stream, flow_gates  # noqa: E402
 from torch_inputs import gate_stream  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread keeps parallel test workers from oversubscribing
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SMALL_SLICES = SliceConfig(max_events=4000, span_ns=int(0.1e9),
                            refresh_events=1500, refresh_time_ns=int(0.04e9))
 OPTS = {
