@@ -7,7 +7,7 @@ the model's deltas each tick; the accumulators advance with the manual
 mode's dividers (10000, 10000, 1000, 1000, :197), the events are warped
 again with the accumulated totals, and the time image, the coloured
 gradient and the colour-time views refresh.  'c' runs the optimizer under
-the reference schedule from the current state (``process_slice``: the
+the reference schedule from the current state (``process_event_slice``: the
 megastep kernel B5 and the final warp B4 on the card); 's' writes the
 normalised time image; ESC exits.
 
@@ -27,12 +27,9 @@ import numpy as np
 import torch
 
 from better_flow_tpu_torch.config import NZ, WARP_TIME_DIV, OptimizerConfig
-from better_flow_tpu_torch.core.events import bounding_box, make_slice
+from better_flow_tpu_torch.core.events import make_slice
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.models import global_flow as gf
-from better_flow_tpu_torch.ops.layout import (
-    pack_act, prepare_chunk_layouts, sort_key_blocks,
-)
 from better_flow_tpu_torch.ops.time_image import time_image
 from better_flow_tpu_torch.ops.warp import cos_sin_f32
 from better_flow_tpu_torch.runtime.scan_pipeline import default_device
@@ -119,23 +116,15 @@ class ManualSession:
         return ev.x - nx / nz * ts, ev.y - ny / nz * ts
 
     def optimize(self):
-        """The 'c' key: ``process_slice`` under the reference schedule
-        from the current model, on the slice sorted into the kernels'
-        chunk layout; the warp of its result becomes the current one.
-        Returns the ``SliceResult``."""
-        ev, n = self.ev, self.ev.x.shape[0]
-        order = torch.argsort(sort_key_blocks(ev.x, ev.y, ev.valid),
-                              stable=True)
-        sev = type(ev)(*(f[order] for f in ev))
-        bbox = bounding_box(sev)
-        res, _ = gf.process_slice(
-            prepare_chunk_layouts(sev.x, sev.y, sev.t), pack_act(sev.active),
-            self.model, OptimizerConfig(scale=self.scale), self.sensor, bbox,
-            n, ev=sev)
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(n, device=order.device)
+        """The 'c' key: the flat-slice ``process_event_slice`` under the
+        reference schedule from the current model (sorted into the
+        kernels' chunk layout and back); the warp of its result becomes the
+        current one.  Returns the ``SliceResult``, in the slice's order."""
+        res = gf.process_event_slice(self.ev, self.model,
+                                     OptimizerConfig(scale=self.scale),
+                                     self.sensor)
         self.model = res.model
-        self.pr_x, self.pr_y = res.pr_x[:n][inv], res.pr_y[:n][inv]
+        self.pr_x, self.pr_y = res.pr_x, res.pr_y
         return res
 
     def views(self):

@@ -7,8 +7,8 @@ nothing of that package.  The reference spreads configuration over
 compile-time macros (common.h:38-64, bf_motion_compensator.cpp:6-10), a CLI
 parser (bf_motion_compensator.cpp:36-130) and ROS params
 (bf_visualizer.cpp:275-292); here one set of frozen dataclasses feeds both
-the CLI and the library.  Options the port does not run are named in
-``models.global_flow.check_supported``.
+the CLI and the library.  The combinations the port does not run are
+named in ``models.global_flow.check_supported``.
 """
 
 from __future__ import annotations
@@ -100,9 +100,10 @@ class OptimizerConfig:
     # scale*RES/15 (optimizer_rolling.h:49; integer division).
     min_window_fraction: int = 15
     # Scatter strategy of the JAX package's images.  The port runs the
-    # kernel branch for "auto" and "pallas", the XLA-composed branch (exact
-    # integer scatter, on one device) for "xla", and raises for the TPU
-    # scatter workarounds ("rep", "mxu").
+    # kernel branch for "auto" and "pallas", and the XLA-composed branch
+    # (on one device) for "xla" and the JAX package's TPU scatter
+    # strategies "rep" and "mxu", all three with its exact integer
+    # scatter.
     scatter_mode: str = "auto"
     # Keep the low-order bf16 part of the splatted time weight (the hi+lo
     # pair gives ~16-bit event-time precision).  False (fast schedule only:
@@ -139,8 +140,9 @@ class OptimizerConfig:
     # fast_throughput() keep it off.  Ignored by the reference schedule.
     exit_predict_cap: float = 0.0
     # Extrapolated warm start (0 = off, the reference's plain warm start):
-    # start the optimizer at model + alpha*(model_k - model_{k-1}).  The
-    # port raises for alpha > 0.
+    # the scan starts a slice's optimizer at model + alpha*(model_k -
+    # model_{k-1}); a skipped slice and the warm-start warp keep the plain
+    # model.  Scan routes only: the stream and the tiled path ignore it.
     warm_extrapolate: float = 0.0
     # Run an f32 carry through the megastep (a whole iteration including
     # the scalar model update in the kernels); False forces the composed
@@ -156,11 +158,14 @@ class OptimizerConfig:
     # Taken on one device by the megastep drive only, as in the JAX
     # package: ignored under an event group and on the composed loop.
     megastep_merged: bool = False
-    # Iterations per loop trip of the split megastep drive.  The port
-    # raises for values above 1.
+    # Iterations per loop trip of the single-device split megastep drive:
+    # above 1 the trip runs that many predicated B1 + B2 pairs, of which a
+    # pair past the exit passes the state through on the device, and the
+    # host reads the continue flag once a trip.  Bitwise 1's results.
     megastep_unroll: int = 1
-    # Chunks per grid step of the JAX package's warp + splat kernel.  The
-    # port raises for values above 1.
+    # Chunks per grid step of the JAX package's warp + splat kernel, a
+    # bit-exact block shape of the TPU.  The port's B1 runs one slot a
+    # thread, so it selects nothing.
     splat_pair: int = 1
     # Hard bound on optimizer iterations when max_iter < 0.  The
     # reference's divider caps guarantee termination (each divider at most

@@ -349,7 +349,7 @@ __device__ inline void zero_pair(const IterationArgs& a, int b0) {
 // The kernels of this template.
 enum IterationKind {
   kMegastep = 0, kFused = 1, kFinish = 2, kFinishState = 3, kMerged = 4,
-  kFinishLocal = 5, kPartials = 6
+  kFinishLocal = 5, kPartials = 6, kFinishStatePredicated = 7
 };
 
 // Phase 1: warp + splat of slots [0, a.n) in a grid-stride loop.
@@ -470,7 +470,10 @@ __device__ inline void merged_phase(const IterationArgs& a, const Warp& w) {
 // kKind: kMegastep (B5: warp from the state, scalar update into the next
 // state), kFused (B6: warp from the row, the seven sums and a zero),
 // kFinish (B7b: no splat; the seven sums of the caller's pair),
-// kFinishState (B2: no splat; the scalar update), kMerged (B12),
+// kFinishState (B2: no splat; the scalar update),
+// kFinishStatePredicated (B2's predicated mode: kFinishState on a live
+// state; a state whose CONT is not set is copied to the output by one
+// thread, and the pair is left as it is), kMerged (B12),
 // kFinishLocal (B9: no splat; each tile's seven sums over its window) or
 // kPartials (B10, B11: the splat of precomputed positions, then B7b's).
 // Two blocks an SM, B9 three: its batch has several bands for every block
@@ -491,6 +494,16 @@ iteration_kernel(IterationArgs a) {
     positions_phase(a);
     grid.sync();
   }
+  if constexpr (kKind == kFinishStatePredicated) {
+    // Every thread reads the same flag of the input state, which no block
+    // writes (out is never src): the whole grid returns here, before any
+    // barrier, or none of it does.
+    if (!(a.src[ST_CONT] > 0.0f)) {
+      if (blockIdx.x == 0 && threadIdx.x == 0)
+        for (int k = 0; k < ST_SIZE; ++k) a.out[k] = a.src[k];
+      return;
+    }
+  }
   if constexpr (kKind == kMerged) {
     // The head: every thread reads the same flag, so the branch is uniform
     // across the grid; the barriers stay outside it.
@@ -509,7 +522,8 @@ iteration_kernel(IterationArgs a) {
   } else {
     band_phase(a, smem);
     grid.sync();
-    tail_phase<kKind == kMegastep || kKind == kFinishState>(a, smem);
+    tail_phase<kKind == kMegastep || kKind == kFinishState ||
+               kKind == kFinishStatePredicated>(a, smem);
   }
 }
 

@@ -17,6 +17,14 @@
 // R rows, a grid that cannot be resident) returns its error and runs
 // nothing: the pair and st_out are as they were.
 //
+// Predicated mode (predicated = 1, the unrolled split drive of
+// OptimizerConfig.megastep_unroll; iteration.cuh's kFinishStatePredicated):
+// a state whose CONT is not set is copied to st_out by block 0, and the
+// pair is left as it is (zero: the predicated B1 before it added nothing).
+// The flag is the input state's, the same for every block, so the grid
+// takes the branch whole and no grid.sync() is reached by some blocks
+// only.  A live state runs kFinishState's phases.
+//
 // Bound: bytes (the two images, 12 B a pixel, read once; the zeroing that
 // leaves them clear for the next call is not counted) and latency: the grid
 // barrier and the one-block tail.  The sums are f64 in a fixed order, so
@@ -24,19 +32,23 @@
 #include "iteration.cuh"
 
 // rows and smem: the band height and the dynamic shared bytes
-// (ops/fused_model.band_rows).  Returns the CUDA error of the launch (0 on
-// success).
+// (ops/fused_model.band_rows); predicated: the mode above.  Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int bf_megastep_finish(long long* acc_t, int* acc_c,
                                   const float* st, const float* geo,
                                   float* st_out, double* partials, int HP,
                                   int WP, int H, int W, int scale, int rows,
-                                  int smem, const bf::UpdateParams* params,
+                                  int smem, int predicated,
+                                  const bf::UpdateParams* params,
                                   void* stream) {
   bf::IterationArgs a{geo, st, nullptr, nullptr, nullptr, nullptr,
                       reinterpret_cast<unsigned long long*>(acc_t), acc_c,
                       partials, st_out, 0, HP, WP, H, W, scale, 0, rows,
                       *params};
-  return bf::launch_iteration<bf::kFinishState>(a, smem, 0, stream);
+  return predicated
+             ? bf::launch_iteration<bf::kFinishStatePredicated>(a, smem, 0,
+                                                               stream)
+             : bf::launch_iteration<bf::kFinishState>(a, smem, 0, stream);
 }
 
 // The grid bf_megastep_finish launches at ``smem`` dynamic bytes (0 on

@@ -38,6 +38,16 @@
 // sin on one thread; two or four slots a thread (16-byte loads, fewer
 // blocks) were slower than one (PERF.md, section 6).
 //
+// Predicated mode (predicated = 1, the unrolled split drive of
+// OptimizerConfig.megastep_unroll): a state whose CONT is not set passes
+// through: every slot copies its pr into npr and the pair gets nothing.
+// Every thread reads the same flag of the input state, which no thread
+// writes, so the branch is uniform and no block reaches block_warp's
+// barrier on one side of it only.  A live state runs the same code as the
+// unpredicated kernel (one template, the predicate a template argument).
+// The TPU kernel's splat_pair (several chunks a grid step) is a block shape
+// of its pipeline: here one slot is a thread, so it selects nothing.
+//
 // Bound: on a spread slice, bytes (36 B read and 8 B written per event, and
 // 12 B for each pixel the events hit, added by atomics); on a converged
 // slice, where events pile onto a few pixels, atomic contention on those
@@ -50,6 +60,7 @@
 
 namespace {
 
+template <bool kPredicated>
 __global__ void __launch_bounds__(bf::BAND_THREADS)
 warp_images_st_kernel(const float* __restrict__ geo,
                       const float* __restrict__ st,
@@ -60,6 +71,18 @@ warp_images_st_kernel(const float* __restrict__ geo,
                       int* __restrict__ acc_c, int n, int WP, int scale,
                       int time_lo) {
   using bf::CHUNK;
+  if constexpr (kPredicated) {
+    if (!(st[bf::ST_CONT] > 0.0f)) {   // converged: pr passes through
+      const int i = blockIdx.x * blockDim.x + threadIdx.x;
+      if (i < n) {
+        const size_t c = i / CHUNK;
+        const size_t k = i - c * CHUNK;
+        npr[c * 2 * CHUNK + k] = pr[c * 2 * CHUNK + k];
+        npr[c * 2 * CHUNK + CHUNK + k] = pr[c * 2 * CHUNK + CHUNK + k];
+      }
+      return;
+    }
+  }
   bf::block_warp_start<true>(st);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int c = i / CHUNK;
@@ -96,11 +119,12 @@ extern "C" int bf_warp_images_st(const float* geo, const float* st,
                                  const float* pr, float* npr,
                                  long long* acc_t, int* acc_c, int nch,
                                  int WP, int scale, int time_lo,
-                                 void* stream) {
+                                 int predicated, void* stream) {
   const int n = nch * bf::CHUNK;
   const int blocks = (n + bf::BAND_THREADS - 1) / bf::BAND_THREADS;
-  warp_images_st_kernel<<<blocks, bf::BAND_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = predicated ? warp_images_st_kernel<true>
+                            : warp_images_st_kernel<false>;
+  kernel<<<blocks, bf::BAND_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       geo, st, stat, act, pr, npr,
       reinterpret_cast<unsigned long long*>(acc_t), acc_c, n, WP, scale,
       time_lo);

@@ -1,10 +1,14 @@
 """Global 4-parameter flow on one slice.
 
 Counterpart of ``better_flow_tpu/models/global_flow.py``.  ``process_slice``
-takes one of two branches, by ``OptimizerConfig.scatter_mode``: "auto" and
-"pallas" the kernel branch (``_run_fused`` of the JAX package, below), "xla"
-the XLA-composed branch (``_run_optimizer``, the program the JAX package
-runs off the TPU): per iteration ``iteration_step`` builds the time image
+takes a staged slice (the kernels' chunk layout, spatially sorted);
+``process_event_slice`` is the JAX package's ``process_slice`` on a flat
+``EventSlice`` in any order, which it sorts, lays out and un-permutes
+around the staged call.  Either takes one of two branches, by
+``OptimizerConfig.scatter_mode``: "auto" and "pallas" the kernel branch
+(``_run_fused`` of the JAX package, below), "xla" (and the JAX package's
+TPU scatter strategies "rep" and "mxu", ``XLA_MODES``) the XLA-composed
+branch (``_run_optimizer``, the program the JAX package runs off the TPU): per iteration ``iteration_step`` builds the time image
 (``ops.time_image``), its centroid, masked Scharr gradients and the four
 model means (``ops.gradient``, ``ops.reductions``) in plain tensor
 operations, updates the model and re-warps every event, under the same
@@ -20,7 +24,9 @@ The kernel branch takes one of three drives:
   ``OptimizerConfig.use_megastep``: an iteration is one megastep (B5: warp +
   splat, finish, model update in one launch) unless
   ``OptimizerConfig.megastep_split`` or the ``fast`` presets ask for the
-  split pair (B1 warp + splat, then B2 finish + model update);
+  split pair (B1 warp + splat, then B2 finish + model update), of which
+  ``OptimizerConfig.megastep_unroll`` > 1 runs that many a loop trip in
+  the kernels' predicated mode;
 - under ``OptimizerConfig.megastep_merged`` on one device the merged drive
   (``_run_fused_mega2``): one B12 launch an iteration, whose head runs the
   previous iteration's finish and model update; the call whose head ends
@@ -32,8 +38,9 @@ The kernel branch takes one of three drives:
   schedule) or ``fast_loop`` (the secant schedule).
 
 The slice gates depend only on the host-side bbox and event count, so the
-host decides them without reading the device; either loop reads one
-continue flag from the device per iteration.
+host decides them without reading the device; every loop reads one
+continue flag from the device per iteration (per trip of the unrolled
+drive), and a slice's result counts those reads (``SliceResult.reads``).
 
 Event parallelism (the JAX package's ``axis_name`` seam).  Given an
 ``EventGroup`` (``parallel.mesh``), ``process_slice`` takes the local
@@ -70,8 +77,9 @@ from better_flow_tpu_torch.ops.fused_model import (
 from better_flow_tpu_torch.ops.gradient import masked_scharr
 from better_flow_tpu_torch.ops.layout import (
     CHUNK, ST_CDIV, ST_CDX, ST_CDY, ST_CNT, ST_CONT, ST_CROT, ST_CX, ST_CY,
-    ST_DDIV, ST_DIV, ST_DX, ST_DY, ST_PD, ST_RDIV, ST_ROT, ST_SIZE, ST_SL,
-    ST_TDIV, ST_TDX, ST_TDY, ST_TROT, ST_XDIV, ST_YDIV,
+    ST_DDIV, ST_DIV, ST_DX, ST_DY, ST_ITERS, ST_PD, ST_RDIV, ST_ROT, ST_SIZE,
+    ST_SL, ST_TDIV, ST_TDX, ST_TDY, ST_TROT, ST_XDIV, ST_YDIV, pack_act,
+    prepare_chunk_layouts, sort_key_blocks,
 )
 from better_flow_tpu_torch.ops.reductions import (
     center_of_mass, model_compute, model_from_partials,
@@ -152,28 +160,48 @@ class SliceResult(NamedTuple):
     window_small: bool
     seed: torch.Tensor      # (8,) [slope memory (4), last deltas (4)]
     noise: Optional[torch.Tensor] = None   # (cap,) bool, given ``ev``
+    reads: int = 0          # blocking reads of the device the drive took
+
+
+# The scatter modes of the XLA branch.  "rep" and "mxu" are the JAX
+# package's TPU scatter strategies (8 f32 replicas; a 3-way bf16 split on
+# the matrix unit); the port computes all three with its exact integer
+# scatter (``ops.time_image``).
+XLA_MODES = ("xla", "rep", "mxu")
+
+
+def xla_branch(cfg: OptimizerConfig) -> bool:
+    """``cfg`` runs the XLA-composed branch (``process_slice_xla``)."""
+    return cfg.scatter_mode in XLA_MODES
 
 
 def check_supported(cfg: OptimizerConfig, f64_totals: bool = False,
                     sharded: bool = False, tiled: bool = False) -> None:
     """Raise for the configurations this port does not run.  ``sharded``:
     the events run as shards of an event group (the event-parallel and
-    multi-process paths); ``tiled``: the tiled pipeline."""
+    multi-process paths); ``tiled``: the tiled pipeline.  It raises for f64
+    totals with the fast schedule (the JAX package's defect) and for the
+    XLA branch's modes under a group or tiled; every other option runs:
+
+    - ``megastep_unroll``: predicated B1 + B2 pairs a loop trip on the
+      single-device split drive (``run_fused_mega``), ignored elsewhere as
+      in the JAX package;
+    - ``warm_extrapolate``: the scan's extrapolated optimizer start
+      (``runtime.scan_pipeline.run_slices``), ignored by the stream and the
+      tiled path as in the JAX package;
+    - ``splat_pair``: the TPU kernel's chunks a grid step, bit-exact by the
+      JAX package's own account; B1 runs one slot a thread on the card, so
+      it selects nothing;
+    - ``scatter_mode`` "rep" and "mxu": the XLA branch with the port's
+      exact integer scatter (``XLA_MODES``)."""
     if f64_totals and cfg.schedule == "fast":
         raise NotImplementedError(F64_FAST_DEFECT)
-    if cfg.warm_extrapolate > 0:
-        raise NotImplementedError("OptimizerConfig.warm_extrapolate")
-    if cfg.splat_pair > 1:
-        raise NotImplementedError("OptimizerConfig.splat_pair")
-    if cfg.megastep_unroll > 1:
-        raise NotImplementedError("OptimizerConfig.megastep_unroll")
-    if cfg.scatter_mode not in ("auto", "pallas", "xla"):
+    if cfg.scatter_mode not in ("auto", "pallas") + XLA_MODES:
         raise NotImplementedError(
-            f"OptimizerConfig.scatter_mode={cfg.scatter_mode!r}: the JAX "
-            "package's TPU scatter workarounds are not ported")
-    if cfg.scatter_mode == "xla" and (sharded or tiled):
+            f"OptimizerConfig.scatter_mode={cfg.scatter_mode!r}")
+    if xla_branch(cfg) and (sharded or tiled):
         raise NotImplementedError(
-            "OptimizerConfig.scatter_mode='xla' "
+            f"OptimizerConfig.scatter_mode={cfg.scatter_mode!r} "
             + ("under an event group" if sharded else "on the tiled path")
             + ": the port runs the XLA branch on one device only")
     if cfg.schedule not in ("fast", "reference"):
@@ -204,7 +232,10 @@ def initial_state(model: MotionModel, cfg: OptimizerConfig,
     """The (1, 32) state of a slice's first iteration, built on the
     model's device without a host round trip: the model's totals,
     compensations, centroid and count, the initial dividers, CONT = 1, and
-    for the fast schedule the seed's slope memory."""
+    for the fast schedule the seed's slope memory.  The host numbers go in
+    by ``fill_``: an assignment of a host number to a card tensor copies it
+    from pageable memory, which waits for the stream (five blocking calls
+    a slice, found by ``chip_smoke.count_syncs_in``)."""
     dev = model.total_dx.device
     st = torch.zeros((1, ST_SIZE), dtype=torch.float32, device=dev)
     st[0, ST_TDX:ST_TDIV + 1] = torch.stack(
@@ -213,12 +244,10 @@ def initial_state(model: MotionModel, cfg: OptimizerConfig,
         [model.comp_dx, model.comp_dy, model.comp_rot, model.comp_div])
     st[0, ST_CX] = model.cx
     st[0, ST_CY] = model.cy
-    st[0, ST_XDIV] = cfg.init_xy_divider
-    st[0, ST_YDIV] = cfg.init_xy_divider
-    st[0, ST_RDIV] = cfg.init_rotdiv_divider
-    st[0, ST_DDIV] = cfg.init_rotdiv_divider
+    st[0, ST_XDIV:ST_YDIV + 1].fill_(cfg.init_xy_divider)
+    st[0, ST_RDIV:ST_DDIV + 1].fill_(cfg.init_rotdiv_divider)
     st[0, ST_CNT] = model.cnt
-    st[0, ST_CONT] = 1.0
+    st[0, ST_CONT].fill_(1.0)
     if seed is not None and cfg.schedule == "fast":
         st[0, ST_SL:ST_SL + 4] = seed[:4]
     return st
@@ -246,8 +275,8 @@ def _check_shards(nch: int, group) -> None:
 def run_fused_mega(stat, act, geo, model0: MotionModel,
                    cfg: OptimizerConfig, scale: int, H: int, W: int,
                    seed=None, group=None, uvn_out=None):
-    """The megastep drive: one unconditional iteration, then iterations
-    while the state's CONT flag is set, then the final-warp epilogue.  An
+    """The megastep drive: one unconditional loop trip, then trips while
+    the state's CONT flag is set, then the final-warp epilogue.  An
     iteration is one B5 launch, or the B1 + B2 pair under
     ``cfg.megastep_split`` (B1 adds into an image pair allocated once per
     call, which B2 reads and leaves zero); under an event ``group``
@@ -255,12 +284,19 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     over all the local shards, the in-place sum of the pair across ranks
     (``sum_images``), then B2; the final warp is one B4 launch over all
     the local shards too, into ``uvn_out`` when given (``warp_uv_call``).
-    The host reads the CONT flag once per iteration.  On one device
-    ``cfg.megastep_merged`` takes the merged drive (``run_fused_mega2``,
-    which returns its own ``uvn``: ``process_slice`` copies it into
-    ``uvn_out``); under a group it is ignored, as in the JAX package.
-    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out); under a
-    group ``out`` and ``uvn`` hold the local shards' chunks in order."""
+    A trip is one iteration, or on the single-device split drive
+    ``cfg.megastep_unroll`` of them as predicated B1 + B2 pairs
+    (``global_flow.py:767-791`` of the JAX package): a pair past the exit
+    finds CONT clear and passes the state and the positions through on
+    the card, so the result is bitwise one iteration a trip.  The host
+    reads CONT and ITERS together once a trip, and takes the iteration
+    count from ITERS.  On one device ``cfg.megastep_merged`` takes the
+    merged drive (``run_fused_mega2``, which returns its own ``uvn``:
+    ``process_slice`` copies it into ``uvn_out``); under a group it and
+    ``megastep_unroll`` are ignored, as in the JAX package.  Returns
+    (model, out (nch, 4, CHUNK), uvn, iters, seed_out, reads): ``reads``
+    the blocking reads taken; under a group ``out`` and ``uvn`` hold the
+    local shards' chunks in order."""
     if group is None and cfg.megastep_merged:
         return run_fused_mega2(stat, act, geo, model0, cfg, scale, H, W,
                                seed=seed)
@@ -270,26 +306,31 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     st = initial_state(model0, cfg, seed)
     pr = stat[:, 0:2].contiguous()
     split = group is not None or cfg.megastep_split
+    unroll = max(1, cfg.megastep_unroll) if split and group is None else 1
+    pred = int(unroll > 1)
     pair = image_pair(stat.device, H, W) if split else None
-    iters = 0
+    reads = 0
     while True:
-        if not split:
-            pr, st = megastep_call(stat, act, pr, st, geo, scale=scale, H=H,
-                                   W=W, time_lo=time_lo, **statics)
-        else:
+        for _ in range(unroll):
+            if not split:
+                pr, st = megastep_call(stat, act, pr, st, geo, scale=scale,
+                                       H=H, W=W, time_lo=time_lo, **statics)
+                continue
             pr, acc_t, acc_c = warp_images_st_call(
                 stat, act, pr, st, geo, *pair, scale=scale, H=H, W=W,
-                time_lo=time_lo)
+                time_lo=time_lo, predicated=pred)
             if group is not None:
                 acc_t, acc_c = sum_images(acc_t, acc_c, group.comm)
             st = megastep_finish_call(acc_t, acc_c, st, geo, scale=scale,
-                                      H=H, W=W, **statics)
-        iters += 1
-        if not st[0, ST_CONT].item() > 0:
+                                      H=H, W=W, predicated=pred, **statics)
+        # ITERS and CONT are adjacent slots: one copy, one blocking read.
+        iters, cont = st[0, ST_ITERS:ST_CONT + 1].tolist()
+        reads += 1
+        if not cont > 0:
             break
     seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
     out, uvn = warp_uv_call(stat, pr, act, st, 0.0, uvn_out)
-    return model_from_state(st), out, uvn, iters, seed_out
+    return model_from_state(st), out, uvn, int(iters), seed_out, reads
 
 
 def run_fused_mega2(stat, act, geo, model0: MotionModel,
@@ -306,8 +347,8 @@ def run_fused_mega2(stat, act, geo, model0: MotionModel,
     first call always leads to a second, so the host reads the CONT flag
     after every later call: once an iteration, as in the megastep drive.
     Returns (model, out (nch, 4, CHUNK) [pr_x, pr_y, nx, ny], uvn (nch, 3,
-    CHUNK) [nx * k, ny * k, 1 - act], iters, seed_out), bitwise those of the
-    megastep drive (B5, or B1 + B2, then B4)."""
+    CHUNK) [nx * k, ny * k, 1 - act], iters, seed_out, reads), bitwise
+    those of the megastep drive (B5, or B1 + B2, then B4)."""
     statics = finish_statics(cfg)
     time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
     pair = image_pair(stat.device, H, W)
@@ -327,14 +368,16 @@ def run_fused_mega2(stat, act, geo, model0: MotionModel,
     seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
     uvn = torch.stack([pr[:, 2] * UV_K, pr[:, 3] * UV_K, 1.0 - act[:, 0]],
                       dim=1)
-    return model_from_state(st), pr, uvn, iters, seed_out
+    # One read after every call but the first.
+    return model_from_state(st), pr, uvn, iters, seed_out, iters
 
 
 class FusedFlowState(NamedTuple):
     """The composed loop's state: the warped positions in the kernels'
     (nch, 2, CHUNK) layout (all local shards' chunks), the model, the four
-    f32 step dividers as 0-d device tensors and the iteration count, which
-    the host keeps."""
+    f32 step dividers as 0-d device tensors, the iteration count, which
+    the host keeps, and the blocking reads the loop took (set by
+    ``adaptive_loop`` and ``fast_loop`` on the state they return)."""
 
     pr: torch.Tensor
     model: MotionModel
@@ -343,6 +386,7 @@ class FusedFlowState(NamedTuple):
     rot_div: torch.Tensor
     div_div: torch.Tensor
     iters: int
+    reads: int = 0
 
     def divs4(self) -> torch.Tensor:
         """The dividers in (rot, div, dx, dy) order."""
@@ -370,11 +414,15 @@ def adaptive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig
     ``_adaptive_loop`` of the JAX package): one unconditional step, then
     steps while a divider is open, the divided gradient is above tolerance
     and the iteration caps allow; a divider doubles when its gradient
-    component flips sign.  ``step_fn(state)`` is one iteration."""
+    component flips sign.  ``step_fn(state)`` is one iteration.  The
+    returned state's ``reads`` counts the blocking reads of the exit
+    test."""
     s = step_fn(_with_dividers(init, cfg))
     caps = (cfg.xy_divider_cap, cfg.rotdiv_divider_cap)
+    reads = 0
 
     def go_on(s):
+        nonlocal reads
         m = s.model
         over_max = cfg.max_iter > 0 and s.iters > cfg.max_iter
         if over_max or s.iters >= cfg.iter_hard_cap:
@@ -385,6 +433,7 @@ def adaptive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig
                  & (torch.abs(m.dy / s.y_div) < cfg.dy_tol)
                  & (torch.abs(m.rot / s.rot_div) < cfg.rot_tol)
                  & (torch.abs(m.div / s.div_div) < cfg.div_tol))
+        reads += 1
         return bool((dividers_open & ~small).item())   # the one read
 
     while go_on(s):
@@ -397,7 +446,7 @@ def adaptive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig
                        y_div=dbl(m.dy, old.dy, s.y_div),
                        rot_div=dbl(m.rot, old.rot, s.rot_div),
                        div_div=dbl(m.div, old.div, s.div_div))
-    return s
+    return s._replace(reads=reads)
 
 
 def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
@@ -411,7 +460,8 @@ def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
     predicted exit of ``exit_predict_cap``.  ``step_fn(state, update_fn)``
     applies ``update_fn(model, state) -> model`` in place of the reference
     step.  The secant carry is f32, as in the JAX package's f32 path.
-    Returns (final state, (8,) [slope memory, last deltas])."""
+    Returns (final state, (8,) [slope memory, last deltas]); the state's
+    ``reads`` counts the blocking reads of the exit test."""
     state = _with_dividers(init, cfg)
     dev = init.model.cx.device
     f32 = torch.float32
@@ -473,7 +523,10 @@ def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
             exit_c = exit_c | pred_ok
         return (s, g, d, slope_mem, exit_c.all())
 
+    reads = 0
+
     def go_on(carry):
+        nonlocal reads
         s, g, _d, _sl, exit_small = carry
         over_max = cfg.max_iter > 0 and s.iters > cfg.max_iter
         if over_max or s.iters >= cfg.iter_hard_cap:
@@ -481,13 +534,14 @@ def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
         small = exit_small
         if s.iters < 2:
             small = small & (torch.abs(g) / s.divs4() < tol4).all()
+        reads += 1
         return bool((~small).item())                   # the one read
 
     carry = body((state, zeros4, zeros4, slope0, None))
     while go_on(carry):
         carry = body(carry)
     final, _g, d, slope_mem, _ = carry
-    return final, torch.cat([slope_mem, d])
+    return final._replace(reads=reads), torch.cat([slope_mem, d])
 
 
 def drive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
@@ -506,7 +560,8 @@ class GlobalFlowState(NamedTuple):
     """The XLA branch's loop state (``GlobalFlowState`` of the JAX
     package): the current warp of every event of the flat slice, its
     direction vectors, the model, the four f32 step dividers as 0-d device
-    tensors and the iteration count, which the host keeps."""
+    tensors, the iteration count, which the host keeps, and the loop's
+    blocking reads (``FusedFlowState.reads``)."""
 
     pr_x: torch.Tensor
     pr_y: torch.Tensor
@@ -518,6 +573,7 @@ class GlobalFlowState(NamedTuple):
     rot_div: torch.Tensor
     div_div: torch.Tensor
     iters: int
+    reads: int = 0
 
     def divs4(self) -> torch.Tensor:
         """The dividers in (rot, div, dx, dy) order."""
@@ -546,7 +602,8 @@ def iteration_step(state: GlobalFlowState, ev: EventSlice,
                    group=None) -> GlobalFlowState:
     """One optimizer iteration (OptimizerRolling::iteration_step,
     optimizer_rolling.h:305-347; ``_iteration_step`` of the JAX package).
-    "xla": the time image of the current warp, its centroid, the masked
+    "xla", "rep" or "mxu" (``XLA_MODES``, one exact integer scatter): the
+    time image of the current warp, its centroid, the masked
     Scharr gradients and the four model means; "pallas" or "auto": the seven
     sums of B11 (``fused_model_partials_windowed_call``), for events sorted
     by ``ops.layout.sort_key_blocks`` as ``process_slice`` of the JAX
@@ -570,10 +627,10 @@ def iteration_step(state: GlobalFlowState, ev: EventSlice,
                                                ev.active, geo, scale=scale,
                                                H=H, W=W)
         cx_img, cy_img, terms = model_from_partials(p)
-    elif scatter_mode == "xla":
+    elif scatter_mode in XLA_MODES:
         img = time_image(state.pr_x, state.pr_y, ev.t, ev.active, scale,
                          geom.x_shift, geom.y_shift, geom.w_dyn, geom.h_dyn,
-                         H, W)
+                         H, W, scatter_mode=scatter_mode)
         cx_img, cy_img, _ = center_of_mass(img)
         gx, gy = masked_scharr(img)
         terms = model_compute(img, gx, gy, cx_img, cy_img)
@@ -649,8 +706,9 @@ def run_fused_composed(stat, act, geo, geom: SliceGeometry,
     packs [u, v, noise] in plain tensor operations, as the JAX package's
     XLA epilogue does (its arithmetic differs from B4's, see
     ``project_4param_reinit_cs``).
-    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out); under a
-    group ``out`` and ``uvn`` hold the local shards' chunks in order."""
+    Returns (model, out (nch, 4, CHUNK), uvn, iters, seed_out, reads);
+    under a group ``out`` and ``uvn`` hold the local shards' chunks in
+    order."""
     pair = None if group is None else image_pair(stat.device, H, W)
 
     def step(s: FusedFlowState, update_fn=None) -> FusedFlowState:
@@ -688,7 +746,7 @@ def run_fused_composed(stat, act, geo, geom: SliceGeometry,
         sin_fma=True)
     out = torch.stack([pr_x, pr_y, nx, ny], dim=1)
     uvn = torch.stack([nx * UV_K, ny * UV_K, 1.0 - act[:, 0]], dim=1)
-    return m, out, uvn, final.iters, seed_out
+    return m, out, uvn, final.iters, seed_out, final.reads
 
 
 def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
@@ -696,12 +754,19 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
                   warm_start: bool = True, seed=None,
                   geo: Optional[torch.Tensor] = None,
                   ev: Optional[EventSlice] = None, group=None,
-                  uvn_out: Optional[torch.Tensor] = None):
+                  uvn_out: Optional[torch.Tensor] = None,
+                  start_model: Optional[MotionModel] = None):
     """Process one spatially pre-sorted slice.
 
-    With ``cfg.scatter_mode`` "xla" the XLA branch runs on the flat slice
-    ``ev`` alone (``stat`` and ``act`` are not read and may be None; see
-    ``process_slice_xla``).  Otherwise the kernel branch:
+    ``start_model`` (``OptimizerConfig.warm_extrapolate``'s extrapolated
+    warm start) replaces ``last_model`` as the optimizer's starting model
+    when the slice runs and ``warm_start`` holds; the skipped slice's warp
+    of record, the gates and the noise keep ``last_model``
+    (``global_flow.py:929-935`` of the JAX package).
+
+    With a ``cfg.scatter_mode`` of ``XLA_MODES`` the XLA branch runs on
+    the flat slice ``ev`` alone (``stat`` and ``act`` are not read and may
+    be None; see ``process_slice_xla``).  Otherwise the kernel branch:
     ``stat`` (nch, 3, CHUNK) and ``act`` (nch, 1, CHUNK) are the slice's
     event pack and activity rows; ``bbox`` (x_min, x_max, y_min, y_max)
     and ``n_valid`` come from host staging (or, for shards, from
@@ -720,16 +785,17 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     Returns (SliceResult, uvn) where uvn is the (nch, 3, CHUNK)
     [u, v, noise] pack: ``uvn_out`` itself when given (a contiguous f32
     tensor of that shape, such as the scan's output at the slice), which
-    the megastep drive's B4 writes and every other branch copies into."""
+    the megastep drive's B4 writes and every other branch copies into.
+    The result's ``reads`` counts the blocking reads its drive took."""
     check_supported(cfg, last_model.totals_dtype == torch.float64,
                     sharded=group is not None)
-    if cfg.scatter_mode == "xla":
+    if xla_branch(cfg):
         if ev is None:
-            raise ValueError("scatter_mode='xla' runs on the flat slice: "
-                             "pass ev")
+            raise ValueError(f"scatter_mode={cfg.scatter_mode!r} runs on "
+                             "the flat slice: pass ev")
         res, uvn = process_slice_xla(ev, last_model, cfg, sensor, bbox,
                                      n_valid, warm_start=warm_start,
-                                     seed=seed)
+                                     seed=seed, start_model=start_model)
         return res, _into(uvn, uvn_out)
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
@@ -739,15 +805,17 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     model = last_model if warm_start else MotionModel.zero(dev)
     ran = (not geom.window_small) and int(n_valid) >= cfg.min_events
 
+    reads = 0
     if ran:
         if geo is None:
             geo = torch.from_numpy(geo_row(geom)).to(dev)
         drive = functools.partial(run_fused_mega, uvn_out=uvn_out) \
             if uses_megastep(cfg, model.totals_dtype) \
             else functools.partial(run_fused_composed, geom=geom)
-        model_out, out, uvn, iters, seed_out = drive(
-            stat, act, geo, model0=model, cfg=cfg, scale=scale, H=H, W=W,
-            seed=seed, group=group)
+        model_out, out, uvn, iters, seed_out, reads = drive(
+            stat, act, geo,
+            model0=_start(model, start_model, warm_start), cfg=cfg,
+            scale=scale, H=H, W=W, seed=seed, group=group)
         pr_x, pr_y, nx, ny = (out[:, k].reshape(-1) for k in range(4))
     else:
         # The skipped slice keeps the warm-start warp (set_model) and the
@@ -770,8 +838,65 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     res = SliceResult(model=model_out, pr_x=pr_x, pr_y=pr_y, nx=nx, ny=ny,
                       u=u, v=v, iters=iters, ran=ran,
                       window_small=geom.window_small, seed=seed_out,
-                      noise=noise)
+                      noise=noise, reads=reads)
     return res, _into(uvn, uvn_out)
+
+
+def process_event_slice(ev: EventSlice, last_model: MotionModel,
+                        cfg: OptimizerConfig, sensor: SensorConfig,
+                        warm_start: bool = True, presorted: bool = False,
+                        seed=None, bbox=None, n_valid=None,
+                        start_model: Optional[MotionModel] = None
+                        ) -> SliceResult:
+    """One slice given as a flat ``EventSlice`` in any order, the JAX
+    package's ``process_slice(ev, last_model, cfg, sensor, ...)``
+    (``global_flow.py:906-1103``).  On the kernel branch the events are
+    sorted by ``ops.layout.sort_key_blocks`` (stable) unless
+    ``presorted``, laid out in chunks (``prepare_chunk_layouts``, and
+    ``pack_act`` of the valid events that are not noise) and run by the
+    staged ``process_slice``; the XLA branch's modes run on ``ev`` as it
+    is, as in the JAX package.  ``bbox`` (x_min, x_max, y_min, y_max) and
+    ``n_valid`` are the valid events' when not given (one device read
+    each).  Returns the ``SliceResult`` with every per-event field (pr_x,
+    pr_y, nx, ny, u, v, noise; ``ev.capacity`` long) in ``ev``'s order,
+    ``noise = ev.noise | (window_small & ev.valid)``.
+
+    Divergences by design: JAX's ``axis_name`` (the port's event groups
+    run through the staged form's ``group``), ``stat3`` and ``act3``
+    (the staged form takes its chunk tensors) and ``want_uvn`` (the staged
+    form returns the [u, v, noise] pack) have no counterpart here."""
+    if bbox is None:
+        bbox = bounding_box(ev)
+    if n_valid is None:
+        n_valid = int(ev.valid.sum())
+    if xla_branch(cfg):
+        res, _ = process_slice(None, None, last_model, cfg, sensor, bbox,
+                               n_valid, warm_start=warm_start, seed=seed,
+                               ev=ev, start_model=start_model)
+        return res
+    cap = ev.capacity
+    order = None
+    if not presorted:
+        order = torch.argsort(sort_key_blocks(ev.x, ev.y, ev.valid),
+                              stable=True)
+        ev = EventSlice(*(f[order] for f in ev))
+    res, _ = process_slice(prepare_chunk_layouts(ev.x, ev.y, ev.t),
+                           pack_act(ev.active), last_model, cfg, sensor,
+                           bbox, n_valid, warm_start=warm_start, seed=seed,
+                           ev=ev, start_model=start_model)
+    fields = ("pr_x", "pr_y", "nx", "ny", "u", "v", "noise")
+    if order is None:
+        return res._replace(**{f: getattr(res, f)[:cap] for f in fields})
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(cap, device=order.device)
+    return res._replace(**{f: getattr(res, f)[:cap][inv] for f in fields})
+
+
+def _start(model: MotionModel, start_model: Optional[MotionModel],
+           warm_start: bool) -> MotionModel:
+    """The optimizer's starting model: ``start_model`` under a warm
+    start when given, else ``model``."""
+    return start_model if start_model is not None and warm_start else model
 
 
 def _into(uvn: torch.Tensor, uvn_out: Optional[torch.Tensor]):
@@ -791,12 +916,15 @@ def _into(uvn: torch.Tensor, uvn_out: Optional[torch.Tensor]):
 
 def process_slice_xla(ev: EventSlice, last_model: MotionModel,
                       cfg: OptimizerConfig, sensor: SensorConfig, bbox,
-                      n_valid: int, warm_start: bool = True, seed=None):
+                      n_valid: int, warm_start: bool = True, seed=None,
+                      start_model: Optional[MotionModel] = None):
     """``process_slice``'s XLA branch (``global_flow.py:1034-1077`` of the
     JAX package) on the flat slice ``ev``: the warm-start warp of every
     event, then, when the slice passes the gates, ``run_optimizer`` from
     it; a gated slice keeps the warm-start warp and the incoming model.
-    Per-event outputs are in ``ev``'s order; ``noise`` is
+    With ``start_model`` (and ``warm_start``) a slice that runs warps and
+    optimizes from it instead, and a gated one still keeps
+    ``last_model``.  Per-event outputs are in ``ev``'s order; ``noise`` is
     ``ev.noise | (window_small & ev.valid)``.  Returns (SliceResult, uvn)
     with uvn the scan's (nch, 3, CHUNK) pack (``uvn_pack``)."""
     scale = cfg.scale
@@ -806,8 +934,10 @@ def process_slice_xla(ev: EventSlice, last_model: MotionModel,
     # As in the JAX package, a cold start is an f32 zero model.
     model = last_model if warm_start else MotionModel.zero(dev)
     ran = (not geom.window_small) and int(n_valid) >= cfg.min_events
-    # One warm-start warp serves both outcomes (the plain warm start).
-    final = warp_init(ev, model)
+    opt_start = _start(model, start_model, warm_start)
+    # The plain warm start: one warm-start warp serves both outcomes.
+    final = warp_init(ev, model) if not ran or opt_start is model \
+        else warp_init(ev, opt_start)
     seed_out = torch.zeros(8, dtype=torch.float32, device=dev)
     if ran:
         final, seed_out = run_optimizer(final, ev, geom, scale, H, W, cfg,
@@ -817,7 +947,7 @@ def process_slice_xla(ev: EventSlice, last_model: MotionModel,
     res = SliceResult(model=final.model, pr_x=final.pr_x, pr_y=final.pr_y,
                       nx=final.nx, ny=final.ny, u=u, v=v, iters=final.iters,
                       ran=ran, window_small=geom.window_small, seed=seed_out,
-                      noise=noise)
+                      noise=noise, reads=final.reads)
     return res, uvn_pack(u, v, noise, ev.valid)
 
 

@@ -130,8 +130,8 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bf_act_rows.argtypes = [P, P, I, I, I, P, P]
-        lib.bf_warp_images_st.argtypes = [P] * 8 + [I] * 4 + [P]
-        lib.bf_megastep_finish.argtypes = [P] * 6 + [I] * 7 + [
+        lib.bf_warp_images_st.argtypes = [P] * 8 + [I] * 5 + [P]
+        lib.bf_megastep_finish.argtypes = [P] * 6 + [I] * 8 + [
             ctypes.POINTER(UpdateParams), P]
         lib.bf_warp_uv.argtypes = [P, P, P, P, F, P, P, I, P]
         lib.bf_megastep.argtypes = [P] * 10 + [I] * 9 + [

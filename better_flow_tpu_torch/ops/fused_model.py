@@ -243,10 +243,19 @@ def _splat_plain(t_sec, act, prx, pry, geo, *, scale: int, H: int, W: int,
             acc_c[:-1].reshape(HP, WP).contiguous())
 
 
+def _passes_through(st, predicated: int) -> bool:
+    """The predicated mode's test: a state whose CONT is not set."""
+    return bool(predicated) and not bool(st[0, ST_CONT] > 0)
+
+
 def warp_images_st_plain(stat, act, pr, st, geo, acc_t, acc_c, *,
-                         scale: int, H: int, W: int, time_lo: bool = True):
+                         scale: int, H: int, W: int, time_lo: bool = True,
+                         predicated: int = 0):
     """The twin of B1: the warp from the state, then the splat added into
-    the pair (acc_t, acc_c) in place."""
+    the pair (acc_t, acc_c) in place; with ``predicated``, a state whose
+    CONT is not set passes ``pr`` through and adds nothing."""
+    if _passes_through(st, predicated):
+        return pr.clone(), acc_t, acc_c
     prx, pry, _, _ = project_4param_reinit(
         stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
         *_warp_args(st))
@@ -258,14 +267,19 @@ def warp_images_st_plain(stat, act, pr, st, geo, acc_t, acc_c, *,
 
 
 def warp_images_st_call(stat, act, pr, st, geo, acc_t, acc_c, *, scale: int,
-                        H: int, W: int, time_lo: bool = True):
+                        H: int, W: int, time_lo: bool = True,
+                        predicated: int = 0):
     """Warp every event from the state ``st`` and add its splat into the
     caller's pair ``acc_t`` (HP, WP) int64 fixed point, ``acc_c`` (HP, WP)
     int32 (``image_pair``), which is zero at an iteration's first launch;
     one launch may cover all of a process's shards.  Returns (new_pr (nch,
     2, CHUNK) f32, acc_t, acc_c), the pair being the caller's own
     tensors.  On the card one ordinary launch, one slot a thread, the warp
-    scalars computed once a block (B5's splat phase)."""
+    scalars computed once a block (B5's splat phase).  With
+    ``predicated`` (the unrolled drive of ``megastep_unroll``), a state
+    whose CONT is not set passes ``pr`` through into ``new_pr`` and adds
+    nothing to the pair; the card reads the flag itself, the host never
+    does."""
     dev = stat.device
     nch = stat.shape[0]
     _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
@@ -276,14 +290,16 @@ def warp_images_st_call(stat, act, pr, st, geo, acc_t, acc_c, *, scale: int,
     _check_pair(acc_t, acc_c, H, W, dev)
     if _on_cpu(dev):
         return warp_images_st_plain(stat, act, pr, st, geo, acc_t, acc_c,
-                                    scale=scale, H=H, W=W, time_lo=time_lo)
+                                    scale=scale, H=H, W=W, time_lo=time_lo,
+                                    predicated=predicated)
     from better_flow_tpu_torch.ops._build import library
 
     _, WP = padded_image_shape(H, W)
     npr = torch.empty_like(pr)
     rc = library().bf_warp_images_st(
         _ptr(geo), _ptr(st), _ptr(stat), _ptr(act), _ptr(pr), _ptr(npr),
-        _ptr(acc_t), _ptr(acc_c), nch, WP, scale, int(time_lo), _stream(dev))
+        _ptr(acc_t), _ptr(acc_c), nch, WP, scale, int(time_lo),
+        int(bool(predicated)), _stream(dev))
     _launch("warp_images_st", rc)
     return npr, acc_t, acc_c
 
@@ -588,9 +604,13 @@ def model_update_plain(vals, st, geo, *, scale: int, params: dict):
 
 
 def megastep_finish_plain(acc_t, acc_c, st, geo, *, scale: int, H: int,
-                          W: int, **statics):
+                          W: int, predicated: int = 0, **statics):
     """The twin of B2: the finish and the scalar update; then the pair is
-    cleared, as the kernel leaves it."""
+    cleared, as the kernel leaves it.  With ``predicated``, a state whose
+    CONT is not set is returned as a copy and the pair is left as it
+    is."""
+    if _passes_through(st, predicated):
+        return st.clone()
     vals = finish_values_plain(acc_t, acc_c, scale=scale, H=H, W=W)
     acc_t.zero_()
     acc_c.zero_()
@@ -603,12 +623,15 @@ def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
                          div_tol: float, dx_tol: float, dy_tol: float,
                          xy_cap: float, rotdiv_cap: float, max_iter: int,
                          hard_cap: int, exit_grad: float = 0.0,
-                         exit_pred: float = 0.0):
+                         exit_pred: float = 0.0, predicated: int = 0):
     """Finish + model update on the pair that ``warp_images_st_call``
     filled (and, under an event group, the seam summed), in one cooperative
     launch that leaves the pair zero for the next iteration.  Returns the
     next (1, 32) state, bitwise ``megastep_call``'s on the same events.  A
-    launch the card refuses raises and leaves the pair as it was."""
+    launch the card refuses raises and leaves the pair as it was.  With
+    ``predicated``, a state whose CONT is not set comes back unchanged (a
+    copy) and the pair is left as it is, which the predicated B1 before it
+    left zero; the card reads the flag itself."""
     statics = dict(schedule=schedule, rot_tol=rot_tol, div_tol=div_tol,
                    dx_tol=dx_tol, dy_tol=dy_tol, xy_cap=xy_cap,
                    rotdiv_cap=rotdiv_cap, max_iter=max_iter,
@@ -620,7 +643,8 @@ def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
     _check("geo", geo, torch.float32, (1, 8), dev)
     if _on_cpu(dev):
         return megastep_finish_plain(acc_t, acc_c, st, geo, scale=scale,
-                                     H=H, W=W, **statics)
+                                     H=H, W=W, predicated=predicated,
+                                     **statics)
     from better_flow_tpu_torch.ops._build import library
 
     HP, WP = padded_image_shape(H, W)
@@ -630,7 +654,7 @@ def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
     rc = library().bf_megastep_finish(
         _ptr(acc_t), _ptr(acc_c), _ptr(st), _ptr(geo), _ptr(st_out),
         _ptr(_workspace(dev, H, W)["partials"]), HP, WP, H, W, scale, R,
-        smem, ctypes.byref(cp), _stream(dev))
+        smem, int(bool(predicated)), ctypes.byref(cp), _stream(dev))
     _launch("megastep_finish", rc)
     return st_out
 

@@ -104,6 +104,7 @@ class TiledFlowState(NamedTuple):
     div_div: torch.Tensor
     iters: int
     esc: torch.Tensor
+    reads: int = 0
 
     def divs4(self) -> torch.Tensor:
         """The dividers in (rot, div, dx, dy) order."""

@@ -40,7 +40,7 @@ from better_flow_tpu_torch.config import PipelineConfig
 from better_flow_tpu_torch.core.events import EventSlice
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.models.global_flow import (
-    check_supported, geo_row, geometry_from_bbox, process_slice,
+    check_supported, geo_row, geometry_from_bbox, process_slice, xla_branch,
 )
 from better_flow_tpu_torch.ops.layout import pack_act, prepare_chunk_layouts
 from better_flow_tpu_torch.runtime.scan_pipeline import (
@@ -208,7 +208,7 @@ class DVSFlow:
         # kept.  Both stay on the device.
         self.last_model = res.model
         self.last_seed = res.seed
-        self.host_syncs += res.iters
+        self.host_syncs += res.reads
         self._pending.append(dict(
             snap=snap, inv=inv, n=n, slice_start=slice_start,
             t_local=t_local, t_dispatch=t_begin, packed=packed, ready=ready,
@@ -232,7 +232,7 @@ class DVSFlow:
         valid = torch.arange(cap, device=dev) < n
         ev = EventSlice(x=d[0], y=d[1], t=d[2], valid=valid,
                         noise=d[3] > 0.5)
-        if self.cfg.optimizer.scatter_mode == "xla":
+        if xla_branch(self.cfg.optimizer):
             stat = act = None            # the XLA branch reads ``ev``
         else:
             stat = prepare_chunk_layouts(ev.x, ev.y, ev.t)

@@ -80,7 +80,7 @@ from better_flow_tpu_torch.io import native
 from better_flow_tpu_torch.core.events import EventSlice
 from better_flow_tpu_torch.core.model import FIELDS, TOTAL_FIELDS, MotionModel
 from better_flow_tpu_torch.models.global_flow import (
-    check_supported, geo_row, geometry_from_bbox, process_slice,
+    check_supported, geo_row, geometry_from_bbox, process_slice, xla_branch,
 )
 from better_flow_tpu_torch.ops.fused_model import (
     LAUNCHES, act_rows_call, history_noise,
@@ -456,18 +456,30 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
     }
 
 
-def make_carry(init_model: MotionModel, hist_k: int, ws_h=None, st_h=None,
-               en_h=None):
-    """Initial carry: (model, (12,) seed, ws_h, st_h, en_h).  The seed is
-    [slope memory (4), last deltas (4), totals of the model that entered
-    the previous slice (4)], here zeros and the model's own totals; the
-    (K,) gate history is host numpy (bool fired, int32 start, int32 end,
-    -1 when empty), empty unless given (a range run passes
-    ``prepared["hist0"]``).  ``convert.carry_from_numpy`` builds a hand-off
-    carry."""
+def make_carry(init_model: MotionModel, hist_k: int, seed=None, ws_h=None,
+               st_h=None, en_h=None):
+    """Initial or hand-off carry: (model, (12,) seed, ws_h, st_h, en_h), the
+    JAX package's signature.  The seed is [slope memory (4), last deltas
+    (4), totals of the model that entered the previous slice (4)]: a (12,)
+    ``seed`` (a range's ``carry[1]``) is taken as given, an (8,) one is
+    padded with the model's f32 totals, and None gives zeros and those
+    totals (so the first slice's extrapolation delta is zero, see
+    ``OptimizerConfig.warm_extrapolate``).  The (K,) gate history is host
+    numpy (bool fired, int32 start, int32 end, -1 when empty), empty
+    unless given (a range run passes ``prepared["hist0"]``).
+    ``convert.carry_from_numpy`` builds a hand-off carry from numpy."""
     tot0 = init_model.totals4().to(torch.float32)
-    seed12 = torch.cat([torch.zeros(8, dtype=torch.float32,
-                                    device=tot0.device), tot0])
+    if seed is None:
+        seed12 = torch.cat([torch.zeros(8, dtype=torch.float32,
+                                        device=tot0.device), tot0])
+    else:
+        seed12 = torch.as_tensor(seed).to(device=tot0.device,
+                                          dtype=torch.float32).reshape(-1)
+        if seed12.shape[0] == 8:
+            seed12 = torch.cat([seed12, tot0])
+        elif seed12.shape[0] != 12:
+            raise ValueError(f"seed: {seed12.shape[0]} values, expected 8 "
+                             "or 12")
     return (init_model, seed12,
             np.zeros(hist_k, bool) if ws_h is None
             else np.asarray(ws_h, bool).copy(),
@@ -489,7 +501,9 @@ def initial_carry(prepared: dict, cfg: PipelineConfig, init_model=None):
     initial model and the gate history before the staged range."""
     model0 = init_model if init_model is not None \
         else initial_model(cfg, prepared["device"])
-    return make_carry(model0, prepared["hist_k"], *prepared["hist0"])
+    ws_h, st_h, en_h = prepared["hist0"]
+    return make_carry(model0, prepared["hist_k"], ws_h=ws_h, st_h=st_h,
+                      en_h=en_h)
 
 
 def _histories(ws_h, st_h, en_h, plan: SlicePlan, small):
@@ -560,8 +574,13 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     if group is not None and nch % group.n_local != 0:
         raise ValueError(f"{nch} staged chunks do not divide into "
                          f"{group.n_local} local shards")
-    xla = opt.scatter_mode == "xla"
+    xla = xla_branch(opt)
     act_all = None if xla else act_rows_call(sidx, hist)
+    warm = not cfg.stm_disable
+    extrapolate = warm and opt.warm_extrapolate > 0
+    if extrapolate:
+        alpha = torch.full((), opt.warm_extrapolate, dtype=torch.float32,
+                           device=dev)
     for s in range(S):
         ev = None
         if xla:
@@ -570,17 +589,25 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
         else:
             stat_s, act = stat[s], act_all[s]
         cur_tot = model.totals4().to(torch.float32)   # the seed row is f32
+        start_model = None
+        if extrapolate:
+            # The extrapolated warm start (scan_pipeline.py:327-342 of the
+            # JAX package): the optimizer starts at model + alpha * (the
+            # totals' drift over the previous slice), sd[8:12] holding the
+            # totals of the model that entered it; f32, then the totals'
+            # dtype.
+            dlt = (alpha * (cur_tot - sd[8:12])).to(model.totals_dtype)
+            start_model = model.add_totals(*dlt.unbind())
         res, _ = process_slice(
             stat_s, act, model, opt, cfg.sensor,
             prepared["bbox"][s], int(prepared["nval"][s]),
-            warm_start=not cfg.stm_disable, seed=sd[:8], geo=geo[s], ev=ev,
-            group=group, uvn_out=uvn[s])
+            warm_start=warm, seed=sd[:8], geo=geo[s], ev=ev,
+            group=group, uvn_out=uvn[s], start_model=start_model)
         model = res.model
         sd = torch.cat([res.seed, cur_tot])
         iters[s] = res.iters
         ran[s] = res.ran
-        syncs += res.iters   # one continue-flag read per iteration
-        # (either drive: the megastep's state flag or the composed loop's)
+        syncs += res.reads   # the blocking reads the slice's drive took
     return (model, sd) + hist_end, uvn, iters, ran, syncs
 
 

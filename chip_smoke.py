@@ -143,7 +143,16 @@ in phases that each raise on failure:
 16. clustering, the four debug views and the sampled model terms
     (``[views]``) on the first production slice's warp and final time
     image (``process_slice``, 180x240, scale 3), equal on the card and
-    the CPU.
+    the CPU;
+17. the options (``[options]``, ``phase_options``, run after the XLA
+    branch): B1 and B2 with ``predicated=1`` (the converged pass-through
+    of ``megastep_unroll``) bitwise their unpredicated selves on a live
+    state and a pass-through on a converged one, with the no-op's time;
+    the ``fast()`` scan with ``megastep_unroll`` 2 and 4 bitwise unroll 1,
+    its host syncs equal to the reads taken and fewer than unroll 1's;
+    ``fast(warm_extrapolate=1.0)`` against the CPU twins and two ranges
+    stitched through ``make_carry(..., seed=)`` bitwise the full scan; the
+    flat-slice ``process_event_slice`` bitwise the staged call.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -1617,11 +1626,11 @@ def count_operations(module, name, run):
             round(count["views"] / max(count["calls"], 1), 1))
 
 
-def count_syncs(run):
-    """Calls that block the host until the card catches up, made during
-    ``run()``: the warnings of PyTorch's sync debug mode (reads of a device
-    value, copies between the card and pageable host memory, stream and
-    device synchronisations)."""
+def _synced(fn):
+    """``fn()``'s result and the calls inside it that block the host until
+    the card catches up: the warnings of PyTorch's sync debug mode (reads
+    of a device value, copies between the card and pageable host memory,
+    stream and device synchronisations)."""
     import warnings
 
     import torch
@@ -1630,10 +1639,34 @@ def count_syncs(run):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            run()
+            out = fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def count_syncs(run):
+    """Calls that block the host made during ``run()`` (``_synced``)."""
+    return _synced(run)[1]
+
+
+def count_syncs_in(module, name, run):
+    """``count_syncs`` restricted to the calls of ``module.name`` made
+    during ``run()``: the calls that block the host inside them."""
+    real = getattr(module, name)
+    n = [0]
+
+    def counted(*a, **k):
+        out, k_syncs = _synced(lambda: real(*a, **k))
+        n[0] += k_syncs
+        return out
+
+    setattr(module, name, counted)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return n[0]
 
 
 def phase_partials_kernels(scan_inputs, cfg, dev):
@@ -1985,6 +2018,189 @@ def phase_xla(d, cfg, prep, r_fast, dev):
         f"host ms an iteration {1e3 * t_run / max(sum(n_it), 1):.4f}")
     log(f"[xla] phase {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def phase_options(scan_inputs, cfg, prep, r1, d, dev):
+    """``[options]``: the JAX package's options that the port runs since
+    they stopped raising.  B1 and B2 with ``predicated=1`` at the main
+    path's shapes: on the live state bitwise ``predicated=0``, on a state
+    whose CONT is 0 a pass-through (``new_pr == pr``, the next state the
+    state, the pair zero), bitwise, as their twins on the card, with the
+    no-op's time.  The ``fast()`` scan with ``megastep_unroll`` 2 and 4 on
+    the staged 2M events: u, v, noise and iterations bitwise ``r1``,
+    ``host_syncs`` equal to the blocking calls inside the megastep drive
+    (sync debug mode) and fewer than ``r1``'s, the launches, and run_s in
+    turns with ``megastep_unroll=1``.  ``fast(warm_extrapolate=1.0)``: the
+    card against the CPU twins on the first ``N_COMPARE`` events under
+    ``compare_runs``' gates, then two ranges of the 2M events stitched by
+    ``make_carry(..., seed=, ws_h=...)`` bitwise the full scan.  And
+    ``process_event_slice`` on the first production slice in time order
+    bitwise the staged call un-permuted.  Returns the no-op times of B1
+    and B2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from better_flow_tpu_torch.core.events import bounding_box, make_slice
+    from better_flow_tpu_torch.core.model import MotionModel
+    from better_flow_tpu_torch.models import global_flow as gf
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.ops.layout import (
+        ST_CONT, pack_act, prepare_chunk_layouts, sort_key_blocks,
+    )
+    from better_flow_tpu_torch.runtime import scan_pipeline as sp
+
+    t_phase = time.perf_counter()
+    opt = cfg.optimizer
+    H, W = gf.static_image_shape(opt.scale, cfg.sensor)
+    stat, act, pr, st, geo = (scan_inputs[k] for k in (
+        "stat", "act", "pr", "st", "geo"))
+    kw = dict(scale=opt.scale, H=H, W=W, time_lo=opt.splat_time_lo)
+    fin = dict(scale=opt.scale, H=H, W=W, **gf.finish_statics(opt))
+
+    # The kernels: predicated on the live state is the unpredicated pair.
+    live = fm.warp_images_st_call(stat, act, pr, st, geo,
+                                  *fm.image_pair(dev, H, W), **kw)
+    live_p = fm.warp_images_st_call(stat, act, pr, st, geo,
+                                    *fm.image_pair(dev, H, W), predicated=1,
+                                    **kw)
+    same = all(torch.equal(a, b) for a, b in zip(live, live_p))
+    st_a = fm.megastep_finish_call(*live[1:], st, geo, **fin)
+    st_b = fm.megastep_finish_call(*live_p[1:], st, geo, predicated=1, **fin)
+    if not (same and torch.equal(st_a, st_b)) or live_p[2].any():
+        raise AssertionError("predicated B1/B2 on a live state differ from "
+                             "the unpredicated kernels")
+    # ... and on a converged state a pass-through, as the twins.
+    done = st.clone()
+    done[0, ST_CONT] = 0.0
+    pair = fm.image_pair(dev, H, W)
+    npr, at, ac = fm.warp_images_st_call(stat, act, pr, done, geo, *pair,
+                                         predicated=1, **kw)
+    st_out = fm.megastep_finish_call(at, ac, done, geo, predicated=1, **fin)
+    npr_t, _, _ = fm.warp_images_st_plain(stat, act, pr, done, geo,
+                                          *fm.image_pair(dev, H, W),
+                                          predicated=1, **kw)
+    st_t = fm.megastep_finish_plain(*fm.image_pair(dev, H, W), done, geo,
+                                    predicated=1, **fin)
+    if not (torch.equal(npr, pr) and torch.equal(st_out, done)
+            and torch.equal(npr_t, pr) and torch.equal(st_t, done)) \
+            or at.any() or ac.any():
+        raise AssertionError("predicated B1/B2 on a converged state are not "
+                             "a pass-through")
+    b1 = lambda: fm.warp_images_st_call(stat, act, pr, done, geo, *pair,
+                                        predicated=1, **kw)
+    b2 = lambda: fm.megastep_finish_call(*pair, done, geo, predicated=1,
+                                         **fin)
+    noop = dict(
+        warp_images_st=dict(noop_ms=timed(b1), noop_bound_ms=bound(
+            nbytes(pr, done, npr), 0)["bound_ms"]),
+        megastep_finish=dict(noop_ms=timed(b2), noop_bound_ms=bound(
+            nbytes(done, st_out), 0)["bound_ms"]))
+    log(f"[options] predicated B1/B2: bitwise the unpredicated kernels on "
+        f"the live state; a pass-through on a converged state (new_pr = pr, "
+        f"state copied, pair zero), as their twins; no-op B1 "
+        f"{noop['warp_images_st']['noop_ms']:.4f} ms (bound "
+        f"{noop['warp_images_st']['noop_bound_ms']:.5f}), B2 "
+        f"{noop['megastep_finish']['noop_ms']:.4f} ms")
+
+    # The unrolled drive on the 2M events.
+    with_opt = lambda **o: dataclasses.replace(
+        cfg, optimizer=dataclasses.replace(opt, **o))
+    scan = lambda c: sp.compensate_recording_scan(None, None, None, c,
+                                                  prepared=prep)
+    s1 = r1["stats"]["host_syncs"]
+    for u in (2, 4):
+        cu = with_opt(megastep_unroll=u)
+        scan(cu)                                       # warm-up
+        fm.reset_launches()
+        ru = scan(cu)
+        lc = dict(fm.LAUNCHES)
+        same_outputs(f"megastep_unroll={u}", ru, r1)
+        su = ru["stats"]["host_syncs"]
+        reads = count_syncs_in(gf, "run_fused_mega", lambda: scan(cu))
+        if reads != su or su >= s1:
+            raise AssertionError(f"megastep_unroll={u}: host_syncs {su}, "
+                                 f"reads taken {reads}, unroll 1's {s1}")
+        if lc["warp_images_st"] != u * su or lc["megastep_finish"] != u * su:
+            raise AssertionError(f"megastep_unroll={u}: launches {lc}")
+        log(f"[options] fast(megastep_unroll={u}) scan: bitwise unroll 1 "
+            f"(u, v, noise, iterations); host_syncs {su} (reads taken in "
+            f"the drive {reads}; unroll 1: {s1}); run_s "
+            f"{ru['stats']['run_s']:.4f} (unroll 1: "
+            f"{r1['stats']['run_s']:.4f}); launches {json.dumps(lc)}")
+    runs = {1: [], 2: [], 4: []}
+    for u in (1, 2, 4, 4, 2, 1):
+        runs[u].append(scan(with_opt(megastep_unroll=u))["stats"]["run_s"])
+    log(f"[options] run_s in turns (1, 2, 4, 4, 2, 1): {json.dumps(runs)}")
+
+    # The extrapolated warm start: card against the CPU twins ...
+    wcfg = with_opt(warm_extrapolate=1.0)
+    m = N_COMPARE
+    part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
+    rg = sp.compensate_recording_scan(part["x"], part["y"], part["t_ns"],
+                                      wcfg, device=dev)
+    rc = sp.compensate_recording_scan(part["x"], part["y"], part["t_ns"],
+                                      wcfg, device="cpu")
+    gates = compare_runs(rg, rc, d, m)
+    fm.reset_launches()
+    full = scan(wcfg)
+    lc = dict(fm.LAUNCHES)
+    log(f"[options] fast(warm_extrapolate=1.0): card against the CPU twins "
+        f"on {m} events {json.dumps(gates)}; 2M scan mean_iters "
+        f"{full['stats']['mean_iters']:.4f} (plain warm start "
+        f"{r1['stats']['mean_iters']:.4f}), run_s "
+        f"{full['stats']['run_s']:.4f}, launches {json.dumps(lc)}")
+    # ... and two ranges stitched through the hand-off seed.
+    S = len(prep["plan"].ends)
+    mid = S // 2
+    stage = lambda lo, hi: sp.prepare_recording(
+        d["x"], d["y"], d["t_ns"], wcfg, slice_range=(lo, hi), device=dev)
+    p0, p1 = stage(0, mid), stage(mid, S)
+    r0 = sp.compensate_recording_scan(None, None, None, wcfg, prepared=p0)
+    ws_h, st_h, en_h = p1["hist0"]
+    carry = sp.make_carry(r0["carry"][0], p1["hist_k"], seed=r0["carry"][1],
+                          ws_h=ws_h, st_h=st_h, en_h=en_h)
+    rr = sp.compensate_recording_scan(None, None, None, wcfg, prepared=p1,
+                                      carry_in=carry)
+    cut = p1["prev_end"] + 1
+    stitched = {k: np.concatenate([r0[k][:cut], rr[k][cut:]])
+                for k in ("u", "v", "noise")}
+    stitched["iters"] = np.concatenate([r0["iters"], rr["iters"]])
+    same_outputs("two ranges stitched by make_carry(seed=)", stitched, full)
+    log(f"[options] two ranges ({mid} + {S - mid} slices) stitched by "
+        f"make_carry(..., seed=carry[1], ws_h=...): bitwise the full "
+        f"extrapolated scan")
+
+    # The flat-slice form on the first production slice, in time order.
+    plan = prep["plan"]
+    a, b = int(plan.starts[0]), int(plan.ends[0]) + 1
+    t_loc = (d["t_ns"][a:b] - plan.slice_start_ns[0]).astype(np.float32)
+    ev = make_slice(d["x"][a:b], d["y"][a:b], t_loc, device=dev)
+    n = b - a
+    fm.reset_launches()
+    res = gf.process_event_slice(ev, MotionModel.zero(dev), opt, cfg.sensor)
+    lc = dict(fm.LAUNCHES)
+    order = torch.argsort(sort_key_blocks(ev.x, ev.y, ev.valid), stable=True)
+    sev = type(ev)(*(f[order] for f in ev))
+    staged, _ = gf.process_slice(
+        prepare_chunk_layouts(sev.x, sev.y, sev.t), pack_act(sev.active),
+        MotionModel.zero(dev), opt, cfg.sensor, bounding_box(sev), n, ev=sev)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=dev)
+    for f in ("u", "v", "noise", "pr_x", "pr_y"):
+        if not torch.equal(getattr(res, f), getattr(staged, f)[:n][inv]):
+            raise AssertionError(f"process_event_slice differs from the "
+                                 f"staged call in {f}")
+    if res.iters != staged.iters or not res.ran or lc["warp_uv"] != 1 or \
+            lc["warp_images_st"] != res.iters:
+        raise AssertionError(f"process_event_slice: {res.iters} iterations "
+                             f"(staged {staged.iters}), launches {lc}")
+    log(f"[options] process_event_slice on the first production slice "
+        f"({n} events in time order): bitwise the staged call un-permuted, "
+        f"{res.iters} iterations, launches {json.dumps(lc)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return noop
 
 
 def check_outputs(r, n):
@@ -3040,6 +3256,10 @@ def main():
     # ... run_optimizer's pallas branch for B11, its kernel phase for B10 ...
     launches.update(phase_xla(d, cfg, prep, r1, dev))
     launches["fused_model_partials"] = b10_launches
+    # The options that ran only in the JAX package until this phase.
+    for name, extra in phase_options(scan_inputs, cfg, prep, r1, d,
+                                     dev).items():
+        results[name].update(extra)
     for k in ("megastep2", "fused_model_partials",
               "fused_model_partials_windowed"):
         if launches[k] <= 0:

@@ -1122,3 +1122,61 @@ def test_run_optimizer_pallas_branch_on_card(cuda, order):
     assert n == fg.iters == fc.iters > 2
     _close(fg.pr_x, fc.pr_x, rtol=1e-5, atol=1e-4)
     _close(fg.model.totals4(), fc.model.totals4(), rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("cont", [0.0, 1.0])
+def test_predicated_b1_b2_kernels(cuda, cont):
+    """B1 and B2 with ``predicated=1`` on the card (the unrolled drive of
+    ``megastep_unroll``): on a state whose CONT is 0, B1 copies ``pr``
+    into ``new_pr`` and adds nothing, B2 copies the state and leaves the
+    pair as it is, bitwise; on a live state each is bitwise the
+    unpredicated kernel, and the twins' results on the CPU."""
+    d = slice_inputs(0)
+    d["st"][0, layout.ST_CONT] = cont
+    keys = ("stat", "act", "pr", "st", "geo")
+    cpu, gpu = _both(d, keys, cuda)
+    kw = dict(scale=SCALE, H=H, W=W, time_lo=False)
+    fin = dict(scale=SCALE, H=H, W=W, **statics())
+    pair = tfm.image_pair(cuda, H, W)
+    npr, at, ac = _launched("warp_images_st", lambda: tfm.warp_images_st_call(
+        *gpu, *pair, predicated=1, **kw))
+    npr_p, at_p, ac_p = tfm.warp_images_st_call(
+        *cpu, *tfm.image_pair("cpu", H, W), predicated=1, **kw)
+    filled = (at.clone(), ac.clone())
+    st = _launched("megastep_finish", lambda: tfm.megastep_finish_call(
+        *pair, gpu[3], gpu[4], predicated=1, **fin))
+    if cont == 0.0:
+        assert torch.equal(npr, gpu[2]) and torch.equal(npr_p, cpu[2])
+        assert not filled[0].any() and not filled[1].any()
+        assert torch.equal(st, gpu[3])
+        ones = (torch.ones_like(at), torch.ones_like(ac))
+        tfm.megastep_finish_call(*ones, gpu[3], gpu[4], predicated=1, **fin)
+        assert bool((ones[0] == 1).all() and (ones[1] == 1).all())
+        return
+    ref = tfm.warp_images_st_call(*gpu, *tfm.image_pair(cuda, H, W), **kw)
+    assert all(torch.equal(a, b) for a, b in zip((npr,) + filled, ref))
+    assert not pair[0].any() and not pair[1].any()   # B2 left it zero
+    assert torch.equal(st, tfm.megastep_finish_call(*ref[1:], gpu[3],
+                                                     gpu[4], **fin))
+    _close(npr, npr_p, rtol=1e-6)
+    assert torch.equal(filled[1].cpu(), ac_p) and int(ac_p.sum()) > 3000
+
+
+def test_unrolled_scan_on_card_is_bitwise_one_iteration_a_trip(cuda):
+    """``fast(megastep_unroll=2)`` and ``=4`` on the card: bitwise the
+    ``megastep_unroll=1`` scan, one blocking read a loop trip (fewer than
+    one an iteration), and ``unroll`` predicated B1 + B2 pairs a trip."""
+    d = synthetic_events(30000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
+                         vy=-14.0, seed=2)
+    run = lambda u: tscan.compensate_recording_scan(
+        d["x"], d["y"], d["t_ns"], small_cfg(megastep_unroll=u), device=cuda)
+    r1 = run(1)
+    assert r1["stats"]["host_syncs"] == int(r1["iters"].sum())
+    for u in (2, 4):
+        ru = run(u)
+        for k in ("u", "v", "noise", "iters", "ran"):
+            np.testing.assert_array_equal(ru[k], r1[k])
+        syncs, lc = ru["stats"]["host_syncs"], ru["stats"]["launches"]
+        assert syncs < r1["stats"]["host_syncs"]
+        assert lc["warp_images_st"] == lc["megastep_finish"] == u * syncs
+        assert lc["warp_uv"] == int(ru["ran"].sum())

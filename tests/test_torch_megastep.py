@@ -141,10 +141,10 @@ def test_schedule_routes_its_kernels(monkeypatch, schedule, split):
     opt = SCHEDULES[schedule]
     assert opt.megastep_split == split
     model = tgf.model_from_state(_t(d["st"]))
-    _, _, _, iters, _ = tgf.run_fused_mega(
+    _, _, _, iters, _, reads = tgf.run_fused_mega(
         _t(d["stat"]), _t(d["act"]), _t(d["geo"]), model, opt, 3, kw["H"],
         kw["W"])
-    assert iters >= 2
+    assert iters >= 2 and reads == iters
     if split:
         assert calls == dict(megastep=0, warp_images_st=iters,
                              megastep_finish=iters)

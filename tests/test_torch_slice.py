@@ -188,23 +188,23 @@ def test_skip_branch_too_few_events_matches_jax():
     ("warm_extrapolate", 0.5), ("megastep_merged", True), ("splat_pair", 2),
     ("megastep_unroll", 2), ("scatter_mode", "xla"), ("scatter_mode", "rep")])
 def test_unported_configurations_raise(field, value):
-    """Options the port does not run raise by name.  Two of the list have
-    been ported since: ``megastep_merged`` (B12) is accepted everywhere
-    (an event group ignores it), and ``scatter_mode="xla"`` raises only
-    where the port does not run it, under an event group and on the tiled
-    path."""
+    """Every option of the list is ported now, and the configurations that
+    still raise do so by name.  ``megastep_merged``, ``warm_extrapolate``,
+    ``splat_pair`` and ``megastep_unroll`` are accepted everywhere (an
+    event group and the tiled path ignore the ones they do not run, as in
+    the JAX package); the XLA branch's modes, "xla" and "rep", raise only
+    where the port does not run that branch: under an event group and on
+    the tiled path."""
     opt = OptimizerConfig.fast(**{field: value})
-    if field == "megastep_merged":
-        check_supported(opt)
+    check_supported(opt)
+    if field != "scatter_mode":
         check_supported(opt, sharded=True)
+        check_supported(opt, tiled=True)
         return
-    kw = dict(sharded=True) if value == "xla" else {}
     with pytest.raises(NotImplementedError, match=field):
-        check_supported(opt, **kw)
-    if value == "xla":
-        check_supported(opt)
-        with pytest.raises(NotImplementedError, match="tiled"):
-            check_supported(opt, tiled=True)
+        check_supported(opt, sharded=True)
+    with pytest.raises(NotImplementedError, match="tiled"):
+        check_supported(opt, tiled=True)
 
 
 @pytest.mark.parametrize("schedule", ["fast", "reference"])

@@ -18,6 +18,7 @@ held to the JAX tests' own tolerances (``tests/test_time_image.py``: rtol
 dy rtol 1e-4 atol 1e-6, rot and div rtol 1e-3 atol 1e-5, counts exact).
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -139,12 +140,41 @@ def test_count_image_matches_and_saturates():
     assert ct.max() == 255.0
 
 
-def test_scatter_modes_other_than_xla_raise():
-    prx, pry, t, mask = _events(7, n=100)
-    for mode in ("rep", "mxu"):
-        with pytest.raises(NotImplementedError, match="TPU scatter"):
-            tti.time_image(*_t(prx, pry, t, mask), SCALE, *GEOM, H, W,
-                           scatter_mode=mode)
+@pytest.mark.parametrize("mode", ["rep", "mxu"])
+def test_scatter_modes_other_than_xla_raise(mode):
+    """The JAX package's TPU scatter strategies, "rep" (8 f32 replicas)
+    and "mxu" (a 3-way bf16 split of the time on the matrix unit), hold
+    against the port's exact integer scatter as "xla" does: counts exact,
+    time sums and the time image within the JAX tests' tolerance; the port
+    gives the same images for every mode.  They run the XLA branch, so
+    they still raise under an event group and on the tiled path; an
+    unknown mode raises."""
+    from better_flow_tpu_torch.config import OptimizerConfig
+    from better_flow_tpu_torch.models.global_flow import check_supported
+
+    prx, pry, t, mask = _events(7)
+    args = (SCALE, *GEOM, H, W)
+    jfn = lambda f: jax.jit(functools.partial(f, scatter_mode=mode),
+                            static_argnums=(4, 9, 10))
+    sj, cj = jfn(jti.scatter_images)(prx, pry, t, mask, *args)
+    st, ct = tti.scatter_images(*_t(prx, pry, t, mask), *args,
+                                scatter_mode=mode)
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-5,
+                               atol=1e-6)
+    ij = np.asarray(jfn(jti.time_image)(prx, pry, t, mask, *args))
+    it = tti.time_image(*_t(prx, pry, t, mask), *args, scatter_mode=mode)
+    np.testing.assert_array_equal(it.numpy() > 0, ij > 0)
+    np.testing.assert_allclose(it.numpy(), ij, rtol=1e-5, atol=1e-6)
+    assert (it > 0).sum() > 500
+    assert torch.equal(it, tti.time_image(*_t(prx, pry, t, mask), *args))
+    opt = OptimizerConfig(scatter_mode=mode)
+    check_supported(opt)
+    for kw in (dict(sharded=True), dict(tiled=True)):
+        with pytest.raises(NotImplementedError, match="scatter_mode"):
+            check_supported(opt, **kw)
+    with pytest.raises(ValueError, match="scatter_mode"):
+        tti.time_image(*_t(prx, pry, t, mask), *args, scatter_mode="bad")
 
 
 def test_masked_scharr_bitwise():

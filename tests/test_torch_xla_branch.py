@@ -367,9 +367,14 @@ def test_xla_under_an_event_group_or_tiled_raises_by_name():
     with pytest.raises(NotImplementedError, match="event group"):
         tgf.iteration_step(tgf.warp_init(evt, MotionModel.zero()), evt, geom,
                            3, H, W, group=object())
+    # "rep" and "mxu" run the XLA branch: on one device only.
     for mode in ("rep", "mxu"):
-        with pytest.raises(NotImplementedError, match="scatter_mode"):
-            tgf.check_supported(OptimizerConfig(scatter_mode=mode))
+        tgf.check_supported(OptimizerConfig(scatter_mode=mode))
+        with pytest.raises(NotImplementedError, match="under an event group"):
+            tgf.check_supported(OptimizerConfig(scatter_mode=mode),
+                                sharded=True)
+    with pytest.raises(NotImplementedError, match="scatter_mode"):
+        tgf.check_supported(OptimizerConfig(scatter_mode="segment"))
     with pytest.raises(ValueError, match="pass ev"):
         tgf.process_slice(None, None, MotionModel.zero(), _opt(), SENSOR,
                           bbox, n)
