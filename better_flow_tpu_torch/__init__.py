@@ -46,17 +46,52 @@ the JAX package:
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run
 the plain PyTorch twins, which is how the CPU tests run the port.  An entry
-point runs on the card unless its caller passes ``device="cpu"``.
+point runs on the card unless its caller passes ``device="cpu"``.  The
+subpackages re-export the names that the JAX package's ``__init__`` files
+export; ``graft_entry`` holds the entry hooks (``entry``, ``dryrun``).
+
+Divergences by design from the JAX package's call forms: an event, tile or
+pipeline group (``parallel.mesh``) where JAX takes a ``Mesh`` and an
+``axis_name``, and the group's own sizes where JAX takes ``n_dev`` or
+``n_devices``; a ``torch.Generator`` where ``model_compute_sampled`` takes a
+PRNG ``key``; ``prepare_recording``'s ``device`` at the position of JAX's
+``slice_range`` (pass that one by keyword); the staged ``models.global_flow.
+process_slice`` beside the flat ``process_event_slice``.
 """
+
+from better_flow_tpu_torch.config import (
+    NZ,
+    T_DIVIDER,
+    UV_FACTOR,
+    OptimizerConfig,
+    PipelineConfig,
+    SensorConfig,
+    SliceConfig,
+)
 
 __version__ = "0.1.0"
 
-from better_flow_tpu_torch.runtime.dvs_flow import DVSFlow
-from better_flow_tpu_torch.runtime.offline import compensate_recording
-from better_flow_tpu_torch.runtime.scan_pipeline import (
+from better_flow_tpu_torch.runtime.dvs_flow import DVSFlow  # noqa: E402
+from better_flow_tpu_torch.runtime.offline import (  # noqa: E402
+    compensate_recording,
+)
+from better_flow_tpu_torch.runtime.scan_pipeline import (  # noqa: E402
     compensate_recording_scan,
     prepare_recording,
 )
 
-__all__ = ["DVSFlow", "compensate_recording", "compensate_recording_scan",
-           "prepare_recording"]
+# The JAX package's names, then the port's entry points.
+__all__ = [
+    "NZ",
+    "T_DIVIDER",
+    "UV_FACTOR",
+    "SensorConfig",
+    "SliceConfig",
+    "OptimizerConfig",
+    "PipelineConfig",
+    "__version__",
+    "DVSFlow",
+    "compensate_recording",
+    "compensate_recording_scan",
+    "prepare_recording",
+]

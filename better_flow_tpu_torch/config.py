@@ -101,9 +101,9 @@ class OptimizerConfig:
     min_window_fraction: int = 15
     # Scatter strategy of the JAX package's images.  The port runs the
     # kernel branch for "auto" and "pallas", and the XLA-composed branch
-    # (on one device) for "xla" and the JAX package's TPU scatter
-    # strategies "rep" and "mxu", all three with its exact integer
-    # scatter.
+    # (on one device, under an event group and on the tiled path) for
+    # "xla" and the JAX package's TPU scatter strategies "rep" and "mxu",
+    # all three with its exact integer scatter.
     scatter_mode: str = "auto"
     # Keep the low-order bf16 part of the splatted time weight (the hi+lo
     # pair gives ~16-bit event-time precision).  False (fast schedule only:

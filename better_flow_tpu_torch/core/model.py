@@ -78,6 +78,18 @@ class MotionModel:
         return self.add_totals(self.rot / d_rot, self.div / d_div,
                                self.dx / d_x, self.dy / d_y)
 
+    def pretty(self) -> str:
+        """Host-side print (ObjectModel::operator<<, object_model.h:
+        55-63), the same string as the JAX package's ``pretty``."""
+        return (
+            f"C: ({float(self.cx)}, {float(self.cy)}); \n"
+            f"\t Shift: ({float(self.dx)}, {float(self.dy)}); "
+            f" total: ({float(self.total_dx)}, {float(self.total_dy)});\n"
+            f"\t Rot: {float(self.rot)} total: {float(self.total_rot)}\n"
+            f"\t Div: {float(self.div)} total: {float(self.total_div)}\n"
+            f"\t cnt: {int(self.cnt)}"
+        )
+
     def add_totals(self, d_rot, d_div, d_x, d_y) -> "MotionModel":
         """Kahan-compensated ``total_p += d_p``."""
         total_rot, comp_rot = _kadd(self.total_rot, self.comp_rot, d_rot)

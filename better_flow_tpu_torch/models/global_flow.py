@@ -15,8 +15,11 @@ operations, updates the model and re-warps every event, under the same
 ``adaptive_loop`` / ``fast_loop`` drive as the composed loop.
 ``run_optimizer`` with "pallas" (or "auto") takes the step's other branch,
 the seven sums of B11 (``fused_model_partials_windowed_call``) in place of
-the image chain.  The XLA branch runs on one device: under an event group
-it raises, as does the tiled path (``check_supported``).
+the image chain.  Under an event group the XLA branch sums each
+iteration's exact integer pre-filter pair across the ranks
+(``ops.time_image``'s ``comm``, one ``psum`` of the JAX package's
+``axis_name``), so a group of any size is bitwise one device; the tiled
+path has its own XLA chain (``parallel.spatial``).
 
 The kernel branch takes one of three drives:
 
@@ -175,13 +178,13 @@ def xla_branch(cfg: OptimizerConfig) -> bool:
     return cfg.scatter_mode in XLA_MODES
 
 
-def check_supported(cfg: OptimizerConfig, f64_totals: bool = False,
-                    sharded: bool = False, tiled: bool = False) -> None:
-    """Raise for the configurations this port does not run.  ``sharded``:
-    the events run as shards of an event group (the event-parallel and
-    multi-process paths); ``tiled``: the tiled pipeline.  It raises for f64
-    totals with the fast schedule (the JAX package's defect) and for the
-    XLA branch's modes under a group or tiled; every other option runs:
+def check_supported(cfg: OptimizerConfig, f64_totals: bool = False) -> None:
+    """Raise for the configurations this port does not run: f64 totals
+    with the fast schedule (the JAX package's defect), an unknown
+    ``scatter_mode`` and an unknown schedule.  The rest runs on one device,
+    under an event group (the event-parallel and multi-process paths) and
+    on the tiled pipeline, in the kernel branch and in the XLA branch's
+    modes alike.  Every other option runs:
 
     - ``megastep_unroll``: predicated B1 + B2 pairs a loop trip on the
       single-device split drive (``run_fused_mega``), ignored elsewhere as
@@ -193,17 +196,13 @@ def check_supported(cfg: OptimizerConfig, f64_totals: bool = False,
       JAX package's own account; B1 runs one slot a thread on the card, so
       it selects nothing;
     - ``scatter_mode`` "rep" and "mxu": the XLA branch with the port's
-      exact integer scatter (``XLA_MODES``)."""
+      exact integer scatter (``XLA_MODES``), on one device, under an event
+      group and on the tiled path, as "xla"."""
     if f64_totals and cfg.schedule == "fast":
         raise NotImplementedError(F64_FAST_DEFECT)
     if cfg.scatter_mode not in ("auto", "pallas") + XLA_MODES:
         raise NotImplementedError(
             f"OptimizerConfig.scatter_mode={cfg.scatter_mode!r}")
-    if xla_branch(cfg) and (sharded or tiled):
-        raise NotImplementedError(
-            f"OptimizerConfig.scatter_mode={cfg.scatter_mode!r} "
-            + ("under an event group" if sharded else "on the tiled path")
-            + ": the port runs the XLA branch on one device only")
     if cfg.schedule not in ("fast", "reference"):
         raise NotImplementedError(f"OptimizerConfig.schedule={cfg.schedule!r}")
 
@@ -614,12 +613,13 @@ def iteration_step(state: GlobalFlowState, ev: EventSlice,
     re-warp of every event with the new totals.  The warp here (and in
     ``warp_init``) fuses the rotation as XLA compiles this loop
     (``sin_fma``, measured bit for bit on the CPU with the events traced,
-    as the JAX scan has them).  Under an event ``group`` it raises: the
-    port runs this branch on one device."""
-    if group is not None:
-        raise NotImplementedError(
-            "the XLA-composed iteration under an event group: the port runs "
-            "the XLA branch on one device only")
+    as the JAX scan has them).  Under an event ``group`` (``ev`` this
+    process's shards' events) the XLA modes sum the pre-filter pair across
+    its ranks (``time_image``'s ``comm``), and "pallas" or "auto" take the
+    XLA chain too, as the JAX package's composed step does under an
+    ``axis_name`` (B11 has no image seam)."""
+    if scatter_mode in ("pallas", "auto") and group is not None:
+        scatter_mode = "xla"
     if scatter_mode in ("pallas", "auto"):
         if geo is None:
             geo = torch.from_numpy(geo_row(geom)).to(ev.x.device)
@@ -630,7 +630,8 @@ def iteration_step(state: GlobalFlowState, ev: EventSlice,
     elif scatter_mode in XLA_MODES:
         img = time_image(state.pr_x, state.pr_y, ev.t, ev.active, scale,
                          geom.x_shift, geom.y_shift, geom.w_dyn, geom.h_dyn,
-                         H, W, scatter_mode=scatter_mode)
+                         H, W, scatter_mode=scatter_mode,
+                         comm=None if group is None else group.comm)
         cx_img, cy_img, _ = center_of_mass(img)
         gx, gy = masked_scharr(img)
         terms = model_compute(img, gx, gy, cx_img, cy_img)
@@ -660,8 +661,9 @@ def run_optimizer(init: GlobalFlowState, ev: EventSlice,
                   geo: Optional[torch.Tensor] = None, group=None):
     """The XLA-composed optimizer loop (``_run_optimizer`` of the JAX
     package): ``iteration_step`` with ``cfg.scatter_mode`` under the
-    configured schedule (``drive_loop``).  Returns (final state, (8,)
-    seed_out)."""
+    configured schedule (``drive_loop``), its images summed over the event
+    ``group`` when given (JAX's ``axis_name``).  Returns (final state,
+    (8,) seed_out)."""
     step = lambda s, u: iteration_step(s, ev, geom, scale, H, W,
                                        cfg.scatter_mode, update_fn=u,
                                        geo=geo, group=group)
@@ -766,7 +768,8 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
 
     With a ``cfg.scatter_mode`` of ``XLA_MODES`` the XLA branch runs on
     the flat slice ``ev`` alone (``stat`` and ``act`` are not read and may
-    be None; see ``process_slice_xla``).  Otherwise the kernel branch:
+    be None; under a group ``ev`` holds the local shards' slots; see
+    ``process_slice_xla``).  Otherwise the kernel branch:
     ``stat`` (nch, 3, CHUNK) and ``act`` (nch, 1, CHUNK) are the slice's
     event pack and activity rows; ``bbox`` (x_min, x_max, y_min, y_max)
     and ``n_valid`` come from host staging (or, for shards, from
@@ -787,15 +790,15 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     tensor of that shape, such as the scan's output at the slice), which
     the megastep drive's B4 writes and every other branch copies into.
     The result's ``reads`` counts the blocking reads its drive took."""
-    check_supported(cfg, last_model.totals_dtype == torch.float64,
-                    sharded=group is not None)
+    check_supported(cfg, last_model.totals_dtype == torch.float64)
     if xla_branch(cfg):
         if ev is None:
             raise ValueError(f"scatter_mode={cfg.scatter_mode!r} runs on "
                              "the flat slice: pass ev")
         res, uvn = process_slice_xla(ev, last_model, cfg, sensor, bbox,
                                      n_valid, warm_start=warm_start,
-                                     seed=seed, start_model=start_model)
+                                     seed=seed, start_model=start_model,
+                                     group=group)
         return res, _into(uvn, uvn_out)
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
@@ -917,7 +920,8 @@ def _into(uvn: torch.Tensor, uvn_out: Optional[torch.Tensor]):
 def process_slice_xla(ev: EventSlice, last_model: MotionModel,
                       cfg: OptimizerConfig, sensor: SensorConfig, bbox,
                       n_valid: int, warm_start: bool = True, seed=None,
-                      start_model: Optional[MotionModel] = None):
+                      start_model: Optional[MotionModel] = None,
+                      group=None):
     """``process_slice``'s XLA branch (``global_flow.py:1034-1077`` of the
     JAX package) on the flat slice ``ev``: the warm-start warp of every
     event, then, when the slice passes the gates, ``run_optimizer`` from
@@ -925,8 +929,12 @@ def process_slice_xla(ev: EventSlice, last_model: MotionModel,
     With ``start_model`` (and ``warm_start``) a slice that runs warps and
     optimizes from it instead, and a gated one still keeps
     ``last_model``.  Per-event outputs are in ``ev``'s order; ``noise`` is
-    ``ev.noise | (window_small & ev.valid)``.  Returns (SliceResult, uvn)
-    with uvn the scan's (nch, 3, CHUNK) pack (``uvn_pack``)."""
+    ``ev.noise | (window_small & ev.valid)``.  Under an event ``group``
+    ``ev`` holds this process's shards' slots (in order) and every
+    iteration's images are summed over the group (``run_optimizer``);
+    ``bbox`` and ``n_valid`` are the whole slice's, and the per-event
+    outputs hold the local slots.  Returns (SliceResult, uvn) with uvn the
+    scan's (nch, 3, CHUNK) pack (``uvn_pack``)."""
     scale = cfg.scale
     H, W = static_image_shape(scale, sensor)
     geom = geometry_from_bbox(*bbox, scale, sensor, cfg.min_window_fraction)
@@ -941,7 +949,7 @@ def process_slice_xla(ev: EventSlice, last_model: MotionModel,
     seed_out = torch.zeros(8, dtype=torch.float32, device=dev)
     if ran:
         final, seed_out = run_optimizer(final, ev, geom, scale, H, W, cfg,
-                                        seed=seed)
+                                        seed=seed, group=group)
     noise = ev.noise | (ev.valid & geom.window_small)
     u, v = compute_uv(final.nx, final.ny)
     res = SliceResult(model=final.model, pr_x=final.pr_x, pr_y=final.pr_y,

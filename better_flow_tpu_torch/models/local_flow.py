@@ -3,7 +3,8 @@ windows, chained coarse-to-fine into a dense per-pixel flow field
 (BASELINE.json configuration 3), in plain PyTorch.
 
 Counterpart of ``better_flow_tpu/models/local_flow.py`` (OptimizerLocal,
-optimizer_sampler.h/.cpp): each window owns the first K events within
+optimizer_sampler.h/.cpp; ``local_flow_window`` the descent of one window,
+``local_flow_field`` of a batch of them): each window owns the first K events within
 ``wsz / 2`` of its centre; a round projects them with (nx, ny), splats a
 saturating count image of (wsz * scale + scale)^2 pixels shifted so that
 the warped centre stays centred, blurs it with OpenCV's Gaussian kernel,
@@ -100,6 +101,19 @@ class LocalWindow(NamedTuple):
     valid: torch.Tensor   # bool
     cx: torch.Tensor      # f32 window centres (original pixel coordinates)
     cy: torch.Tensor
+
+
+class LocalState(NamedTuple):
+    """One window's descent state (``LocalState`` of the JAX package): the
+    direction (nx, ny), the steps (dnx, dny), the last score and the
+    iterations taken, 0-d tensors."""
+
+    nx: torch.Tensor
+    ny: torch.Tensor
+    dnx: torch.Tensor
+    dny: torch.Tensor
+    last_score: torch.Tensor
+    iters: torch.Tensor
 
 
 def gather_windows(x, y, t, valid, centers_x, centers_y, wsz: int, k: int,
@@ -199,6 +213,30 @@ def _descend(win: LocalWindow, scale: int, wsz: int, nx, ny, dn0: float,
         if not bool(active.any()):
             break
     return nx, ny, iters, rounds, reads
+
+
+def local_flow_window(win: LocalWindow, scale: int, wsz: int,
+                      max_time_ms: int = 100, max_iters: int = 100,
+                      nx0=None, ny0=None, dn0: float = 0.01):
+    """One window's 2-parameter descent (OptimizerLocal::run,
+    optimizer_sampler.cpp:4-38; ``local_flow_window`` of the JAX package):
+    ``win`` holds one window, (K,) fields and 0-d centres; ``nx0``/``ny0``
+    seed the descent (default 0), ``dn0`` is the initial step.  It runs
+    the descent ``local_flow_field`` runs for every window, on a batch of
+    one, so its result is bitwise that window's there.  Unlike
+    ``local_flow_field`` it applies no ``min_events`` gate, as in the JAX
+    package.  Returns (nx, ny, iters), 0-d tensors on the window's
+    device."""
+    one = LocalWindow(*(f.reshape(1, -1) if f.dim() else f.reshape(1)
+                        for f in win))
+    dev = one.x.device
+    seed = lambda a: torch.zeros(1, dtype=torch.float32, device=dev) \
+        if a is None else torch.as_tensor(a, device=dev).to(
+            torch.float32).reshape(1)
+    nx, ny, iters, _, _ = _descend(one, scale, wsz, seed(nx0), seed(ny0),
+                                   dn0, max_time_ms=max_time_ms,
+                                   max_iters=max_iters)
+    return nx[0], ny[0], iters[0]
 
 
 def local_flow_field(windows: LocalWindow, scale: int, wsz: int,

@@ -191,7 +191,9 @@ def model_compute_sampled(img: torch.Tensor, pr_x: torch.Tensor,
     uniformly with replacement by ``generator`` (on the events' device),
     then ``model_compute_sampled_at``.  A fixed sample count with a
     validity mask replaces the reference's resample-until-count loop,
-    which can spin forever on a sparse image."""
+    which can spin forever on a sparse image.  Where the JAX package takes
+    a PRNG ``key``, the port takes a ``torch.Generator`` (a divergence by
+    design: the two streams of draws differ)."""
     n = pr_x.shape[0]
     idx = torch.randint(0, n, (max(int(n * p), 1),), generator=generator,
                         device=pr_x.device)

@@ -13,6 +13,10 @@ f32 rounding tie, about once in 2^29 operations.
 Cosine and sine are taken in f64 and rounded to f32 once, here and in the
 kernels alike, so that the card and the CPU warp with the same two f32
 numbers.
+
+The public warp functions take the JAX package's ``nz=float(NZ)`` keyword
+(the direction vector's z component); at the default the arithmetic is the
+fixed-NZ arithmetic of the kernels, bit for bit.
 """
 
 from __future__ import annotations
@@ -22,11 +26,10 @@ import torch
 
 from better_flow_tpu_torch.config import NZ, UV_FACTOR, WARP_TIME_DIV
 
-# Exact f32 values held as Python floats: multiplying an f32 tensor by one
-# rounds once, as the f32 product does.
-UV_F = float(np.float32(UV_FACTOR) / np.float32(NZ))   # compute_uv's factor
+# An exact f32 value held as a Python float: multiplying an f32 tensor by it
+# rounds once, as the f32 product does (compute_uv and n_from_u make theirs
+# the same way).
 UV_K = float(np.float32(UV_FACTOR / NZ))   # the kernels' packed-output factor
-N_F = float(np.float32(NZ) / np.float32(UV_FACTOR))   # n_from_u's factor
 
 
 def recip(c: float) -> float:
@@ -52,13 +55,13 @@ def cos_sin_f32(crl: torch.Tensor):
     return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
 
 
-def apply_project(fr_x, fr_y, t, nx, ny):
-    """``pr = fr - (n / NZ) * t / 1e4`` (Event::apply_project,
+def apply_project(fr_x, fr_y, t, nx, ny, nz=float(NZ)):
+    """``pr = fr - (n / nz) * t / 1e4`` (Event::apply_project,
     event.h:164-168), as XLA compiles it: both divisions by constants are
     multiplications by their f32 reciprocals and the product is fused into
     the subtraction (measured bit for bit on the CPU)."""
-    kx = mul_recip(nx, float(NZ))
-    ky = mul_recip(ny, float(NZ))
+    kx = mul_recip(nx, nz)
+    ky = mul_recip(ny, nz)
     ts = mul_recip(t, WARP_TIME_DIV)
     return fma(-kx, ts, fr_x), fma(-ky, ts, fr_y)
 
@@ -79,7 +82,7 @@ def apply_project_per_n(fr_x, fr_y, t, nx, ny):
 
 
 def project_4param_reinit(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
-                          div, crl, sin_fma: bool = False):
+                          div, crl, nz=float(NZ), sin_fma: bool = False):
     """Rotate/diverge the current ``pr`` about (cx, cy), overwrite n with
     that delta plus (dnx_, dny_) and re-project from the original pixel
     ``fr``.  Returns (pr_x, pr_y, nx, ny).  Call sites pass the model's
@@ -91,7 +94,8 @@ def project_4param_reinit(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
                                     for a in (dnx_, dny_, cx, cy, div, crl))
     c, s = cos_sin_f32(crl)
     return project_4param_reinit_cs(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_,
-                                    cx, cy, div, c, s, sin_fma=sin_fma)
+                                    cx, cy, div, c, s, sin_fma=sin_fma,
+                                    nz=nz)
 
 
 def _divcrl_dn(pr_x, pr_y, cx, cy, div, c, s, sin_fma: bool = False):
@@ -110,7 +114,8 @@ def _divcrl_dn(pr_x, pr_y, cx, cy, div, c, s, sin_fma: bool = False):
 
 
 def project_4param_reinit_cs(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
-                             div, c, s, sin_fma: bool = False):
+                             div, c, s, sin_fma: bool = False,
+                             nz=float(NZ)):
     """``project_4param_reinit`` with the f32 cosine ``c`` and sine ``s``
     of the angle given (as the kernels' warp-scalar rows carry them).
     The rotation ``rpx = c*rx - s*ry``, ``rpy = s*rx + c*ry`` fuses its
@@ -121,22 +126,23 @@ def project_4param_reinit_cs(fr_x, fr_y, t, pr_x, pr_y, dnx_, dny_, cx, cy,
     dnx, dny = _divcrl_dn(pr_x, pr_y, cx, cy, div, c, s, sin_fma=sin_fma)
     nx = dnx + dnx_
     ny = dny + dny_
-    return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
+    return (*apply_project(fr_x, fr_y, t, nx, ny, nz), nx, ny)
 
 
 def _f32(*a):
     return (torch.as_tensor(v).to(torch.float32) for v in a)
 
 
-def project_dn(fr_x, fr_y, t, nx, ny, dnx, dny):
+def project_dn(fr_x, fr_y, t, nx, ny, dnx, dny, nz=float(NZ)):
     """Event::project_dn (event.h:72-76): ``n += dn``, then re-project
     from the original pixel.  Returns (pr_x, pr_y, nx, ny)."""
     nx = nx + dnx
     ny = ny + dny
-    return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
+    return (*apply_project(fr_x, fr_y, t, nx, ny, nz), nx, ny)
 
 
-def project_divcrl(fr_x, fr_y, t, pr_x, pr_y, nx, ny, cx, cy, div, crl):
+def project_divcrl(fr_x, fr_y, t, pr_x, pr_y, nx, ny, cx, cy, div, crl,
+                   nz=float(NZ)):
     """Event::project_divcrl (event.h:78-86): ``n`` plus the rotation and
     divergence delta of the current ``pr``, then re-project.  Returns
     (pr_x, pr_y, nx, ny)."""
@@ -144,11 +150,11 @@ def project_divcrl(fr_x, fr_y, t, pr_x, pr_y, nx, ny, cx, cy, div, crl):
     dnx, dny = _divcrl_dn(pr_x, pr_y, cx, cy, div, *cos_sin_f32(crl))
     nx = nx + dnx
     ny = ny + dny
-    return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
+    return (*apply_project(fr_x, fr_y, t, nx, ny, nz), nx, ny)
 
 
 def project_4param(fr_x, fr_y, t, pr_x, pr_y, nx, ny, dnx_, dny_, cx, cy,
-                   div, crl):
+                   div, crl, nz=float(NZ)):
     """Event::project_4param (event.h:88-96): ``n += dn + (dnx_, dny_)``
     (added in that order), then re-project.  Returns (pr_x, pr_y, nx,
     ny)."""
@@ -156,15 +162,18 @@ def project_4param(fr_x, fr_y, t, pr_x, pr_y, nx, ny, dnx_, dny_, cx, cy,
     dnx, dny = _divcrl_dn(pr_x, pr_y, cx, cy, div, *cos_sin_f32(crl))
     nx = nx + dnx + dnx_
     ny = ny + dny + dny_
-    return (*apply_project(fr_x, fr_y, t, nx, ny), nx, ny)
+    return (*apply_project(fr_x, fr_y, t, nx, ny, nz), nx, ny)
 
 
-def compute_uv(nx, ny):
-    """Direction vector -> optical flow in px/s (u = nx * UV_FACTOR/NZ)."""
-    return nx * UV_F, ny * UV_F
+def compute_uv(nx, ny, nz=float(NZ)):
+    """Direction vector -> optical flow in px/s (u = nx * UV_FACTOR/nz,
+    the factor an f32 quotient)."""
+    f = float(np.float32(UV_FACTOR) / np.float32(nz))
+    return nx * f, ny * f
 
 
-def n_from_u(vel):
+def n_from_u(vel, nz=float(NZ)):
     """Flow in px/s -> direction vector (Event::n_from_u, event.h:131-133):
-    ``vel * f32(NZ / UV_FACTOR)``."""
-    return vel * N_F
+    ``vel * f32(nz / UV_FACTOR)``."""
+    f = float(np.float32(nz) / np.float32(UV_FACTOR))
+    return vel * f

@@ -13,10 +13,24 @@ images are integers, so every rank computes the same model and the same
 continue flag with no further communication, and the result does not
 depend on the number of shards when they are cut on chunk boundaries (the
 scan pads the capacity to ``n_shards * CHUNK`` for that).
+
+The XLA branch's modes ("xla", "rep", "mxu", the JAX package's default off
+the TPU) take the same seam in plain tensor code: the local shards' events
+as one flat slice, one exact integer scatter of them an iteration, the
+all-reduce of that pair, then the box filter and the image chain once per
+process (``models.global_flow.process_slice_xla`` with its ``group``).  The
+pair is integer too, so the branch under a group of any size is bitwise
+the single-device XLA branch, whatever the cut.
+
+Divergences by design from the JAX package's signatures: a group
+(``mesh.EventGroup``) stands where JAX takes a ``Mesh`` and its axis name,
+and the number of shards is the group's (``n_shards``) where JAX's
+``prepare_recording_sharded`` takes ``n_dev``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -25,7 +39,7 @@ from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
 from better_flow_tpu_torch.core.events import EventSlice, bounding_box
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.models.global_flow import (
-    SliceResult, check_supported, process_slice,
+    SliceResult, check_supported, process_slice, xla_branch,
 )
 from better_flow_tpu_torch.ops.layout import (
     CHUNK, pack_act, prepare_chunk_layouts,
@@ -60,13 +74,21 @@ def process_slice_event_parallel(ev: EventSlice, last_model: MotionModel,
     event count are reduced over the group.  Returns a ``SliceResult``
     whose model and scalars are the same on every rank and whose per-event
     tensors hold this process's shards' slots in order (all of them for a
-    group of one rank)."""
+    group of one rank).  The XLA branch's modes run on the local shards'
+    slots put end to end (``process_slice``'s ``ev`` under the group); the
+    kernel branch lays each shard out in whole chunks."""
     shards = local_event_shards(ev, mesh)
     per = shards[0].capacity
     bbox = bounding_box(shards, mesh.comm)
     n_valid = torch.stack([e.valid.sum() for e in shards]).sum()
     if mesh.comm.size > 1:
         n_valid, = mesh.comm.all_reduce_sum([n_valid])
+    if xla_branch(cfg):
+        local = EventSlice(*(torch.cat(f) for f in zip(*shards)))
+        res, _uvn = process_slice(None, None, last_model, cfg, sensor, bbox,
+                                  int(n_valid), warm_start=warm_start,
+                                  ev=local, group=mesh)
+        return res
     stats = [prepare_chunk_layouts(e.x, e.y, e.t) for e in shards]
     acts = [pack_act(e.active) for e in shards]
     # The local shards as one range of chunks, joined once a slice.
@@ -84,6 +106,17 @@ def process_slice_event_parallel(ev: EventSlice, last_model: MotionModel,
     return res._replace(pr_x=own(res.pr_x), pr_y=own(res.pr_y),
                         nx=own(res.nx), ny=own(res.ny), u=own(res.u),
                         v=own(res.v), noise=noise)
+
+
+def jit_event_parallel(cfg: OptimizerConfig, sensor: SensorConfig,
+                       mesh: EventGroup, warm_start: bool = True):
+    """``process_slice_event_parallel`` with ``cfg``, ``sensor``, ``mesh``
+    and ``warm_start`` bound: call it as ``fn(ev, last_model)``.  The
+    counterpart of the JAX package's ``jit_event_parallel``; it compiles
+    nothing (the port has no tracing step: the kernels are built on their
+    first launch, ``ops._build``)."""
+    return functools.partial(process_slice_event_parallel, cfg=cfg,
+                             sensor=sensor, mesh=mesh, warm_start=warm_start)
 
 
 def prepare_recording_sharded(x, y, t_ns, cfg, mesh: EventGroup,
@@ -135,7 +168,7 @@ def compensate_recording_scan_sharded(
     first-slice-wins accumulation); ``stats['n_devices']`` is the number of
     shards.  Pass ``prepared`` from ``prepare_recording_sharded`` to reuse
     the staging, ``carry_in`` to continue a chain."""
-    check_supported(cfg.optimizer, cfg.f64_totals, sharded=True)
+    check_supported(cfg.optimizer, cfg.f64_totals)
     if prepared is None:
         prepared = prepare_recording_sharded(x, y, t_ns, cfg, mesh)
     check_staged_for(prepared, mesh)

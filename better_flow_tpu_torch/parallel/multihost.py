@@ -107,7 +107,7 @@ def compensate_recording_multihost(
     process's ranges.  ``device`` defaults to the card; pass ``"cpu"`` to
     run the plain twins."""
     cfg = cfg or PipelineConfig()
-    check_supported(cfg.optimizer, cfg.f64_totals, sharded=True)
+    check_supported(cfg.optimizer, cfg.f64_totals)
     if boundary not in ("chain", "cold"):
         raise ValueError(f"boundary must be 'chain' or 'cold': {boundary}")
     comm = world() if comm is None else comm

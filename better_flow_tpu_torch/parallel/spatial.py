@@ -43,6 +43,17 @@ and seams are exact in any order, and the tile sum is taken in tile order in
 f64: a run repeats bit for bit, and tiles over ranks are bitwise tiles in one
 process.
 
+The XLA branch's modes (``OptimizerConfig.scatter_mode`` "xla", "rep" or
+"mxu"; the JAX package's tiled run off the TPU) take the same seams in plain
+tensor code and launch no kernel: step 1 is one exact integer scatter of
+the accepted positions' f32 times into the run's pair (``index_add_``,
+the arithmetic of ``ops.time_image``'s scatter and of the escape lane), and
+step 5 the JAX package's chain in place of B9: the f32 images and their box
+filter, the normalised time image, ``masked_scharr`` in XLA's contracted
+form, the owned window, and the seven sums of
+``ops.reductions.model_compute_partial``, tile by tile; the pair is then
+zeroed, so the image-pair contract holds on either branch.
+
 The schedules are those of the untiled composed loop
 (``models.global_flow.drive_loop``): every rank computes the same sums, so
 the data-dependent iteration count is the same everywhere.
@@ -60,12 +71,18 @@ from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
 from better_flow_tpu_torch.core.model import FIELDS, MotionModel
 from better_flow_tpu_torch.models.global_flow import (
     adaptive_loop, check_supported, drive_loop, geometry_from_bbox,
+    xla_branch,
 )
 from better_flow_tpu_torch.ops.fused_model import (
-    LAUNCHES, finish_local_call, image_pair, splat_local_call, to_fixed,
+    LAUNCHES, finish_local_call, image_pair, splat_local_call,
+    time_image_f32, to_fixed,
 )
+from better_flow_tpu_torch.ops.gradient import masked_scharr
 from better_flow_tpu_torch.ops.layout import CHUNK, padded_image_shape
-from better_flow_tpu_torch.ops.reductions import model_from_partials
+from better_flow_tpu_torch.ops.reductions import (
+    model_compute_partial, model_from_partials,
+)
+from better_flow_tpu_torch.ops.time_image import box_filter
 from better_flow_tpu_torch.ops.warp import (
     compute_uv, mul_recip, project_4param_reinit, recip,
 )
@@ -331,16 +348,69 @@ def _global_sums(p: torch.Tensor, tl: _Tiling) -> torch.Tensor:
     return torch.cat([p[:, 0:1], a[:, 0:2], p[:, 3:5], b], dim=1)
 
 
+def _splat_exact(lx, ly, t_sec, tl: _Tiling):
+    """The XLA branch's splat: every accepted slot's exact fixed-point time
+    and a count of one added into the run's pair (n_local, HP, WP) at its
+    local pixel, in place (``lx`` and ``ly`` from ``_local_positions``, -1
+    where rejected).  A rejected slot adds zero, each to a pixel of its own
+    (one shared dump pixel would serialise the card's atomics).  Returns
+    the pair."""
+    acc_t, acc_c = tl.acc_t, tl.acc_c
+    ok = lx >= 0
+    tile = torch.arange(lx.shape[0], device=lx.device)[:, None]
+    lin = (tile * tl.HP + lx.to(torch.int64)) * tl.WP + ly.to(torch.int64)
+    spread = torch.arange(lin.numel(), device=lin.device).reshape(
+        lin.shape) % acc_t.numel()
+    lin = torch.where(ok, lin, spread).reshape(-1)
+    fixed = to_fixed(t_sec)
+    acc_t.view(-1).index_add_(0, lin, torch.where(
+        ok, fixed, torch.zeros_like(fixed)).reshape(-1))
+    acc_c.view(-1).index_add_(0, lin, ok.to(torch.int32).reshape(-1))
+    return acc_t, acc_c
+
+
+def _finish_exact(acc_t, acc_c, tl: _Tiling) -> torch.Tensor:
+    """The XLA branch's finish (``better_flow_tpu/parallel/spatial.py:
+    314-327``): the f32 images box filtered, the normalised time image,
+    the contracted masked Scharr over the whole local image, and the seven
+    sums over the owned window with local row and column weights, tile by
+    tile; then the pair is zeroed for the next iteration.  Returns
+    (n_local, 7) f32 [cnt, s_row, s_col, s_gx, s_gy, s_rg, s_dg]."""
+    H, W = tl.H, tl.W
+    t_sum = box_filter(time_image_f32(acc_t[:, :H, :W]), tl.scale)
+    cnt = box_filter(acc_c[:, :H, :W].to(torch.float32), tl.scale)
+    img = torch.where(cnt >= 1, t_sum / torch.clamp(cnt, min=1.0),
+                      torch.zeros_like(t_sum))
+    r0, r1, c0, c1 = tl.own
+    own = torch.zeros((H, W), dtype=torch.bool, device=img.device)
+    own[r0:r1, c0:c1] = True
+    zero = torch.zeros((), dtype=torch.float32, device=img.device)
+    rows = []
+    for im in img:
+        gxg, gyg = masked_scharr(im)
+        rows.append(model_compute_partial(torch.where(own, im, zero),
+                                          torch.where(own, gxg, zero),
+                                          torch.where(own, gyg, zero)))
+    acc_t.zero_()
+    acc_c.zero_()
+    return torch.stack(rows)
+
+
 def _tiled_iteration(s: TiledFlowState, ev: _TileEvents, tl: _Tiling,
-                     esc_cap: int, update_fn=None) -> TiledFlowState:
+                     esc_cap: int, update_fn=None,
+                     xla: bool = False) -> TiledFlowState:
     """One optimizer iteration on the tiled image (see the module
     docstring): splat the state's positions, reconcile the tiles, finish,
     update the model (``update_fn(model, state)`` in place of the reference
-    step under the fast schedule) and re-warp every event."""
+    step under the fast schedule) and re-warp every event.  ``xla``: the
+    XLA branch's splat and finish in place of B8 and B9."""
     mesh, scale = tl.mesh, tl.scale
     lx, ly, gx, gy, escaped = _local_positions(s.pr_x, s.pr_y, ev, tl)
-    acc_t, acc_c = splat_local_call(lx, ly, ev.t_sec, tl.acc_t, tl.acc_c,
-                                    H=tl.H, W=tl.W)
+    if xla:
+        acc_t, acc_c = _splat_exact(lx, ly, ev.t_sec, tl)
+    else:
+        acc_t, acc_c = splat_local_call(lx, ly, ev.t_sec, tl.acc_t,
+                                        tl.acc_c, H=tl.H, W=tl.W)
     # The seams work on the logical images, the (n_local, H, W) views.
     images = [a[:, :tl.H, :tl.W] for a in (acc_t, acc_c)]
 
@@ -363,8 +433,11 @@ def _tiled_iteration(s: TiledFlowState, ev: _TileEvents, tl: _Tiling,
         tl.broadcast_back(img, 0)
         tl.broadcast_back(img, 1)
 
-    p = finish_local_call(acc_t, acc_c, scale=scale, H=tl.H, W=tl.W,
-                          own=tl.own)
+    if xla:
+        p = _finish_exact(acc_t, acc_c, tl)
+    else:
+        p = finish_local_call(acc_t, acc_c, scale=scale, H=tl.H, W=tl.W,
+                              own=tl.own)
     p = _global_sums(p, tl)
     if mesh.comm.size > 1:
         p = mesh.comm.all_gather(p).reshape(-1, 7)
@@ -402,7 +475,9 @@ def _initial_state(pr_x, pr_y, nx, ny, model: MotionModel,
 
 
 def _check_tiled(cfg: OptimizerConfig, f64_totals: bool) -> None:
-    check_supported(cfg, tiled=True)
+    """Raise for what the tiled path does not run: f64 totals (and what
+    ``check_supported`` refuses everywhere)."""
+    check_supported(cfg)
     if f64_totals:
         raise NotImplementedError(
             "f64 totals on the tiled path: the JAX package's tiled pipeline "
@@ -442,8 +517,10 @@ def process_slice_tiled(x, y, t, active, init_model: MotionModel,
     By default the reference's adaptive divider schedule runs
     (optimizer_rolling.h:60-111); ``n_iters`` forces a fixed count instead
     (the low-latency megapixel regime, bf_visualizer.cpp:102-104), with
-    the reference's divider doubling on sign flips.  ``esc_cap`` sizes each
-    tile's escape lane; ``escaped_dropped`` reports overflow (0 = exact).
+    the reference's divider doubling on sign flips.  ``cfg.scatter_mode``
+    selects B8 and B9 or the XLA branch, as in
+    ``compensate_recording_tiled``.  ``esc_cap`` sizes each tile's escape
+    lane; ``escaped_dropped`` reports overflow (0 = exact).
     The per-event results hold this process's tiles' slots in order (all of
     them for a group of one rank)."""
     _check_tiled(cfg, init_model.totals_dtype == torch.float64)
@@ -457,7 +534,8 @@ def process_slice_tiled(x, y, t, active, init_model: MotionModel,
                           for f in FIELDS))
     init = _initial_state(xs, ys, torch.zeros_like(xs), torch.zeros_like(xs),
                           model, cfg)
-    step = lambda s: _tiled_iteration(s, ev, tl, esc_cap)
+    step = lambda s: _tiled_iteration(s, ev, tl, esc_cap,
+                                      xla=xla_branch(cfg))
     if n_iters is None:
         final = adaptive_loop(init, step, cfg)
     else:
@@ -625,7 +703,10 @@ def compensate_recording_tiled(
     ``u``, ``v``, ``noise`` (numpy, original event order), the final
     ``model``, per-slice ``iters`` and ``stats`` (``escaped_dropped``: 0 =
     exact for any drift; ``host_syncs``: the blocking reads of the schedule's
-    exit test and of the escape lane's gate, two an iteration)."""
+    exit test and of the escape lane's gate, two an iteration).
+    ``cfg.optimizer.scatter_mode`` "auto" or "pallas" runs B8 and B9, "xla",
+    "rep" or "mxu" the XLA branch (no launch; the module docstring), under
+    either schedule."""
     _check_tiled(cfg.optimizer, cfg.f64_totals or (
         init_model is not None
         and init_model.totals_dtype == torch.float64))
@@ -640,6 +721,7 @@ def compensate_recording_tiled(
     plan, n = prepared["plan"], prepared["n"]
     S = len(plan.ends)
     dev = mesh.device
+    xla = xla_branch(opt)
     staged = _stage_tiles(prepared, mesh)
     model = init_model if init_model is not None else MotionModel.zero(dev)
     seed = torch.zeros(8, dtype=torch.float32, device=dev)
@@ -673,7 +755,8 @@ def compensate_recording_tiled(
             final, seed = drive_loop(
                 _initial_state(pr_x, pr_y, nx, ny, mdl, opt),
                 lambda state, update_fn=None: _tiled_iteration(
-                    state, ev, tl, esc_cap, update_fn), opt, seed=seed)
+                    state, ev, tl, esc_cap, update_fn, xla=xla), opt,
+                seed=seed)
             model, nx, ny = final.model, final.nx, final.ny
             iters[s] = final.iters
             escs.append(final.esc)

@@ -305,7 +305,9 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
     """Host staging: trigger plan, a sort of every slice into band-padded
     slabs, and the device copies ``stat`` (S, nch, 3, CHUNK) f32 and
     ``sidx`` (S, capp) int32 (original index, -1 on padding).  Reusable
-    across runs of the same recording.
+    across runs of the same recording.  ``device`` stands where the JAX
+    package's signature has ``slice_range`` (a divergence by design: pass
+    ``slice_range`` by keyword).
 
     The native route sorts u16 coordinates and in-slice offsets with
     ``io.native``; it needs the library, every coordinate an integer in

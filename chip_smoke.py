@@ -105,8 +105,12 @@ in phases that each raise on failure:
     1x1 and against the untiled scan under the gates of
     ``tests/test_spatial.py`` (against the untiled scan the iteration gate
     is printed, met or not, and does not decide the phase), a second run
-    bitwise the first, the card against the CPU twins on the first 150,000
-    events, and one slice whose warp drifts beyond an 8-pixel halo so that
+    bitwise the first, the XLA branch on 2x2 tiles (no launch) against the
+    2x2 kernel run under ``tests/test_spatial.py:350-354``'s flow gates
+    (its iteration gate printed, as against the untiled scan) with the
+    PyTorch operations an iteration of both, the card against the CPU
+    twins on the first 150,000 events (4x2, and 2x2 on the XLA branch),
+    and one slice whose warp drifts beyond an 8-pixel halo so that
     the lane carries events;
 11. B10 and B11 (``fused_model_partials``, ``fused_model_partials_windowed``:
     the seven sums of already-warped events) against their twins at the
@@ -123,8 +127,10 @@ in phases that each raise on failure:
     in turns with the B1-B4 scan and the calls of each that block the host;
 13. the XLA-composed branch (``scatter_mode="xla"``): the ``fast()`` scan
     on the 2M events twice (bitwise equal), its host time, PyTorch
-    operations and blocking calls an iteration, the card against the CPU
-    run on the first 100,000 events; then ``run_optimizer`` with "pallas"
+    operations and blocking calls an iteration; the same scan over 4
+    shards resident on the card (an event group), bitwise the first, no
+    launch, with its host time and operations an iteration; the card
+    against the CPU run on the first 100,000 events; then ``run_optimizer`` with "pallas"
     as a warm-start chain over the first 20 slices, sorted (B11), with its
     host time an iteration;
 14. the dense local flow field (``models.local_flow``, BASELINE
@@ -152,7 +158,12 @@ in phases that each raise on failure:
     its host syncs equal to the reads taken and fewer than unroll 1's;
     ``fast(warm_extrapolate=1.0)`` against the CPU twins and two ranges
     stitched through ``make_carry(..., seed=)`` bitwise the full scan; the
-    flat-slice ``process_event_slice`` bitwise the staged call.
+    flat-slice ``process_event_slice`` bitwise the staged call;
+18. the entry hooks (``[dryrun]``, ``better_flow_tpu_torch.graft_entry``):
+    ``entry``'s slice and ``dryrun(4)``'s four stages on the card (the
+    temporal batch under "auto" and "xla", the 4-shard scan on B1/B2, the
+    tiled 180x240 recording under "xla" and "pallas" with no event
+    dropped, two chained ranges bitwise the whole scan).
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -201,7 +212,15 @@ N_XLA_COMPARE = 100_000
 N_PARTIALS_SLICES = 20
 N_COLD = 12_000_000
 N_FRAMES = 60_000
+XLA_SHARDS = 4      # the XLA branch's event group, resident on the card
+DRYRUN_SHARDS = 4
 TILED_HALO, TILED_ESC_CAP = 32, 32768
+# The slices of the megapixel stream whose iteration count depends on the
+# order in which the image is summed: from the seventh slice on the
+# optimizer exits within an ulp of its tolerance, and the JAX package's own
+# runs (untiled, 2x2 and 4x2 tiles, "xla" and "pallas") count differently
+# in these (tests/test_torch_tiled_fullwidth.py holds the list).
+TILED_FRAGILE_SLICES = (6, 8, 9, 10)
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the f32 rate outside the tensor cores (no kernel here has a
@@ -1041,14 +1060,17 @@ def phase_sharded(d, dev):
     return keep
 
 
-def tiled_cfg(fast=False):
-    """The tiled protocol's configuration (tools/bench_tiled.py)."""
+def tiled_cfg(fast=False, mode="auto"):
+    """The tiled protocol's configuration (tools/bench_tiled.py), its
+    ``scatter_mode`` ``mode``."""
     from better_flow_tpu_torch.config import (
         OptimizerConfig, PipelineConfig, SensorConfig, SliceConfig,
     )
 
-    opt = OptimizerConfig.fast(scale=1, min_events=1000) if fast else \
-        OptimizerConfig(scale=1, max_iter=10, min_events=1000)
+    opt = OptimizerConfig.fast(scale=1, min_events=1000,
+                               scatter_mode=mode) if fast else \
+        OptimizerConfig(scale=1, max_iter=10, min_events=1000,
+                        scatter_mode=mode)
     return PipelineConfig(
         sensor=SensorConfig(720, 1280),
         slice=SliceConfig(max_events=60_000, span_ns=int(0.07e9),
@@ -1230,9 +1252,9 @@ def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
     t_phase = time.perf_counter()
     preps = {}
 
-    def run(shape, fast=False, device=dev, m=None, warm=False):
+    def run(shape, fast=False, device=dev, m=None, warm=False, mode="auto"):
         part = d if m is None else {k: d[k][:m] for k in ("x", "y", "t_ns")}
-        cfg = tiled_cfg(fast)
+        cfg = tiled_cfg(fast, mode)
         key = (shape, m)
         if key not in preps:
             preps[key] = sp.prepare_recording_tiled(
@@ -1244,7 +1266,7 @@ def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
             call()
         return call()
 
-    def report(name, r):
+    def report(name, r, kernels=True):
         st = r["stats"]
         total = int(r["iters"].sum())
         for k in ("u", "v", "noise"):
@@ -1257,7 +1279,8 @@ def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
                                  f"{st['escaped_dropped']} events")
         lc = st["launches"]
         want = dict.fromkeys(lc, 0)
-        want.update(splat_local=total, finish_local=total)
+        if kernels:
+            want.update(splat_local=total, finish_local=total)
         if lc != want or total <= st["n_slices"]:
             raise AssertionError(f"tiled {name}: launches {lc}, expected "
                                  f"{want}")
@@ -1271,21 +1294,31 @@ def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
             f"{lc['splat_local']}, finish_local {lc['finish_local']}")
         return r
 
-    def tiled_gates(name, a, b, iterations=True):
+    def tiled_gates(name, a, b, iterations=True, median=0.005,
+                    min_speed=50.0, may_part=()):
         """The gates of tests/test_spatial.py:192-205 of ``a`` against the
         reference run ``b``: noise and iterations identical, median |du|,
-        |dv| <= 0.5% and max |du| <= 5% of a mean speed above 50.  With
-        ``iterations=False`` the iteration gate is reported (met or NOT MET,
-        with the counts) and does not decide the phase."""
+        |dv| <= 0.5% (``median``) and max |du| <= 5% of a mean speed above
+        50 (``min_speed``; its XLA-against-Pallas gate at :350-354: 0.1%
+        and 20).  The iteration counts may part in the slices
+        ``may_part`` only.  With ``iterations=False`` the iteration gate is
+        reported (met or NOT MET, with the counts) and does not decide the
+        phase."""
         if not np.array_equal(a["noise"], b["noise"]):
             raise AssertionError(f"tiled {name}: noise flags differ")
         same = a["iters"] == b["iters"]
-        if not same.all():
+        parted = np.flatnonzero(~same).tolist()
+        if not set(parted) <= set(may_part):
             log(f"[tiled] {name}: iteration gate NOT MET: the counts differ "
-                f"in {int((~same).sum())} of {len(same)} slices: "
+                f"in slices {parted} of {len(same)} (may part: "
+                f"{list(may_part)}): "
                 f"{a['iters'].tolist()} vs {b['iters'].tolist()}")
             if iterations:
                 raise AssertionError(f"tiled {name}: iterations differ")
+        elif parted:
+            log(f"[tiled] {name}: iteration gate met ({len(same)} slices; "
+                f"the counts part in slices {parted}, where the JAX "
+                f"package's own runs part)")
         else:
             log(f"[tiled] {name}: iteration gate met ({len(same)} slices)")
         ok = ~b["noise"]
@@ -1295,17 +1328,18 @@ def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
         got = dict(speed=speed, median_du=float(np.median(du)),
                    median_dv=float(np.median(dv)), max_du=float(du.max()))
         log(f"[tiled] {name}: {json.dumps(got)}")
-        if speed <= 50.0 or got["median_du"] > 0.005 * speed or \
-                got["median_dv"] > 0.005 * speed or \
+        if speed <= min_speed or got["median_du"] > median * speed or \
+                got["median_dv"] > median * speed or \
                 got["max_du"] > 0.05 * speed:
             raise AssertionError(f"tiled {name}: beyond the gates (median "
-                                 "<= 0.005 x speed, max <= 0.05 x speed, "
-                                 "speed > 50)")
+                                 f"<= {median} x speed, max <= 0.05 x "
+                                 f"speed, speed > {min_speed})")
 
-    def operations(shape):
+    def operations(shape, mode="auto"):
         """PyTorch operations dispatched inside one tiled iteration, views
         apart, averaged over a run (the kernels' wrappers are two calls)."""
-        return count_operations(sp, "_tiled_iteration", lambda: run(shape))
+        return count_operations(sp, "_tiled_iteration",
+                                lambda: run(shape, mode=mode))
 
     r11 = report("1x1 reference", run((1, 1), warm=True))
     run((4, 2))                                             # warm-up
@@ -1321,6 +1355,23 @@ def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
         f"{r42b['stats']['events_per_s']:.1f}")
     log(f"[tiled] PyTorch operations (and views) an iteration around B8 and "
         f"B9: 1x1 {operations((1, 1))}, 4x2 {operations((4, 2))}")
+    # The XLA branch on 2x2 tiles (no launch: the exact scatter and the
+    # JAX package's image chain in place of B8 and B9) against the 2x2
+    # kernel run, under tests/test_spatial.py:350-354's gates.
+    r22 = report("2x2 reference", run((2, 2), warm=True))
+    fm.reset_launches()
+    rx = report("2x2 reference xla", run((2, 2), warm=True, mode="xla"),
+                kernels=False)
+    if any(fm.LAUNCHES.values()):
+        raise AssertionError(f"tiled xla: launched {dict(fm.LAUNCHES)}")
+    # The counts may part only in the slices where the JAX package's own
+    # runs part (TILED_FRAGILE_SLICES, held by
+    # tests/test_torch_tiled_fullwidth.py); the card's XLA run is also held
+    # to its CPU run below.
+    tiled_gates("2x2 xla against 2x2 kernels", rx, r22, median=0.001,
+                min_speed=20.0, may_part=TILED_FRAGILE_SLICES)
+    log(f"[tiled] PyTorch operations (and views) an iteration at 2x2: "
+        f"kernels {operations((2, 2))}, xla {operations((2, 2), 'xla')}")
     rf = report("4x2 fast", run((4, 2), fast=True, warm=True))
     # The fast schedule against the reference one (reported, not gated:
     # the reference schedule stops at max_iter in most slices).
@@ -1356,14 +1407,17 @@ def phase_tiled(d, dev, n_compare=N_TILED_COMPARE):
     m = n_compare
     t0 = time.perf_counter()
     same_twins("tiled 4x2", run((4, 2), m=m), run((4, 2), device="cpu", m=m))
+    same_twins("tiled 2x2 xla", run((2, 2), m=m, mode="xla"),
+               run((2, 2), device="cpu", m=m, mode="xla"))
     part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
     same_twins("untiled scan at 720x1280",
                compensate_recording_scan(part["x"], part["y"], part["t_ns"],
                                          tiled_cfg(), device=dev),
                compensate_recording_scan(part["x"], part["y"], part["t_ns"],
                                          tiled_cfg(), device="cpu"))
-    log(f"[tiled] card = CPU twins on {m} events, tiled 4x2 and the untiled "
-        f"scan (noise and iterations identical, median du = dv = 0); "
+    log(f"[tiled] card = CPU twins on {m} events, tiled 4x2, tiled 2x2 xla "
+        f"and the untiled scan (noise and iterations identical, median du = "
+        f"dv = 0); "
         f"{time.perf_counter() - t0:.1f} s")
 
     # Beyond the halo: a fast scene on a small sensor, 4x1 tiles, halo 8.
@@ -1969,6 +2023,7 @@ def phase_xla(d, cfg, prep, r_fast, dev):
         f"{1e3 * sf['run_s'] / iters_f:.4f})  PyTorch operations (and views) "
         f"an iteration {ops}; blocking calls a scan {syncs} ({iters} "
         f"iterations); second run bitwise identical")
+    phase_xla_sharded(d, xcfg, r1, dev)
     m = N_XLA_COMPARE
     part = {k: d[k][:m] for k in ("x", "y", "t_ns")}
     rg = compensate_recording_scan(part["x"], part["y"], part["t_ns"], xcfg,
@@ -2018,6 +2073,63 @@ def phase_xla(d, cfg, prep, r_fast, dev):
         f"host ms an iteration {1e3 * t_run / max(sum(n_it), 1):.4f}")
     log(f"[xla] phase {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def phase_xla_sharded(d, xcfg, r1, dev, n_shards=XLA_SHARDS):
+    """The XLA branch under an event group: the ``fast(scatter_mode=
+    "xla")`` scan of the whole bench stream over ``n_shards`` shards
+    resident on the card (each iteration's integer pre-filter pair summed
+    over the shards before the image chain), bitwise the single-device
+    XLA scan ``r1``, with no kernel launched; its host ms and PyTorch
+    operations an iteration beside the single-device run's."""
+    import numpy as np
+
+    from better_flow_tpu_torch.models import global_flow as gf
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.parallel.event_parallel import (
+        compensate_recording_scan_sharded, prepare_recording_sharded,
+    )
+    from better_flow_tpu_torch.parallel.mesh import make_event_mesh
+
+    mesh = make_event_mesh(n_shards, device=dev)
+    prep = prepare_recording_sharded(d["x"], d["y"], d["t_ns"], xcfg, mesh)
+    run = lambda: compensate_recording_scan_sharded(None, None, None, xcfg,
+                                                    mesh, prepared=prep)
+    run()                                                   # warm-up
+    fm.reset_launches()
+    rs = run()
+    if any(fm.LAUNCHES.values()):
+        raise AssertionError(f"xla scan over {n_shards} shards launched "
+                             f"kernels: {fm.LAUNCHES}")
+    same_outputs(f"xla scan over {n_shards} shards against one device", rs,
+                 r1, keys=("u", "v", "noise", "iters", "ran"))
+    ops = count_operations(gf, "iteration_step", run)
+    st, s1 = rs["stats"], r1["stats"]
+    iters = int(rs["iters"].sum())
+    log(f"[xla] fast(scatter_mode='xla') scan over {n_shards} shards on the "
+        f"card: bitwise the single-device xla scan, no launch; run_s "
+        f"{st['run_s']:.4f} (one device {s1['run_s']:.4f})  host ms an "
+        f"iteration {1e3 * st['run_s'] / iters:.4f} (one device "
+        f"{1e3 * s1['run_s'] / iters:.4f})  PyTorch operations (and views) "
+        f"an iteration {ops}  host_syncs {st['host_syncs']}  n_slices "
+        f"{st['n_slices']}  mean_iters {st['mean_iters']:.4f}")
+
+
+def phase_dryrun(dev, n_shards=DRYRUN_SHARDS):
+    """The port's entry hooks on the card (``graft_entry``): ``entry``'s
+    slice and ``dryrun(n_shards)``'s four stages, each of which raises on
+    a failure."""
+    from better_flow_tpu_torch import graft_entry
+
+    t_phase = time.perf_counter()
+    fn, args = graft_entry.entry()
+    res = fn(*args)
+    if not res.ran or res.u.device.type != dev.type:
+        raise AssertionError(f"entry: ran {res.ran} on {res.u.device}")
+    log(f"[dryrun] entry: one slice on the card, iters {res.iters}")
+    graft_entry.dryrun(n_shards)
+    log(f"[dryrun] dryrun({n_shards}): four stages passed; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_options(scan_inputs, cfg, prep, r1, d, dev):
@@ -3046,6 +3158,8 @@ def phase_views(d, dev, n=50_000):
     ``process_slice`` (the XLA branch, ``fast()``): its warped positions,
     flow and final time image, copied to the host, give the same inputs
     to the card and the CPU, whose outputs must be equal."""
+    import importlib
+
     import numpy as np
     import torch
 
@@ -3055,8 +3169,11 @@ def phase_views(d, dev, n=50_000):
     from better_flow_tpu_torch.models import clustering
     from better_flow_tpu_torch.models import global_flow as gf
     from better_flow_tpu_torch.ops import reductions as red
-    from better_flow_tpu_torch.ops import time_image as ti
     from better_flow_tpu_torch.viz import debug_images as di
+
+    # The module: ``ops`` exports the function ``time_image`` under the
+    # module's name, as the JAX package's ``ops`` does.
+    ti = importlib.import_module("better_flow_tpu_torch.ops.time_image")
 
     t_phase = time.perf_counter()
     sensor, scale = SensorConfig(), 3
@@ -3273,6 +3390,9 @@ def main():
         launches[k] = tiled[k]
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched by the tiled run")
+
+    # The entry hooks: the JAX package's dry run, on the card.
+    phase_dryrun(dev)
 
     # The other optimizers and views: plain PyTorch, no kernel.
     t_phase = time.perf_counter()

@@ -1072,6 +1072,56 @@ def test_xla_scan_on_card_matches_cpu_and_repeats(cuda):
         np.testing.assert_array_equal(rg[k], rg2[k])
 
 
+@pytest.mark.parametrize("mode", ["xla", "mxu"])
+def test_sharded_xla_scan_on_card_is_unsharded_and_cpu(cuda, mode):
+    """The XLA branch under an event group on the card: 4 shards resident
+    on the card bitwise the single-device card run, no kernel launched,
+    and the same noise, iterations and median |du| = |dv| = 0 as the
+    4-shard CPU run."""
+    d = synthetic_events(30000, duration_s=0.5, res_x=24, res_y=32, vx=20.0,
+                         vy=-14.0, seed=2)
+    cfg = small_cfg(scatter_mode=mode)
+    run = lambda dev: compensate_recording_scan_sharded(
+        d["x"], d["y"], d["t_ns"], cfg, make_event_mesh(4, device=dev))
+    rg, rc = run(cuda), run("cpu")
+    r1 = tscan.compensate_recording_scan(d["x"], d["y"], d["t_ns"], cfg,
+                                         device=cuda)
+    assert not any(rg["stats"]["launches"].values())
+    for k in ("u", "v", "noise", "iters", "ran"):
+        np.testing.assert_array_equal(rg[k], r1[k])
+    for k in ("noise", "iters", "ran"):
+        np.testing.assert_array_equal(rg[k], rc[k])
+    for k in ("u", "v"):
+        assert float(np.median(np.abs(rg[k] - rc[k]))) == 0.0
+
+
+def test_tiled_xla_on_card_matches_cpu_and_kernels(cuda):
+    """The tiled XLA branch on the card (2x2 tiles, no launch): the same
+    noise and iterations as its CPU run, and within the gate of
+    tests/test_spatial.py:350-354 of the card's B8/B9 run."""
+    res = (180, 240)
+    d = tiled_stream(res=res, n_points=150)
+    cfg = lambda mode: tiled_cfg(res=res, optimizer=OptimizerConfig(
+        scale=1, max_iter=10, min_events=300, scatter_mode=mode))
+    run = lambda mode, dev: compensate_recording_tiled(
+        d["x"], d["y"], d["t_ns"], cfg(mode), make_tiled_mesh((2, 2),
+                                                              device=dev),
+        halo=8, esc_cap=4096)
+    rg, rc, rk = run("xla", cuda), run("xla", "cpu"), run("pallas", cuda)
+    assert not any(rg["stats"]["launches"].values())
+    assert rg["stats"]["escaped_dropped"] == 0
+    for k in ("noise", "iters"):
+        np.testing.assert_array_equal(rg[k], rc[k])
+        np.testing.assert_array_equal(rg[k], rk[k])
+    ok = ~rk["noise"]
+    speed = float(np.hypot(rk["u"][ok], rk["v"][ok]).mean())
+    assert speed > 20.0
+    for k in ("u", "v"):
+        assert float(np.median(np.abs(rg[k] - rc[k]))) == 0.0
+        dk = np.abs(rg[k][ok] - rk[k][ok])
+        assert np.median(dk) <= 0.001 * speed and dk.max() <= 0.05 * speed
+
+
 def test_merged_scan_on_card_is_the_split_scan(cuda):
     """``megastep_merged`` on the card: bitwise the B1 + B2 + B4 scan, one
     B12 launch an iteration plus one a slice that runs, and no B4."""

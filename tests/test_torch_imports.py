@@ -45,7 +45,8 @@ def test_port_and_smoke_script_import_nothing_of_jax_or_the_jax_package():
             "better_flow_tpu_torch.eval.metrics",
             "better_flow_tpu_torch.io.dvs_sim",
             "better_flow_tpu_torch.core.pixel_map",
-            "better_flow_tpu_torch.profiling"} <= set(modules)
+            "better_flow_tpu_torch.profiling",
+            "better_flow_tpu_torch.graft_entry"} <= set(modules)
     code = (
         "import sys, importlib\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

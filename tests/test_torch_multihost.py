@@ -356,7 +356,8 @@ _WORKER = textwrap.dedent("""
     out = {}
     for name, cfg in (("fast", small_cfg()), ("f64", small_cfg().replace(
             f64_totals=True,
-            optimizer=OptimizerConfig(scale=3, min_events=500)))):
+            optimizer=OptimizerConfig(scale=3, min_events=500))),
+            ("xla", small_cfg(scatter_mode="xla"))):
         mesh = make_event_mesh(4, device="cpu")        # 2 ranks x 2 shards
         assert (mesh.n_local, mesh.first_shard) == (2, 2 * c.rank)
         r = compensate_recording_scan_sharded(d["x"], d["y"], d["t_ns"], cfg,
@@ -379,8 +380,9 @@ def test_two_processes_over_gloo_equal_one_process(tmp_path):
     """Two CPU processes over gloo: the event-parallel scan with its shards
     on both ranks (the image sum crosses the process boundary, the outputs
     are gathered) and the chained multihost run (one carry broadcast, one
-    gather of the claims), each equal to the single-process result.  Both
-    processes are killed after 300 s."""
+    gather of the claims), each equal to the single-process result, in the
+    kernel branch and in the XLA branch (its exact integer image pair
+    summed across the ranks).  Both processes are killed after 300 s."""
     store = tmp_path / "store"
     env = dict(os.environ, BF_REPO=ROOT, BF_COORDINATOR=f"file://{store}",
                BF_NUM_PROCESSES="2", GLOO_SOCKET_IFNAME="lo",
@@ -409,7 +411,8 @@ def test_two_processes_over_gloo_equal_one_process(tmp_path):
     outs = [np.load(str(tmp_path / f"o{r}.npz")) for r in range(2)]
     for name, cfg in (("fast", small_cfg()), ("f64", small_cfg().replace(
             f64_totals=True,
-            optimizer=OptimizerConfig(scale=3, min_events=500)))):
+            optimizer=OptimizerConfig(scale=3, min_events=500))),
+            ("xla", small_cfg(scatter_mode="xla"))):
         full = _scan(d, cfg)
         S = len(full["iters"])
         per = (S + 1) // 2

@@ -188,23 +188,18 @@ def test_skip_branch_too_few_events_matches_jax():
     ("warm_extrapolate", 0.5), ("megastep_merged", True), ("splat_pair", 2),
     ("megastep_unroll", 2), ("scatter_mode", "xla"), ("scatter_mode", "rep")])
 def test_unported_configurations_raise(field, value):
-    """Every option of the list is ported now, and the configurations that
-    still raise do so by name.  ``megastep_merged``, ``warm_extrapolate``,
-    ``splat_pair`` and ``megastep_unroll`` are accepted everywhere (an
-    event group and the tiled path ignore the ones they do not run, as in
-    the JAX package); the XLA branch's modes, "xla" and "rep", raise only
-    where the port does not run that branch: under an event group and on
-    the tiled path."""
+    """Every option of the list is ported now, and is accepted everywhere:
+    ``megastep_merged``, ``warm_extrapolate``, ``splat_pair`` and
+    ``megastep_unroll`` (an event group and the tiled path ignore the ones
+    they do not run, as in the JAX package), and the XLA branch's modes,
+    "xla" and "rep", which run on one device, under an event group and on
+    the tiled path.  What still raises does so by name: an unknown value
+    of the option."""
     opt = OptimizerConfig.fast(**{field: value})
     check_supported(opt)
-    if field != "scatter_mode":
-        check_supported(opt, sharded=True)
-        check_supported(opt, tiled=True)
-        return
-    with pytest.raises(NotImplementedError, match=field):
-        check_supported(opt, sharded=True)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        check_supported(opt, tiled=True)
+    if field == "scatter_mode":
+        with pytest.raises(NotImplementedError, match=field):
+            check_supported(OptimizerConfig.fast(scatter_mode="segment"))
 
 
 @pytest.mark.parametrize("schedule", ["fast", "reference"])

@@ -411,8 +411,13 @@ def test_tiled_entry_points_raise(monkeypatch):
         halo=halo)
     with pytest.raises(ValueError, match="halo 64 exceeds the natural tile"):
         run(_cpu_mesh(4, 1), halo=64)
+    # The XLA branch runs on the tiled path (an unknown mode still raises).
+    rx = run(_cpu_mesh(1, 1), cfg=OptimizerConfig(scale=3, scatter_mode="xla"))
+    assert rx.iters > 0 and rx.escaped_dropped == 0
+    assert np.isfinite(rx.u.numpy()).all()
     with pytest.raises(NotImplementedError, match="scatter_mode"):
-        run(_cpu_mesh(1, 1), cfg=OptimizerConfig(scale=3, scatter_mode="xla"))
+        run(_cpu_mesh(1, 1), cfg=OptimizerConfig(scale=3,
+                                                 scatter_mode="segment"))
     with pytest.raises(NotImplementedError, match="f64 totals"):
         run(_cpu_mesh(1, 1), model=MotionModel.zero(f64_totals=True))
     with pytest.raises(ValueError, match="do not divide over 4 tiles"):

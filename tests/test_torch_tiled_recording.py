@@ -270,18 +270,21 @@ _WORKER = textwrap.dedent("""
 
 
 def recording_runs(mesh, prefix=""):
-    """A tiled recording under both schedules on ``mesh``: what a rank of
-    the two-process run and the one-process run both compute."""
+    """A tiled recording under both schedules, in the kernel branch and in
+    the XLA branch (keys ``xla_...``), on ``mesh``: what a rank of the
+    two-process run and the one-process run both compute."""
     d = tiled_stream(20_000, jitter_px=2.5, n_points=30)
     out = {}
-    for s in ("reference", "fast"):
-        r = tsp.compensate_recording_tiled(
-            d["x"], d["y"], d["t_ns"], tiled_cfg(optimizer=_opt(s)), mesh,
-            halo=HALO, esc_cap=ESC_CAP)
-        assert r["stats"]["escaped_dropped"] == 0
-        for k in ("u", "v", "noise", "iters"):
-            out[f"{prefix}{s}_{k}"] = r[k]
-        out[f"{prefix}{s}_total_dx"] = r["model"].total_dx.numpy()
+    for mode, tag in (("auto", prefix), ("xla", f"{prefix}xla_")):
+        for s in ("reference", "fast"):
+            r = tsp.compensate_recording_tiled(
+                d["x"], d["y"], d["t_ns"],
+                tiled_cfg(optimizer=_opt(s, scatter_mode=mode)), mesh,
+                halo=HALO, esc_cap=ESC_CAP)
+            assert r["stats"]["escaped_dropped"] == 0
+            for k in ("u", "v", "noise", "iters"):
+                out[f"{tag}{s}_{k}"] = r[k]
+            out[f"{tag}{s}_total_dx"] = r["model"].total_dx.numpy()
     return out
 
 
@@ -313,10 +316,11 @@ def two_tile_runs(mesh):
 
 def test_two_processes_over_gloo_equal_two_tiles_in_one_process(tmp_path):
     """A 2x1 mesh over two gloo processes, one tile each, bitwise two tiles
-    in one process: the recording under both schedules (every rank returns
-    the whole recording's output) and the beyond-halo slice with a sized
-    and a starved lane.  Then a 2x2 mesh, two tiles each (a strip exchange
-    is part copy within a rank, part ``permute``), bitwise four tiles in one
+    in one process: the recording under both schedules and in both
+    branches, the kernels' and the XLA branch's (every rank returns the
+    whole recording's output), and the beyond-halo slice with a sized and a
+    starved lane.  Then a 2x2 mesh, two tiles each (a strip exchange is
+    part copy within a rank, part ``permute``), bitwise four tiles in one
     process.  Both processes are killed after 300 s."""
     store = tmp_path / "store"
     env = dict(os.environ, BF_REPO=ROOT, BF_COORDINATOR=f"file://{store}",
@@ -343,7 +347,8 @@ def test_two_processes_over_gloo_equal_two_tiles_in_one_process(tmp_path):
 
     want = two_tile_runs(make_tiled_mesh((2, 1), device="cpu"))
     want.update(recording_runs(make_tiled_mesh((2, 2), device="cpu"), "2x2_"))
-    assert want["2x2_reference_iters"].sum() > len(want["2x2_reference_iters"])
+    for k in ("2x2_reference_iters", "2x2_xla_reference_iters"):
+        assert want[k].sum() > len(want[k])
     assert want["lane4096_dropped"] == 0 and want["lane1_dropped"] > 0
     assert want["reference_iters"].sum() > len(want["reference_iters"])
     outs = [np.load(str(tmp_path / f"o{r}.npz")) for r in range(2)]

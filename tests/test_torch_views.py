@@ -29,7 +29,9 @@ from better_flow_tpu.ops.time_image import time_image  # noqa: E402
 from better_flow_tpu_torch.models import clustering as tcl  # noqa: E402
 from better_flow_tpu_torch.ops import gradient as tgr  # noqa: E402
 from better_flow_tpu_torch.ops import reductions as tred  # noqa: E402
-from better_flow_tpu_torch.ops import time_image as tti  # noqa: E402
+# The module (``ops`` exports the function under its name, as the JAX
+# package's ``ops`` does).
+tti = importlib.import_module("better_flow_tpu_torch.ops.time_image")
 from better_flow_tpu_torch.ops import warp as twarp  # noqa: E402
 from better_flow_tpu_torch.viz import debug_images as tdi  # noqa: E402
 

@@ -349,30 +349,42 @@ def test_stream_matches_jax_per_event():
     np.testing.assert_allclose(at["v"], aj["v"], rtol=1e-3, atol=1e-2)
 
 
-# -------------------------------------------------------- what stays raising
+# ------------------------------------ groups, tiles, and what stays raising
 
 
-def test_xla_under_an_event_group_or_tiled_raises_by_name():
+def test_xla_runs_under_a_group_and_tiled_and_unknown_modes_raise():
+    """The XLA branch runs under an event group and on the tiled path (the
+    sharded scan bitwise the scan, ``tests/test_torch_xla_parallel.py``
+    holds both against the JAX package); what still raises does so by
+    name: an unknown scatter mode, and the XLA branch without the flat
+    slice."""
     d = synthetic_events(6000, duration_s=0.2, res_x=24, res_y=32, vx=20.0,
                          vy=-14.0, seed=2)
     cfg = small_cfg(scatter_mode="xla")
-    with pytest.raises(NotImplementedError, match="under an event group"):
-        compensate_recording_scan_sharded(
-            d["x"], d["y"], d["t_ns"], cfg, make_event_mesh(2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="tiled path"):
-        compensate_recording_tiled(d["x"], d["y"], d["t_ns"], cfg,
-                                   make_tiled_mesh((1, 1), device="cpu"))
+    rs = compensate_recording_scan_sharded(
+        d["x"], d["y"], d["t_ns"], cfg, make_event_mesh(2, device="cpu"))
+    ru = tscan.compensate_recording_scan(d["x"], d["y"], d["t_ns"], cfg,
+                                         device="cpu")
+    for k in ("u", "v", "noise", "iters"):
+        np.testing.assert_array_equal(rs[k], ru[k], err_msg=k)
+    rt = compensate_recording_tiled(d["x"], d["y"], d["t_ns"], cfg,
+                                    make_tiled_mesh((1, 1), device="cpu"))
+    assert rt["stats"]["escaped_dropped"] == 0
+    assert np.isfinite(rt["u"]).all() and (rt["iters"] > 0).any()
     evj, evt, bbox, n = _slice(3)
     geom = tgf.geometry_from_bbox(*bbox, 3, SENSOR)
-    with pytest.raises(NotImplementedError, match="event group"):
-        tgf.iteration_step(tgf.warp_init(evt, MotionModel.zero()), evt, geom,
-                           3, H, W, group=object())
-    # "rep" and "mxu" run the XLA branch: on one device only.
+    group = make_event_mesh(1, device="cpu")
+    s0 = tgf.warp_init(evt, MotionModel.zero())
+    one = tgf.iteration_step(s0, evt, geom, 3, H, W)
+    for mode in ("xla", "pallas"):
+        # Under a group "pallas" takes the XLA chain, as in the JAX package.
+        got = tgf.iteration_step(s0, evt, geom, 3, H, W, scatter_mode=mode,
+                                 group=group)
+        assert torch.equal(got.pr_x, one.pr_x)
+        assert torch.equal(got.model.total_dx, one.model.total_dx)
+    # "rep" and "mxu" run the XLA branch, under a group and tiled too.
     for mode in ("rep", "mxu"):
         tgf.check_supported(OptimizerConfig(scatter_mode=mode))
-        with pytest.raises(NotImplementedError, match="under an event group"):
-            tgf.check_supported(OptimizerConfig(scatter_mode=mode),
-                                sharded=True)
     with pytest.raises(NotImplementedError, match="scatter_mode"):
         tgf.check_supported(OptimizerConfig(scatter_mode="segment"))
     with pytest.raises(ValueError, match="pass ev"):
