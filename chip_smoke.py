@@ -51,6 +51,17 @@ in phases that each raise on failure:
    call, then the measured one): events/s, each batch's staging, run and
    fetch time, their overlap, and peak device memory against the scan's;
 5. the card against the CPU twins on the stream's first 200,000 events;
+   then the fast schedule's quality (``[quality]``, ``phase_quality``):
+   tools/sweep_exit.py's three scenes at five seeds each (180x240,
+   120,000-200,000 events) under the reference schedule, ``fast()``,
+   ``fast_accurate()`` and ``fast_throughput()``, each scene's seed mean
+   and max of the AEE ratio and the iteration fraction beside
+   BASELINE.md:360; the gates of tests/test_fast_schedule.py at their own
+   seeds (``FAST_GATES``; the two that the JAX package's own kernel path
+   misses printed MET or NOT MET, outside the verdict); every gate run
+   against the CPU twins (noise identical, >= 90% of slices with equal
+   iterations); and each run's launches (B3, B1, B2, B4 under the fast
+   presets, B3, B5, B4 under the reference schedule);
    then the numpy staging route (``[staging]``, ``phase_staging``): the
    main path's staging asserted native; the scan of the 2M stream with
    seeded sub-pixel offsets (B3, B1, B2, B4 counted, a repeat bitwise,
@@ -170,6 +181,7 @@ limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
 no result line, when there is no CUDA device or a phase fails.
 """
 
+import functools
 import json
 import os
 import statistics
@@ -2378,6 +2390,299 @@ def within_f16(label, comp, exact):
                                  f"{float(err.max())}")
 
 
+# ------------------------------------------------------------ [quality]
+
+# tools/sweep_exit.py's scenes (:39-54) and seeds (:65-69): the gate scenes
+# of tests/test_fast_schedule.py, each at four more seeds.
+SCENE_SEEDS = {
+    "production": (42, 101, 202, 303, 404),
+    "rotdiv": (777, 11, 23, 57, 91),
+    "noisy": (31, 7, 99, 11, 5),
+}
+QUALITY_PRESETS = ("reference", "fast", "fast_accurate", "fast_throughput")
+# BASELINE.md:360: fast()'s AEE ratio, seed mean / max, on the JAX
+# package's XLA branch.
+BASELINE_FAST = {"production": (1.012, 1.021), "rotdiv": (1.033, 1.155),
+                 "noisy": (1.058, 1.175)}
+# The gates that the JAX package's own kernel path (Pallas in interpret
+# mode on the CPU) misses on its gate stream.  On the kernel route the CPU
+# tests hold the port to the larger of the gate and that path's ratio
+# (tests/test_torch_fast_gates.py); the card prints them MET or NOT MET.
+SHARED_MISSES = ("112 fast AEE", "112 fast_accurate AEE")
+
+
+def quality_opt(cls, preset, **kw):
+    """``preset`` ("reference", "fast", "fast6": fast() at
+    exit_grad_factor 6, "fast_accurate", "fast_throughput") built from
+    ``cls``, either package's OptimizerConfig."""
+    if preset == "reference":
+        return cls(schedule="reference", **kw)
+    if preset == "fast6":
+        return cls.fast(exit_grad_factor=6.0, **kw)
+    return getattr(cls, preset)(**kw)
+
+
+def quality_runner(scan, pipeline_cls, opt_cls, scene, **opt_kw):
+    """``run(name, seed, preset)``: ``scan(d, cfg)`` on the events of
+    ``scene(name, seed)`` under ``pipeline_cls(optimizer=quality_opt(
+    opt_cls, preset, **opt_kw))``, each run once and kept in ``run.runs``
+    by (name, seed, preset)."""
+    runs = {}
+
+    def run(name, seed, preset):
+        if (name, seed, preset) not in runs:
+            d, _ = scene(name, seed)
+            runs[name, seed, preset] = scan(d, pipeline_cls(
+                optimizer=quality_opt(opt_cls, preset, **opt_kw)))
+        return runs[name, seed, preset]
+    run.runs = runs
+    return run
+
+
+def gate_scene(name, seed):
+    """tools/sweep_exit.py's scene ``name`` at ``seed``: the events and the
+    mask of the events whose error counts (the noisy stream's signal
+    events; None elsewhere)."""
+    from better_flow_tpu_torch.io.dvs_sim import dvs_events
+    from better_flow_tpu_torch.io.synthetic import synthetic_events
+
+    if name == "production":
+        return synthetic_events(200_000, duration_s=0.2, res_x=180,
+                                res_y=240, vx=60.0, vy=-40.0, rot=0.12,
+                                div=0.05, n_points=800, seed=seed), None
+    if name == "rotdiv":
+        return synthetic_events(150_000, duration_s=0.2, res_x=180,
+                                res_y=240, vx=10.0, vy=8.0, rot=0.6,
+                                div=0.12, n_points=600, seed=seed), None
+    if name == "noisy":
+        d = dvs_events(120_000, duration_s=0.25, res_x=180, res_y=240,
+                       vx=45.0, vy=-30.0, rot=0.1, div=0.04, seed=seed)
+        return d, ~d["is_noise"]
+    raise ValueError(name)
+
+
+def aee_med(out, d, mask=None):
+    """The median endpoint error of the events not flagged noise (and in
+    ``mask``), tests/test_fast_schedule.py's ``_aee_med``."""
+    import numpy as np
+
+    m = ~out["noise"]
+    if mask is not None:
+        m = m & mask
+    return float(np.median(np.hypot(out["u"][m] - d["u"][m],
+                                    out["v"][m] - d["v"][m])))
+
+
+def gate(label, value, limit, base=1.0, strict=False):
+    """One gate: ``value <= limit * base`` (``<`` when ``strict``)."""
+    return dict(label=label, value=value, limit=limit, base=base,
+                strict=strict)
+
+
+def gate_held(g, limit=None):
+    """Whether ``g`` holds at its own limit or at ``limit``."""
+    bound = (g["limit"] if limit is None else limit) * g["base"]
+    return g["value"] < bound if g["strict"] else g["value"] <= bound
+
+
+def gates_29(run, scene):
+    """test_fast_schedule.py:29: fast() against the reference schedule on
+    the production scene, seed 42.  ``run(name, seed, preset)`` is the
+    scan's output and ``scene(name, seed)`` ``gate_scene``'s, both cached
+    by the caller."""
+    import numpy as np
+
+    d, _ = scene("production", 42)
+    ref, fast = (run("production", 42, p) for p in ("reference", "fast"))
+    ok = ~(ref["noise"] | fast["noise"])
+    speed = float(np.hypot(ref["u"][ok], ref["v"][ok]).mean())
+    return [
+        gate("29 median |du|",
+             float(np.median(np.abs(fast["u"][ok] - ref["u"][ok]))), 0.01,
+             speed, strict=True),
+        gate("29 median |dv|",
+             float(np.median(np.abs(fast["v"][ok] - ref["v"][ok]))), 0.01,
+             speed, strict=True),
+        gate("29 fast AEE", aee_med(fast, d), 1.02, aee_med(ref, d)),
+        gate("29 fast iterations", int(fast["iters"].sum()), 0.7,
+             int(ref["iters"].sum())),
+    ]
+
+
+def gates_93(run, scene):
+    """test_fast_schedule.py:93: fast() on the rotdiv scene, seed 777."""
+    d, _ = scene("rotdiv", 777)
+    ref, fast = (run("rotdiv", 777, p) for p in ("reference", "fast"))
+    return [gate("93 fast AEE", aee_med(fast, d), 1.05, aee_med(ref, d)),
+            gate("93 fast iterations", int(fast["iters"].sum()), 1.0,
+                 int(ref["iters"].sum()))]
+
+
+def gates_112(run, scene):
+    """test_fast_schedule.py:112: fast() and fast_accurate() on the noisy
+    dvs_sim stream, seed 31, the error over its signal events."""
+    d, sig = scene("noisy", 31)
+    ref, fast, acc = (run("noisy", 31, p)
+                      for p in ("reference", "fast", "fast_accurate"))
+    a_r, it_r = aee_med(ref, d, sig), int(ref["iters"].sum())
+    return [gate("112 fast AEE", aee_med(fast, d, sig), 1.2, a_r),
+            gate("112 fast_accurate AEE", aee_med(acc, d, sig), 1.02, a_r),
+            gate("112 fast iterations", int(fast["iters"].sum()), 1.0, it_r),
+            gate("112 fast_accurate iterations", int(acc["iters"].sum()),
+                 0.7, it_r)]
+
+
+def gates_141(run, scene):
+    """test_fast_schedule.py:141: the rotdiv margin canary, fast() at
+    exit_grad_factor 4 and 6, seed 777."""
+    d, _ = scene("rotdiv", 777)
+    a_r = aee_med(run("rotdiv", 777, "reference"), d)
+    return [gate("141 factor-4 AEE", aee_med(run("rotdiv", 777, "fast"), d),
+                 1.03, a_r),
+            gate("141 factor-6 AEE",
+                 aee_med(run("rotdiv", 777, "fast6"), d), 1.3, a_r)]
+
+
+def gates_407(run, scene):
+    """test_fast_schedule.py:407: fast_throughput() on the production
+    scene at seeds 42, 101 and 202, and on the rotdiv scene, seed 777."""
+    import numpy as np
+
+    out, ratios, it_ft, it_f = [], [], 0, 0
+    for seed in (42, 101, 202):
+        d, _ = scene("production", seed)
+        ft = run("production", seed, "fast_throughput")
+        r = aee_med(ft, d) / aee_med(run("production", seed, "reference"), d)
+        ratios.append(r)
+        out.append(gate(f"407 seed {seed} fast_throughput AEE", r, 1.12))
+        it_ft += int(ft["iters"].sum())
+        it_f += int(run("production", seed, "fast")["iters"].sum())
+    d, _ = scene("rotdiv", 777)
+    return out + [
+        gate("407 mean AEE ratio", float(np.mean(ratios)), 1.05),
+        gate("407 iterations against fast()", it_ft, 0.9, it_f),
+        gate("407 rotdiv fast_throughput AEE",
+             aee_med(run("rotdiv", 777, "fast_throughput"), d), 1.5,
+             aee_med(run("rotdiv", 777, "reference"), d)),
+    ]
+
+
+FAST_GATES = {29: gates_29, 93: gates_93, 112: gates_112, 141: gates_141,
+              407: gates_407}
+
+
+def phase_quality(dev):
+    """``[quality]``: the fast schedule's quality on the card's kernels.
+    (a) tools/sweep_exit.py's sweep, 3 scenes x 5 seeds under the four
+    ``QUALITY_PRESETS``: per scene and preset the seed mean and max of the
+    AEE ratio against the reference schedule and of the iteration
+    fraction; (b) the gates of tests/test_fast_schedule.py at their own
+    seeds (``FAST_GATES``), raising on any but ``SHARED_MISSES``, which are
+    printed MET or NOT MET; (c) every gate run against the CPU twins' run
+    (noise identical, >= 90% of slices with equal iterations), both ratios
+    printed; (d) each run's launches: B3 once and B4 once a slice that
+    ran, B1 and B2 under the fast presets, B5 under the reference
+    schedule."""
+    import numpy as np
+
+    from better_flow_tpu_torch.config import OptimizerConfig, PipelineConfig
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        compensate_recording_scan,
+    )
+
+    t_phase = time.perf_counter()
+    scene = functools.lru_cache(maxsize=None)(gate_scene)
+
+    def runner(device):
+        return quality_runner(
+            lambda d, cfg: compensate_recording_scan(
+                d["x"], d["y"], d["t_ns"], cfg, device=device),
+            PipelineConfig, OptimizerConfig, scene)
+
+    card = runner(dev)
+    card_runs = card.runs
+    rows = []
+    for name, seeds in SCENE_SEEDS.items():
+        for seed in seeds:
+            d, mask = scene(name, seed)
+            ref = card(name, seed, "reference")
+            a_r, it_r = aee_med(ref, d, mask), int(ref["iters"].sum())
+            for preset in QUALITY_PRESETS:
+                r = card(name, seed, preset)
+                it = int(r["iters"].sum())
+                rows.append(dict(scene=name, seed=seed, preset=preset,
+                                 ratio=aee_med(r, d, mask) / a_r, iters=it,
+                                 iterfrac=it / it_r))
+    t_sweep = time.perf_counter() - t_phase
+    for name in SCENE_SEEDS:
+        for preset in QUALITY_PRESETS:
+            rs = [r for r in rows if r["scene"] == name
+                  and r["preset"] == preset]
+            ratio = [r["ratio"] for r in rs]
+            frac = [r["iterfrac"] for r in rs]
+            base = (f"; BASELINE.md:360 (JAX, XLA branch): "
+                    f"{BASELINE_FAST[name][0]} / {BASELINE_FAST[name][1]}"
+                    if preset == "fast" else "")
+            log(f"[quality] sweep {name} {preset}: AEE ratio mean "
+                f"{np.mean(ratio):.4f} max {max(ratio):.4f}, iteration "
+                f"fraction mean {np.mean(frac):.4f} max {max(frac):.4f} "
+                f"(seeds {[r['seed'] for r in rs]}: ratios "
+                f"{[round(x, 4) for x in ratio]}, iterations "
+                f"{[r['iters'] for r in rs]}){base}")
+    log(f"[quality] sweep: {len(card_runs)} scans on the card in "
+        f"{t_sweep:.1f} s")
+
+    t0 = time.perf_counter()
+    cpu = runner("cpu")
+    cpu_runs = cpu.runs
+    verdict = []
+    for gates_of in FAST_GATES.values():
+        for g, c in zip(gates_of(card, scene), gates_of(cpu, scene)):
+            met = gate_held(g)
+            log(f"[quality] gate {g['label']}: card "
+                f"{g['value'] / g['base']:.4f}, CPU twins "
+                f"{c['value'] / c['base']:.4f}, limit "
+                f"{g['limit']} ({'<' if g['strict'] else '<='}): "
+                f"{'MET' if met else 'NOT MET'}"
+                + (" (shared with the JAX kernel path, not in the verdict)"
+                   if g["label"] in SHARED_MISSES else ""))
+            if not met and g["label"] not in SHARED_MISSES:
+                verdict.append(g["label"])
+    for key, c in cpu_runs.items():
+        g = card_runs[key]
+        if not np.array_equal(g["noise"], c["noise"]):
+            raise AssertionError(f"[quality] {key}: card and CPU noise "
+                                 f"flags differ")
+        eq = float(np.mean(g["iters"] == c["iters"]))
+        bitwise = all(np.array_equal(g[k], c[k]) for k in ("u", "v", "iters"))
+        log(f"[quality] card against CPU twins {key}: noise identical, "
+            f"{eq:.3f} of {len(g['iters'])} slices with equal iterations"
+            f"{', u and v bitwise' if bitwise else ''}")
+        if eq < 0.9:
+            raise AssertionError(f"[quality] {key}: iterations "
+                                 f"{g['iters'].tolist()} on the card, "
+                                 f"{c['iters'].tolist()} on the CPU")
+    if verdict:
+        raise AssertionError(f"[quality] gates not met: {verdict}")
+    log(f"[quality] gates and CPU twins ({len(cpu_runs)} scans): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    fast_kernels = ("warp_images_st", "megastep_finish")
+    for key, r in card_runs.items():
+        lc, ran = r["stats"]["launches"], int(r["ran"].sum())
+        want = ("megastep",) if key[2] == "reference" else fast_kernels
+        other = fast_kernels if key[2] == "reference" else ("megastep",)
+        if (lc["act_rows"] != 1 or lc["warp_uv"] != ran
+                or any(lc[k] <= 0 for k in want)
+                or any(lc[k] for k in other)):
+            raise AssertionError(f"[quality] {key}: launches {lc}, "
+                                 f"{ran} slices ran")
+    log(f"[quality] launches: B3 once and B4 once a slice that ran in each "
+        f"of {len(card_runs)} scans, B1 and B2 under the fast presets, B5 "
+        f"under the reference schedule; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cold(d, cfg, r1, dev, n_cold=N_COLD):
     """The cold path, ``compensate_recording_cold``, on the stream of
     ``[main]``: four batches bitwise the scan ``r1`` with B3 launched once a
@@ -3345,6 +3650,8 @@ def main():
     gates = compare_runs(rg, rc, d, m)
     log(f"[card-vs-cpu] {m} events, CPU twins {time.perf_counter() - t0:.1f}"
         f" s: {json.dumps(gates)}")
+    # The fast schedule's quality gates and seed sweep on the kernels.
+    phase_quality(dev)
     # The numpy staging route: sub-pixel coordinates, slices past 65,535
     # events; its runs count their own launches.
     phase_staging(d, cfg, prep, dev)
