@@ -63,11 +63,13 @@ the unsharded one when the shards are cut on chunk boundaries.
 from __future__ import annotations
 
 import functools
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from better_flow_tpu_torch import profiling
 from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
 from better_flow_tpu_torch.core.events import EventSlice, bounding_box
 from better_flow_tpu_torch.core.model import MotionModel
@@ -164,6 +166,37 @@ class SliceResult(NamedTuple):
     seed: torch.Tensor      # (8,) [slope memory (4), last deltas (4)]
     noise: Optional[torch.Tensor] = None   # (cap,) bool, given ``ev``
     reads: int = 0          # blocking reads of the device the drive took
+
+
+class ExitReads:
+    """A drive's blocking reads of its exit flag, counted in one place:
+    called with the flag's device tensor, it returns the host value
+    (``item`` of a 0-d flag, else ``tolist``) and counts the read in
+    ``n``.  While the program's spans are recorded
+    (``profiling.program_spans``) each read is a ``drive.read`` span, and
+    the trip before it, from the previous read's end (from this object's
+    creation for the first), a ``drive.launch`` span."""
+
+    __slots__ = ("n", "t")
+
+    def __init__(self):
+        self.n = 0
+        self.t = time.perf_counter() if profiling.RECORDER is not None \
+            else 0.0
+
+    def __call__(self, flag: torch.Tensor):
+        self.n += 1
+        read = flag.item if flag.dim() == 0 else flag.tolist
+        rec = profiling.RECORDER
+        if rec is None:
+            return read()
+        t0 = time.perf_counter()
+        value = read()
+        t1 = time.perf_counter()
+        rec.add("drive.launch", self.t, t0)
+        rec.add("drive.read", t0, t1)
+        self.t = t1
+        return value
 
 
 # The scatter modes of the XLA branch.  "rep" and "mxu" are the JAX
@@ -308,7 +341,7 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     unroll = max(1, cfg.megastep_unroll) if split and group is None else 1
     pred = int(unroll > 1)
     pair = image_pair(stat.device, H, W) if split else None
-    reads = 0
+    reads = ExitReads()
     while True:
         for _ in range(unroll):
             if not split:
@@ -323,13 +356,12 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
             st = megastep_finish_call(acc_t, acc_c, st, geo, scale=scale,
                                       H=H, W=W, predicated=pred, **statics)
         # ITERS and CONT are adjacent slots: one copy, one blocking read.
-        iters, cont = st[0, ST_ITERS:ST_CONT + 1].tolist()
-        reads += 1
+        iters, cont = reads(st[0, ST_ITERS:ST_CONT + 1])
         if not cont > 0:
             break
     seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
     out, uvn = warp_uv_call(stat, pr, act, st, 0.0, uvn_out)
-    return model_from_state(st), out, uvn, int(iters), seed_out, reads
+    return model_from_state(st), out, uvn, int(iters), seed_out, reads.n
 
 
 def run_fused_mega2(stat, act, geo, model0: MotionModel,
@@ -354,21 +386,22 @@ def run_fused_mega2(stat, act, geo, model0: MotionModel,
     step = lambda pr, st: megastep2_call(
         stat, act, pr, st, *pair, geo, scale=scale, H=H, W=W,
         time_lo=time_lo, **statics)
+    st0 = initial_state(model0, cfg, seed)
+    reads = ExitReads()
     out = step(torch.cat([stat[:, 0:2], torch.zeros_like(stat[:, 0:2])],
-                         dim=1),
-               initial_state(model0, cfg, seed))
+                         dim=1), st0)
     iters = 0          # the first call runs no finish: one update a call
     while True:
         out = step(out[0], out[1])
         iters += 1
-        if not out[1][0, ST_CONT].item() > 0:
+        if not reads(out[1][0, ST_CONT]) > 0:
             break
     pr, st = out[0], out[1]
     seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
     uvn = torch.stack([pr[:, 2] * UV_K, pr[:, 3] * UV_K, 1.0 - act[:, 0]],
                       dim=1)
     # One read after every call but the first.
-    return model_from_state(st), pr, uvn, iters, seed_out, iters
+    return model_from_state(st), pr, uvn, iters, seed_out, reads.n
 
 
 class FusedFlowState(NamedTuple):
@@ -416,12 +449,11 @@ def adaptive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig
     component flips sign.  ``step_fn(state)`` is one iteration.  The
     returned state's ``reads`` counts the blocking reads of the exit
     test."""
+    reads = ExitReads()
     s = step_fn(_with_dividers(init, cfg))
     caps = (cfg.xy_divider_cap, cfg.rotdiv_divider_cap)
-    reads = 0
 
     def go_on(s):
-        nonlocal reads
         m = s.model
         over_max = cfg.max_iter > 0 and s.iters > cfg.max_iter
         if over_max or s.iters >= cfg.iter_hard_cap:
@@ -432,8 +464,7 @@ def adaptive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig
                  & (torch.abs(m.dy / s.y_div) < cfg.dy_tol)
                  & (torch.abs(m.rot / s.rot_div) < cfg.rot_tol)
                  & (torch.abs(m.div / s.div_div) < cfg.div_tol))
-        reads += 1
-        return bool((dividers_open & ~small).item())   # the one read
+        return bool(reads(dividers_open & ~small))     # the one read
 
     while go_on(s):
         old = s.model
@@ -445,7 +476,7 @@ def adaptive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig
                        y_div=dbl(m.dy, old.dy, s.y_div),
                        rot_div=dbl(m.rot, old.rot, s.rot_div),
                        div_div=dbl(m.div, old.div, s.div_div))
-    return s._replace(reads=reads)
+    return s._replace(reads=reads.n)
 
 
 def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
@@ -522,10 +553,7 @@ def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
             exit_c = exit_c | pred_ok
         return (s, g, d, slope_mem, exit_c.all())
 
-    reads = 0
-
     def go_on(carry):
-        nonlocal reads
         s, g, _d, _sl, exit_small = carry
         over_max = cfg.max_iter > 0 and s.iters > cfg.max_iter
         if over_max or s.iters >= cfg.iter_hard_cap:
@@ -533,14 +561,14 @@ def fast_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,
         small = exit_small
         if s.iters < 2:
             small = small & (torch.abs(g) / s.divs4() < tol4).all()
-        reads += 1
-        return bool((~small).item())                   # the one read
+        return bool(reads(~small))                     # the one read
 
+    reads = ExitReads()
     carry = body((state, zeros4, zeros4, slope0, None))
     while go_on(carry):
         carry = body(carry)
     final, _g, d, slope_mem, _ = carry
-    return final._replace(reads=reads), torch.cat([slope_mem, d])
+    return final._replace(reads=reads.n), torch.cat([slope_mem, d])
 
 
 def drive_loop(init: FusedFlowState, step_fn, cfg: OptimizerConfig,

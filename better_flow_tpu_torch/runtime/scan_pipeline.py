@@ -61,6 +61,13 @@ exceeds ``BF_SCAN_DEVICE_BUDGET_GB``.  A batch that is not compact
 (``prepare_recording``: sub-pixel coordinates, or slices past 65,535
 events) is not packed, even under ``compact_results``, and cannot be
 checkpointed, as in the JAX package.
+
+Spans.  While ``profiling.program_spans`` is open, each phase above is a
+span of the program's recorder (names in ``PERF.md`` §3): the call
+(``scan`` or ``cold``), staging (``stage`` and its phases), the slice loop
+(``loop.rows``, one ``slice`` a slice, the drive's ``drive.launch`` and
+``drive.read`` inside it), the accumulation and the fetch; the cold
+path's worker spans name the main thread's span that handed them over.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from better_flow_tpu_torch import profiling
 from better_flow_tpu_torch.config import PipelineConfig
 from better_flow_tpu_torch.convert import carry_from_jax, carry_to_jax
 from better_flow_tpu_torch.io import native
@@ -332,15 +340,20 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
     t_ns = np.ascontiguousarray(t_ns, np.int64)
     t0 = last = time.perf_counter()
     phases = {}
+    rec = profiling.RECORDER
 
-    def _mark(name):
+    def _mark(name, span):
+        """The phase ``name`` of ``plan_breakdown``, and the span
+        ``span``, ends now."""
         nonlocal last
         now = time.perf_counter()
         phases[name] = round(phases.get(name, 0.0) + now - last, 4)
+        if rec is not None:
+            rec.add(span, last, now)
         last = now
 
     plan_full = plan_slices(t_ns, cfg)
-    _mark("plan")
+    _mark("plan", "stage.plan")
     # The history depth is part of the carry's shape, so it comes from the
     # whole plan whatever the range.
     hist_k = history_depth(plan_full)
@@ -371,7 +384,7 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
         xa = None
         if cfg.slice.max_events <= PERM_SENTINEL:
             xa, ya = native.coords_u16(x, y) or (None, None)
-            _mark("coords_u16")
+            _mark("coords_u16", "stage.coords")
         native_route = xa is not None
         if not native_route:
             xa = np.ascontiguousarray(x, np.float32)
@@ -391,7 +404,7 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
                 if out is None:
                     raise RuntimeError("native band-pad staging failed")
                 xs16, ys16, ts, perm, bbox = out
-                _mark("native_sort")
+                _mark("native_sort", "stage.sort")
                 # u16 slabs travel as int16 bit patterns and are widened on
                 # the device (PyTorch has few uint16 operations).
                 host = (xs16.view(np.int16), ys16.view(np.int16), ts,
@@ -407,12 +420,12 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
                              for a, fill in ((xs, 0), (ys, 0), (ts, 0),
                                              (idx, -1)))
                 bbox = host_bbox(xa, ya, sub)[0]
-                _mark("numpy_staging")
+                _mark("numpy_staging", "stage.sort")
             if chunk_range is not None:
                 host = tuple(np.ascontiguousarray(a[:, cols]) for a in host)
             parts.append(tuple(to_device(a, dev) for a in host))
             bbox_parts.append(bbox)
-            _mark("device_put")
+            _mark("device_put", "stage.upload")
         cat = lambda k: torch.cat([p[k] for p in parts])
         if native_route:
             u16 = lambda a: a.to(torch.int32) & 0xFFFF
@@ -445,7 +458,7 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
         # on: the cold path stages on a stream of its own while its main
         # thread runs the previous batch.
         torch.cuda.current_stream(dev).synchronize()
-    _mark("device_wait")
+    _mark("device_wait", "stage.device_wait")
     return {
         "plan": plan, "n": len(t_ns), "hist_k": hist_k, "device": dev,
         "stat": stat, "sidx": sidx, "geo": geo, "geoms": geoms,
@@ -565,6 +578,8 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     if len(ws_h) != prepared["hist_k"]:
         raise ValueError(f"carry history depth {len(ws_h)} != the "
                          f"recording's {prepared['hist_k']}")
+    rec = profiling.RECORDER
+    t_rows = time.perf_counter() if rec is not None else 0.0
     hist_np, hist_end = staged_histories(prepared, carry0)
     hist = torch.from_numpy(hist_np).to(dev)
     uvn = torch.empty((S, stat.shape[1], 3, CHUNK), dtype=torch.float32,
@@ -578,12 +593,16 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
                          f"{group.n_local} local shards")
     xla = xla_branch(opt)
     act_all = None if xla else act_rows_call(sidx, hist)
+    if rec is not None:
+        rec.add("loop.rows", t_rows, time.perf_counter())
     warm = not cfg.stm_disable
     extrapolate = warm and opt.warm_extrapolate > 0
     if extrapolate:
         alpha = torch.full((), opt.warm_extrapolate, dtype=torch.float32,
                            device=dev)
     for s in range(S):
+        if rec is not None:
+            span = rec.open("slice")
         ev = None
         if xla:
             ev = slice_events(stat[s], sidx[s], hist[s])
@@ -610,6 +629,9 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
         iters[s] = res.iters
         ran[s] = res.ran
         syncs += res.reads   # the blocking reads the slice's drive took
+        if rec is not None:
+            rec.close(span)
+            rec.count("iters", res.iters)
     return (model, sd) + hist_end, uvn, iters, ran, syncs
 
 
@@ -712,22 +734,34 @@ def scan_prepared(prepared: dict, cfg: PipelineConfig, carry0,
     plan = prepared["plan"]
     n = prepared["n"]
     S = len(plan.ends)
+    rec = profiling.RECORDER
     launches0 = dict(LAUNCHES)
     t_run0 = time.perf_counter()
+    if rec is not None:
+        span = rec.open("scan.run", t_run0)
     carry, uvn, iters, ran, syncs = run_slices(prepared, cfg, carry0,
                                                group=group)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    t_run = time.perf_counter() - t_run0
+    t_acc = time.perf_counter()
+    t_run = t_acc - t_run0
     launches = {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES}
+    if rec is not None:
+        rec.close(span, t_acc, launches=launches)
 
     uvn, sidx = gather_shards(uvn, prepared["sidx"], group)
     au, av, an = accumulate_device(uvn, sidx, n,
                                    claim_from=prepared["prev_end"] + 1)
+    if rec is not None:
+        t_fetch = time.perf_counter()
+        rec.add("scan.accumulate", t_acc, t_fetch)
+    u, v, noise = (a.cpu().numpy() for a in (au, av, an))
+    if rec is not None:
+        rec.add("scan.fetch", t_fetch, time.perf_counter())
     return {
-        "u": au.cpu().numpy(),
-        "v": av.cpu().numpy(),
-        "noise": an.cpu().numpy(),
+        "u": u,
+        "v": v,
+        "noise": noise,
         "model": carry[0],
         "carry": carry,
         "iters": iters,
@@ -772,27 +806,34 @@ def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
     whole time in ``stats``."""
     cfg = cfg or PipelineConfig()
     check_supported(cfg.optimizer, cfg.f64_totals)
-    if prepared is None and carry_in is None and init_model is None:
-        # Bounded memory: a recording whose resident tensors would exceed
-        # the budget runs through the cold path, whose peak is about two
-        # batches, with bitwise the same outputs.  A caller that staged
-        # (``prepared``) or continues a chain (``carry_in``,
-        # ``init_model``) has chosen the one-program scan.
-        budget = float(os.environ.get("BF_SCAN_DEVICE_BUDGET_GB", 5.0)) * 1e9
-        est = estimate_scan_device_bytes(t_ns, cfg)
-        if est > budget:
-            out = compensate_recording_cold(
-                x, y, t_ns, cfg, n_batch=max(4, math.ceil(est / budget * 2)),
-                device=device)
-            out["stats"].update(plan_s=0.0, run_s=out["stats"]["total_s"],
-                                routed_cold=True,
-                                est_device_gb=round(est / 1e9, 2))
-            return out
-    if prepared is None:
-        prepared = prepare_recording(x, y, t_ns, cfg, device=device)
-    carry0 = carry_in if carry_in is not None \
-        else initial_carry(prepared, cfg, init_model)
-    return scan_prepared(prepared, cfg, carry0)
+    with profiling.span("scan"):
+        if prepared is None and carry_in is None and init_model is None:
+            # Bounded memory: a recording whose resident tensors would
+            # exceed the budget runs through the cold path, whose peak is
+            # about two batches, with bitwise the same outputs.  A caller
+            # that staged (``prepared``) or continues a chain
+            # (``carry_in``, ``init_model``) has chosen the one-program
+            # scan.
+            with profiling.span("scan.route"):
+                budget = float(os.environ.get("BF_SCAN_DEVICE_BUDGET_GB",
+                                              5.0)) * 1e9
+                est = estimate_scan_device_bytes(t_ns, cfg)
+            if est > budget:
+                out = compensate_recording_cold(
+                    x, y, t_ns, cfg,
+                    n_batch=max(4, math.ceil(est / budget * 2)),
+                    device=device)
+                out["stats"].update(plan_s=0.0,
+                                    run_s=out["stats"]["total_s"],
+                                    routed_cold=True,
+                                    est_device_gb=round(est / 1e9, 2))
+                return out
+        if prepared is None:
+            with profiling.span("stage"):
+                prepared = prepare_recording(x, y, t_ns, cfg, device=device)
+        carry0 = carry_in if carry_in is not None \
+            else initial_carry(prepared, cfg, init_model)
+        return scan_prepared(prepared, cfg, carry0)
 
 
 def estimate_scan_device_bytes(t_ns, cfg: PipelineConfig,
@@ -916,22 +957,31 @@ def load_offline_checkpoint(path, *, n, S, n_batch, hist_k,
 
 
 def _stage_batch(x, y, t_ns, cfg: PipelineConfig, dev, lo: int, hi: int,
-                 stream):
+                 stream, ctx=None):
     """The cold path's staging of slices [lo, hi), on its worker thread:
     ``prepare_recording`` under ``stream`` on a card (it then waits for
     that stream alone), with an event recorded behind it for the main
-    stream to wait on.  Returns (prepared, event or None, seconds)."""
+    stream to wait on; the span ``stage`` under ``ctx`` (the recorder's
+    ``context()`` of the span that handed it over).  Returns (prepared,
+    event or None, seconds)."""
+    rec = profiling.RECORDER
     t0 = time.perf_counter()
+    if rec is not None:
+        span = rec.open("stage", t0, ctx)
+    ready = None
     if stream is None:
-        return (prepare_recording(x, y, t_ns, cfg, device=dev,
-                                  slice_range=(lo, hi)), None,
-                time.perf_counter() - t0)
-    with torch.cuda.stream(stream):
         prep = prepare_recording(x, y, t_ns, cfg, device=dev,
                                  slice_range=(lo, hi))
-        ready = torch.cuda.Event()
-        ready.record(stream)
-    return prep, ready, time.perf_counter() - t0
+    else:
+        with torch.cuda.stream(stream):
+            prep = prepare_recording(x, y, t_ns, cfg, device=dev,
+                                     slice_range=(lo, hi))
+            ready = torch.cuda.Event()
+            ready.record(stream)
+    t1 = time.perf_counter()
+    if rec is not None:
+        rec.close(span, t1)
+    return prep, ready, t1 - t0
 
 
 class _Fetch:
@@ -957,19 +1007,22 @@ class _Fetch:
             self.end = torch.cuda.Event(enable_timing=True)
             self.end.record(stream)
 
+    def wait(self) -> float:
+        """Wait for the copies; the seconds from the accumulation's start
+        to the copy's end."""
+        if self.stream is None:
+            return self.end - self.start
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end) / 1e3
+
     def result(self, m: int, claim_cap: int):
         """(u, v, noise) of the batch's ``m`` claimed events, numpy (views
-        of the host buffers, decoded when packed), and the seconds from
-        the accumulation's start to the copy's end."""
-        if self.stream is None:
-            secs = self.end - self.start
-        else:
-            self.end.synchronize()
-            secs = self.start.elapsed_time(self.end) / 1e3
+        of the host buffers, decoded when packed), once ``wait`` has
+        returned."""
         host = [h.numpy() for h in self.host]
         if len(host) == 1:
             host = unpack_results(host[0], claim_cap)
-        return tuple(a[:m] for a in host), secs
+        return tuple(a[:m] for a in host)
 
 
 _CKPT_NOT_COMPACT = ("offline checkpointing requires the compact staging "
@@ -1069,78 +1122,118 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
     collected, iters_run, timing = {}, {}, {}
     launches0 = dict(LAUNCHES)
     syncs = 0
+    rec = profiling.RECORDER
 
-    def collect(b, fetch):
+    def collect(b, fetch, ctx):
         """On the worker: wait for batch b's copy, decode its claimed
-        events into the result arrays and keep them with its iters."""
+        events into the result arrays and keep them with its iters; the
+        span ``fetch`` under ``ctx``."""
         cfrom, cto = claims[b]
         t = time.perf_counter()
-        uvn_b, fetch_s = fetch.result(cto - cfrom, claim_cap)
-        u[cfrom:cto], v[cfrom:cto], noise[cfrom:cto] = uvn_b
+        if rec is not None:
+            span = rec.open("fetch", t, ctx)
+        fetch_s = fetch.wait()
+        if rec is not None:
+            t_copied = time.perf_counter()
+            rec.add("fetch.wait", t, t_copied)
+        u[cfrom:cto], v[cfrom:cto], noise[cfrom:cto] = fetch.result(
+            cto - cfrom, claim_cap)
         results[b] = (u[cfrom:cto], v[cfrom:cto], noise[cfrom:cto],
                       iters_run[b])
-        timing[b]["fetch_s"] = fetch_s + time.perf_counter() - t
+        t_end = time.perf_counter()
+        timing[b]["fetch_s"] = fetch_s + t_end - t
+        if rec is not None:
+            rec.add("fetch.decode", t_copied, t_end)
+            rec.close(span, t_end)
+
+    def wait_fetch(future):
+        """The main thread waits for a batch's ``collect``."""
+        t = time.perf_counter() if rec is not None else 0.0
+        future.result()
+        if rec is not None:
+            rec.add("cold.wait_fetch", t, time.perf_counter())
 
     def checkpoint(b, carry_b):
-        collected.pop(b).result()
+        wait_fetch(collected.pop(b))
         save_offline_checkpoint(
             checkpoint_path, n=n, S=S, n_batch=n_batch, done=b + 1,
             carry=carry_b, batch_results=results[:b + 1], cfg=cfg)
 
-    with ThreadPoolExecutor(max_workers=1,
-                            thread_name_prefix="bf-stage") as pool:
-        def stage(b):
-            return pool.submit(_stage_batch, x, y, t_ns, cfg, dev,
-                               *bounds[b], stage_stream) \
-                if b < len(bounds) else None
+    if rec is not None:
+        call = rec.open("cold", t0)
+        rec.add("cold.plan", t0, time.perf_counter())
+    try:
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix=profiling.WORKER) as pool:
+            def stage(b):
+                ctx = rec.context() if rec is not None else None
+                return pool.submit(_stage_batch, x, y, t_ns, cfg, dev,
+                                   *bounds[b], stage_stream, ctx) \
+                    if b < len(bounds) else None
 
-        # The worker's queue: stage k+1 while batch k runs, then decode
-        # batch k while batch k+1 runs.
-        staging = stage(done)
-        pending = None   # (batch, carry after it), not yet checkpointed
-        for b in range(done, len(bounds)):
-            prep, ready, stage_s = staging.result()
-            if checkpoint_path is not None and not prep["compact"]:
-                raise ValueError(_CKPT_NOT_COMPACT)
-            staging = stage(b + 1)
-            t_run = time.perf_counter()
-            if cuda:
-                main = torch.cuda.current_stream(dev)
-                main.wait_event(ready)
-                for t in (prep["stat"], prep["sidx"], prep["geo"]):
-                    t.record_stream(main)
-            if carry is None:
-                carry = initial_carry(prep, cfg)
-            carry, uvn, iters_run[b], _, n_sync = run_slices(prep, cfg, carry)
-            syncs += n_sync
-            timing[b] = {"stage_s": stage_s,
-                         "run_s": time.perf_counter() - t_run}
-            start = time.perf_counter()
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record(main)
-            acc = accumulate_device_range(uvn, prep["sidx"], *claims[b],
-                                          claim_cap)
-            if compact_results and prep["compact"]:
-                acc = (pack_results(*acc),)
-            collected[b] = pool.submit(collect, b,
-                                       _Fetch(acc, fetch_stream, start))
-            # Nothing reads this batch's slabs, rows or outputs again:
-            # dropping them now bounds the device's memory to ~2 batches.
-            prep = uvn = acc = None
-            # The previous batch's checkpoint waits only on work already
-            # done, so writing it one batch behind keeps the overlap.
+            # The worker's queue: stage k+1 while batch k runs, then decode
+            # batch k while batch k+1 runs.
+            staging = stage(done)
+            pending = None   # (batch, carry after it), not yet checkpointed
+            for b in range(done, len(bounds)):
+                t_wait = time.perf_counter() if rec is not None else 0.0
+                prep, ready, stage_s = staging.result()
+                if rec is not None:
+                    rec.add("cold.wait_stage", t_wait, time.perf_counter())
+                if checkpoint_path is not None and not prep["compact"]:
+                    raise ValueError(_CKPT_NOT_COMPACT)
+                staging = stage(b + 1)
+                t_run = time.perf_counter()
+                if rec is not None:
+                    span = rec.open("cold.run", t_run)
+                if cuda:
+                    main = torch.cuda.current_stream(dev)
+                    main.wait_event(ready)
+                    for t in (prep["stat"], prep["sidx"], prep["geo"]):
+                        t.record_stream(main)
+                if carry is None:
+                    carry = initial_carry(prep, cfg)
+                carry, uvn, iters_run[b], _, n_sync = run_slices(prep, cfg,
+                                                                 carry)
+                syncs += n_sync
+                start = time.perf_counter()
+                timing[b] = {"stage_s": stage_s, "run_s": start - t_run}
+                if rec is not None:
+                    rec.close(span, start)
+                    span = rec.open("cold.accumulate", start)
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record(main)
+                acc = accumulate_device_range(uvn, prep["sidx"], *claims[b],
+                                              claim_cap)
+                if compact_results and prep["compact"]:
+                    acc = (pack_results(*acc),)
+                collected[b] = pool.submit(
+                    collect, b, _Fetch(acc, fetch_stream, start),
+                    rec.context() if rec is not None else None)
+                if rec is not None:
+                    rec.close(span)
+                # Nothing reads this batch's slabs, rows or outputs again:
+                # dropping them now bounds the device's memory to ~2
+                # batches.
+                prep = uvn = acc = None
+                # The previous batch's checkpoint waits only on work already
+                # done, so writing it one batch behind keeps the overlap.
+                if checkpoint_path is not None and pending is not None:
+                    checkpoint(*pending)
+                pending = (b, carry)
             if checkpoint_path is not None and pending is not None:
                 checkpoint(*pending)
-            pending = (b, carry)
-        if checkpoint_path is not None and pending is not None:
-            checkpoint(*pending)
-        for future in collected.values():
-            future.result()
+            for future in collected.values():
+                wait_fetch(future)
+    finally:
+        t1 = time.perf_counter()
+        launches = {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES}
+        if rec is not None:
+            rec.close(call, t1, launches=launches)
 
     iters = np.concatenate([np.asarray(r[3], np.int32) for r in results]) \
         if results else np.zeros(0, np.int32)
-    total_s = time.perf_counter() - t0
     return {
         "u": u, "v": v, "noise": noise,
         "model": carry[0] if carry is not None else initial_model(cfg, dev),
@@ -1151,11 +1244,11 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
             "n_slices": S,
             "n_batches": len(bounds),
             "resumed_batches": done,
-            "total_s": total_s,
-            "events_per_s": n / total_s if total_s > 0 else 0.0,
+            "total_s": t1 - t0,
+            "events_per_s": n / (t1 - t0) if t1 > t0 else 0.0,
             "mean_iters": float(iters.mean()) if S else 0.0,
             "host_syncs": syncs,
-            "launches": {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES},
+            "launches": launches,
             "batches": [timing[b] for b in sorted(timing)],
         },
     }
