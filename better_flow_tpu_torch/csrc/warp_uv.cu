@@ -20,17 +20,65 @@
 // the same functions of the same values.  Two slots a thread (8-byte
 // loads and stores along the rows) were no faster on an H100, four slower
 // (PERF.md, section 6).
+//
+// The slice loop's hand-off (optional, null by default): block 0 also
+// writes the next slice's start state and (12,) seed, the copies and
+// constants of global_flow.initial_state on this slice's final state and
+// of run_slices' seed row, so the loop rebuilds nothing between slices.
+// Warp 2 of block 0 writes them, one slot a thread, beside its slots'
+// loads; threads 0 and 32 keep the warp scalars' chains to themselves.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int HANDOFF_WARP = 2;
+
+struct Handoff {
+  const float* st_in;   // (1, 32) the slice's start state
+  float* st_next;       // (1, 32) the next slice's start state; null: none
+  float* seed_next;     // (12,) [slope memory, last deltas, st_in totals]
+  float xy_div;         // the initial dividers
+  float rotdiv_div;
+  int keep_slope;       // the fast schedule carries the slope memory
+};
+
+// Slot k of the next start state and of the seed row: the state's
+// totals, compensations, centroid and count, the initial dividers,
+// CONT = 1, the slope memory under the fast schedule, zero elsewhere;
+// the seed [st[SL:+4], st[PD:+4], st_in's totals in (rot, div, dx, dy)
+// order].
+__device__ inline void write_handoff(const Handoff& h, const float* st,
+                                     int k) {
+  using namespace bf;
+  float v = 0.0f;
+  if (k <= ST_CY || k == ST_CNT ||
+      (h.keep_slope && k >= ST_SL && k < ST_SL + 4)) {
+    v = st[k];
+  } else if (k == ST_XDIV || k == ST_YDIV) {
+    v = h.xy_div;
+  } else if (k == ST_RDIV || k == ST_DDIV) {
+    v = h.rotdiv_div;
+  } else if (k == ST_CONT) {
+    v = 1.0f;
+  }
+  h.st_next[k] = v;
+  static_assert(ST_TDX == 0 && ST_TDY == 1 && ST_TROT == 2 && ST_TDIV == 3,
+                "the totals are slots 0-3");
+  if (k < 4) {
+    h.seed_next[k] = st[ST_SL + k];
+  } else if (k < 8) {
+    h.seed_next[k] = st[ST_PD + k - 4];
+  } else if (k < 12) {
+    h.seed_next[k] = h.st_in[(k - 6) & 3];   // rot, div, dx, dy: 2, 3, 0, 1
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
 warp_uv_kernel(const float* __restrict__ stat, const float* __restrict__ pr,
                const float* __restrict__ act, const float* __restrict__ st,
                float wsmall, float* __restrict__ out,
-               float* __restrict__ uvn, int n) {
+               float* __restrict__ uvn, int n, Handoff h) {
   using bf::CHUNK;
   bf::block_warp_start<true>(st);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -46,6 +94,11 @@ warp_uv_kernel(const float* __restrict__ stat, const float* __restrict__ pr,
     px = p[k];
     py = p[CHUNK + k];
     a = act[static_cast<size_t>(c) * CHUNK + k];
+  }
+  const int lane = threadIdx.x - HANDOFF_WARP * 32;
+  if (h.st_next != nullptr && blockIdx.x == 0 && lane >= 0 &&
+      lane < bf::ST_SIZE) {
+    write_handoff(h, st, lane);
   }
   const bf::Warp w = bf::block_warp_wait();
   if (i >= n) return;
@@ -66,10 +119,14 @@ warp_uv_kernel(const float* __restrict__ stat, const float* __restrict__ pr,
 
 extern "C" int bf_warp_uv(const float* stat, const float* pr,
                           const float* act, const float* st, float wsmall,
-                          float* out, float* uvn, int nch, void* stream) {
+                          float* out, float* uvn, int nch,
+                          const float* st_in, float* st_next,
+                          float* seed_next, float xy_div, float rotdiv_div,
+                          int keep_slope, void* stream) {
   const int n = nch * bf::CHUNK;
+  const Handoff h{st_in, st_next, seed_next, xy_div, rotdiv_div, keep_slope};
   warp_uv_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(stat, pr, act, st,
-                                                        wsmall, out, uvn, n);
+                   static_cast<cudaStream_t>(stream)>>>(
+      stat, pr, act, st, wsmall, out, uvn, n, h);
   return static_cast<int>(cudaGetLastError());
 }

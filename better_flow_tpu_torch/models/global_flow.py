@@ -74,7 +74,7 @@ from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
 from better_flow_tpu_torch.core.events import EventSlice, bounding_box
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.ops.fused_model import (
-    finish_partials_call, fused_model_partials_windowed_call,
+    Handoff, finish_partials_call, fused_model_partials_windowed_call,
     fused_warp_splat_call, fused_warp_splat_images_call, image_pair,
     megastep2_call, megastep_call, megastep_finish_call, sum_images,
     warp_images_st_call, warp_scal_row, warp_uv_call,
@@ -304,9 +304,24 @@ def _check_shards(nch: int, group) -> None:
                          f"{group.n_local} local shards")
 
 
-def run_fused_mega(stat, act, geo, model0: MotionModel,
+class SliceHandoff(NamedTuple):
+    """One slice of the scan's loop when it carries the state on the
+    device (``run_fused_mega``'s ``handoff``): where the slice starts,
+    where B4 writes where the next one starts, and the buffers the loop
+    holds for its whole range."""
+
+    st0: torch.Tensor         # (1, 32) the start state (initial_state's)
+    pr0: torch.Tensor         # (nch, 2, CHUNK) the start positions
+    st_next: torch.Tensor     # (1, 32) B4 writes the next start state
+    seed_next: torch.Tensor   # (12,) and the next seed row
+    pair: Optional[tuple]     # the split drive's image pair (zero)
+    warp_out: torch.Tensor    # (nch, 4, CHUNK) B4's [pr_x, pr_y, nx, ny]
+
+
+def run_fused_mega(stat, act, geo, model0: Optional[MotionModel],
                    cfg: OptimizerConfig, scale: int, H: int, W: int,
-                   seed=None, group=None, uvn_out=None):
+                   seed=None, group=None, uvn_out=None,
+                   handoff: Optional[SliceHandoff] = None):
     """The megastep drive: one unconditional loop trip, then trips while
     the state's CONT flag is set, then the final-warp epilogue.  An
     iteration is one B5 launch, or the B1 + B2 pair under
@@ -328,19 +343,31 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
     ``megastep_unroll`` are ignored, as in the JAX package.  Returns
     (model, out (nch, 4, CHUNK), uvn, iters, seed_out, reads): ``reads``
     the blocking reads taken; under a group ``out`` and ``uvn`` hold the
-    local shards' chunks in order."""
+    local shards' chunks in order.
+
+    The scan's slice loop (``runtime.scan_pipeline.run_slices``) carries
+    the state on the device: given a ``SliceHandoff``, the drive starts
+    from its state and positions (``model0`` and ``seed`` are not read),
+    the split drive uses its image pair, and B4 also writes the next
+    slice's start state and seed row (``ops.fused_model.Handoff``); the
+    first item returned is then the final state itself
+    (``model_from_state`` reads the model from it) and ``seed_out`` is
+    ``handoff.seed_next``.  Not on the merged drive."""
     if group is None and cfg.megastep_merged:
         return run_fused_mega2(stat, act, geo, model0, cfg, scale, H, W,
                                seed=seed)
     _check_shards(stat.shape[0], group)
     statics = finish_statics(cfg)
     time_lo = cfg.splat_time_lo or cfg.schedule != "fast"
-    st = initial_state(model0, cfg, seed)
-    pr = stat[:, 0:2].contiguous()
     split = group is not None or cfg.megastep_split
     unroll = max(1, cfg.megastep_unroll) if split and group is None else 1
     pred = int(unroll > 1)
-    pair = image_pair(stat.device, H, W) if split else None
+    if handoff is None:
+        st = initial_state(model0, cfg, seed)
+        pr = stat[:, 0:2].contiguous()
+        pair = image_pair(stat.device, H, W) if split else None
+    else:
+        st, pr, pair = handoff.st0, handoff.pr0, handoff.pair
     reads = ExitReads()
     while True:
         for _ in range(unroll):
@@ -356,9 +383,16 @@ def run_fused_mega(stat, act, geo, model0: MotionModel,
             st = megastep_finish_call(acc_t, acc_c, st, geo, scale=scale,
                                       H=H, W=W, predicated=pred, **statics)
         # ITERS and CONT are adjacent slots: one copy, one blocking read.
-        iters, cont = reads(st[0, ST_ITERS:ST_CONT + 1])
+        (iters, cont), = reads(st.narrow(1, ST_ITERS, 2))
         if not cont > 0:
             break
+    if handoff is not None:
+        h = Handoff(handoff.st_next, handoff.seed_next, handoff.st0,
+                    cfg.init_xy_divider, cfg.init_rotdiv_divider,
+                    cfg.schedule == "fast")
+        out, uvn = warp_uv_call(stat, pr, act, st, 0.0, uvn_out, handoff=h,
+                                out=handoff.warp_out)
+        return st, out, uvn, int(iters), h.seed_next, reads.n
     seed_out = torch.cat([st[0, ST_SL:ST_SL + 4], st[0, ST_PD:ST_PD + 4]])
     out, uvn = warp_uv_call(stat, pr, act, st, 0.0, uvn_out)
     return model_from_state(st), out, uvn, int(iters), seed_out, reads.n

@@ -133,7 +133,8 @@ def library() -> ctypes.CDLL:
         lib.bf_warp_images_st.argtypes = [P] * 8 + [I] * 5 + [P]
         lib.bf_megastep_finish.argtypes = [P] * 6 + [I] * 8 + [
             ctypes.POINTER(UpdateParams), P]
-        lib.bf_warp_uv.argtypes = [P, P, P, P, F, P, P, I, P]
+        lib.bf_warp_uv.argtypes = [P, P, P, P, F, P, P, I, P, P, P, F, F,
+                                     I, P]
         lib.bf_megastep.argtypes = [P] * 10 + [I] * 9 + [
             ctypes.POINTER(UpdateParams), I, P]
         lib.bf_megastep2.argtypes = lib.bf_megastep.argtypes

@@ -37,13 +37,15 @@ reads it and leaves it zero.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from better_flow_tpu_torch.config import NONZERO_EPS
 from better_flow_tpu_torch.ops.layout import (
-    CHUNK, ST_CNT, ST_CONT, ST_CX, ST_CY, ST_FB, ST_HAS, ST_ITERS, ST_PD,
-    ST_SIZE, ST_SL, ST_TDIV, ST_TDX, ST_TDY, ST_TROT, padded_image_shape,
+    CHUNK, ST_CNT, ST_CONT, ST_CX, ST_CY, ST_DDIV, ST_FB, ST_HAS, ST_ITERS,
+    ST_PD, ST_RDIV, ST_SIZE, ST_SL, ST_TDIV, ST_TDX, ST_TDY, ST_TROT,
+    ST_XDIV, ST_YDIV, padded_image_shape,
 )
 from better_flow_tpu_torch.ops.reductions import model_compute_partial
 from better_flow_tpu_torch.ops.warp import (
@@ -662,27 +664,74 @@ def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
 # ------------------------------------------------------ B4 final warp
 
 
+class Handoff(NamedTuple):
+    """B4's optional hand-off from one slice to the next
+    (``warp_uv_call``'s ``handoff``): the tensors it writes, the slice's
+    start state it reads, and the constants of the next start state."""
+
+    st_next: torch.Tensor    # (1, 32) f32, written: the next start state
+    seed_next: torch.Tensor  # (12,) f32, written: the next seed row
+    st_in: torch.Tensor      # (1, 32) f32, read: this slice's start state
+    xy_div: float            # OptimizerConfig.init_xy_divider
+    rotdiv_div: float        # OptimizerConfig.init_rotdiv_divider
+    slope: bool              # carry the slope memory (the fast schedule)
+
+
+# The start-state slots copied from the final state: the totals, the
+# compensations, the centroid and the count.
+_HANDOFF_COPY = list(range(ST_CY + 1)) + [ST_CNT]
+
+
+def handoff_plain(st, h: Handoff) -> None:
+    """The twin of B4's hand-off: ``h.st_next`` becomes
+    ``global_flow.initial_state`` of the model in ``st`` (and of its slope
+    memory under ``h.slope``), ``h.seed_next`` the seed row [st's slope
+    memory, st's last deltas, ``h.st_in``'s totals in (rot, div, dx, dy)
+    order]."""
+    keep = _HANDOFF_COPY + (list(range(ST_SL, ST_SL + 4)) if h.slope
+                            else [])
+    nxt = h.st_next
+    nxt.zero_()
+    nxt[0, keep] = st[0, keep]
+    nxt[0, ST_XDIV:ST_YDIV + 1].fill_(h.xy_div)
+    nxt[0, ST_RDIV:ST_DDIV + 1].fill_(h.rotdiv_div)
+    nxt[0, ST_CONT].fill_(1.0)
+    h.seed_next[0:4] = st[0, ST_SL:ST_SL + 4]
+    h.seed_next[4:8] = st[0, ST_PD:ST_PD + 4]
+    h.seed_next[8:12] = h.st_in[0, [ST_TROT, ST_TDIV, ST_TDX, ST_TDY]]
+
+
 def warp_uv_plain(stat, pr, act, st, window_small: float = 0.0,
-                  uvn_out=None):
+                  uvn_out=None, handoff: Optional[Handoff] = None,
+                  out=None):
     prx, pry, nx, ny = project_4param_reinit(
         stat[:, 0], stat[:, 1], stat[:, 2], pr[:, 0], pr[:, 1],
         *_warp_args(st))
-    out = torch.stack([prx, pry, nx, ny], dim=1)
+    out = torch.stack([prx, pry, nx, ny], dim=1, out=out)
     noise = torch.clamp(1.0 - act[:, 0], min=float(window_small))
     uvn = torch.stack([nx * UV_K, ny * UV_K, noise], dim=1, out=uvn_out)
+    if handoff is not None:
+        handoff_plain(st, handoff)
     return out, uvn
 
 
 def warp_uv_call(stat, pr, act, st, window_small: float = 0.0,
-                 uvn_out=None):
+                 uvn_out=None, handoff: Optional[Handoff] = None, out=None):
     """Final warp with the state's model.  Returns (out (nch, 4, CHUNK):
     [pr_x, pr_y, nx, ny], uvn (nch, 3, CHUNK): [u, v, noise]).  With
     ``uvn_out``, a contiguous (nch, 3, CHUNK) f32 tensor on the same
     device, the [u, v, noise] rows are written there and ``uvn`` is that
-    very tensor (the scan passes its run's output at the slice).  Under an
+    very tensor (the scan passes its run's output at the slice); ``out``,
+    a contiguous (nch, 4, CHUNK) f32 tensor, likewise takes [pr_x, pr_y,
+    nx, ny] (a loop that reads none of it passes one for all its
+    slices).  Under an
     event group ``stat``, ``pr`` and ``act`` may hold all the local shards'
     chunks in order: the warp is slot-wise, so one call gives the bits of
-    one a shard."""
+    one a shard.  With ``handoff`` (``Handoff``) the same launch also
+    writes the next slice's start state and seed row from ``st``
+    (``handoff_plain``), bitwise the copies and constants of
+    ``global_flow.initial_state``; without it the launch is the plain
+    final warp."""
     dev = stat.device
     nch = stat.shape[0]
     _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
@@ -691,16 +740,28 @@ def warp_uv_call(stat, pr, act, st, window_small: float = 0.0,
     _check("st", st, torch.float32, (1, ST_SIZE), dev)
     if uvn_out is not None:
         _check("uvn_out", uvn_out, torch.float32, (nch, 3, CHUNK), dev)
+    if out is not None:
+        _check("out", out, torch.float32, (nch, 4, CHUNK), dev)
+    if handoff is not None:
+        _check("st_next", handoff.st_next, torch.float32, (1, ST_SIZE), dev)
+        _check("seed_next", handoff.seed_next, torch.float32, (12,), dev)
+        _check("st_in", handoff.st_in, torch.float32, (1, ST_SIZE), dev)
     if _on_cpu(dev):
-        return warp_uv_plain(stat, pr, act, st, window_small, uvn_out)
-    out = torch.empty((nch, 4, CHUNK), dtype=torch.float32, device=dev)
+        return warp_uv_plain(stat, pr, act, st, window_small, uvn_out,
+                             handoff, out)
+    if out is None:
+        out = torch.empty((nch, 4, CHUNK), dtype=torch.float32, device=dev)
     uvn = uvn_out if uvn_out is not None else torch.empty(
         (nch, 3, CHUNK), dtype=torch.float32, device=dev)
     from better_flow_tpu_torch.ops._build import library
 
+    h = (None, None, None, 0.0, 0.0, 0) if handoff is None else (
+        _ptr(handoff.st_in), _ptr(handoff.st_next), _ptr(handoff.seed_next),
+        float(handoff.xy_div), float(handoff.rotdiv_div),
+        int(bool(handoff.slope)))
     rc = library().bf_warp_uv(_ptr(stat), _ptr(pr), _ptr(act), _ptr(st),
                               float(window_small), _ptr(out), _ptr(uvn), nch,
-                              _stream(dev))
+                              *h, _stream(dev))
     _launch("warp_uv", rc)
     return out, uvn
 

@@ -30,7 +30,9 @@ Counterpart of ``better_flow_tpu/runtime/scan_pipeline.py`` (the path
 
 The carry between slices is (model, seed, gate history): the model (f64
 totals under ``f64_totals``) and the (12,) f32 seed live on the device,
-the (K,) gate history [fired, start, end] on the host.
+the (K,) gate history [fired, start, end] on the host.  On the megastep
+drives the loop keeps the model as the optimizer's (1, 32) start state,
+which each slice's B4 writes for the next (``_run_carried``).
 
 Ranges and shards.  ``prepare_recording(slice_range=(lo, hi))`` stages one
 contiguous range of the global trigger plan (``parallel.multihost``): the
@@ -87,11 +89,14 @@ from better_flow_tpu_torch.convert import carry_from_jax, carry_to_jax
 from better_flow_tpu_torch.io import native
 from better_flow_tpu_torch.core.events import EventSlice
 from better_flow_tpu_torch.core.model import FIELDS, TOTAL_FIELDS, MotionModel
+from better_flow_tpu_torch.models import global_flow
 from better_flow_tpu_torch.models.global_flow import (
-    check_supported, geo_row, geometry_from_bbox, process_slice, xla_branch,
+    SliceHandoff, check_supported, geo_row, geometry_from_bbox,
+    initial_state, model_from_state, process_slice, static_image_shape,
+    uses_megastep, xla_branch,
 )
 from better_flow_tpu_torch.ops.fused_model import (
-    LAUNCHES, act_rows_call, history_noise,
+    LAUNCHES, act_rows_call, history_noise, image_pair,
 )
 from better_flow_tpu_torch.ops.layout import BAND_ROWS, CHUNK, PERM_SENTINEL
 
@@ -568,7 +573,9 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
     launch) run once over them.  On the kernel branch the activity rows of
     every staged slice come from one B3 launch before the loop (every
     slice's gate history is a host value); each slice writes its [u, v,
-    noise] rows straight into ``uvn[s]`` (B4 on the megastep drive)."""
+    noise] rows straight into ``uvn[s]`` (B4 on the megastep drive).  On
+    the megastep drives under a warm start without extrapolation the
+    carry between slices stays on the device (``_run_carried``)."""
     dev = prepared["device"]
     plan = prepared["plan"]
     opt = cfg.optimizer
@@ -597,6 +604,12 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
         rec.add("loop.rows", t_rows, time.perf_counter())
     warm = not cfg.stm_disable
     extrapolate = warm and opt.warm_extrapolate > 0
+    if (warm and not extrapolate and opt.scatter_mode in ("auto", "pallas")
+            and uses_megastep(opt, model.totals_dtype)
+            and (group is not None or not opt.megastep_merged)):
+        model, sd, syncs = _run_carried(prepared, cfg, model, sd, act_all,
+                                        uvn, iters, ran, group)
+        return (model, sd) + hist_end, uvn, iters, ran, syncs
     if extrapolate:
         alpha = torch.full((), opt.warm_extrapolate, dtype=torch.float32,
                            device=dev)
@@ -633,6 +646,71 @@ def run_slices(prepared: dict, cfg: PipelineConfig, carry0, group=None):
             rec.close(span)
             rec.count("iters", res.iters)
     return (model, sd) + hist_end, uvn, iters, ran, syncs
+
+
+def _run_carried(prepared: dict, cfg: PipelineConfig, model, sd, act_all,
+                 uvn, iters, ran, group):
+    """``run_slices``' loop on the megastep drives (B5, or B1 + B2; not
+    the merged drive) under a warm start without extrapolation: the
+    optimizer's carry stays the (1, 32) start state on the device.  A
+    slice that runs is the drive's trips from that state and one B4 launch
+    into ``uvn[s]`` that also writes the next slice's start state and seed
+    row into the spare one of two rows (``run_fused_mega``'s ``handoff``),
+    with one image pair for the whole call; a skipped slice takes
+    ``process_slice`` with the model of the last state, and the next start
+    state is built from it as before.  The gates, the geometry and the
+    image shape are host values read once.  The returned model is read
+    from the last run slice's final state.  Bitwise the per-slice loop
+    (``initial_state`` and ``model_from_state`` around ``process_slice``,
+    the seed ``cat``).  Fills ``iters`` and ``ran``; returns (model, seed
+    row, blocking reads)."""
+    opt = cfg.optimizer
+    dev = prepared["device"]
+    scale = opt.scale
+    H, W = static_image_shape(scale, cfg.sensor)
+    runs = [not g.window_small and int(n) >= opt.min_events
+            for g, n in zip(prepared["geoms"], prepared["nval"])]
+    split = group is not None or opt.megastep_split
+    pair = image_pair(dev, H, W) if split else None
+    row = initial_state(model, opt, sd[:8])
+    spare = torch.empty_like(row)
+    seed = torch.empty(12, dtype=torch.float32, device=dev)
+    staged = prepared["stat"]
+    warp_out = torch.empty((staged.shape[1], 4, CHUNK), dtype=torch.float32,
+                           device=dev)
+    stat, xy, act, geo, out = (t.unbind(0) for t in (
+        staged, staged[:, :, 0:2], act_all, prepared["geo"], uvn))
+    final = None                  # the last run slice's final state
+    syncs = 0
+    rec = profiling.RECORDER
+    for s, run in enumerate(runs):
+        if rec is not None:
+            span = rec.open("slice")
+        if run:
+            final, _, _, n_iter, sd, reads = global_flow.run_fused_mega(
+                stat[s], act[s], geo[s], None, opt, scale, H, W,
+                group=group, uvn_out=out[s], handoff=SliceHandoff(
+                    row, xy[s].contiguous(), spare, seed, pair, warp_out))
+            row, spare = spare, row
+        else:
+            m = model if final is None else model_from_state(final)
+            cur_tot = m.totals4().to(torch.float32)
+            res, _ = process_slice(
+                stat[s], act[s], m, opt, cfg.sensor, prepared["bbox"][s],
+                int(prepared["nval"][s]), seed=sd[:8], geo=geo[s],
+                group=group, uvn_out=out[s])
+            n_iter, reads = res.iters, res.reads
+            sd = torch.cat([res.seed, cur_tot])
+            row = initial_state(m, opt, res.seed)
+        iters[s] = n_iter
+        ran[s] = run
+        syncs += reads
+        if rec is not None:
+            rec.close(span)
+            rec.count("iters", n_iter)
+            if run:
+                rec.count("handoff")
+    return (model if final is None else model_from_state(final)), sd, syncs
 
 
 def _first_wins(uvn: torch.Tensor, sidx: torch.Tensor, lo: int, hi: int,

@@ -667,12 +667,37 @@ def phase_kernels(cfg, d, dev):
     if len(ops) != 1:
         raise AssertionError(f"warp_uv: device operations {ops}, expected "
                              "one kernel")
+    # B4 with the slice loop's hand-off (the next start state and seed
+    # row, written by block 0 in the same launch): the warp bitwise B4's,
+    # the hand-off bitwise its twin; one kernel, timed beside B4 alone.
+    handoff = lambda: fm.Handoff(torch.empty_like(st),
+                                 torch.empty(12, device=dev), st,
+                                 opt.init_xy_divider,
+                                 opt.init_rotdiv_divider, True)
+    h_k, h_p = handoff(), handoff()
+    o_h, u_h = fm.warp_uv_call(stat, npr, act, st, 0.0, None, handoff=h_k)
+    fm.warp_uv_plain(stat, npr, act, st, 0.0, None, h_p)
+    if not (torch.equal(o_h, o) and torch.equal(u_h, u)
+            and torch.equal(h_k.st_next, h_p.st_next)
+            and torch.equal(h_k.seed_next, h_p.seed_next)):
+        raise AssertionError("warp_uv with the hand-off: the warp differs "
+                             "from B4's or the hand-off from its twin")
+    b4h = lambda: fm.warp_uv_call(stat, npr, act, st, 0.0, None,
+                                  handoff=h_k)
+    ops_h = log_breakdown("warp_uv handoff", b4h)
+    if len(ops_h) != 1:
+        raise AssertionError(f"warp_uv handoff: device operations {ops_h}, "
+                             "expected one kernel")
     out["warp_uv"] = dict(
         max_abs_err=err4, ms=timed(b4), device_us=ops[0][1],
         plain_ms=timed(lambda: fm.warp_uv_plain(stat, npr, act, st, 0.0)),
+        handoff_ms=timed(b4h), handoff_device_us=ops_h[0][1],
         **bound(nbytes(stat, npr, act, st, o, u),
                 slots * (OPS_WARP + OPS_UV)),
         redesigned=12)
+    log(f"[kernels] warp_uv: kernel {out['warp_uv']['ms']:.4f} ms, with the "
+        f"hand-off {out['warp_uv']['handoff_ms']:.4f} ms (device "
+        f"{ops[0][1]:.2f} / {ops_h[0][1]:.2f} us)")
     out.update(check_b6_b7(stat, act, pr, st, geo, opt.scale, H, W, dev))
     for name, r in out.items():
         log(f"[kernels] {name}: max_abs_err {r['max_abs_err']:.3g}  kernel "

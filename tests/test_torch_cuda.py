@@ -39,9 +39,9 @@ from better_flow_tpu_torch.parallel.spatial import (  # noqa: E402
 from better_flow_tpu_torch.runtime import offline as toff  # noqa: E402
 from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    CH, H, NCH, SCALE, W, flow_gates, image_shape, local_splat_inputs,
-    partials_inputs, slice_inputs, small_cfg, statics, tiled_cfg,
-    tiled_stream,
+    CH, H, NCH, SCALE, W, carry_bits, flow_gates, gate_stream, image_shape,
+    local_splat_inputs, partials_inputs, per_slice_run_slices, slice_inputs,
+    small_cfg, statics, tiled_cfg, tiled_stream,
 )
 
 pytestmark = pytest.mark.cuda
@@ -240,6 +240,60 @@ def test_warp_uv_kernel_writes_the_given_rows_bitwise(cuda, window_small):
         tfm.warp_uv_call(*gpu, window_small, torch.zeros(
             (3, 8, CH), device=cuda).transpose(0, 1))
     assert tfm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("slope", [True, False])
+def test_warp_uv_handoff_kernel_is_twin_bitwise(cuda, slope):
+    """B4 with the slice loop's hand-off: the warp bitwise B4 without it,
+    the next start state and seed row bitwise the twin's on the card's
+    tensors (copies and constants, a negative zero and a NaN kept), one
+    launch."""
+    _, gpu = _both(slice_inputs(7), ("stat", "pr", "act", "st"), cuda)
+    rng = np.random.default_rng(5)
+    st, st_in = (torch.from_numpy(rng.normal(0, 3, (1, 32)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    st[0, layout.ST_CDY] = -0.0
+    st[0, layout.ST_SL + 1] = float("nan")
+    gpu[3] = st
+    handoff = lambda: tfm.Handoff(
+        torch.full((1, 32), 5.0, device=cuda),
+        torch.full((12,), 5.0, device=cuda), st_in, 3.3, 0.7, slope)
+    h = handoff()
+    out, uvn = _launched("warp_uv", lambda: tfm.warp_uv_call(
+        *gpu, 0.0, None, handoff=h))
+    plain_h = handoff()
+    twin = tfm.warp_uv_plain(*gpu, 0.0, None, plain_h)
+    bits = lambda t: t.view(torch.int32)
+    assert torch.equal(bits(h.st_next), bits(plain_h.st_next))
+    assert torch.equal(bits(h.seed_next), bits(plain_h.seed_next))
+    # Without the hand-off B4 writes the same warp and rows.
+    own = _launched("warp_uv", lambda: tfm.warp_uv_call(*gpu, 0.0))
+    for got in (own, twin):
+        assert torch.equal(bits(got[0]), bits(out))
+        assert torch.equal(bits(got[1]), bits(uvn))
+
+
+def test_cold_path_device_carry_is_the_per_slice_loop(cuda, monkeypatch):
+    """A 2-batch cold run on the card, its slice loop carrying the state
+    on the device, bitwise the per-slice loop that rebuilt the model and
+    the seed between slices (u, v, noise, iterations, reads, the carry);
+    the window gate skips slices in it."""
+    d = gate_stream()
+    cfg = small_cfg()
+    run = lambda: tscan.compensate_recording_cold(
+        d["x"], d["y"], d["t_ns"], cfg, n_batch=2, device=cuda)
+    got = run()
+    monkeypatch.setattr(tscan, "run_slices", per_slice_run_slices)
+    want = run()
+    assert got["stats"]["n_batches"] == 2
+    assert 0 < int((got["iters"] > 0).sum()) < len(got["iters"])
+    for k in ("u", "v"):
+        np.testing.assert_array_equal(got[k].view(np.int32),
+                                      want[k].view(np.int32))
+    for k in ("noise", "iters"):
+        np.testing.assert_array_equal(got[k], want[k])
+    assert got["stats"]["host_syncs"] == want["stats"]["host_syncs"]
+    assert carry_bits(got["carry"]) == carry_bits(want["carry"])
 
 
 def test_scan_on_card_matches_cpu_twins_and_repeats(cuda):

@@ -276,23 +276,33 @@ def test_warm_extrapolate_scan_matches_jax():
 def test_warm_extrapolate_off_and_ignored_paths_are_bitwise(monkeypatch):
     """Alpha 0 passes no start model (today's scan, bitwise); the stream
     (``DVSFlow``) and the tiled path ignore a non-zero alpha, bitwise,
-    as the JAX package's do."""
+    as the JAX package's do.  At alpha 0 the scan's loop carries the
+    state on the device: a slice that runs starts from the state the
+    previous slice's B4 handed on (``handoff``, no model), a skipped one
+    takes ``process_slice`` without a start model."""
     d = synthetic_events(12000, duration_s=0.3, res_x=24, res_y=32,
                          vx=20.0, vy=-14.0, seed=2)
-    starts = []
+    starts, handed = [], []
     real = tscan.process_slice
+    real_drive = tgf.run_fused_mega
 
     def spy(*a, **k):
         starts.append(k.get("start_model"))
         return real(*a, **k)
 
+    def drive(*a, **k):
+        handed.append(k.get("handoff") is not None)
+        return real_drive(*a, **k)
+
     monkeypatch.setattr(tscan, "process_slice", spy)
+    monkeypatch.setattr(tgf, "run_fused_mega", drive)
     base = small_cfg(scatter_mode="pallas")
     off = tscan.compensate_recording_scan(
         d["x"], d["y"], d["t_ns"], small_cfg(scatter_mode="pallas",
                                              warm_extrapolate=0.0),
         device="cpu")
-    assert len(starts) == len(off["iters"]) and set(starts) == {None}
+    assert all(handed) and len(starts) + len(handed) == len(off["iters"])
+    assert set(starts) <= {None}
     on = tscan.compensate_recording_scan(
         d["x"], d["y"], d["t_ns"], small_cfg(scatter_mode="pallas",
                                              warm_extrapolate=1.0),

@@ -228,3 +228,50 @@ def partials_inputs(seed=0, res=(RES_X, RES_Y), scale=SCALE, n=None,
     return dict(pr_x=pr_x, pr_y=pr_y, t_ns=t, active=active,
                 x=x.astype(np.float32), y=y.astype(np.float32),
                 geo=tgf.geo_row(g))
+
+
+def per_slice_run_slices(prepared, cfg, carry0, group=None):
+    """``run_slices`` as the slice loop ran it on the megastep drives
+    before the device carry: one B3 launch for the range, then per slice
+    ``process_slice`` from the model (``initial_state`` of it inside the
+    drive), the model out of the final state (``model_from_state``) and
+    the seed row ``torch.cat([seed, totals])``.  Warm start, no
+    extrapolation.  Same arguments and returns as ``run_slices``."""
+    import torch
+
+    from better_flow_tpu_torch.ops import fused_model as tfm
+    from better_flow_tpu_torch.runtime import scan_pipeline as tscan
+
+    hist_np, hist_end = tscan.staged_histories(prepared, carry0)
+    stat, geo = prepared["stat"], prepared["geo"]
+    act_all = tfm.act_rows_call(prepared["sidx"],
+                                torch.from_numpy(hist_np).to(stat.device))
+    S = stat.shape[0]
+    uvn = torch.empty((S, stat.shape[1], 3, CH), dtype=torch.float32,
+                      device=stat.device)
+    iters, ran = np.zeros(S, np.int32), np.zeros(S, bool)
+    model, sd = carry0[:2]
+    syncs = 0
+    for s in range(S):
+        cur_tot = model.totals4().to(torch.float32)
+        res, _ = tgf.process_slice(
+            stat[s], act_all[s], model, cfg.optimizer, cfg.sensor,
+            prepared["bbox"][s], int(prepared["nval"][s]), seed=sd[:8],
+            geo=geo[s], group=group, uvn_out=uvn[s])
+        model, sd = res.model, torch.cat([res.seed, cur_tot])
+        iters[s], ran[s] = res.iters, res.ran
+        syncs += res.reads
+    return (model, sd) + hist_end, uvn, iters, ran, syncs
+
+
+def carry_bits(carry):
+    """A carry's model fields and seed row as dtype and raw bytes, for
+    bitwise comparisons that tell -0.0 from 0.0 and keep NaNs."""
+    import torch
+
+    from better_flow_tpu_torch.core.model import FIELDS
+
+    raw = lambda t: (str(t.dtype), t.detach().cpu().reshape(-1).contiguous()
+                     .view(torch.uint8).numpy().tobytes())
+    model, sd = carry[:2]
+    return {**{f: raw(getattr(model, f)) for f in FIELDS}, "seed": raw(sd)}
