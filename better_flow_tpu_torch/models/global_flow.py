@@ -146,6 +146,18 @@ def slice_geometry(ev, scale: int, sensor: SensorConfig,
                               min_window_fraction)
 
 
+def count_finishes(rec: profiling.Spans, iters: int, H: int, W: int,
+                   geom: SliceGeometry) -> None:
+    """Add a slice's ``iters`` finishes on a megastep drive (B2, or the
+    same band pass inside B5 and B12) to the recorder's counters:
+    ``finish_px`` the pixels the band pass sweeps, the whole H x W image
+    each time, and ``window_px`` those of the slice's dynamic window,
+    ``w_dyn * h_dyn``.  Their ratio is the share of the sweep that the
+    events' window does not need."""
+    rec.count("finish_px", iters * H * W)
+    rec.count("window_px", iters * geom.w_dyn * geom.h_dyn)
+
+
 def geo_row(geom: SliceGeometry) -> np.ndarray:
     """The kernels' (1, 8) f32 geometry row [x_sh, y_sh, w_dyn, h_dyn, 0..]."""
     return np.array([[geom.x_shift, geom.y_shift, geom.w_dyn, geom.h_dyn,
@@ -874,14 +886,16 @@ def process_slice(stat, act, last_model: MotionModel, cfg: OptimizerConfig,
     if ran:
         if geo is None:
             geo = torch.from_numpy(geo_row(geom)).to(dev)
+        mega = uses_megastep(cfg, model.totals_dtype)
         drive = functools.partial(run_fused_mega, uvn_out=uvn_out) \
-            if uses_megastep(cfg, model.totals_dtype) \
-            else functools.partial(run_fused_composed, geom=geom)
+            if mega else functools.partial(run_fused_composed, geom=geom)
         model_out, out, uvn, iters, seed_out, reads = drive(
             stat, act, geo,
             model0=_start(model, start_model, warm_start), cfg=cfg,
             scale=scale, H=H, W=W, seed=seed, group=group)
         pr_x, pr_y, nx, ny = (out[:, k].reshape(-1) for k in range(4))
+        if mega and profiling.RECORDER is not None:
+            count_finishes(profiling.RECORDER, iters, H, W, geom)
     else:
         # The skipped slice keeps the warm-start warp (set_model) and the
         # incoming model; its events are noise when the window gate fired.

@@ -710,6 +710,8 @@ def _run_carried(prepared: dict, cfg: PipelineConfig, model, sd, act_all,
             rec.count("iters", n_iter)
             if run:
                 rec.count("handoff")
+                global_flow.count_finishes(rec, n_iter, H, W,
+                                           prepared["geoms"][s])
     return (model if final is None else model_from_state(final)), sd, syncs
 
 

@@ -39,9 +39,10 @@ from better_flow_tpu_torch.parallel.spatial import (  # noqa: E402
 from better_flow_tpu_torch.runtime import offline as toff  # noqa: E402
 from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    CH, H, NCH, SCALE, W, carry_bits, flow_gates, gate_stream, image_shape,
-    local_splat_inputs, partials_inputs, per_slice_run_slices, slice_inputs,
-    small_cfg, statics, tiled_cfg, tiled_stream,
+    CH, H, NCH, SCALE, W, carry_bits, flow_gates, gate_stream, gen4_cfg,
+    gen4_model, gen4_start, gen4_stream, image_shape, local_splat_inputs,
+    partials_inputs, per_slice_run_slices, slice_inputs, small_cfg, statics,
+    tiled_cfg, tiled_stream,
 )
 
 pytestmark = pytest.mark.cuda
@@ -536,13 +537,16 @@ def test_image_pair_stays_zero_across_interleaved_kernels(cuda):
 @pytest.mark.parametrize("kernel,res,scale", [
     ("megastep", (100, 1220), 3), ("fused_warp_splat", (100, 1220), 3),
     ("megastep", (720, 1280), 1), ("megastep_finish", (100, 1220), 3),
-    ("megastep2", (100, 1220), 3), ("megastep2", (720, 1280), 1)])
+    ("megastep2", (100, 1220), 3), ("megastep2", (720, 1280), 1),
+    ("megastep_finish", (720, 1280), 3)])
 def test_iteration_kernels_at_other_band_heights(cuda, kernel, res, scale):
     """B5, B6, B2 and B12 where a band holds one row (303x3663 images at
     scale 3: two rows exceed the shared-memory budget; 303 bands on a grid
-    of two blocks an SM, so the band loop strides) and B5 and B12 at
-    720x1280, scale 1 (three rows a band), bitwise their twins; B2's and
-    B12's pair zero after the finish."""
+    of two blocks an SM, so the band loop strides), B1 then B2 at the
+    benchmark's megapixel image (720x1280 at scale 3: 2163x3843, one row
+    a band, 2163 bands), and B5 and B12 at 720x1280, scale 1 (three rows
+    a band), bitwise their twins; B2's and B12's pair zero after the
+    finish."""
     Hs, Ws = image_shape(res, scale)
     R, _ = tfm.band_rows(Hs, Ws, scale)
     assert R == (1 if scale == 3 else 3) and -(-Hs // 2) >= 132
@@ -585,6 +589,26 @@ def test_iteration_kernels_at_other_band_heights(cuda, kernel, res, scale):
         want = tfm.fused_warp_splat_plain(stat, act, pr, scal, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.isfinite(got[1]).all()
+
+
+def test_megapixel_scan_on_card_matches_cpu_twins(cuda):
+    """A 1M-event stretch of the benchmark's megapixel cell's scene (a
+    1280x720 sensor at scale 3, the cell's slicing and ``fast()``) through
+    ``compensate_recording_scan`` on the card, its slice loop carrying the
+    state on the device, against the CPU twins (the gates of
+    test_torch_scan.py), from the scene's own motion as in
+    ``test_torch_megapixel_scan.py``."""
+    d = gen4_stream(1_000_000, seed=2 ** 31 + 29)
+    cfg = gen4_cfg()
+    first = tscan.plan_slices(d["t_ns"], cfg).ends[0] + 1
+    tot, cx, cy = gen4_start(d["x"][:first], d["y"][:first])
+    run = lambda dev: tscan.compensate_recording_scan(
+        d["x"], d["y"], d["t_ns"], cfg, device=dev,
+        init_model=gen4_model(tot, cx, cy, dev))
+    rg, rc = run(cuda), run("cpu")
+    assert len(rg["iters"]) >= 50 and rg["ran"].all()
+    assert rg["stats"]["launches"]["warp_uv"] == len(rg["iters"])
+    flow_gates(rg, rc)
 
 
 @pytest.mark.parametrize("case", ["f64_scan", "f64_stream",

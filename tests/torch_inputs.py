@@ -7,14 +7,20 @@ packages read by attribute).  Shapes are
 small: by default 3 chunks, a 24x32 sensor at scale 3 (images 128x256).
 """
 
+import json
+import pathlib
+
 import numpy as np
+import torch
 
 from better_flow_tpu_torch.config import (
     OptimizerConfig, PipelineConfig, SensorConfig, SliceConfig,
 )
+from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.io.synthetic import synthetic_events
 from better_flow_tpu_torch.models import global_flow as tgf
 from better_flow_tpu_torch.ops import layout
+from better_flow_tpu_torch.ops.warp import UV_K
 
 CH = layout.CHUNK
 RES_X, RES_Y, SCALE = 24, 32, 3
@@ -123,6 +129,62 @@ def bench_stream(n):
                          vx=60.0, vy=-40.0, rot=0.12, div=0.05, n_points=800,
                          seed=42)
     return {k: v[:n] for k, v in d.items()}
+
+
+# The benchmark's megapixel cell: its configuration (a 1280x720 Gen4
+# sensor at scale 3, the upstream offline tool's slicing, fast()) and its
+# traffic (3 M events/s).
+_PORTBENCH = pathlib.Path(__file__).resolve().parents[1] / "portbench"
+GEN4_CONFIG = json.loads(
+    (_PORTBENCH / "configs" / "gen4-720p-offline-fast.json").read_text())
+GEN4_MIX = json.loads(
+    (_PORTBENCH / "traffic" / "gen4-long-64m.json").read_text())
+GEN4_SCENE = GEN4_MIX["scene"]
+GEN4_RATE = GEN4_MIX["rate_eps"]
+
+
+def gen4_cfg():
+    """The port's ``PipelineConfig`` of the megapixel configuration."""
+    c = GEN4_CONFIG
+    return PipelineConfig(sensor=SensorConfig(**c["sensor"]),
+                          slice=SliceConfig(**c["slice"]),
+                          optimizer=OptimizerConfig(**c["optimizer"]),
+                          stm_disable=c["stm_disable"],
+                          f64_totals=c["f64_totals"])
+
+
+def gen4_stream(n, seed):
+    """The first ``n`` events of a seeded stretch of the megapixel cell's
+    scene, with their true flow u, v."""
+    m = n + n // 10            # a few events leave the sensor
+    d = synthetic_events(m, duration_s=m / GEN4_RATE, seed=seed,
+                         **GEN4_SCENE)
+    return {k: v[:n] for k, v in d.items()}
+
+
+def gen4_start(x, y):
+    """The scene's motion as the optimizer's model about the centroid
+    (cx, cy) of the events (x, y): the totals (rot, div, dx, dy), in the
+    warp's units (a flow of u px/s is a direction of -u / UV_K), and
+    (cx, cy).  A warm start near the answer: from a zero model the first
+    slice takes some 75 iterations of the whole 2163x3843 image."""
+    s = GEN4_SCENE
+    cx, cy = float(np.mean(x)), float(np.mean(y))
+    ox, oy = cx - s["res_x"] / 2, cy - s["res_y"] / 2
+    u = s["vx"] - s["rot"] * oy + s["div"] * ox
+    v = s["vy"] + s["rot"] * ox + s["div"] * oy
+    tot = [-c / UV_K for c in (s["rot"], s["div"], u, v)]
+    return tot, cx, cy
+
+
+def gen4_model(tot, cx, cy, device="cpu"):
+    """The port's f32 model of ``gen4_start``'s numbers."""
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    z = f(0.0)
+    return MotionModel(cx=f(cx), cy=f(cy), dx=z, dy=z, rot=z, div=z, cnt=z,
+                       total_rot=f(tot[0]), total_div=f(tot[1]),
+                       total_dx=f(tot[2]), total_dy=f(tot[3]),
+                       comp_dx=z, comp_dy=z, comp_rot=z, comp_div=z)
 
 
 def gate_stream():
