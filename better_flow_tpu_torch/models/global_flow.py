@@ -74,10 +74,11 @@ from better_flow_tpu_torch.config import OptimizerConfig, SensorConfig
 from better_flow_tpu_torch.core.events import EventSlice, bounding_box
 from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.ops.fused_model import (
-    Handoff, finish_partials_call, fused_model_partials_windowed_call,
-    fused_warp_splat_call, fused_warp_splat_images_call, image_pair,
-    megastep2_call, megastep_call, megastep_finish_call, sum_images,
-    warp_images_st_call, warp_scal_row, warp_uv_call,
+    Handoff, TripPlan, finish_partials_call,
+    fused_model_partials_windowed_call, fused_warp_splat_call,
+    fused_warp_splat_images_call, image_pair, megastep2_call, megastep_call,
+    megastep_finish_call, plans_trips, sum_images, warp_images_st_call,
+    warp_scal_row, warp_uv_call,
 )
 from better_flow_tpu_torch.ops.gradient import masked_scharr
 from better_flow_tpu_torch.ops.layout import (
@@ -184,10 +185,12 @@ class ExitReads:
     """A drive's blocking reads of its exit flag, counted in one place:
     called with the flag's device tensor, it returns the host value
     (``item`` of a 0-d flag, else ``tolist``) and counts the read in
-    ``n``.  While the program's spans are recorded
-    (``profiling.program_spans``) each read is a ``drive.read`` span, and
-    the trip before it, from the previous read's end (from this object's
-    creation for the first), a ``drive.launch`` span."""
+    ``n``; ``take(read)`` does the same for a read given as a function
+    (the planned trip's wait, ``TripPlan.wait``).  While the program's
+    spans are recorded (``profiling.program_spans``) each read is a
+    ``drive.read`` span, and the trip before it, from the previous read's
+    end (from this object's creation for the first), a ``drive.launch``
+    span."""
 
     __slots__ = ("n", "t")
 
@@ -197,8 +200,10 @@ class ExitReads:
             else 0.0
 
     def __call__(self, flag: torch.Tensor):
+        return self.take(flag.item if flag.dim() == 0 else flag.tolist)
+
+    def take(self, read):
         self.n += 1
-        read = flag.item if flag.dim() == 0 else flag.tolist
         rec = profiling.RECORDER
         if rec is None:
             return read()
@@ -328,6 +333,41 @@ class SliceHandoff(NamedTuple):
     seed_next: torch.Tensor   # (12,) and the next seed row
     pair: Optional[tuple]     # the split drive's image pair (zero)
     warp_out: torch.Tensor    # (nch, 4, CHUNK) B4's [pr_x, pr_y, nx, ny]
+    plan: Optional[TripPlan] = None   # the range's launch plan (trip_plan)
+
+
+def trip_plan(nch: int, pair, cfg: OptimizerConfig, scale: int, H: int,
+              W: int, group=None) -> Optional[TripPlan]:
+    """The launch plan of ``run_fused_mega``'s trips (``TripPlan``) for
+    slices of ``nch`` chunks with the image ``pair``, where the drive takes
+    one: the single-device split drive on the card, at any
+    ``megastep_unroll``.  None elsewhere, where the trips go through the
+    wrappers: the CPU's twins, an event group (its sum sits between B1 and
+    B2), the unsplit drive (B5) and the merged drive."""
+    if (group is not None or not cfg.megastep_split or cfg.megastep_merged
+            or not plans_trips(pair[0].device)):
+        return None
+    return TripPlan(nch, *pair, scale=scale, H=H, W=W,
+                    time_lo=cfg.splat_time_lo or cfg.schedule != "fast",
+                    unroll=max(1, cfg.megastep_unroll),
+                    statics=finish_statics(cfg))
+
+
+def _planned_trips(plan: TripPlan, reads: ExitReads, stat, act, geo, pr,
+                   st):
+    """``run_fused_mega``'s trips from ``plan``, from the positions ``pr``
+    and the state ``st``: one ``bf_trip`` call and one wait a trip, until
+    CONT is clear.  Returns (positions, final state, ITERS)."""
+    plan.start(stat, act, geo, pr, st)
+    rec = profiling.RECORDER
+    while True:
+        plan.trip()
+        if rec is not None:
+            rec.count("planned_trips")
+        iters, cont = reads.take(plan.wait)
+        if not cont > 0:
+            break
+    return (*plan.final(), iters)
 
 
 def run_fused_mega(stat, act, geo, model0: Optional[MotionModel],
@@ -364,7 +404,13 @@ def run_fused_mega(stat, act, geo, model0: Optional[MotionModel],
     slice's start state and seed row (``ops.fused_model.Handoff``); the
     first item returned is then the final state itself
     (``model_from_state`` reads the model from it) and ``seed_out`` is
-    ``handoff.seed_next``.  Not on the merged drive."""
+    ``handoff.seed_next``.  Not on the merged drive.
+
+    Where ``trip_plan`` gives a launch plan (the single-device split drive
+    on the card; the hand-off's ``plan``, else one made for this call), a
+    trip is one native call and its read one wait on the plan's event,
+    bitwise the wrappers' trips; while the program's spans are recorded
+    the counter ``planned_trips`` counts those trips."""
     if group is None and cfg.megastep_merged:
         return run_fused_mega2(stat, act, geo, model0, cfg, scale, H, W,
                                seed=seed)
@@ -378,26 +424,33 @@ def run_fused_mega(stat, act, geo, model0: Optional[MotionModel],
         st = initial_state(model0, cfg, seed)
         pr = stat[:, 0:2].contiguous()
         pair = image_pair(stat.device, H, W) if split else None
+        plan = trip_plan(stat.shape[0], pair, cfg, scale, H, W, group)
     else:
         st, pr, pair = handoff.st0, handoff.pr0, handoff.pair
+        plan = handoff.plan
     reads = ExitReads()
-    while True:
-        for _ in range(unroll):
-            if not split:
-                pr, st = megastep_call(stat, act, pr, st, geo, scale=scale,
-                                       H=H, W=W, time_lo=time_lo, **statics)
-                continue
-            pr, acc_t, acc_c = warp_images_st_call(
-                stat, act, pr, st, geo, *pair, scale=scale, H=H, W=W,
-                time_lo=time_lo, predicated=pred)
-            if group is not None:
-                acc_t, acc_c = sum_images(acc_t, acc_c, group.comm)
-            st = megastep_finish_call(acc_t, acc_c, st, geo, scale=scale,
-                                      H=H, W=W, predicated=pred, **statics)
-        # ITERS and CONT are adjacent slots: one copy, one blocking read.
-        (iters, cont), = reads(st.narrow(1, ST_ITERS, 2))
-        if not cont > 0:
-            break
+    if plan is not None:
+        pr, st, iters = _planned_trips(plan, reads, stat, act, geo, pr, st)
+    else:
+        while True:
+            for _ in range(unroll):
+                if not split:
+                    pr, st = megastep_call(stat, act, pr, st, geo,
+                                           scale=scale, H=H, W=W,
+                                           time_lo=time_lo, **statics)
+                    continue
+                pr, acc_t, acc_c = warp_images_st_call(
+                    stat, act, pr, st, geo, *pair, scale=scale, H=H, W=W,
+                    time_lo=time_lo, predicated=pred)
+                if group is not None:
+                    acc_t, acc_c = sum_images(acc_t, acc_c, group.comm)
+                st = megastep_finish_call(acc_t, acc_c, st, geo,
+                                          scale=scale, H=H, W=W,
+                                          predicated=pred, **statics)
+            # ITERS and CONT are adjacent slots: one copy, one blocking read.
+            (iters, cont), = reads(st.narrow(1, ST_ITERS, 2))
+            if not cont > 0:
+                break
     if handoff is not None:
         h = Handoff(handoff.st_next, handoff.seed_next, handoff.st0,
                     cfg.init_xy_divider, cfg.init_rotdiv_divider,

@@ -6,7 +6,8 @@ library with a plain C interface, under ``better_flow_tpu_torch/_build/``,
 named by a hash of the sources and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  The library is loaded
 with ctypes; each entry point takes device pointers, sizes and a CUDA
-stream and returns ``cudaGetLastError()``.
+stream (``bf_trip``: a launch plan holding them, ``TripArgs``) and returns
+its CUDA error.
 """
 
 from __future__ import annotations
@@ -55,6 +56,39 @@ class UpdateParams(ctypes.Structure):
         ("pred_tol", ctypes.c_float * 4),
         ("xy_cap", ctypes.c_float),
         ("rotdiv_cap", ctypes.c_float),
+    ]
+
+
+class TripArgs(ctypes.Structure):
+    """Mirror of ``TripArgs`` in csrc/trip.cu: a planned trip's launch
+    arguments (``ops.fused_model.TripPlan``)."""
+
+    _fields_ = [
+        ("geo", ctypes.c_void_p),
+        ("stat", ctypes.c_void_p),
+        ("act", ctypes.c_void_p),
+        ("pr0", ctypes.c_void_p),
+        ("st0", ctypes.c_void_p),
+        ("acc_t", ctypes.c_void_p),
+        ("acc_c", ctypes.c_void_p),
+        ("pr", ctypes.c_void_p * 2),
+        ("st", ctypes.c_void_p * 2),
+        ("partials", ctypes.c_void_p),
+        ("slot", ctypes.c_void_p),
+        ("event", ctypes.c_void_p),
+        ("stream", ctypes.c_void_p),
+        ("nch", ctypes.c_int),
+        ("HP", ctypes.c_int),
+        ("WP", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("W", ctypes.c_int),
+        ("scale", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("smem", ctypes.c_int),
+        ("time_lo", ctypes.c_int),
+        ("unroll", ctypes.c_int),
+        ("predicated", ctypes.c_int),
+        ("params", UpdateParams),
     ]
 
 
@@ -146,6 +180,9 @@ def library() -> ctypes.CDLL:
         lib.bf_fused_model_partials.argtypes = [P] * 9 + [I] * 8 + [P]
         lib.bf_fused_model_partials_windowed.argtypes = \
             lib.bf_fused_model_partials.argtypes
+        lib.bf_trip.argtypes = [ctypes.POINTER(TripArgs), I]
+        lib.bf_trip_wait.argtypes = [ctypes.POINTER(TripArgs)]
+        lib.bf_trip_event.argtypes = [ctypes.POINTER(P)]
         grids = [getattr(lib, f"bf_{k}_grid") for k in (
             "megastep", "fused_warp_splat", "finish_partials",
             "megastep_finish", "megastep2", "finish_local",
@@ -160,7 +197,8 @@ def library() -> ctypes.CDLL:
                    lib.bf_finish_partials, lib.bf_splat_local,
                    lib.bf_finish_local, lib.bf_fused_model_partials,
                    lib.bf_fused_model_partials_windowed,
-                   lib.bf_megastep2] + grids:
+                   lib.bf_megastep2, lib.bf_trip, lib.bf_trip_wait,
+                   lib.bf_trip_event] + grids:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

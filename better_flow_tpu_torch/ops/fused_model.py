@@ -37,6 +37,7 @@ reads it and leaves it zero.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -659,6 +660,127 @@ def megastep_finish_call(acc_t, acc_c, st, geo, *, scale: int, H: int,
         smem, int(bool(predicated)), ctypes.byref(cp), _stream(dev))
     _launch("megastep_finish", rc)
     return st_out
+
+
+# ----------------------------------------- the split drive's planned trips
+
+
+def plans_trips(device: torch.device) -> bool:
+    """The single-device split drive's trips on ``device`` run from a
+    launch plan (``TripPlan``): on the card; the CPU's twins run through
+    the wrappers."""
+    return device.type == "cuda"
+
+
+_TRIP_SYNC: dict = {}
+
+
+def _trip_sync(dev: torch.device):
+    """The pinned (2,) f32 host slot that a planned trip copies the state's
+    [ITERS, CONT] into, and the event recorded after the copy: one pair
+    per device and thread, made at first use (a pinned allocation takes
+    milliseconds) and shared by the thread's plans on the device, whose
+    trips run one at a time (each waits for its slot before the next is
+    enqueued)."""
+    key = (dev, threading.get_ident())
+    if key not in _TRIP_SYNC:
+        from better_flow_tpu_torch.ops._build import library
+
+        slot = torch.zeros(2, dtype=torch.float32, pin_memory=True)
+        event = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            rc = library().bf_trip_event(ctypes.byref(event))
+        if rc != 0:
+            raise RuntimeError(f"trip event: CUDA error {rc}")
+        _TRIP_SYNC[key] = (slot, event.value)
+    return _TRIP_SYNC[key]
+
+
+class TripPlan:
+    """The launch plan of the single-device split drive on the card: a
+    trip (``megastep_unroll`` B1 + B2 pairs, predicated past one, then the
+    copy of the last state's [ITERS, CONT] into a pinned slot) is one call
+    of ``bf_trip`` (csrc/trip.cu), and its exit read one wait on an event.
+    Made once per drive call, or once per slice range of the scan's loop,
+    on the device of the image pair, it holds what the trips share: B1's
+    and B2's arguments but the slice's, the pair, B2's row sums
+    (``_workspace``), the scalar update's parameters, the stream current
+    when it is made, two position buffers and two state rows that the
+    pairs write in turn (the wrappers' per-pair allocations), the slot and
+    event of the device and thread (``_trip_sync``).
+    ``start`` checks and sets a drive call's slice and start; ``trip``
+    launches; ``wait`` blocks and returns (ITERS, CONT); ``final`` gives
+    the last pair's positions and state.  The launches, their arguments
+    and their order are the wrappers', so the outputs are bitwise theirs;
+    ``LAUNCHES`` counts each kernel launched."""
+
+    def __init__(self, nch: int, acc_t, acc_c, *, scale: int, H: int,
+                 W: int, time_lo: bool, unroll: int, statics: dict):
+        from better_flow_tpu_torch.ops._build import TripArgs, library
+
+        dev = acc_t.device
+        _check_pair(acc_t, acc_c, H, W, dev)
+        HP, WP = padded_image_shape(H, W)
+        R, smem = _device_bands(dev, H, W, scale)
+        slot, event = _trip_sync(dev)
+        self.dev, self.nch, self.unroll = dev, nch, unroll
+        self.pr = [torch.empty((nch, 2, CHUNK), dtype=torch.float32,
+                               device=dev) for _ in range(2)]
+        self.st = [torch.empty((1, ST_SIZE), dtype=torch.float32,
+                               device=dev) for _ in range(2)]
+        partials = _workspace(dev, H, W)["partials"]
+        self._keep = (acc_t, acc_c, partials, slot)
+        self._args = TripArgs(
+            acc_t=acc_t.data_ptr(), acc_c=acc_c.data_ptr(),
+            pr=(ctypes.c_void_p * 2)(*(t.data_ptr() for t in self.pr)),
+            st=(ctypes.c_void_p * 2)(*(t.data_ptr() for t in self.st)),
+            partials=partials.data_ptr(), slot=slot.data_ptr(), event=event,
+            stream=_stream(dev), nch=nch, HP=HP, WP=WP, H=H, W=W,
+            scale=scale, rows=R, smem=smem, time_lo=int(time_lo),
+            unroll=unroll, predicated=int(unroll > 1),
+            params=_c_params(statics))
+        self._ref = ctypes.byref(self._args)
+        self._slot = (ctypes.c_float * 2).from_address(slot.data_ptr())
+        self._lib = library()
+        self._slice = ()
+        self.done = 0          # pairs launched in this drive call
+
+    def start(self, stat, act, geo, pr0, st0) -> None:
+        """A drive call on ``stat``, ``act``, ``geo`` from the positions
+        ``pr0`` and the state ``st0``, which the trips read and never
+        write."""
+        dev, nch = self.dev, self.nch
+        _check("stat", stat, torch.float32, (nch, 3, CHUNK), dev)
+        _check("act", act, torch.float32, (nch, 1, CHUNK), dev)
+        _check("pr", pr0, torch.float32, (nch, 2, CHUNK), dev)
+        _check("st", st0, torch.float32, (1, ST_SIZE), dev)
+        _check("geo", geo, torch.float32, (1, 8), dev)
+        a = self._args
+        a.geo, a.stat, a.act, a.pr0, a.st0 = (
+            t.data_ptr() for t in (geo, stat, act, pr0, st0))
+        self._slice = (geo, stat, act, pr0, st0)
+        self.done = 0
+
+    def trip(self) -> None:
+        rc = self._lib.bf_trip(self._ref, self.done)
+        if rc != 0:
+            raise RuntimeError(f"trip: CUDA launch failed with error {rc}")
+        self.done += self.unroll
+        LAUNCHES["warp_images_st"] += self.unroll
+        LAUNCHES["megastep_finish"] += self.unroll
+
+    def wait(self):
+        """(ITERS, CONT) of the last trip's state, once it is written."""
+        rc = self._lib.bf_trip_wait(self._ref)
+        if rc != 0:
+            raise RuntimeError(f"trip wait: CUDA error {rc}")
+        return self._slot[0], self._slot[1]
+
+    def final(self):
+        """The last pair's (positions, state): the plan's buffers, which
+        the next drive call on this plan overwrites."""
+        k = (self.done - 1) & 1
+        return self.pr[k], self.st[k]
 
 
 # ------------------------------------------------------ B4 final warp

@@ -656,7 +656,9 @@ def _run_carried(prepared: dict, cfg: PipelineConfig, model, sd, act_all,
     slice that runs is the drive's trips from that state and one B4 launch
     into ``uvn[s]`` that also writes the next slice's start state and seed
     row into the spare one of two rows (``run_fused_mega``'s ``handoff``),
-    with one image pair for the whole call; a skipped slice takes
+    with one image pair and, on the card's single-device split drive, one
+    launch plan of the trips (``global_flow.trip_plan``) for the whole
+    call; a skipped slice takes
     ``process_slice`` with the model of the last state, and the next start
     state is built from it as before.  The gates, the geometry and the
     image shape are host values read once.  The returned model is read
@@ -678,6 +680,8 @@ def _run_carried(prepared: dict, cfg: PipelineConfig, model, sd, act_all,
     staged = prepared["stat"]
     warp_out = torch.empty((staged.shape[1], 4, CHUNK), dtype=torch.float32,
                            device=dev)
+    plan = global_flow.trip_plan(staged.shape[1], pair, opt, scale, H, W,
+                                 group) if any(runs) else None
     stat, xy, act, geo, out = (t.unbind(0) for t in (
         staged, staged[:, :, 0:2], act_all, prepared["geo"], uvn))
     final = None                  # the last run slice's final state
@@ -690,7 +694,8 @@ def _run_carried(prepared: dict, cfg: PipelineConfig, model, sd, act_all,
             final, _, _, n_iter, sd, reads = global_flow.run_fused_mega(
                 stat[s], act[s], geo[s], None, opt, scale, H, W,
                 group=group, uvn_out=out[s], handoff=SliceHandoff(
-                    row, xy[s].contiguous(), spare, seed, pair, warp_out))
+                    row, xy[s].contiguous(), spare, seed, pair, warp_out,
+                    plan))
             row, spare = spare, row
         else:
             m = model if final is None else model_from_state(final)

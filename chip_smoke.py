@@ -174,7 +174,19 @@ in phases that each raise on failure:
     ``entry``'s slice and ``dryrun(4)``'s four stages on the card (the
     temporal batch under "auto" and "xla", the 4-shard scan on B1/B2, the
     tiled 180x240 recording under "xla" and "pallas" with no event
-    dropped, two chained ranges bitwise the whole scan).
+    dropped, two chained ranges bitwise the whole scan);
+19. the optimizer drive (``[drive]``, ``phase_drive``): the ``fast()``
+    scan on the staged 2M events (the long cell's configuration and
+    shapes), its trips planned (``TripPlan``: one native call and one
+    wait a trip) and on the wrappers, in turns, untraced: the host's
+    microseconds a trip in the enqueue (``drive.launch``) and in the
+    blocking read (``drive.read``), from the program's spans, and run_s
+    a trip with the spans off, medians of three runs each, the outputs
+    bitwise the same.
+
+    python3 chip_smoke.py drive
+
+runs the environment's phase and this one alone.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It exits non-zero, with
@@ -2352,6 +2364,79 @@ def phase_options(scan_inputs, cfg, prep, r1, d, dev):
     return noop
 
 
+def phase_drive(cfg, prep, dev, turns=3):
+    """``[drive]``: the single-device split drive's host time a trip on
+    ``prep`` under ``cfg``, planned (``global_flow.plans_trips`` as it is)
+    and on the wrappers (``plans_trips`` false), in turns (planned,
+    wrappers, wrappers, planned, ...; ``turns`` runs of each).  A run is
+    the scan once with the program's spans off (run_s over its blocking
+    reads: microseconds a trip, device time included) and once with them
+    on (no profiler): the mean enqueue (``drive.launch``) and read
+    (``drive.read``) of a trip and the mean self time of a slice.  Prints
+    each run and the medians; raises where a run's outputs, reads or
+    launches differ from the first's, or where ``planned_trips`` is not
+    the planned runs' reads (and not 0 on the wrappers).  Returns the
+    medians by side."""
+    import numpy as np
+
+    from better_flow_tpu_torch import profiling
+    from better_flow_tpu_torch.models import global_flow as gf
+    from better_flow_tpu_torch.ops import fused_model as fm
+    from better_flow_tpu_torch.runtime.scan_pipeline import (
+        compensate_recording_scan,
+    )
+
+    t_phase = time.perf_counter()
+    planned = gf.plans_trips
+    sides = {"planned": planned, "wrapper": lambda device: False}
+    runs = {k: [] for k in sides}
+    first = None
+    for i in range(2 * turns):
+        side = "planned" if i % 4 in (0, 3) else "wrapper"
+        gf.plans_trips = sides[side]
+        try:
+            fm.reset_launches()
+            off = compensate_recording_scan(None, None, None, cfg,
+                                            prepared=prep)
+            launches = dict(fm.LAUNCHES)
+            with profiling.program_spans() as rec:
+                on = compensate_recording_scan(None, None, None, cfg,
+                                               prepared=prep)
+        finally:
+            gf.plans_trips = planned
+        syncs = off["stats"]["host_syncs"]
+        for r in (off, on):
+            if first is None:
+                first = (r, syncs, launches)
+            for k in ("u", "v", "noise", "iters"):
+                if not np.array_equal(r[k], first[0][k]):
+                    raise AssertionError(f"[drive] {side}: {k} differs")
+        if syncs != first[1] or on["stats"]["host_syncs"] != syncs or \
+                launches != first[2]:
+            raise AssertionError(f"[drive] {side}: reads {syncs} or "
+                                 f"launches {launches} differ from "
+                                 f"{first[1]}, {first[2]}")
+        n_planned = rec.counters.get("planned_trips", 0)
+        if n_planned != (syncs if side == "planned" else 0):
+            raise AssertionError(f"[drive] {side}: planned_trips "
+                                 f"{n_planned}, reads {syncs}")
+        sp = rec.summary()["spans"]
+        row = dict(
+            launch_us=1e6 * sp["drive.launch"]["total_s"] / syncs,
+            read_us=1e6 * sp["drive.read"]["total_s"] / syncs,
+            slice_self_us=1e6 * sp["slice"]["self_s"] / sp["slice"]["n"],
+            run_us_a_trip=1e6 * off["stats"]["run_s"] / syncs)
+        runs[side].append(row)
+        log(f"[drive] {side} run {len(runs[side])}: {json.dumps(row)} "
+            f"({syncs} trips, planned_trips {n_planned})")
+    med = {side: {k: statistics.median(r[k] for r in rows)
+                  for k in rows[0]} for side, rows in runs.items()}
+    log(f"[drive] medians of {turns} runs, us a trip: {json.dumps(med)}; "
+        f"outputs, reads and launches bitwise the same "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    return med
+
+
 def check_outputs(r, n):
     import numpy as np
 
@@ -3619,6 +3704,15 @@ def main():
     cfg = PipelineConfig(optimizer=OptimizerConfig.fast())
     d = bench_stream(N_EVENTS)
     n = len(d["x"])
+    if sys.argv[1:] == ["drive"]:
+        prep = prepare_recording(d["x"], d["y"], d["t_ns"], cfg, device=dev)
+        compensate_recording_scan(None, None, None, cfg, prepared=prep)
+        phase_drive(cfg, prep, dev)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     t_phase = time.perf_counter()
     results, scan_inputs = phase_kernels(cfg, d, dev)
@@ -3709,6 +3803,7 @@ def main():
     for name, extra in phase_options(scan_inputs, cfg, prep, r1, d,
                                      dev).items():
         results[name].update(extra)
+    phase_drive(cfg, prep, dev)
     for k in ("megastep2", "fused_model_partials",
               "fused_model_partials_windowed"):
         if launches[k] <= 0:
