@@ -40,7 +40,7 @@ from better_flow_tpu_torch.core.model import MotionModel
 from better_flow_tpu_torch.io.synthetic import synthetic_events
 from better_flow_tpu_torch.models.global_flow import process_event_slice
 from better_flow_tpu_torch.ops import fused_model
-from better_flow_tpu_torch.parallel import event_parallel, multihost
+from better_flow_tpu_torch.parallel import event_parallel
 from better_flow_tpu_torch.parallel.mesh import (
     group_device, make_event_mesh, make_pipeline_mesh, make_tiled_mesh,
 )
@@ -178,7 +178,8 @@ def _stage4(n: int, dev, d, pcfg, full: dict) -> None:
             ws_h, st_h, en_h = prep["hist0"]
             carry = make_carry(MotionModel.zero(dev), prep["hist_k"],
                                ws_h=ws_h, st_h=st_h, en_h=en_h)
-        out = multihost._sharded_range(prep, pcfg, mesh, carry)
+        out = event_parallel.compensate_recording_scan_sharded(
+            None, None, None, pcfg, mesh, prepared=prep, carry_in=carry)
         # The hand-off payload: the model, the (12,) seed, the history.
         model, seed, ws_h, st_h, en_h = out["carry"]
         carry = make_carry(model, prep["hist_k"], seed=seed, ws_h=ws_h,

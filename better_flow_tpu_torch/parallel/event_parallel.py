@@ -46,7 +46,7 @@ from better_flow_tpu_torch.ops.layout import (
 )
 from better_flow_tpu_torch.parallel.mesh import EventGroup
 from better_flow_tpu_torch.runtime.scan_pipeline import (
-    initial_carry, padded_capacity, prepare_recording, scan_prepared,
+    initial_carry, prepare_recording, scan_prepared, staged_capacity,
 )
 
 
@@ -119,20 +119,24 @@ def jit_event_parallel(cfg: OptimizerConfig, sensor: SensorConfig,
                              sensor=sensor, mesh=mesh, warm_start=warm_start)
 
 
-def prepare_recording_sharded(x, y, t_ns, cfg, mesh: EventGroup,
-                              slice_range=None) -> dict:
-    """Host staging for the sharded scan: ``prepare_recording`` with the
-    padded capacity rounded to a multiple of ``n_shards * CHUNK``, so that
-    every shard is a whole number of the unsharded run's chunks, and with
-    only this process's chunks copied to the group's device."""
+def shard_staging(cfg, mesh: EventGroup):
+    """(pad_quantum, chunk_range) of staging for ``mesh``: the padded
+    capacity rounded to a multiple of ``n_shards * CHUNK``, so that every
+    shard is a whole number of the unsharded run's chunks, and only this
+    process's chunks copied to the group's device."""
     n = mesh.n_shards
-    capp = -(-padded_capacity(cfg) // (n * CHUNK)) * (n * CHUNK)
-    per = capp // CHUNK // n
+    per = staged_capacity(cfg, n * CHUNK) // CHUNK // n
     chunk_range = None if mesh.comm.size == 1 else \
         (mesh.first_shard * per, (mesh.first_shard + mesh.n_local) * per)
-    return prepare_recording(x, y, t_ns, cfg, device=mesh.device,
-                             slice_range=slice_range, pad_quantum=n * CHUNK,
-                             chunk_range=chunk_range)
+    return n * CHUNK, chunk_range
+
+
+def prepare_recording_sharded(x, y, t_ns, cfg, mesh: EventGroup,
+                              slice_range=None) -> dict:
+    """Host staging for the sharded scan: ``prepare_recording`` as
+    ``shard_staging`` sets it for ``mesh``, on the group's device."""
+    return prepare_recording(x, y, t_ns, cfg, mesh.device, slice_range,
+                             *shard_staging(cfg, mesh))
 
 
 def check_staged_for(prepared: dict, mesh: EventGroup) -> None:

@@ -29,7 +29,8 @@ events whose FIRST containing slice is local, ``scan_pipeline.
 accumulate_device``), so the whole result is their elementwise sum.  The
 noise flags at a boundary need no communication: the window gate is
 geometric, so each process rebuilds the history before its range from the
-recording (``prepare_recording``'s ``hist0``).
+recording (``stage_range``'s ``hist0``).  A call derives the plan and the
+coordinates once (``staging_source``) and stages its ranges from them.
 
 One process can run several ranges (``n_ranges``): without a process group
 the same code runs all of them in sequence, which is how the range logic is
@@ -50,7 +51,7 @@ from better_flow_tpu_torch.parallel import event_parallel
 from better_flow_tpu_torch.parallel.comm import LocalComm, world
 from better_flow_tpu_torch.parallel.mesh import EventGroup, group_device
 from better_flow_tpu_torch.runtime.scan_pipeline import (
-    initial_carry, plan_slices, scan_prepared,
+    initial_carry, stage_range, staging_source,
 )
 
 
@@ -82,14 +83,6 @@ def _unpack_carry(tensors, f64_totals: bool):
     return (model, seed, h[0].astype(bool), h[1].copy(), h[2].copy())
 
 
-def _sharded_range(prepared, cfg, mesh: EventGroup, carry_in):
-    """Event-parallel scan over a prepared slice range from an explicit
-    carry (the hand-off-aware form of
-    ``event_parallel.compensate_recording_scan_sharded``)."""
-    return event_parallel.compensate_recording_scan_sharded(
-        None, None, None, cfg, mesh, prepared=prepared, carry_in=carry_in)
-
-
 def compensate_recording_multihost(
         x, y, t_ns, cfg: Optional[PipelineConfig] = None,
         boundary: str = "chain", ev_per_host: Optional[int] = None,
@@ -116,15 +109,15 @@ def compensate_recording_multihost(
     R = n_proc if n_ranges is None else int(n_ranges)
     if R <= 0 or R % n_proc != 0:
         raise ValueError(f"{R} ranges do not divide over {n_proc} processes")
-    t_ns = np.ascontiguousarray(t_ns, np.int64)
-    n = len(t_ns)
-    S = len(plan_slices(t_ns, cfg).ends)
+    src = staging_source(x, y, t_ns, cfg)
+    n, S = src.n, len(src.plan.ends)
     k = R // n_proc
     mine = slice_ranges(S, R)[pid * k:(pid + 1) * k]
 
     mesh = EventGroup(LocalComm(), ev_per_host or 1, dev)
-    staged = [event_parallel.prepare_recording_sharded(
-        x, y, t_ns, cfg, mesh, slice_range=r) for r in mine]
+    staged = [stage_range(src, cfg, mesh.device, r,
+                          *event_parallel.shard_staging(cfg, mesh))
+              for r in mine]
 
     def run_mine(carry):
         """This process's ranges in order; ``carry`` None: each from its
@@ -132,7 +125,8 @@ def compensate_recording_multihost(
         outs = []
         for prep in staged:
             c0 = carry if carry is not None else initial_carry(prep, cfg)
-            outs.append(_sharded_range(prep, cfg, mesh, c0))
+            outs.append(event_parallel.compensate_recording_scan_sharded(
+                None, None, None, cfg, mesh, prepared=prep, carry_in=c0))
             if carry is not None:
                 carry = outs[-1]["carry"]
         return outs
@@ -173,7 +167,8 @@ def compensate_recording_multihost(
     st.update(n_events=n, n_slices=len(iters), n_processes=n_proc,
               slice_range=(mine[0][0], mine[-1][1]), n_slices_total=S,
               n_ranges=R, boundary=boundary, ev_per_host=mesh.n_local,
-              run_s=run_s, plan_s=sum(p["plan_s"] for p in staged),
+              run_s=run_s,
+              plan_s=src.seconds + sum(p["plan_s"] for p in staged),
               events_per_s=n / run_s if run_s > 0 else 0.0,
               mean_iters=float(np.mean(iters)) if len(iters) else 0.0,
               host_syncs=sum(o["stats"]["host_syncs"] for o in outs),

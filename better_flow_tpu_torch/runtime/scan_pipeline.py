@@ -3,72 +3,52 @@
 Counterpart of ``better_flow_tpu/runtime/scan_pipeline.py`` (the path
 ``bench.py`` measures):
 
-1. Host: the trigger plan (``plan_slices``) and a sort of every slice
-   into band-padded slabs, copied to the device from pinned memory without
-   blocking, batch by batch, so a batch's copy overlaps the next batch's
-   sort.  The sort is the native counting sort into compact u16 slabs
-   (``io.native``) when every coordinate is an integer in [0, 65535) and a
-   slice holds at most 65,535 events; otherwise (sub-pixel coordinates,
-   larger slices, no native library) it is the numpy staging
-   (``materialize_slices``) into f32 and int32 slabs.  Both routes give
-   the device the same tensors, so everything after staging is shared.
+1. Host staging, in two steps.  Once a call, ``staging_source`` derives
+   what belongs to the whole recording: the trigger plan
+   (``plan_slices``), the history depth, the coordinates (u16 from
+   ``io.native`` when every one is an integer in [0, 65535) and a slice
+   holds at most 65,535 events, else f32) and whether it is compact.
+   Then ``stage_range`` sorts a range's slices into band-padded slabs,
+   the native counting sort on u16 or the numpy staging
+   (``materialize_slices``) on f32, both giving the device the same
+   tensors, copied from pinned memory without blocking.
 2. Device: the activity rows of every slice from its window-gate history,
    in one launch (B3), then a Python loop over the slices, in which the
-   optimizer runs through the kernels: the megastep drive (B5, or B1 +
-   B2) with B4, the merged drive (B12) under ``megastep_merged``, or, for
-   f64 totals (``PipelineConfig.f64_totals``) or ``use_megastep=False``,
-   the composed loop on B6.  With ``scatter_mode="xla"`` the slice runs
-   as a flat ``EventSlice`` (valid slots and the history's noise flags,
-   built in plain tensor code, ``slice_events``) through the XLA branch,
-   whose [u, v, noise] pack goes to the accumulation as the kernels'
-   does.  The
-   gates, the history and the geometry are host values known after
-   staging, so the loop reads the device only for the optimizer's continue
-   flag.
+   optimizer runs through the kernels (the megastep drive, B5 or B1 + B2
+   with B4; the merged drive, B12; the composed loop on B6) or, with
+   ``scatter_mode="xla"``, the XLA branch (``slice_events``).  The gates,
+   the history and the geometry are host values, so the loop reads the
+   device only for the optimizer's continue flag.  The carry between
+   slices is (model, seed, gate history), the last on the host; on the
+   megastep drives the model stays the optimizer's (1, 32) start state,
+   which each slice's B4 writes for the next (``_run_carried``).
 3. First-slice-wins accumulation into per-event arrays on the device, one
    slice at a time in reverse order, then one fetch to the host.
 
-The carry between slices is (model, seed, gate history): the model (f64
-totals under ``f64_totals``) and the (12,) f32 seed live on the device,
-the (K,) gate history [fired, start, end] on the host.  On the megastep
-drives the loop keeps the model as the optimizer's (1, 32) start state,
-which each slice's B4 writes for the next (``_run_carried``).
-
-Ranges and shards.  ``prepare_recording(slice_range=(lo, hi))`` stages one
-contiguous range of the global trigger plan (``parallel.multihost``): the
-plan, the history depth and the gate history of the slices before the
-range (``hist0``) still come from the whole recording, so a range run
-started from ``hist0`` and the previous range's carry reproduces the full
-run, and its accumulation claims only the events whose first slice is in
-the range.  ``pad_quantum`` rounds the padded capacity up so that it
-splits into event shards on chunk boundaries; ``chunk_range`` keeps only
-this process's chunks of every slice on the device.  ``scan_prepared``
-under an ``EventGroup`` runs each slice's shards through the optimizer's
-image-sum seam (``models.global_flow``).
+Ranges and shards.  ``stage_range`` stages one contiguous range of the
+whole plan (``parallel.multihost``, the cold path's batches); the gate
+history of the slices before it (``hist0``) comes from the recording, so
+a range run from ``hist0`` and the previous range's carry reproduces the
+full run, claiming only the events whose first slice is in the range.
+``pad_quantum`` rounds the padded capacity up so that it splits into
+event shards on chunk boundaries; ``chunk_range`` keeps only this
+process's chunks of every slice on the device.
 
 The cold path.  ``compensate_recording_cold`` runs the recording as
-``n_batch`` contiguous slice ranges chained by their carry: a worker thread
-stages batch k+1 on its own CUDA stream while the main thread drives batch
-k's slice loop, and each batch's claimed events (a contiguous range of
-original indices) are accumulated into a compact buffer
-(``accumulate_device_range``), optionally packed (``pack_results``), and
-copied to pinned host memory on a third stream, which the worker waits for
-and decodes while the next batch runs; the checkpoint
-(``save_offline_checkpoint``) is written one batch behind.  A batch's
-slabs and outputs are dropped as
-soon as its accumulation is dispatched, so the device holds about two
-batches whatever the recording's length.  ``compensate_recording_scan``
-routes a recording there by itself when ``estimate_scan_device_bytes``
-exceeds ``BF_SCAN_DEVICE_BUDGET_GB``.  A batch that is not compact
-(``prepare_recording``: sub-pixel coordinates, or slices past 65,535
-events) is not packed, even under ``compact_results``, and cannot be
-checkpointed, as in the JAX package.
+``n_batch`` slice ranges chained by their carry: a worker thread stages
+batch k+1 on its own CUDA stream while the main thread drives batch k's
+slice loop; each batch's claimed events are accumulated into a compact
+buffer (``accumulate_device_range``), optionally packed
+(``pack_results``), and copied to pinned host memory on a third stream,
+which the worker decodes while the next batch runs; the checkpoint is
+written one batch behind.  The device holds about two batches.
+``compensate_recording_scan`` routes a recording there when
+``estimate_scan_device_bytes`` exceeds ``BF_SCAN_DEVICE_BUDGET_GB``,
+handing over its staging source.  A recording that is not compact is not
+packed, and cannot be checkpointed, as in the JAX package.
 
 Spans.  While ``profiling.program_spans`` is open, each phase above is a
-span of the program's recorder (names in ``PERF.md`` §3): the call
-(``scan`` or ``cold``), staging (``stage`` and its phases), the slice loop
-(``loop.rows``, one ``slice`` a slice, the drive's ``drive.launch`` and
-``drive.read`` inside it), the accumulation and the fetch; the cold
+span of the program's recorder (names in ``PERF.md`` §3); the cold
 path's worker spans name the main thread's span that handed them over.
 """
 
@@ -175,7 +155,7 @@ def materialize_slices(x, y, t_ns, plan: SlicePlan, cap: int,
     bands; the capacity grows to ``padded_capacity``'s and padding is then
     interleaved inside a slice: mask on ``idx >= 0``, never on a prefix.
     ``indices_only`` builds ``idx`` alone (xs, ys, ts None).
-    ``prepare_recording`` uses only ``band_pad=True`` with the default
+    ``stage_range`` uses only ``band_pad=True`` with the default
     ``band_rows``; the other settings are kept for parity with the JAX
     function, which the tests hold this one against."""
     S = len(plan.ends)
@@ -264,12 +244,6 @@ def staged_capacity(cfg: PipelineConfig, pad_quantum: int = 0) -> int:
     return -(-capp // pad_quantum) * pad_quantum if pad_quantum else capp
 
 
-def _integral_u16(a: np.ndarray) -> bool:
-    """Every value an integer in [0, 65535)."""
-    return a.size == 0 or bool(
-        np.all(a == np.floor(a)) and a.min() >= 0 and a.max() < 0xFFFF)
-
-
 def default_device() -> torch.device:
     """The card.  An entry point runs on the CPU (the plain twins) only when
     its caller asks for it; with no card and no ``device="cpu"`` it raises."""
@@ -289,20 +263,85 @@ def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def _gate_history_before(lo: int, hist_k: int, plan: SlicePlan, xa, ya,
-                         cfg: PipelineConfig):
+class StagingSource(NamedTuple):
+    """What staging derives from a whole recording, once a call
+    (``staging_source``); each range is staged from it (``stage_range``)."""
+    t_ns: np.ndarray     # int64, contiguous
+    n: int
+    plan: SlicePlan      # the whole trigger plan
+    hist_k: int          # the gate history's depth, from the whole plan
+    xa: np.ndarray       # the coordinates the ranges are sorted from: u16
+    ya: np.ndarray       # on the native route, else f32
+    native_route: bool
+    compact: bool        # the cold path packs and checkpoints only these
+    phases: dict         # its ``plan_breakdown`` phases
+    seconds: float
+
+
+class _Phases:
+    """The ``plan_breakdown`` phases of staging (seconds by name) and its
+    spans, timed from construction."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.phases = {}
+
+    def mark(self, name: str, span: str) -> None:
+        """The phase ``name``, and the span ``span``, end now."""
+        now = time.perf_counter()
+        self.phases[name] = round(self.phases.get(name, 0.0)
+                                  + now - self.last, 4)
+        if profiling.RECORDER is not None:
+            profiling.RECORDER.add(span, self.last, now)
+        self.last = now
+
+
+def staging_source(x, y, t_ns, cfg: PipelineConfig) -> StagingSource:
+    """The trigger plan, the history depth and the staged coordinates of
+    a recording (phases ``plan``, ``coords_u16``, ``coords_f32``; spans
+    ``stage.plan``, ``stage.coords``).  The native route narrows them to
+    u16 (``native.coords_u16``) when the library is there, every one is an
+    integer in [0, 65535) and ``max_events`` is at most 65,535 (a u16 slot
+    holds its offset into the slice's window, 0xFFFF padding, so the padded
+    capacity itself may pass 0xFFFF); else the numpy route keeps f32
+    copies.  ``compact``, the one rule: the native route, or, as in the JAX
+    package, f32 coordinates that are integers in [0, 65535) and a padded
+    capacity below 0xFFFF."""
+    clock = _Phases()
+    t_ns = np.ascontiguousarray(t_ns, np.int64)
+    plan = plan_slices(t_ns, cfg)
+    hist_k = history_depth(plan)
+    clock.mark("plan", "stage.plan")
+    xa = None
+    if cfg.slice.max_events <= PERM_SENTINEL:
+        xa, ya = native.coords_u16(x, y) or (None, None)
+        clock.mark("coords_u16", "stage.coords")
+    native_route = compact = xa is not None
+    if not native_route:
+        xa = np.ascontiguousarray(x, np.float32)
+        ya = np.ascontiguousarray(y, np.float32)
+        compact = padded_capacity(cfg) < 0xFFFF and all(
+            a.size == 0 or bool(np.all(a == np.floor(a)) and a.min() >= 0
+                                and a.max() < 0xFFFF) for a in (xa, ya))
+        clock.mark("coords_f32", "stage.coords")
+    return StagingSource(t_ns, len(t_ns), plan, hist_k, xa, ya, native_route,
+                         compact, clock.phases, time.perf_counter() - clock.t0)
+
+
+def _gate_history_before(src: StagingSource, lo: int, cfg: PipelineConfig):
     """The window-gate history (fired, start, end; (K,) each) that slice
-    ``lo`` of the plan reads: the gate is purely geometric (bbox and
+    ``lo`` of ``src``'s plan reads: the gate is purely geometric (bbox and
     ``min_window_fraction``), so the outcomes of the ``hist_k`` slices
     before a range are computed here from the recording itself, on the
     staged coordinates (u16, or f32 whose bbox is truncated)."""
+    plan, hist_k = src.plan, src.hist_k
     ws_h = np.zeros(hist_k, bool)
     st_h = np.zeros(hist_k, np.int32)
     en_h = np.full(hist_k, -1, np.int32)
     opt = cfg.optimizer
     for j, s in enumerate(reversed(range(max(0, lo - hist_k), lo))):
         a, b = int(plan.starts[s]), int(plan.ends[s]) + 1
-        xw, yw = xa[a:b], ya[a:b]
+        xw, yw = src.xa[a:b], src.ya[a:b]
         g = geometry_from_bbox(xw.min(), xw.max(), yw.min(), yw.max(),
                                opt.scale, cfg.sensor, opt.min_window_fraction)
         k = hist_k - 1 - j
@@ -312,60 +351,18 @@ def _gate_history_before(lo: int, hist_k: int, plan: SlicePlan, xa, ya,
     return ws_h, st_h, en_h
 
 
-def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
-                      slice_range=None, pad_quantum: int = 0,
-                      chunk_range=None) -> dict:
-    """Host staging: trigger plan, a sort of every slice into band-padded
-    slabs, and the device copies ``stat`` (S, nch, 3, CHUNK) f32 and
-    ``sidx`` (S, capp) int32 (original index, -1 on padding).  Reusable
-    across runs of the same recording.  ``device`` stands where the JAX
-    package's signature has ``slice_range`` (a divergence by design: pass
-    ``slice_range`` by keyword).
-
-    The native route sorts u16 coordinates and in-slice offsets with
-    ``io.native``; it needs the library, every coordinate an integer in
-    [0, 65535) and ``max_events`` at most 65,535.  Otherwise the numpy
-    route (``materialize_slices``, ``plan_breakdown`` key
-    ``numpy_staging``) stages the f32 coordinates and int32 indices.  The
-    two give the same tensors on integer coordinates.  ``compact`` (the
-    cold path packs and checkpoints only compact batches) is True on the
-    native route, and on the numpy route, as in the JAX package, when the
-    f32 coordinates are integers in [0, 65535) and the padded capacity is
-    below 0xFFFF.
-
-    ``slice_range=(lo, hi)`` stages only that range of the global plan;
-    ``hist_k``, ``hist0`` (the gate history before the range) and
-    ``prev_end`` (the last trigger before it: events up to it belong to
-    earlier ranges) still come from the whole plan.  ``pad_quantum`` rounds
-    the padded capacity up to a multiple (event sharding asks for
-    ``n_shards * CHUNK``).  ``chunk_range=(c0, c1)`` copies only those
-    chunks of every slice to the device (this process's event shards);
-    bbox and counts stay those of the whole slices."""
+def stage_range(src: StagingSource, cfg: PipelineConfig, device=None,
+                slice_range=None, pad_quantum: int = 0,
+                chunk_range=None) -> dict:
+    """A sort of the slices of ``slice_range`` of ``src``'s plan (all of
+    them when None) into band-padded slabs, and their device copies:
+    ``prepare_recording``'s result, its ``plan_s`` and ``plan_breakdown``
+    this range's own."""
     dev = torch.device(device) if device is not None else default_device()
-    t_ns = np.ascontiguousarray(t_ns, np.int64)
-    t0 = last = time.perf_counter()
-    phases = {}
-    rec = profiling.RECORDER
-
-    def _mark(name, span):
-        """The phase ``name`` of ``plan_breakdown``, and the span
-        ``span``, ends now."""
-        nonlocal last
-        now = time.perf_counter()
-        phases[name] = round(phases.get(name, 0.0) + now - last, 4)
-        if rec is not None:
-            rec.add(span, last, now)
-        last = now
-
-    plan_full = plan_slices(t_ns, cfg)
-    _mark("plan", "stage.plan")
-    # The history depth is part of the carry's shape, so it comes from the
-    # whole plan whatever the range.
-    hist_k = history_depth(plan_full)
-    lo, hi = (0, len(plan_full.ends)) if slice_range is None else \
-        (int(slice_range[0]), int(slice_range[1]))
-    plan = plan_full if slice_range is None else SlicePlan(
-        *(a[lo:hi] for a in plan_full))
+    clock = _Phases()
+    lo, hi = (0, len(src.plan.ends)) if slice_range is None \
+        else map(int, slice_range)
+    plan = SlicePlan(*(a[lo:hi] for a in src.plan))
     S = len(plan.ends)
     capp = staged_capacity(cfg, pad_quantum)
     c0, c1 = (0, capp // CHUNK) if chunk_range is None else chunk_range
@@ -373,51 +370,35 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
         raise ValueError(f"chunk_range {chunk_range} outside the "
                          f"{capp // CHUNK} chunks of a slice")
     nch = c1 - c0
-    cols = slice(c0 * CHUNK, c1 * CHUNK)
-    n_bands = row_bands(cfg)
     lens = (plan.ends - plan.starts + 1).astype(np.int32)
 
     parts, bbox_parts = [], []
-    hist0 = (np.zeros(hist_k, bool), np.zeros(hist_k, np.int32),
-             np.full(hist_k, -1, np.int32))
-    compact = False
+    xa, ya = src.xa, src.ya
+    # The gate history before the range (empty before an empty range).
+    hist0 = _gate_history_before(src, lo if S else 0, cfg)
     if S > 0:
-        # The u16 slab holds each slot's offset into its slice's window
-        # (below max_events; 0xFFFF marks padding), not the slot's position,
-        # so the padded capacity itself may pass 0xFFFF, as it does when
-        # the production capacity is rounded up for four or more shards.
-        xa = None
-        if cfg.slice.max_events <= PERM_SENTINEL:
-            xa, ya = native.coords_u16(x, y) or (None, None)
-            _mark("coords_u16", "stage.coords")
-        native_route = xa is not None
-        if not native_route:
-            xa = np.ascontiguousarray(x, np.float32)
-            ya = np.ascontiguousarray(y, np.float32)
-        compact = native_route or (
-            _integral_u16(xa) and _integral_u16(ya)
-            and padded_capacity(cfg) < 0xFFFF)
         n_batch = 4 if S >= 64 else 1
         bounds = np.linspace(0, S, n_batch + 1).astype(np.int64)
         for b in range(n_batch):
             b0, b1 = int(bounds[b]), int(bounds[b + 1])
             sub = SlicePlan(*(a[b0:b1] for a in plan))
-            if native_route:
+            if src.native_route:
                 out = native.materialize_bandpad_u16(
-                    xa, ya, t_ns, sub.starts, sub.ends, sub.slice_start_ns,
-                    capp, BAND_ROWS, CHUNK, n_bands, cfg.sensor.res_y)
+                    xa, ya, src.t_ns, sub.starts, sub.ends,
+                    sub.slice_start_ns, capp, BAND_ROWS, CHUNK,
+                    row_bands(cfg), cfg.sensor.res_y)
                 if out is None:
                     raise RuntimeError("native band-pad staging failed")
                 xs16, ys16, ts, perm, bbox = out
-                _mark("native_sort", "stage.sort")
+                clock.mark("native_sort", "stage.sort")
                 # u16 slabs travel as int16 bit patterns and are widened on
                 # the device (PyTorch has few uint16 operations).
                 host = (xs16.view(np.int16), ys16.view(np.int16), ts,
                         perm.view(np.int16))
             else:
                 xs, ys, ts, idx, _ = materialize_slices(
-                    xa, ya, t_ns, sub, cfg.slice.max_events, band_pad=True,
-                    res_x=cfg.sensor.res_x)
+                    xa, ya, src.t_ns, sub, cfg.slice.max_events,
+                    band_pad=True, res_x=cfg.sensor.res_x)
                 # pad_quantum's extra slots are padding at the tail, where
                 # the native sort leaves them too.
                 tail = ((0, 0), (0, capp - idx.shape[1]))
@@ -425,14 +406,15 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
                              for a, fill in ((xs, 0), (ys, 0), (ts, 0),
                                              (idx, -1)))
                 bbox = host_bbox(xa, ya, sub)[0]
-                _mark("numpy_staging", "stage.sort")
+                clock.mark("numpy_staging", "stage.sort")
             if chunk_range is not None:
-                host = tuple(np.ascontiguousarray(a[:, cols]) for a in host)
+                host = tuple(np.ascontiguousarray(a[:, c0 * CHUNK:c1 * CHUNK])
+                             for a in host)
             parts.append(tuple(to_device(a, dev) for a in host))
             bbox_parts.append(bbox)
-            _mark("device_put", "stage.upload")
+            clock.mark("device_put", "stage.upload")
         cat = lambda k: torch.cat([p[k] for p in parts])
-        if native_route:
+        if src.native_route:
             u16 = lambda a: a.to(torch.int32) & 0xFFFF
             xs, ys = (u16(cat(k)).to(torch.float32) for k in (0, 1))
             perm = u16(cat(3))
@@ -445,8 +427,6 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
         stat = torch.stack([xs, ys, cat(2)], dim=1).reshape(
             S, 3, nch, CHUNK).transpose(1, 2).contiguous()
         bbox = np.concatenate(bbox_parts)
-        if lo > 0:
-            hist0 = _gate_history_before(lo, hist_k, plan_full, xa, ya, cfg)
     else:
         stat = torch.zeros((0, nch, 3, CHUNK), dtype=torch.float32,
                            device=dev)
@@ -463,17 +443,49 @@ def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
         # on: the cold path stages on a stream of its own while its main
         # thread runs the previous batch.
         torch.cuda.current_stream(dev).synchronize()
-    _mark("device_wait", "stage.device_wait")
+    clock.mark("device_wait", "stage.device_wait")
     return {
-        "plan": plan, "n": len(t_ns), "hist_k": hist_k, "device": dev,
+        "plan": plan, "n": src.n, "hist_k": src.hist_k, "device": dev,
         "stat": stat, "sidx": sidx, "geo": geo, "geoms": geoms,
         "bbox": bbox, "nval": lens, "hist0": hist0, "slice_range": (lo, hi),
-        "prev_end": int(plan_full.ends[lo - 1]) if lo > 0 else -1,
-        "chunks": (c0, c1),
-        "chunks_total": capp // CHUNK,
-        "compact": compact,
-        "plan_s": time.perf_counter() - t0, "plan_breakdown": phases,
+        "prev_end": int(src.plan.ends[lo - 1]) if lo > 0 else -1,
+        "chunks": (c0, c1), "chunks_total": capp // CHUNK,
+        "compact": src.compact,
+        "plan_s": time.perf_counter() - clock.t0,
+        "plan_breakdown": clock.phases,
     }
+
+
+def _with_source(src: StagingSource, prepared: dict) -> dict:
+    """``prepared`` with ``src``'s phases and seconds counted in."""
+    phases = dict(src.phases)
+    for k, v in prepared["plan_breakdown"].items():
+        phases[k] = round(phases.get(k, 0.0) + v, 4)
+    return dict(prepared, plan_s=src.seconds + prepared["plan_s"],
+                plan_breakdown=phases)
+
+
+def prepare_recording(x, y, t_ns, cfg: PipelineConfig, device=None,
+                      slice_range=None, pad_quantum: int = 0,
+                      chunk_range=None) -> dict:
+    """Host staging, ``staging_source`` then ``stage_range``: the trigger
+    plan, a sort of every slice into band-padded slabs, and the device
+    copies ``stat`` (S, nch, 3, CHUNK) f32 and ``sidx`` (S, capp) int32
+    (original index, -1 on padding), reusable across runs of the
+    recording.  ``device`` stands where the JAX package's signature has
+    ``slice_range`` (by design: pass ``slice_range`` by keyword).
+
+    ``slice_range=(lo, hi)`` stages only that range of the global plan;
+    ``hist_k``, ``hist0`` (the gate history before the range) and
+    ``prev_end`` (the last trigger before it: events up to it belong to
+    earlier ranges) still come from the whole plan.  ``pad_quantum`` rounds
+    the padded capacity up to a multiple (event sharding asks for
+    ``n_shards * CHUNK``).  ``chunk_range=(c0, c1)`` copies only those
+    chunks of every slice to the device (this process's event shards);
+    bbox and counts stay those of the whole slices."""
+    src = staging_source(x, y, t_ns, cfg)
+    return _with_source(src, stage_range(src, cfg, device, slice_range,
+                                         pad_quantum, chunk_range))
 
 
 def make_carry(init_model: MotionModel, hist_k: int, seed=None, ws_h=None,
@@ -888,11 +900,12 @@ def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
     ceil(2 * estimate / budget))``: bitwise the same u, v, noise and
     iters, the cold path's keys (no ``ran``, no ``plan``), and
     ``routed_cold``, ``est_device_gb``, ``plan_s`` 0 and ``run_s`` the
-    whole time in ``stats``."""
+    cold path's ``total_s`` in ``stats``; the route hands the cold path
+    the ``staging_source`` its estimate read."""
     cfg = cfg or PipelineConfig()
     check_supported(cfg.optimizer, cfg.f64_totals)
     with profiling.span("scan"):
-        if prepared is None and carry_in is None and init_model is None:
+        if prepared is None:
             # Bounded memory: a recording whose resident tensors would
             # exceed the budget runs through the cold path, whose peak is
             # about two batches, with bitwise the same outputs.  A caller
@@ -902,23 +915,27 @@ def compensate_recording_scan(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
             with profiling.span("scan.route"):
                 budget = float(os.environ.get("BF_SCAN_DEVICE_BUDGET_GB",
                                               5.0)) * 1e9
-                est = estimate_scan_device_bytes(t_ns, cfg)
-            if est > budget:
-                out = compensate_recording_cold(
-                    x, y, t_ns, cfg,
-                    n_batch=max(4, math.ceil(est / budget * 2)),
-                    device=device)
+                src = staging_source(x, y, t_ns, cfg)
+                est = _resident_bytes(len(src.plan.ends), src.n, cfg)
+            if est > budget and carry_in is None and init_model is None:
+                n_batch = max(4, math.ceil(est / budget * 2))
+                out = _cold(lambda: src, cfg, n_batch, device=device)
                 out["stats"].update(plan_s=0.0,
                                     run_s=out["stats"]["total_s"],
                                     routed_cold=True,
                                     est_device_gb=round(est / 1e9, 2))
                 return out
-        if prepared is None:
             with profiling.span("stage"):
-                prepared = prepare_recording(x, y, t_ns, cfg, device=device)
+                prepared = _with_source(src, stage_range(src, cfg, device))
         carry0 = carry_in if carry_in is not None \
             else initial_carry(prepared, cfg, init_model)
         return scan_prepared(prepared, cfg, carry0)
+
+
+def _resident_bytes(S: int, n: int, cfg: PipelineConfig,
+                    pad_quantum: int = 0) -> float:
+    """``estimate_scan_device_bytes`` of S slices and n events."""
+    return float(S) * staged_capacity(cfg, pad_quantum) * 32 + n * 13.0
 
 
 def estimate_scan_device_bytes(t_ns, cfg: PipelineConfig,
@@ -927,14 +944,11 @@ def estimate_scan_device_bytes(t_ns, cfg: PipelineConfig,
     of the S x capp staged slices (``staged_capacity``), ``stat`` (12 B),
     ``sidx`` (4 B), B3's rows (4 B) and ``uvn`` (12 B), 32 B; per event
     the three f32 (n + 1) accumulators and the noise flags, 13 B.
-    Both staging routes leave these same tensors.  Resident tensors only:
-    while ``prepare_recording`` runs, its parts and ``torch.cat`` add about
-    10 B a slot for a while on the native route (int16 and f32 slabs) and
-    16 B on the numpy route (f32 and int32 slabs).  The trigger plan is
-    cheap to compute on its own."""
+    Both staging routes leave these tensors.  While ``stage_range`` runs,
+    its parts and ``torch.cat`` add about 10 B a slot (native route) or
+    16 B (numpy route) for a while."""
     plan = plan_slices(np.ascontiguousarray(t_ns, np.int64), cfg)
-    return (float(len(plan.ends)) * staged_capacity(cfg, pad_quantum) * 32
-            + len(t_ns) * 13.0)
+    return _resident_bytes(len(plan.ends), len(t_ns), cfg, pad_quantum)
 
 
 _CKPT_VERSION = 2
@@ -1041,12 +1055,12 @@ def load_offline_checkpoint(path, *, n, S, n_batch, hist_k,
     return done, carry, batch_results
 
 
-def _stage_batch(x, y, t_ns, cfg: PipelineConfig, dev, lo: int, hi: int,
-                 stream, ctx=None):
+def _stage_batch(src: StagingSource, cfg: PipelineConfig, dev, lo: int,
+                 hi: int, stream, ctx=None):
     """The cold path's staging of slices [lo, hi), on its worker thread:
-    ``prepare_recording`` under ``stream`` on a card (it then waits for
-    that stream alone), with an event recorded behind it for the main
-    stream to wait on; the span ``stage`` under ``ctx`` (the recorder's
+    ``stage_range`` under ``stream`` on a card (it then waits for that
+    stream alone), with an event recorded behind it for the main stream to
+    wait on; the span ``stage`` under ``ctx`` (the recorder's
     ``context()`` of the span that handed it over).  Returns (prepared,
     event or None, seconds)."""
     rec = profiling.RECORDER
@@ -1054,13 +1068,9 @@ def _stage_batch(x, y, t_ns, cfg: PipelineConfig, dev, lo: int, hi: int,
     if rec is not None:
         span = rec.open("stage", t0, ctx)
     ready = None
-    if stream is None:
-        prep = prepare_recording(x, y, t_ns, cfg, device=dev,
-                                 slice_range=(lo, hi))
-    else:
-        with torch.cuda.stream(stream):
-            prep = prepare_recording(x, y, t_ns, cfg, device=dev,
-                                     slice_range=(lo, hi))
+    with torch.cuda.stream(stream):   # no-op for None
+        prep = stage_range(src, cfg, dev, (lo, hi))
+        if stream is not None:
             ready = torch.cuda.Event()
             ready.record(stream)
     t1 = time.perf_counter()
@@ -1110,10 +1120,6 @@ class _Fetch:
         return tuple(a[:m] for a in host)
 
 
-_CKPT_NOT_COMPACT = ("offline checkpointing requires the compact staging "
-                      "path (integral u16 coordinates)")
-
-
 def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
                               n_batch: int = 4, checkpoint_path=None,
                               resume: bool = False,
@@ -1121,92 +1127,54 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
                               device=None) -> dict:
     """Process a recording once, with staging, the device's work and the
     results' fetch overlapped; bitwise the result of
-    ``compensate_recording_scan`` (with ``compact_results``, u and v of
-    the compact batches rounded to f16).
+    ``compensate_recording_scan`` (with ``compact_results``, u and v
+    rounded to f16).
 
-    The trigger plan's S slices are split into ``n_batch`` contiguous
-    ranges of ceil(S / n_batch) slices (fewer when S is small).  A worker
-    thread stages batch k+1 (``prepare_recording(slice_range=...)``; the
-    native sort releases the interpreter lock) on a CUDA stream of its own
-    while the main thread drives batch k's slice loop (``run_slices``,
-    B3 once, then B1 and B2 every iteration and B4 once a slice that ran)
-    from the previous batch's carry.  Batch k claims the events whose first
-    slice is in it, a contiguous range of original indices, known from the
-    whole plan; as soon as its loop returns, their first-slice-wins
-    accumulation (``accumulate_device_range``), packed with
-    ``compact_results`` (``pack_results``: f16 u and v and bit-packed
-    noise, 4.125 B an event instead of 9; a batch that is not compact
-    stays f32, as in the JAX package), is dispatched and copied into
-    pinned host memory on a third stream, and the batch's slabs and
-    outputs are dropped, so the device holds about two batches whatever
-    the recording's length.  The worker waits for that copy and decodes
-    the batch into the result arrays while batch k+1 runs; the main thread
-    waits for it only when it writes the checkpoint one batch behind, and
-    at the end.  An exception on the worker reaches the caller as it was
-    raised, after the worker has stopped.  On the CPU the same threads
-    run, without streams.
+    The main thread derives the plan and coordinates once
+    (``staging_source``) and splits the S slices into ``n_batch``
+    contiguous ranges of ceil(S / n_batch) slices (fewer when S is small).
+    A worker thread stages batch k+1 from them (``stage_range``; the native
+    sort releases the interpreter lock) on a CUDA stream of its own while
+    the main thread drives batch k's slice loop (``run_slices``) from the
+    previous batch's carry.  Batch k claims the events whose first slice is
+    in it, a contiguous range of original indices; as soon as its loop
+    returns, their accumulation (``accumulate_device_range``), packed
+    under ``compact_results`` when the recording is compact
+    (``pack_results``: 4.125 B an event instead of 9), is copied into
+    pinned host memory on a third stream and the batch's slabs and outputs
+    are dropped, so the device holds about two batches.  The worker decodes
+    the copy while batch k+1 runs; the main thread waits for it when it
+    writes the checkpoint one batch behind, and at the end.  An exception
+    on the worker reaches the caller as raised, after the worker has
+    stopped.  On the CPU the same threads run, without streams.
 
     ``checkpoint_path`` saves (carry, completed batches' results) at
     every batch boundary (``save_offline_checkpoint``); with ``resume``
-    a matching checkpoint restarts after its last completed batch, and the
-    output is bitwise an uninterrupted run's (the compact path stores the
-    decoded values).  A recording that is not compact raises
+    a matching checkpoint restarts after its last completed batch, bitwise
+    an uninterrupted run.  A recording that is not compact raises
     ``ValueError`` under ``checkpoint_path``, with the JAX package's
-    message, before anything is staged: neither package checkpoints it.
+    message, before anything is staged.
 
     Returns ``u``, ``v``, ``noise`` (numpy, original event order), the
     final ``model`` and ``carry`` (None for an empty recording), per-slice
     ``iters`` and ``stats``: n_events, n_slices, n_batches,
     resumed_batches, total_s, events_per_s, mean_iters, host_syncs,
     launches and ``batches``, one entry a batch run here with its
-    ``stage_s`` (host time of its staging, copies included), ``run_s``
-    (host time of its slice loop) and ``fetch_s`` (its accumulation, pack
-    and copy, device time on a card, plus the host time of its decode into
-    the result arrays)."""
+    ``stage_s`` (host time of its ``stage_range``, copies included),
+    ``run_s`` (host time of its slice loop) and ``fetch_s`` (its
+    accumulation, pack and copy, device time on a card, plus the host time
+    of its decode)."""
     cfg = cfg or PipelineConfig()
+    return _cold(lambda: staging_source(x, y, t_ns, cfg), cfg, n_batch,
+                 checkpoint_path, resume, compact_results, device)
+
+
+def _cold(source, cfg: PipelineConfig, n_batch: int, checkpoint_path=None,
+          resume: bool = False, compact_results: bool = False, device=None):
+    """``compensate_recording_cold`` of the recording ``source()`` gives
+    (its ``StagingSource``, derived under ``cold.plan``)."""
     check_supported(cfg.optimizer, cfg.f64_totals)
     dev = torch.device(device) if device is not None else default_device()
-    t0 = time.perf_counter()
-    if checkpoint_path is not None and not (
-            cfg.slice.max_events <= PERM_SENTINEL
-            and _integral_u16(np.asarray(x, np.float32))
-            and _integral_u16(np.asarray(y, np.float32))):
-        raise ValueError(_CKPT_NOT_COMPACT)
-    t_ns = np.ascontiguousarray(t_ns, np.int64)
-    plan = plan_slices(t_ns, cfg)
-    S, n = len(plan.ends), len(t_ns)
-    n_batch = max(1, min(n_batch, S))
-    per = -(-S // n_batch)
-    bounds = [(b * per, min((b + 1) * per, S))
-              for b in range(n_batch) if b * per < S]
-    # Batch b claims the original indices after the previous batch's last
-    # trigger, up to its own: contiguous, disjoint, known from the plan.
-    claims = [(int(plan.ends[lo - 1]) + 1 if lo > 0 else 0,
-               int(plan.ends[hi - 1]) + 1 if hi < S else n)
-              for lo, hi in bounds]
-    claim_cap = max([cto - cfrom for cfrom, cto in claims] + [1])
-
-    done, carry, results = 0, None, []
-    if resume and checkpoint_path is not None:
-        loaded = load_offline_checkpoint(
-            checkpoint_path, n=n, S=S, n_batch=n_batch,
-            hist_k=history_depth(plan), cfg=cfg, claims=claims, device=dev)
-        if loaded is not None:
-            done, carry, results = loaded
-    u = np.zeros(n, np.float32)
-    v = np.zeros(n, np.float32)
-    noise = np.zeros(n, bool)
-    for b, (au, av, an, _) in enumerate(results):
-        cfrom, cto = claims[b]
-        u[cfrom:cto], v[cfrom:cto], noise[cfrom:cto] = au, av, an
-    results = list(results) + [None] * (len(bounds) - done)
-
-    cuda = dev.type == "cuda"
-    stage_stream = torch.cuda.Stream(dev) if cuda else None
-    fetch_stream = torch.cuda.Stream(dev) if cuda else None
-    collected, iters_run, timing = {}, {}, {}
-    launches0 = dict(LAUNCHES)
-    syncs = 0
     rec = profiling.RECORDER
 
     def collect(b, fetch, ctx):
@@ -1244,16 +1212,55 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
             checkpoint_path, n=n, S=S, n_batch=n_batch, done=b + 1,
             carry=carry_b, batch_results=results[:b + 1], cfg=cfg)
 
+    t0 = time.perf_counter()
+    launches0 = dict(LAUNCHES)
     if rec is not None:
         call = rec.open("cold", t0)
-        rec.add("cold.plan", t0, time.perf_counter())
+        plan_span = rec.open("cold.plan", t0)
     try:
+        src = source()
+        if checkpoint_path is not None and not src.compact:
+            raise ValueError("offline checkpointing requires the compact "
+                             "staging path (integral u16 coordinates)")
+        plan, n, S = src.plan, src.n, len(src.plan.ends)
+        n_batch = max(1, min(n_batch, S))
+        per = -(-S // n_batch)
+        bounds = [(b * per, min((b + 1) * per, S))
+                  for b in range(n_batch) if b * per < S]
+        # Batch b claims the indices after the previous batch's last
+        # trigger, up to its own: contiguous, disjoint, known from the plan.
+        claims = [(int(plan.ends[lo - 1]) + 1 if lo > 0 else 0,
+                   int(plan.ends[hi - 1]) + 1 if hi < S else n)
+                  for lo, hi in bounds]
+        claim_cap = max([cto - cfrom for cfrom, cto in claims] + [1])
+
+        done, carry, results = 0, None, []
+        if resume and checkpoint_path is not None:
+            loaded = load_offline_checkpoint(
+                checkpoint_path, n=n, S=S, n_batch=n_batch, hist_k=src.hist_k,
+                cfg=cfg, claims=claims, device=dev)
+            if loaded is not None:
+                done, carry, results = loaded
+        u, v = np.zeros(n, np.float32), np.zeros(n, np.float32)
+        noise = np.zeros(n, bool)
+        for b, (au, av, an, _) in enumerate(results):
+            cfrom, cto = claims[b]
+            u[cfrom:cto], v[cfrom:cto], noise[cfrom:cto] = au, av, an
+        results = list(results) + [None] * (len(bounds) - done)
+
+        cuda = dev.type == "cuda"
+        stage_stream = torch.cuda.Stream(dev) if cuda else None
+        fetch_stream = torch.cuda.Stream(dev) if cuda else None
+        collected, iters_run, timing = {}, {}, {}
+        syncs = 0
+        if rec is not None:
+            rec.close(plan_span)
         with ThreadPoolExecutor(max_workers=1,
                                 thread_name_prefix=profiling.WORKER) as pool:
             def stage(b):
                 ctx = rec.context() if rec is not None else None
-                return pool.submit(_stage_batch, x, y, t_ns, cfg, dev,
-                                   *bounds[b], stage_stream, ctx) \
+                return pool.submit(_stage_batch, src, cfg, dev, *bounds[b],
+                                   stage_stream, ctx) \
                     if b < len(bounds) else None
 
             # The worker's queue: stage k+1 while batch k runs, then decode
@@ -1265,8 +1272,6 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
                 prep, ready, stage_s = staging.result()
                 if rec is not None:
                     rec.add("cold.wait_stage", t_wait, time.perf_counter())
-                if checkpoint_path is not None and not prep["compact"]:
-                    raise ValueError(_CKPT_NOT_COMPACT)
                 staging = stage(b + 1)
                 t_run = time.perf_counter()
                 if rec is not None:
@@ -1291,7 +1296,7 @@ def compensate_recording_cold(x, y, t_ns, cfg: Optional[PipelineConfig] = None,
                     start.record(main)
                 acc = accumulate_device_range(uvn, prep["sidx"], *claims[b],
                                               claim_cap)
-                if compact_results and prep["compact"]:
+                if compact_results and src.compact:
                     acc = (pack_results(*acc),)
                 collected[b] = pool.submit(
                     collect, b, _Fetch(acc, fetch_stream, start),

@@ -22,6 +22,7 @@ from better_flow_tpu.runtime import scan_pipeline as jscan  # noqa: E402
 from better_flow_tpu_torch.convert import carry_to_jax  # noqa: E402
 from better_flow_tpu_torch.io.synthetic import synthetic_events  # noqa: E402
 from better_flow_tpu_torch.ops.layout import PERM_SENTINEL  # noqa: E402
+from better_flow_tpu_torch.parallel import multihost as tmh  # noqa: E402
 from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
 from torch_inputs import CH, flow_gates, gate_stream, small_cfg  # noqa: E402
 
@@ -240,19 +241,19 @@ def test_kill_and_resume_bitwise(streams, tmp_path, monkeypatch, compact):
     ckpt = str(tmp_path / "cold.ckpt.npz")
     clean = _cold(d, n_batch=4, compact_results=compact)
     calls, raised = [], []
-    orig = tscan.prepare_recording
+    orig = tscan.stage_range
 
-    def dying_prepare(*a, **k):
+    def dying_stage(*a, **k):
         calls.append(threading.current_thread() is threading.main_thread())
         if len(calls) == 3:
             raised.append(RuntimeError("simulated mid-run kill"))
             raise raised[-1]
         return orig(*a, **k)
 
-    monkeypatch.setattr(tscan, "prepare_recording", dying_prepare)
+    monkeypatch.setattr(tscan, "stage_range", dying_stage)
     with pytest.raises(RuntimeError, match="simulated") as info:
         _cold(d, n_batch=4, checkpoint_path=ckpt, compact_results=compact)
-    monkeypatch.setattr(tscan, "prepare_recording", orig)
+    monkeypatch.setattr(tscan, "stage_range", orig)
     assert info.value is raised[0] and calls == [False] * 3
     assert not any(t.name.startswith("bf-stage")
                    for t in threading.enumerate())
@@ -410,6 +411,60 @@ def test_tiny_budget_routes_the_scan_bitwise(streams, scans, monkeypatch):
     est = tscan.estimate_scan_device_bytes(d["t_ns"], _cfg())
     assert st["est_device_gb"] == round(est / 1e9, 2)
     assert st["plan_s"] == 0.0 and st["run_s"] == st["total_s"]
+    _assert_same(r, scans["flow"])
+
+
+@pytest.fixture
+def derivations(monkeypatch):
+    """Calls of ``plan_slices`` and ``native.coords_u16``, counted where
+    staging looks them up."""
+    calls = {"plan_slices": 0, "coords_u16": 0}
+
+    def spy(owner, name):
+        orig = getattr(owner, name)
+
+        def counted(*a, **k):
+            calls[name] += 1
+            return orig(*a, **k)
+
+        monkeypatch.setattr(owner, name, counted)
+
+    spy(tscan, "plan_slices")
+    spy(tscan.native, "coords_u16")
+    return calls
+
+
+ONCE = {"plan_slices": 1, "coords_u16": 1}
+
+
+@pytest.mark.parametrize("n_batch", [1, 2, 4])
+def test_a_cold_call_derives_the_plan_and_coordinates_once(
+        streams, scans, derivations, n_batch):
+    r = _cold(streams["flow"], n_batch=n_batch)
+    assert r["stats"]["n_batches"] == n_batch
+    assert derivations == ONCE
+    _assert_same(r, scans["flow"])
+
+
+def test_a_routed_scan_derives_the_plan_and_coordinates_once(
+        streams, scans, derivations, monkeypatch):
+    d = streams["flow"]
+    monkeypatch.setenv("BF_SCAN_DEVICE_BUDGET_GB", "1e-6")
+    r = tscan.compensate_recording_scan(d["x"], d["y"], d["t_ns"], _cfg(),
+                                        device="cpu")
+    assert r["stats"]["routed_cold"] is True
+    assert r["stats"]["n_batches"] > 4
+    assert derivations == ONCE
+    _assert_same(r, scans["flow"])
+
+
+def test_multihost_ranges_derive_the_plan_and_coordinates_once(
+        streams, scans, derivations):
+    d = streams["flow"]
+    r = tmh.compensate_recording_multihost(d["x"], d["y"], d["t_ns"],
+                                           _cfg(), n_ranges=3, device="cpu")
+    assert r["stats"]["n_ranges"] == 3
+    assert derivations == ONCE
     _assert_same(r, scans["flow"])
 
 

@@ -22,12 +22,12 @@ from better_flow_tpu_torch.runtime import scan_pipeline as tscan  # noqa: E402
 from torch_inputs import small_cfg  # noqa: E402
 
 KEYS = ("u", "v", "noise", "iters")
-COLD_MAIN = {"cold", "cold.plan", "cold.wait_stage", "cold.run",
-             "cold.accumulate", "cold.wait_fetch", "loop.rows", "slice",
-             "drive.launch", "drive.read"}
-COLD_WORKER = {"stage", "stage.plan", "stage.coords", "stage.sort",
-               "stage.upload", "stage.device_wait", "fetch", "fetch.wait",
-               "fetch.decode"}
+COLD_MAIN = {"cold", "cold.plan", "stage.plan", "stage.coords",
+             "cold.wait_stage", "cold.run", "cold.accumulate",
+             "cold.wait_fetch", "loop.rows", "slice", "drive.launch",
+             "drive.read"}
+COLD_WORKER = {"stage", "stage.sort", "stage.upload", "stage.device_wait",
+               "fetch", "fetch.wait", "fetch.decode"}
 
 
 @pytest.fixture(autouse=True, scope="module")
